@@ -5,7 +5,7 @@ setup(
     version='0.1.0',
     description='TPU-native end-to-end speech recognition toolkit',
     packages=find_packages(include=['wenet_tpu*']),
-    package_data={'wenet_tpu_torch': ['csrc/*.cu']},
+    package_data={'wenet_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'orbax-checkpoint', 'numpy', 'pyyaml',

@@ -3,7 +3,7 @@ the CUDA kernel against the plain version.
 
 On the CPU the JAX `flash_attention_relpos` runs its Pallas kernel in
 interpret mode (as tests/test_flash_attention.py does) and the port's
-`relpos_attention_reference` must agree within 1e-5.  The `cuda` test
+`relpos_fwd_reference` must agree within 1e-5.  The `cuda` test
 builds the Hopper kernel and needs a card; jax is imported inside the CPU
 tests only, so the file also collects where jax is absent."""
 
@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from wenet_tpu_torch.ops.flash_attention import (flash_attention_relpos,
-                                                 relpos_attention_reference)
+from wenet_tpu_torch.ops.flash_attention import (LAUNCHES,
+                                                 flash_attention_relpos,
+                                                 relpos_fwd_reference)
 
 
 @pytest.fixture
@@ -64,7 +65,7 @@ def test_reference_matches_jax_kernel(interpret_pallas, B, h, T1, T2, d,
     want = jfa(*(jnp.asarray(a) for a in (q1, q2, k, p, v)),
                None if mask is None else jnp.asarray(mask), scale,
                block_q=16, block_k=16)
-    got = relpos_attention_reference(
+    got, _ = relpos_fwd_reference(
         *(torch.from_numpy(a) for a in (q1, q2, k, p, v)),
         None if mask is None else torch.from_numpy(mask), scale)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
@@ -76,11 +77,11 @@ def test_cpu_tensors_take_plain_version():
     rng = np.random.RandomState(1)
     q1, q2, k, p, v, mask = (torch.from_numpy(a) for a in _inputs(
         rng, 2, 2, 9, 11, 32, 1, 'pad'))
-    before = flash_attention_relpos.launches
+    before = dict(LAUNCHES)
     got = flash_attention_relpos(q1, q2, k, p, v, mask, 0.2)
-    want = relpos_attention_reference(q1, q2, k, p, v, mask, 0.2)
+    want, _ = relpos_fwd_reference(q1, q2, k, p, v, mask, 0.2)
     assert torch.equal(got, want)
-    assert flash_attention_relpos.launches == before
+    assert LAUNCHES == before
 
 
 @pytest.mark.parametrize('bad', ['mask_heads', 'mask_len', 'mask_dtype',
@@ -134,7 +135,7 @@ def test_cuda_kernel_matches_plain(dtype, B, h, T1, T2, d, pb, mask_kind):
     scale = 1.0 / np.sqrt(d)
     got = flash_attention_relpos(q1, q2, k, p, v, mask, scale)
     torch.cuda.synchronize()
-    want = relpos_attention_reference(q1.float(), q2.float(), k.float(),
-                                      p.float(), v.float(), mask, scale)
+    want, _ = relpos_fwd_reference(q1.float(), q2.float(), k.float(),
+                                   p.float(), v.float(), mask, scale)
     atol, rtol = (2e-5, 1e-5) if dtype == torch.float32 else (2e-2, 0)
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)

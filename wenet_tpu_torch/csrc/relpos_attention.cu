@@ -14,6 +14,14 @@
 // max m, normalizer l and output accumulator in fp32 registers (online
 // softmax).
 //
+// The training variant (`relpos_attention_fwd_train`, template flags
+// WITH_LSE and DROPOUT) also writes lse = m + log(l) for the backward
+// kernels (relpos_attention_bwd.cu) and applies attention-weight dropout
+// with the counter hash of dropout_hash.cuh to the v-accumulator only:
+// l stays the full normalizer, as in the TPU kernel.  The inference
+// instantiation <false, false> compiles to the same code as before those
+// flags existed.
+//
 // Kernel contract, shared with the TPU kernel:
 //   * NEG_INF is the finite sentinel -1e30, and a probability is zeroed
 //     where s <= NEG_INF / 2, so l counts only attendable keys;
@@ -35,16 +43,17 @@
 // the column walks hit 16 distinct banks.  wgmma on bf16 tiles and TMA
 // loads are the later step.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dropout_hash.cuh"
+#include "relpos_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per shared-memory tile
-constexpr int THREADS = 256;  // 16 x 16 threads
-constexpr float NEG_INF = -1.0e30f;
+using relpos::BK;
+using relpos::BQ;
+using relpos::from_float;
+using relpos::NEG_INF;
+using relpos::THREADS;
+using relpos::to_float;
 
 // Element strides of (batch, head, time) for each (B, H, T, D) operand;
 // the feature dim is unit-stride.  The mask has (batch, row, column).
@@ -53,34 +62,23 @@ struct Strides {
   long long mask[3];
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * ((2 * BQ + 3 * BK) * (D + 1) + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+// WITH_LSE: also write lse = m + log(l) per row, (B, H, T1) fp32 (NEG_INF
+// for a fully masked row).  DROPOUT: multiply the weights that feed the
+// v-accumulator by the hash mask; l stays the full softmax normalizer, so
+// out = (D . softmax(s)) . v.  <false, false> is the inference kernel.
+template <typename T, int D, bool WITH_LSE, bool DROPOUT>
 __global__ void __launch_bounds__(THREADS)
     relpos_fwd_kernel(const T* __restrict__ q1, const T* __restrict__ q2,
                       const T* __restrict__ k, const T* __restrict__ p,
                       const T* __restrict__ v,
                       const uint8_t* __restrict__ mask, T* __restrict__ out,
-                      Strides st, int H, int T1, int T2, float scale) {
+                      float* __restrict__ lse, Strides st, int H, int T1,
+                      int T2, float scale, DropoutParams dp) {
   constexpr int LD = D + 1;   // padded feature row
   constexpr int LDS = BK + 1; // padded probability row
   constexpr int DC = D / 16;  // output columns per thread
@@ -192,7 +190,11 @@ __global__ void __launch_bounds__(THREADS)
       for (int j = 0; j < 4; ++j) {
         const float pr =
             s[i][j] <= NEG_INF * 0.5f ? 0.f : expf(s[i][j] - m_new);
-        ss[(ty * 4 + i) * LDS + tx + 16 * j] = pr;
+        if constexpr (DROPOUT)
+          ss[(ty * 4 + i) * LDS + tx + 16 * j] =
+              pr * dropout_mult(dp, blockIdx.y, r, k0 + tx + 16 * j);
+        else
+          ss[(ty * 4 + i) * LDS + tx + 16 * j] = pr;
         row_sum += pr;
       }
 #pragma unroll
@@ -229,45 +231,82 @@ __global__ void __launch_bounds__(THREADS)
       const float y = l[i] > 0.f ? acc[i][c] / l[i] : 0.f;
       ob[r * st.out[2] + tx + 16 * c] = from_float<T>(y);
     }
+    if constexpr (WITH_LSE) {
+      if (tx == 0)
+        lse[static_cast<long long>(blockIdx.y) * T1 + r] =
+            l[i] > 0.f ? m[i] + logf(l[i]) : NEG_INF;
+    }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q1, const void* q2, const void* k, const void* p,
-           const void* v, const void* mask, void* out, const Strides& st,
-           int B, int H, int T1, int T2, float scale, cudaStream_t stream) {
+struct Args {
+  const void *q1, *q2, *k, *p, *v, *mask;
+  void* out;
+  float* lse;
+  Strides st;
+  int B, H, T1, T2;
+  float scale;
+  DropoutParams dp;
+};
+
+template <typename T, int D, bool WITH_LSE, bool DROPOUT>
+int launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
+  auto kernel = relpos_fwd_kernel<T, D, WITH_LSE, DROPOUT>;
   cudaError_t err = cudaFuncSetAttribute(
-      relpos_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T1 + BQ - 1) / BQ, B * H);
-  relpos_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q1), static_cast<const T*>(q2),
-      static_cast<const T*>(k), static_cast<const T*>(p),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<T*>(out), st, H, T1, T2, scale);
+  const dim3 grid((a.T1 + BQ - 1) / BQ, a.B * a.H);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(a.q1), static_cast<const T*>(a.q2),
+      static_cast<const T*>(a.k), static_cast<const T*>(a.p),
+      static_cast<const T*>(a.v), static_cast<const uint8_t*>(a.mask),
+      static_cast<T*>(a.out), a.lse, a.st, a.H, a.T1, a.T2, a.scale, a.dp);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the inference kernel for d in {32, 64, 128}
 template <typename T>
-int launch_d(int D, const void* q1, const void* q2, const void* k,
-             const void* p, const void* v, const void* mask, void* out,
-             const Strides& st, int B, int H, int T1, int T2, float scale,
-             cudaStream_t stream) {
+int launch_eval(int D, const Args& a, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q1, q2, k, p, v, mask, out, st, B, H, T1, T2,
-                           scale, stream);
+      return launch<T, 32, false, false>(a, stream);
     case 64:
-      return launch<T, 64>(q1, q2, k, p, v, mask, out, st, B, H, T1, T2,
-                           scale, stream);
+      return launch<T, 64, false, false>(a, stream);
     case 128:
-      return launch<T, 128>(q1, q2, k, p, v, mask, out, st, B, H, T1, T2,
-                            scale, stream);
+      return launch<T, 128, false, false>(a, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// the training kernel (lse, optional dropout) for d in {32, 64}, the head
+// dims the backward kernels take
+template <typename T>
+int launch_train(int D, bool dropout, const Args& a, cudaStream_t stream) {
+  switch (D) {
+    case 32:
+      return dropout ? launch<T, 32, true, true>(a, stream)
+                     : launch<T, 32, true, false>(a, stream);
+    case 64:
+      return dropout ? launch<T, 64, true, true>(a, stream)
+                     : launch<T, 64, true, false>(a, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+Args make_args(const void* q1, const void* q2, const void* k, const void* p,
+               const void* v, const void* mask, void* out, float* lse,
+               const long long* strides, int B, int H, int T1, int T2,
+               float scale, DropoutParams dp) {
+  Args a{q1, q2, k, p, v, mask, out, lse, {}, B, H, T1, T2, scale, dp};
+  long long* dst[] = {a.st.q1, a.st.q2, a.st.k, a.st.p,
+                      a.st.v,  a.st.out, a.st.mask};
+  for (int t = 0; t < 7; ++t)
+    for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
+  return a;
 }
 
 }  // namespace
@@ -281,16 +320,28 @@ extern "C" int relpos_attention_fwd(const void* q1, const void* q2,
                                     void* out, const long long* strides,
                                     int B, int H, int T1, int T2, int D,
                                     int dtype, float scale, void* stream) {
-  Strides st;
-  long long* dst[] = {st.q1, st.q2, st.k, st.p, st.v, st.out, st.mask};
-  for (int t = 0; t < 7; ++t)
-    for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
+  const Args a = make_args(q1, q2, k, p, v, mask, out, nullptr, strides, B,
+                           H, T1, T2, scale, DropoutParams{0, 0, 0.f});
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(D, q1, q2, k, p, v, mask, out, st, B, H, T1, T2,
-                           scale, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q1, q2, k, p, v, mask, out, st, B, H,
-                                   T1, T2, scale, s);
+  if (dtype == 0) return launch_eval<float>(D, a, s);
+  if (dtype == 1) return launch_eval<__nv_bfloat16>(D, a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The training forward: as above, plus lse (B, H, T1) fp32, contiguous,
+// and, when `dropout` is non-zero, the hash dropout with (seed, thr,
+// keep_scale) computed on the host.
+extern "C" int relpos_attention_fwd_train(
+    const void* q1, const void* q2, const void* k, const void* p,
+    const void* v, const void* mask, void* out, float* lse,
+    const long long* strides, int B, int H, int T1, int T2, int D,
+    int dtype, float scale, int dropout, unsigned seed, unsigned thr,
+    float keep_scale, void* stream) {
+  const Args a = make_args(q1, q2, k, p, v, mask, out, lse, strides, B, H,
+                           T1, T2, scale,
+                           DropoutParams{seed, thr, keep_scale});
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_train<float>(D, dropout != 0, a, s);
+  if (dtype == 1) return launch_train<__nv_bfloat16>(D, dropout != 0, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

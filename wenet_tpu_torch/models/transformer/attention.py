@@ -2,10 +2,12 @@
 Counterpart of wenet_tpu/models/transformer/attention.py.
 
 Rel-pos self-attention always goes through `flash_attention_relpos`: the
-Hopper kernel for CUDA tensors, its plain version for CPU tensors.  The
-decoder's attention stays plain PyTorch (its queries are short
-hypotheses).  Attention-weight dropout in rel-pos attention belongs to
-the training kernels, which are not ported yet.
+Hopper kernels for CUDA tensors, their plain versions for CPU tensors,
+with the backward kernels behind autograd.  In training its
+attention-weight dropout runs inside the kernels (a counter hash seeded
+per call from the host generator the train step passes down), as the JAX
+package's flash training path does.  The decoder's attention stays plain
+PyTorch, with `nn.Dropout` on the weights.
 """
 
 import math
@@ -101,7 +103,7 @@ class MultiHeadedCrossAttention(MultiHeadedAttention):
 
 class RelPositionMultiHeadedAttention(MultiHeadedAttention):
     """Transformer-XL relative-position MHA (no rel_shift), computed by
-    the fused rel-pos attention kernel."""
+    the fused rel-pos attention kernels."""
 
     def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0):
         super().__init__(n_head, n_feat, dropout_rate)
@@ -111,17 +113,22 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor, mask: Optional[torch.Tensor],
-                pos_emb: torch.Tensor) -> torch.Tensor:
-        """mask: (B, T1|1, T2) bool; pos_emb: (1|B, T2, F)."""
-        if self.training and self.dropout.p > 0.0:
-            raise NotImplementedError(
-                'rel-pos attention dropout needs the training kernels, '
-                'which are not ported yet')
+                pos_emb: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """mask: (B, T1|1, T2) bool; pos_emb: (1|B, T2, F).
+
+        In training with attention dropout, each call draws a uint32
+        dropout seed from `generator` (a host generator, so no device
+        sync; None takes torch's default CPU generator)."""
+        rate = self.dropout.p if self.training else 0.0
+        seed = None
+        if rate > 0.0:
+            seed = int(torch.randint(0, 1 << 32, (), generator=generator))
         q = self.project_q(query)
         k, v = self.project_kv(key, value)
         p = self._heads(self.linear_pos(pos_emb))  # (1|B, h, T2, d)
         u = self.pos_bias_u.to(q.dtype)[None, :, None, :]
         w = self.pos_bias_v.to(q.dtype)[None, :, None, :]
         ctx = flash_attention_relpos(q + u, q + w, k, p, v, mask,
-                                     1.0 / math.sqrt(self.d_k))
+                                     1.0 / math.sqrt(self.d_k), rate, seed)
         return self._finish(ctx)

@@ -45,13 +45,16 @@ class ConformerEncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 pos_emb: torch.Tensor,
-                mask_pad: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask_pad: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, T, D); mask: (B, T|1, T) attention mask; mask_pad:
-        (B, 1, T) valid frames for the conv module."""
+        (B, 1, T) valid frames for the conv module; generator: the host
+        generator for the attention-dropout seeds (training)."""
         x = self._residual(x, self.norm_ff_macaron,
                            self.feed_forward_macaron, 0.5)
-        x = self._residual(x, self.norm_mha,
-                           lambda y: self.self_attn(y, y, y, mask, pos_emb))
+        x = self._residual(
+            x, self.norm_mha,
+            lambda y: self.self_attn(y, y, y, mask, pos_emb, generator))
         x = self._residual(x, self.norm_conv,
                            lambda y: self.conv_module(y, mask_pad))
         x = self._residual(x, self.norm_ff, self.feed_forward, 0.5)

@@ -1,4 +1,10 @@
-"""Weights carried across from the JAX package.
+"""Checkpoints: save and load, and weights carried across from the JAX
+package.
+
+`save_checkpoint` / `load_checkpoint` are the counterparts of
+wenet_tpu/utils/checkpoint.py's: the model's `state_dict` (torch.save)
+with a YAML sidecar of infos (step, epoch, cv loss...), loaded back with
+`strict=True`.
 
 `state_dict_from_jax` turns the JAX package's variables (nested dicts of
 arrays: 'params', 'cmvn' and, where present, 'batch_stats') into this
@@ -7,11 +13,13 @@ mirrors `flax_path_to_torch_key` and `_to_torch_leaf` of
 wenet_tpu/utils/checkpoint.py for the modules this package has, without
 importing them (that module imports jax)."""
 
+import os
 import re
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import yaml
 
 _LIST_SEG = re.compile(r'^(encoders|decoders)_(\d+)$')
 _CONV_SEG = re.compile(r'^conv_(\d+)$')
@@ -78,3 +86,28 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             out[key[:-len('running_mean')] + 'num_batches_tracked'] = (
                 torch.tensor(0))
     return out
+
+
+def _info_path(path: str) -> str:
+    return re.sub(r'\.pt$', '', path) + '.yaml'
+
+
+def save_checkpoint(model: torch.nn.Module, path: str,
+                    infos: Optional[dict] = None) -> None:
+    """Write `model.state_dict()` to `path` (e.g. step_1000.pt) and
+    `infos` beside it (step_1000.yaml)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(model.state_dict(), path)
+    with open(_info_path(path), 'w') as f:
+        yaml.safe_dump(dict(infos or {}), f)
+
+
+def load_checkpoint(model: torch.nn.Module, path: str) -> dict:
+    """Load a `save_checkpoint` file into `model` (strict) -> its infos."""
+    state = torch.load(path, map_location='cpu', weights_only=True)
+    model.load_state_dict(state, strict=True)
+    info_path = _info_path(path)
+    if not os.path.exists(info_path):
+        return {}
+    with open(info_path) as f:
+        return yaml.safe_load(f) or {}

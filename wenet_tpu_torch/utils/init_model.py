@@ -2,9 +2,10 @@
 entry of wenet_tpu/utils/init_model.py: a conformer encoder, a
 (bi)transformer decoder and a CTC head, from the same train.yaml schema.
 
-Config keys that only matter to training are accepted and ignored.
-Options this package implements at one value only (the value every
-example config uses) must have that value; any other option raises
+`gradient_checkpointing` (activation recomputation, which trades memory
+and changes no result) and `use_sdpa` are accepted and ignored.  Options
+this package implements at one value only (the value every example
+config uses) must have that value; any other option raises
 NotImplementedError."""
 
 import inspect
@@ -25,10 +26,8 @@ from wenet_tpu_torch.models.transformer.encoder import ConformerEncoder
 
 DECODER_CLASSES = {'transformer': TransformerDecoder,
                    'bitransformer': BiTransformerDecoder}
-# read by the training slice only
-_TRAIN_ONLY = {'use_dynamic_left_chunk', 'gradient_checkpointing',
-               'use_sdpa', 'lsm_weight', 'length_normalized_loss',
-               'ctc_weight', 'reverse_weight'}
+# accepted and ignored (remat is not ported; it changes no result)
+_IGNORED = {'gradient_checkpointing', 'use_sdpa'}
 _ENCODER_FIXED = {'input_layer': 'conv2d', 'pos_enc_layer_type': 'rel_pos',
                   'selfattention_layer_type': 'rel_selfattn',
                   'activation_type': 'swish', 'normalize_before': True,
@@ -45,14 +44,14 @@ def _params(fn) -> set:
 
 def _conf(conf: dict, accepted: set, what: str, fixed=None) -> dict:
     """The options of `conf` that the constructor takes (`accepted`);
-    training-only options and options at their `fixed` value are
-    dropped, anything else raises."""
+    ignored options and options at their `fixed` value are dropped,
+    anything else raises."""
     fixed = fixed or {}
     out = {}
     for key, value in conf.items():
         if key in accepted:
             out[key] = value
-        elif not (key in _TRAIN_ONLY or key in fixed and fixed[key] == value):
+        elif not (key in _IGNORED or key in fixed and fixed[key] == value):
             raise NotImplementedError(f'{what} option {key}={value!r} is '
                                       'not ported')
     return out
@@ -88,7 +87,8 @@ def init_model(configs: dict,
                     _params(ConformerEncoder.__init__), 'encoder',
                     _ENCODER_FIXED))
         decoder = dec_cls(vocab_size, encoder.output_size(), **dec_conf)
-        ctc = CTC(vocab_size, encoder.output_size())
+        ctc = CTC(vocab_size, encoder.output_size(),
+                  configs.get('ctc_conf', {}).get('ctc_blank_id', 0))
         model = ASRModel(
             vocab_size, encoder, decoder, ctc,
             special_tokens=configs.get('tokenizer_conf',
