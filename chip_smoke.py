@@ -4,11 +4,13 @@
 
 Phases, each of which raises on failure (non-zero exit):
   1. device   needs CUDA; prints the card's name and power limit; TF32 off
-  2. build    compiles the rel-pos attention kernels (K1 forward, K2 and
-              K3 backward; nvcc, sm_90a, one process per source) and the
-              C++ CTC prefix-beam searcher from the checkout's sources
+  2. build    compiles the attention kernels (K1 forward, K2 and K3
+              backward, K4 masked forward; nvcc, sm_90a, one process per
+              source, all started together) and the port's C++ CTC
+              prefix-beam searcher (g++) from the checkout's sources
   3. kernel   K1 (inference) against its plain PyTorch version, fp32 and
-              bf16, at the encoder's shapes; prints both times (CUDA events)
+              bf16, at the encoder's shapes; prints both times (CUDA events),
+              the card's bound and the SDPA call's time
   4. slice    the flagship U2++ conformer (examples/aishell/s0/conf/
               train_u2pp_conformer.yaml, full width, random weights from
               a seed) through AsrRunner.decode on the card: K1 must run
@@ -27,8 +29,22 @@ Phases, each of which raises on failure (non-zero exit):
               on one batch that must lower the loss
   6d. train speed (informational): steps/s, audio-sec/s, stage times,
               device-busy share and the profiler table, fp32 and bf16
+  7a. K4      masked flash attention against its plain version, fp32 and
+              bf16, at whisper's encoder shapes, ragged edges, mask + bias,
+              a fully masked row and d=128; kernel, plain, SDPA and bound;
+              K4 and the ordinary path above and below the gate
+  7b. whisper large-v3 at full width (4 + 4 layers) through
+              AsrRunner.decode(['attention']) on the card against the CPU,
+              beam 5, with and without timestamps: identical hypotheses,
+              encoder output within 2e-4, one K4 launch per encoder layer
+  7c. whisper speed (informational): 32 + 32 layers, B=4 x 20-30 s,
+              beam 5, a fixed eot bias (116 decoder steps), fp32 then
+              bf16: AsrRunner.decode end to end (audio-sec/s) with the
+              encoder's share, peak memory, device-busy share, profiler
+              table
 The line before the last is the kernel report as JSON; the last line is
-{"ok": true, "device": {...}}.  Imports nothing of jax.
+{"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX
+package (wenet_tpu), and checks so at the end.
 """
 
 import copy
@@ -77,10 +93,62 @@ TRAIN_KERNELS = {  # name: (source, TPU kernel it replaces)
         'wenet_tpu/ops/flash_attention.py:784'),
 }
 LOSS_DROP = 0.8  # 30 steps on one batch must end below 80% of the first loss
+# published H100 SXM peaks: fp32 on the CUDA cores, bf16 dense tensor
+# cores, HBM3 (the kernels' bounds are computed against these)
+FP32_FLOPS, BF16_FLOPS, HBM_BYTES = 67e12, 989e12, 3.35e12
+FLASH_SHAPES = [  # B, h, T1, T2, d, mask, bias
+    (4, 20, 1500, 1500, 64, 'pad', False),   # whisper large-v3's encoder
+    (4, 20, 1000, 1000, 64, 'pad', False),   # a 20 s batch
+    (2, 4, 37, 53, 64, None, False),         # ragged edges
+    (1, 2, 130, 257, 32, 'rows', True),      # (B, 1, T1, T2) mask + bias
+    (2, 4, 64, 64, 64, 'masked_row', False),  # one fully masked row
+    (2, 4, 600, 600, 128, 'pad', False),     # d = 128
+]
+# K4's reference runs in fp32 on the same (rounded) inputs: in bf16 the
+# kernel is held to the rounding of its output, about 2 bf16 ulps
+FLASH_TOL = {torch.float32: TOL[torch.float32],
+             torch.bfloat16: dict(atol=1e-3, rtol=8e-3)}
+GATE_BELOW = (2, 20, 400, 400, 64)  # two 8 s utterances: 6.4M < 24M scores
+WHISPER_V3 = {'n_mels': 128, 'n_vocab': 51866, 'n_audio_state': 1280,
+              'n_audio_head': 20, 'n_audio_layer': 32, 'n_text_state': 1280,
+              'n_text_head': 20, 'n_text_layer': 32, 'n_audio_ctx': 1500,
+              'n_text_ctx': 448}
+# 7c's eot bias, fixed so that every run decodes the same work: with 7c's
+# seeded weights and features the beams end after 116 decoder steps (a
+# value `calibrate_eot_bias` found for them)
+WHISPER_SPEED_EOT_BIAS = 17.129
+
+
+def bound(flops, nbytes, dtype=torch.float32):
+    """(ms, 'operations' | 'bytes'): the least time the card could take for
+    `flops` at the peak of the inputs' type and `nbytes` at the memory
+    rate."""
+    t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+    t_bytes = nbytes / HBM_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def nbytes(*tensors):
+    """Bytes of each tensor in its own shape (a broadcast operand once)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def attended_pairs(mask, B, h, T1, T2):
+    """(query, key) pairs the mask lets through, over all heads."""
+    if mask is None:
+        return B * h * T1 * T2
+    if mask.dim() == 3:
+        mask = mask.unsqueeze(1)
+    return int(mask.expand(B, h, T1, T2).sum())
+
+
+_T0 = time.perf_counter()
 
 
 def phase(name):
-    print(f'== {name}', flush=True)
+    print(f'== {name} (at {time.perf_counter() - _T0:.0f} s)', flush=True)
 
 
 def cuda_time_ms(fn, reps=20, warmup=3):
@@ -115,8 +183,7 @@ def build():
     from wenet_tpu_torch.ops import flash_attention as fa
     t0 = time.perf_counter()
     fa.build()
-    print(f'rel-pos attention kernels built in '
-          f'{time.perf_counter() - t0:.1f} s')
+    print(f'attention kernels built in {time.perf_counter() - t0:.1f} s')
     for name in fa.SOURCES:
         log = fa.BUILD_DIR / f'{name}.log'
         if not log.exists():
@@ -126,12 +193,11 @@ def build():
                 print('  ' + line.split("'")[1][:110])
             elif 'registers' in line or 'spill' in line:
                 print('    ' + line.strip())
-    subprocess.run(['make', '-B', '-C',
-                    os.path.join(REPO, 'wenet_tpu/runtime/cpp'),
-                    'libctc_beam.so'], check=True, capture_output=True)
-    from wenet_tpu.runtime import native_beam
-    if not native_beam.available():
-        raise RuntimeError('C++ prefix-beam searcher did not load')
+    from wenet_tpu_torch.runtime import native_beam
+    t0 = time.perf_counter()
+    native_beam.build()
+    print(f'C++ prefix-beam searcher built in '
+          f'{time.perf_counter() - t0:.1f} s')
 
 
 def kernel_inputs(rng, B, h, T1, T2, d, mask_kind, dtype):
@@ -191,9 +257,35 @@ def kernel_check():
             if dtype == torch.float32:
                 max_err_fp32 = max(max_err_fp32, err)
                 if report is None:  # the first shape is the main path's
-                    report = dict(ms=ms, plain_ms=plain_ms)
+                    # 3 products of 2*d FLOPs per attended pair
+                    n_pairs = attended_pairs(mask, B, h, T1, T2)
+                    b_ms, b_by = bound(6 * d * n_pairs, nbytes(
+                        q1, q2, k, p, v, mask, got))
+                    lib_ms = relpos_sdpa(q1, q2, k, p, v, mask, scale, got)
+                    report = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=lib_ms)
+                    print(f'    bound {b_ms:.4f} ms ({b_by}), SDPA '
+                          f'{lib_ms:.4f} ms', flush=True)
     report['max_abs_err'] = max_err_fp32
     return report
+
+
+def relpos_sdpa(q1, q2, k, p, v, mask, scale, want):
+    """The one PyTorch call that computes K1 without dropout:
+    SDPA([q1|q2], [k|p], v), since q1·kᵀ + q2·pᵀ = [q1|q2]·[k|p]ᵀ; its
+    time (CUDA events) after checking it against the kernel's output."""
+    import torch.nn.functional as F
+    B = q1.shape[0]
+    qc = torch.cat([q1, q2], -1)
+    kc = torch.cat([k, p.expand(B, -1, -1, -1)], -1)
+    m = None if mask is None else mask.unsqueeze(1)
+
+    def call():
+        return F.scaled_dot_product_attention(qc, kc, v, attn_mask=m,
+                                              scale=scale)
+    torch.testing.assert_close(call().float(), want.float(),
+                               **TRAIN_TOL[q1.dtype])
+    return cuda_time_ms(call)
 
 
 def flagship_configs(dropout=True):
@@ -416,14 +508,67 @@ def train_kernel_check():
             }
             if not times:  # the first shape in fp32 is the main path's
                 times = t
+                n_pairs = attended_pairs(mask, B, h, T1, T2)
+                common = nbytes(*x, mask, do, want_lse, delta)
+                bounds = {  # 3, 5 and 6 products of 2*d FLOPs per pair
+                    'relpos_attention_fwd_train': bound(
+                        6 * d * n_pairs, nbytes(*x, mask, out, lse)),
+                    'relpos_attention_bwd_dq': bound(
+                        10 * d * n_pairs, common + nbytes(*grads[:2])),
+                    'relpos_attention_bwd_dkpv': bound(
+                        12 * d * n_pairs, common + nbytes(*grads[2:])),
+                }
+                print('    bounds: ' + ', '.join(
+                    f'{n[17:]} {b[0]:.4f} ms ({b[1]})'
+                    for n, b in bounds.items()), flush=True)
+            if (rate == 0.0 and mask_kind == 'pad'
+                    and dtype == torch.float32):
+                relpos_sdpa_train(x, mask, do, scale, out, grads)
             print(f'  ({B},{h},{T1},{T2},{d}) mask={mask_kind} '
                   f'dropout={rate} {str(dtype)[6:]}: max_abs_err '
                   + ', '.join(line), flush=True)
             print('    kernel / plain ms: ' + ', '.join(
                 f'{n[17:]} {a:.4f} / {b:.4f}' for n, (a, b) in t.items()),
                 flush=True)
+    # the main shape's dropout has no library counterpart: library_ms is
+    # null there; the no-dropout SDPA times are printed for the record
     return {name: dict(max_abs_err=errs[name], ms=times[name][0],
-                       plain_ms=times[name][1]) for name in TRAIN_KERNELS}
+                       plain_ms=times[name][1], bound_ms=bounds[name][0],
+                       bound_by=bounds[name][1], library_ms=None)
+            for name in TRAIN_KERNELS}
+
+
+def relpos_sdpa_train(x, mask, do, scale, out, grads):
+    """SDPA forward and its backward (dq, dk, dv of [q1|q2], [k|p], v in
+    one call: K2 and K3 together) on the kernels' inputs without dropout,
+    checked against the kernels' outputs and timed (CUDA events);
+    prints the times."""
+    import torch.nn.functional as F
+    q1, q2, k, p, v = x
+    B, _, _, d = q1.shape
+    qc = torch.cat([q1, q2], -1).detach().requires_grad_()
+    kc = torch.cat([k, p.expand(B, -1, -1, -1)], -1).detach()
+    kc.requires_grad_()
+    vv = v.detach().requires_grad_()
+    m = mask.unsqueeze(1) if mask.dim() == 3 else mask
+    with torch.enable_grad():
+        o = F.scaled_dot_product_attention(qc, kc, vv, attn_mask=m,
+                                           scale=scale)
+        dq, dk, dv = torch.autograd.grad(o, (qc, kc, vv), do,
+                                         retain_graph=True)
+    tol = TRAIN_TOL[torch.float32]
+    torch.testing.assert_close(o.detach(), out.detach(), **tol)
+    for got, want in ((dq[..., :d], grads[0]), (dq[..., d:], grads[1]),
+                      (dk[..., :d], grads[2]),
+                      (dk[..., d:].sum(0, keepdim=True), grads[3]),
+                      (dv, grads[4])):
+        torch.testing.assert_close(got, want.float(), **tol)
+    fwd_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qc.detach(), kc.detach(), vv, attn_mask=m, scale=scale))
+    bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        o, (qc, kc, vv), do, retain_graph=True))
+    print(f'    SDPA, no dropout: forward {fwd_ms:.4f} ms, backward '
+          f'(dq, dk, dv: K2 + K3 together) {bwd_ms:.4f} ms', flush=True)
 
 
 def mask_check():
@@ -670,6 +815,395 @@ def train_speed(smi):
                   f'x{e.count:<4d} {e.key[:80]}')
 
 
+# ---------------------------------------------------------------------------
+# 7. the whisper decode slice
+# ---------------------------------------------------------------------------
+def flash_inputs(rng, B, h, T1, T2, d, mask_kind, use_bias, dtype):
+    """q, k, v as (B, h, T, d) views of (B, T, h, d) buffers, as the
+    attention module hands them; the mask (B, 1, 1|T1, T2) bool; the bias
+    (1, h, T1, T2) fp32."""
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+    q, k, v = (t(B, T, h, d).transpose(1, 2).to(dtype)
+               for T in (T1, T2, T2))
+    lens = torch.from_numpy(rng.randint(T2 // 2, T2 + 1, size=B)).cuda()
+    lens[0] = T2
+    pad = torch.arange(T2, device='cuda')[None, :] < lens[:, None]
+    mask = None
+    if mask_kind == 'pad':
+        mask = pad[:, None, None, :]
+    elif mask_kind in ('rows', 'masked_row'):  # causal over key padding
+        rows = torch.arange(T1, device='cuda')[:, None]
+        mask = ((torch.arange(T2, device='cuda')[None, :] <= rows)[None]
+                & pad[:, None, :])[:, None]
+        if mask_kind == 'masked_row':
+            mask[0, 0, 5] = False
+    bias = t(1, h, T1, T2) * 0.5 if use_bias else None
+    return q, k, v, mask, bias
+
+
+def flash_sdpa(q, k, v, mask, bias, scale, want):
+    """The one PyTorch call that computes K4: SDPA with the boolean mask,
+    or with where(mask, bias·scale, -inf) when there is a bias; its time
+    (CUDA events).  It is checked against the kernel on the rows that
+    are not fully masked, with those rows opened in the mask (SDPA gives
+    NaN there, the kernel 0); NaN elsewhere is reported, not raised: the
+    call is a yardstick, not part of the port."""
+    import torch.nn.functional as F
+
+    def as_sdpa_mask(mask):
+        if bias is None:
+            return mask
+        if mask is None:
+            return (bias * scale).to(q.dtype)
+        return torch.where(mask, bias * scale, -float('inf')).to(q.dtype)
+
+    m = as_sdpa_mask(mask)
+    rows = None
+    check_mask = m
+    if mask is not None:
+        rows = mask.expand(q.shape[0], -1, q.shape[2], -1).any(-1)
+        check_mask = as_sdpa_mask(mask | ~rows[..., None])
+    got = F.scaled_dot_product_attention(q, k, v, attn_mask=check_mask,
+                                         scale=scale).float()
+    want = want.float()
+    if rows is not None:
+        rows = rows.expand(-1, q.shape[1], -1)
+        got, want = got[rows], want[rows]
+    bad = int((~torch.isfinite(got)).any(-1).sum())
+    if bad:
+        print(f'    SDPA gave non-finite values on {bad} attended rows',
+              flush=True)
+    else:
+        torch.testing.assert_close(got, want, **TRAIN_TOL[q.dtype])
+    return cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=m, scale=scale))
+
+
+def flash_kernel_check():
+    phase('7a K4 masked flash attention vs plain, SDPA and the bound')
+    from wenet_tpu_torch.models.transformer import attention as A
+    from wenet_tpu_torch.ops import flash_attention as fa
+    rng = np.random.RandomState(SEED + 6)
+    report, max_err = None, 0.0
+    for B, h, T1, T2, d, mask_kind, use_bias in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, mask, bias = flash_inputs(rng, B, h, T1, T2, d,
+                                               mask_kind, use_bias, dtype)
+            scale = 1.0 / d ** 0.5
+            got = fa.flash_attention(q, k, v, mask, bias, scale)
+            torch.cuda.synchronize()
+            want = fa.flash_fwd_reference(q.float(), k.float(), v.float(),
+                                          mask, bias, scale)
+            err = (got.float() - want).abs().max().item()
+            tol = FLASH_TOL[dtype]
+            # the largest share of its bar an element's error takes
+            of_bar = ((got.float() - want).abs() /
+                      (tol['atol'] + tol['rtol'] * want.abs())).max().item()
+            torch.testing.assert_close(got.float(), want, **tol)
+            if not torch.isfinite(got).all():
+                raise RuntimeError('K4 output is not finite')
+            if mask_kind == 'masked_row' and got[0, :, 5].any():
+                raise RuntimeError('K4: fully masked row is not zero')
+            ms = cuda_time_ms(
+                lambda: fa.flash_attention(q, k, v, mask, bias, scale))
+            plain_ms = cuda_time_ms(
+                lambda: fa.flash_fwd_reference(q, k, v, mask, bias, scale))
+            lib_ms = flash_sdpa(q, k, v, mask, bias, scale, got)
+            # 2 products of 2*d FLOPs per attended pair
+            flops = 4 * d * attended_pairs(mask, B, h, T1, T2)
+            moved = nbytes(q, k, v, mask, bias, got)
+            b_ms, b_by = bound(flops, moved, dtype)
+            extra = ''
+            if dtype == torch.bfloat16:  # the kernel's math is fp32 FFMA
+                extra = f', {bound(flops, moved)[0]:.4f} ms at fp32 FFMA'
+            print(f'  ({B},{h},{T1},{T2},{d}) mask={mask_kind} '
+                  f'bias={use_bias} {str(dtype)[6:]}: max_abs_err={err:.3g} '
+                  f'({100 * of_bar:.0f}% of the bar) kernel {ms:.4f} ms, '
+                  f'plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}{extra}); '
+                  f'{flops / ms / 1e9:.1f} TFLOP/s', flush=True)
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+                if report is None:  # whisper's encoder: the main shape
+                    report = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=lib_ms)
+
+    # the gate: K4 against attention_core's ordinary path above and below
+    for B, h, T1, T2, d in (FLASH_SHAPES[0][:5], GATE_BELOW):
+        q, k, v, mask, _ = flash_inputs(rng, B, h, T1, T2, d, 'pad', False,
+                                        torch.float32)
+        scale = 1.0 / d ** 0.5
+        above = A.flash_eligible(q, k)
+        saved = dict(A.FLASH_GATE)
+        A.FLASH_GATE.update(min_len=1 << 40, score_elems=1 << 62)
+        try:
+            fa.reset_launches()
+            plain = A.attention_core(q, k, v, mask, scale)
+            if fa.LAUNCHES['flash_attention_fwd']:
+                raise RuntimeError('the gate did not close')
+            plain_ms = cuda_time_ms(
+                lambda: A.attention_core(q, k, v, mask, scale))
+        finally:
+            A.FLASH_GATE.update(saved)
+        ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, mask, None,
+                                                     scale))
+        torch.testing.assert_close(
+            fa.flash_attention(q, k, v, mask, None, scale), plain,
+            **TRAIN_TOL[torch.float32])
+        print(f'  gate at ({B},{h},{T1},{T2},{d}) fp32, '
+              f'{"above" if above else "below"} it: K4 {ms:.4f} ms, '
+              f'ordinary path {plain_ms:.4f} ms', flush=True)
+    report['max_abs_err'] = max_err
+    return report
+
+
+def whisper_configs(n_layers):
+    """whisper large-v3 (build_config of the port's converter) at full
+    width with `n_layers` encoder and decoder blocks."""
+    from wenet_tpu_torch.models.whisper.convert import (
+        build_config, default_special_tokens)
+    configs = build_config(WHISPER_V3, default_special_tokens(51866))
+    configs['encoder_conf']['num_blocks'] = n_layers
+    configs['decoder_conf']['num_blocks'] = n_layers
+    return configs
+
+
+def mel_features(rng, B, T, min_len):
+    feats = rng.randn(B, T, WHISPER_V3['n_mels']).astype(np.float32)
+    lens = rng.randint(min_len, T + 1, size=B).astype(np.int64)
+    lens[0] = T
+    return feats, lens
+
+
+def shape_decoder_weights(model, generator):
+    """Random tied N(0, 1) token embeddings make every step repeat its
+    input token, and a random decoder falls into a fixed point where eot
+    either always or never wins.  Redraw the embeddings at N(0, 0.02),
+    the learned positions at N(0, 1) (so each step's state moves with its
+    position) and raise the final norm's gain so that the output keeps a
+    standard deviation of about 7 logits."""
+    dec = model.decoder
+    d = dec.embed[0].weight.shape[1]
+    with torch.no_grad():
+        dec.embed[0].weight.normal_(0.0, 0.02, generator=generator)
+        dec.embed[1].pe.normal_(0.0, 1.0, generator=generator)
+        dec.after_norm.weight.fill_(7.0 / (0.02 * d ** 0.5))
+
+
+def set_eot_bias(model, value):
+    with torch.no_grad():
+        model.decoder.output_layer.bias[model.eos] = value
+
+
+class _TooLong(Exception):
+    pass
+
+
+def calibrate_eot_bias(model, eo, em, beam, infos_list=(None,), high=200):
+    """Random weights never emit eot: set its output bias (a real
+    parameter, zero in OpenAI's checkpoints) to the least value, within
+    1/8 of the first step's log-prob spread, at which every hypothesis
+    of these decodes ends within `high` tokens.  Trials are cut once a
+    decode passes `high` tokens.  Returns the bias and the lengths."""
+    from wenet_tpu_torch.models.transformer.search import (
+        _decode_prefix, attention_beam_search)
+    prefix, _ = _decode_prefix(model, 1, 1, None)
+    with torch.inference_mode():
+        state = model.decoder_init_state(eo[:1], prefix.shape[1])
+        for i in range(prefix.shape[1]):
+            logp, state = model.decoder_forward_step(
+                torch.from_numpy(prefix[:, i:i + 1]).to(eo.device), i,
+                state, em[:1])
+    sigma = float(logp.float().std())
+    forward_step = model.decoder_forward_step
+    trials = []
+
+    def capped(tokens, step, *args):
+        if step > prefix.shape[1] + high:
+            raise _TooLong
+        return forward_step(tokens, step, *args)
+
+    def lengths(value):
+        """Hypothesis lengths of every decode, None if one runs long."""
+        set_eot_bias(model, value)
+        trials.append(value)
+        out = []
+        try:
+            with torch.inference_mode():
+                for infos in infos_list:
+                    out += [len(r.tokens) for r in attention_beam_search(
+                        model, eo, em, beam, infos=infos)]
+        except _TooLong:
+            return None
+        return out
+
+    model.decoder_forward_step = capped
+    try:
+        ok, step = 3.0 * sigma, sigma
+        while lengths(ok) is None:
+            ok, step = ok + step, 2 * step
+        low = ok - sigma
+        while lengths(low) is not None:
+            ok, low = low, low - sigma
+        while ok - low > sigma / 8:
+            mid = 0.5 * (ok + low)
+            if lengths(mid) is None:
+                low = mid
+            else:
+                ok = mid
+        found = lengths(ok)
+    finally:
+        model.decoder_forward_step = forward_step
+    print(f'  eot bias {ok:.3f} after {len(trials)} trials (first '
+          f'log-probs\' std {sigma:.3f}): hypothesis lengths {found}',
+          flush=True)
+    return ok
+
+
+def whisper_check():
+    phase('7b whisper large-v3 (4 + 4 layers) decode on the card vs the CPU')
+    from wenet_tpu_torch.models.runner import AsrRunner
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.utils.init_model import init_model
+    configs = whisper_configs(4)
+    gen = torch.Generator().manual_seed(SEED)
+    model = init_model(configs, gen)
+    shape_decoder_weights(model, gen)
+    cpu_model = copy.deepcopy(model)
+    runner = AsrRunner(model, 'cuda')
+    cpu_runner = AsrRunner(cpu_model, 'cpu')
+    feats, lens = mel_features(np.random.RandomState(SEED + 7), 2, 1400,
+                               1200)  # 14 s and 12-14 s: T' = 600-700
+    x, n = torch.from_numpy(feats), torch.from_numpy(lens)
+    with torch.inference_mode():
+        eo, em = runner.model.forward_encoder(x.cuda(), n.cuda())
+        ceo, cem = cpu_model.forward_encoder(x, n)
+    err = (eo.cpu() - ceo).abs().max().item()
+    print(f'  encoder_out {tuple(eo.shape)}: max |card - cpu| = {err:.3g} '
+          f'(bar 2e-4)')
+    if not torch.isfinite(eo).all() or err > 2e-4:
+        raise RuntimeError('whisper encoder output differs from the CPU')
+    if not torch.equal(em.cpu(), cem):
+        raise RuntimeError('encoder masks differ between card and CPU')
+    decodes = ({'langs': ['en', 'zh']},
+               {'langs': ['en', 'zh'], 'no_timestamp': False})
+    set_eot_bias(cpu_model,
+                 calibrate_eot_bias(runner.model, eo, em, 5, decodes))
+    launches = None
+    for infos in decodes:
+        fa.reset_launches()
+        got = runner.decode(['attention'], feats, lens, beam_size=5,
+                            infos=infos)['attention']
+        torch.cuda.synchronize()
+        n_k4 = fa.LAUNCHES['flash_attention_fwd']
+        launches = n_k4 if launches is None else launches
+        want = cpu_runner.decode(['attention'], feats, lens, beam_size=5,
+                                 infos=infos)['attention']
+        kind = 'timestamps' if 'no_timestamp' in infos else 'no timestamps'
+        print(f'  {kind}: K4 launches {n_k4}; hypothesis lengths '
+              f'{[len(r.tokens) for r in got]}; scores card '
+              f'{[round(r.score, 4) for r in got]} cpu '
+              f'{[round(r.score, 4) for r in want]}', flush=True)
+        if n_k4 != configs['encoder_conf']['num_blocks']:
+            raise RuntimeError(f'expected one K4 launch per encoder layer, '
+                               f'got {n_k4}')
+        if [r.tokens for r in got] != [r.tokens for r in want]:
+            raise RuntimeError(f'{kind}: hypotheses differ from the CPU')
+        if not all(np.isfinite(r.score) for r in got):
+            raise RuntimeError(f'{kind}: a score is not finite')
+    return launches
+
+
+def whisper_speed(smi):
+    phase('7c whisper large-v3 decode speed (informational)')
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from wenet_tpu_torch.models.runner import AsrRunner
+    from wenet_tpu_torch.utils.init_model import init_model
+    configs = whisper_configs(32)
+    t0 = time.perf_counter()
+    gen = torch.Generator('cuda').manual_seed(SEED)
+    model = init_model(configs, gen, device='cuda')
+    shape_decoder_weights(model, gen)
+    set_eot_bias(model, WHISPER_SPEED_EOT_BIAS)
+    print(f'  32 + 32 layers built on the card in '
+          f'{time.perf_counter() - t0:.1f} s '
+          f'({sum(p.numel() for p in model.parameters()) / 1e9:.3f}B '
+          f'parameters); eot bias {WHISPER_SPEED_EOT_BIAS}')
+    feats, lens = mel_features(np.random.RandomState(SEED + 8), 4, 3000,
+                               2000)  # 20-30 s, padded to 30 s: T' = 1500
+    audio = float(lens.sum()) / 100
+    for dtype in (torch.float32, torch.bfloat16):
+        runner = AsrRunner(model, 'cuda',
+                           dtype=None if dtype == torch.float32 else dtype)
+        steps, encoder = [], []
+        forward_step = runner.model.decoder_forward_step
+        forward_encoder = runner.model.forward_encoder
+
+        def counted(*args):
+            steps[-1] += 1
+            return forward_step(*args)
+
+        def timed_encoder(*args):
+            """The encoder's device time between two CUDA events (no
+            synchronization added to the decode)."""
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = forward_encoder(*args)
+            end.record()
+            encoder.append((start, end))
+            return out
+        runner.model.decoder_forward_step = counted
+        runner.model.forward_encoder = timed_encoder
+
+        def decode():
+            """One `AsrRunner.decode(['attention'])` of the batch, end to
+            end: features from the host, encoder, beam search."""
+            steps.append(0)
+            t0 = time.perf_counter()
+            out = runner.decode(['attention'], feats, lens, beam_size=5)
+            torch.cuda.synchronize()
+            return out['attention'], time.perf_counter() - t0
+
+        decode()  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        out, wall = decode()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        enc_s = encoder[-1][0].elapsed_time(encoder[-1][1]) / 1e3
+        rest_s = wall - enc_s
+        print(f'  {str(dtype)[6:]} B=4, {audio:.1f} s of audio: decode '
+              f'{wall * 1e3:.1f} ms end to end over {steps[-1]} decoder '
+              f'steps, {audio / wall:.1f} audio-sec/s; encoder '
+              f'{enc_s * 1e3:.1f} ms (CUDA events), beam search and the '
+              f'rest {rest_s * 1e3:.1f} ms ({rest_s * 1e3 / steps[-1]:.2f} '
+              f'ms/step); peak device memory {peak:.2f} GiB; hypothesis '
+              f'lengths {[len(r.tokens) for r in out]} ({smi})', flush=True)
+        t_prof = time.perf_counter()
+        # CUDA activity only: recording every host op would slow the
+        # host-bound beam loop further
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, prof_wall = decode()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, 'is_user_annotation', False)]
+        total = sum(e.self_device_time_total for e in rows) / 1e3
+        k4 = sum(e.self_device_time_total for e in rows
+                 if 'flash_fwd_kernel' in e.key) / 1e3
+        busy = 100 * total / (prof_wall * 1e3)
+        print(f'    kernel time in one profiled decode: {total:.2f} ms of '
+              f'{prof_wall * 1e3:.1f} ms wall ({busy:.0f}% device busy); '
+              f'K4 {k4:.2f} ms ({100 * k4 / max(total, 1e-9):.1f}% of '
+              f'kernel time)', flush=True)
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+            ms = e.self_device_time_total / 1e3
+            print(f'    {ms:8.3f} ms {100 * ms / max(total, 1e-9):5.1f}% '
+                  f'x{e.count:<5d} {e.key[:80]}')
+        print(f'    profiled and tabled in {time.perf_counter() - t_prof:.1f}'
+              f' s', flush=True)
+        del runner.model.decoder_forward_step, runner.model.forward_encoder
+
+
 def main():
     smi = device()
     build()
@@ -682,19 +1216,29 @@ def main():
     mask_check()
     train_launches = train_check()
     train_speed(smi)
-    if 'jax' in sys.modules:
-        raise RuntimeError('jax was imported')
+    flash_report = flash_kernel_check()
+    flash_launches = whisper_check()
+    whisper_speed(smi)
+    foreign = [m for m in sys.modules
+               if m == 'jax' or m.startswith('jax.') or m == 'wenet_tpu'
+               or m.startswith('wenet_tpu.')]
+    if foreign:
+        raise RuntimeError(f'imported jax or the JAX package: {foreign[:5]}')
     kernels = [{
         'name': 'relpos_attention_fwd', 'route': 'cuda',
         'source': 'wenet_tpu_torch/csrc/relpos_attention.cu',
         'replaces': 'wenet_tpu/ops/flash_attention.py:548',
-        'launches': launches, 'max_abs_err': report['max_abs_err'],
-        'ms': report['ms'], 'plain_ms': report['plain_ms']}]
+        'launches': launches, **report}]
     for name, (source, replaces) in TRAIN_KERNELS.items():
         kernels.append(dict(name=name, route='cuda', source=source,
                             replaces=replaces,
                             launches=train_launches[name],
                             **train_report[name]))
+    kernels.append(dict(name='flash_attention_fwd', route='cuda',
+                        source='wenet_tpu_torch/csrc/flash_attention.cu',
+                        replaces='wenet_tpu/ops/flash_attention.py:68',
+                        launches=flash_launches, **flash_report))
+    print(f'== done (at {time.perf_counter() - _T0:.0f} s)')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ setup(
     version='0.1.0',
     description='TPU-native end-to-end speech recognition toolkit',
     packages=find_packages(include=['wenet_tpu*']),
-    package_data={'wenet_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
+    package_data={'wenet_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh',
+                                     'csrc/*.cc']},
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'orbax-checkpoint', 'numpy', 'pyyaml',

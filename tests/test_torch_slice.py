@@ -57,6 +57,26 @@ def test_decode_matches_jax():
     assert any(r.tokens for r in got['attention_rescoring'])
 
 
+def test_attention_mode_matches_jax():
+    """The flagship's `attention` beam search (the left decoder's
+    incremental step over a sos prompt) gives the JAX package's
+    hypotheses and scores."""
+    from wenet_tpu.models.runner import AsrRunner as JaxRunner
+    from wenet_tpu_torch.models.runner import AsrRunner
+    cfg = tiny_config()
+    model, variables = jax_model(cfg, seed=13)
+    tmodel = torch_model(cfg, variables)
+    x, lens = feats(seed=14, B=3, T=91)
+    kw = dict(beam_size=4, length_penalty=0.3)
+    want = JaxRunner(model, variables).decode(['attention'], x, lens,
+                                              **kw)['attention']
+    got = AsrRunner(tmodel, 'cpu').decode(['attention'], x, lens,
+                                          **kw)['attention']
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    np.testing.assert_allclose([r.score for r in got],
+                               [r.score for r in want], atol=1e-4, rtol=1e-5)
+
+
 def test_port_runs_without_jax():
     """A fresh interpreter that imports the port and decodes the tiny
     slice on the CPU never imports jax."""

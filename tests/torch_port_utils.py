@@ -86,3 +86,40 @@ def feats(seed=0, B=3, T=67):
     lens = np.asarray([T] + list(rng.randint(T // 2, T, size=B - 1)),
                       np.int32)
     return x, lens
+
+
+# --- tiny whisper: the dims of tests/test_whisper.py, a text context long
+# enough for every beam-search position (n_text_ctx >= T' + 2) ---
+WHISPER_DIMS = {'n_mels': 40, 'n_vocab': 120, 'n_audio_state': 32,
+                'n_audio_head': 2, 'n_audio_layer': 2, 'n_text_state': 32,
+                'n_text_head': 2, 'n_text_layer': 2, 'n_audio_ctx': 64,
+                'n_text_ctx': 48}
+WHISPER_TOKENS = {'sot': 110, 'eot': 109, 'sot_prev': 111, 'transcribe': 112,
+                  'translate': 113, 'no_timestamps': 114, 'no_speech': 115,
+                  'timestamp_begin': 116}
+
+
+def whisper_config():
+    from wenet_tpu_torch.models.whisper.convert import build_config
+    return build_config(WHISPER_DIMS, WHISPER_TOKENS)
+
+
+def whisper_models(seed=0, eot_bias=0.0):
+    """(JAX model, its variables, the port's model) on one set of weights;
+    `eot_bias` is added to the output bias of eot, so that random weights
+    end their beams."""
+    cfg = whisper_config()
+    model, variables = jax_model(cfg, seed)
+    bias = np.array(variables['params']['decoder']['output_layer']['bias'])
+    bias[WHISPER_TOKENS['eot']] += eot_bias
+    variables['params']['decoder']['output_layer']['bias'] = bias
+    return model, variables, torch_model(cfg, variables)
+
+
+def whisper_feats(seed=0, B=3, T=63):
+    """(B, T, n_mels) features; the first row full, the others shorter."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, T, WHISPER_DIMS['n_mels']).astype(np.float32)
+    lens = np.asarray([T] + list(rng.randint(T // 2, T, size=B - 1)),
+                      np.int32)
+    return x, lens

@@ -1,21 +1,22 @@
 """AsrRunner: offline batch decode on one device.  Counterpart of
 wenet_tpu/models/runner.py `AsrRunner.decode` for the CTC greedy, CTC
-prefix beam and attention-rescoring modes.
+prefix beam, attention-rescoring and attention (beam search) modes.
 
-CTC prefix beam search runs in the shared C++ trie searcher
-(wenet_tpu.runtime.native_beam, numpy + ctypes, no jax), fed with the
-per-frame top-k that `torch.topk` computes on the device."""
+CTC prefix beam search runs in the port's C++ trie searcher
+(wenet_tpu_torch/runtime/native_beam.py, built with g++ at first use),
+fed with the per-frame top-k that `torch.topk` computes on the device."""
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
-from wenet_tpu_torch.models.transformer.search import (DecodeResult,
-                                                       attention_rescoring,
-                                                       ctc_greedy_search)
+from wenet_tpu_torch.models.transformer.search import (
+    DecodeResult, attention_beam_search, attention_rescoring,
+    ctc_greedy_search)
+from wenet_tpu_torch.runtime import native_beam
 
 MODES = ('ctc_greedy_search', 'ctc_prefix_beam_search',
-         'attention_rescoring')
+         'attention_rescoring', 'attention')
 
 
 def ctc_prefix_beam_search(ctc_probs: torch.Tensor,
@@ -23,10 +24,6 @@ def ctc_prefix_beam_search(ctc_probs: torch.Tensor,
                            blank_id: int = 0) -> List[DecodeResult]:
     """Per-frame top-k on the device, then the C++ prefix beam on host.
     Raises when the native library cannot be built or loaded."""
-    from wenet_tpu.runtime import native_beam
-    if not native_beam.available():
-        raise RuntimeError('ctc prefix beam search needs the native C++ '
-                           'searcher: make -C wenet_tpu/runtime/cpp')
     vals, ids = torch.topk(ctc_probs, beam_size, dim=-1)
     outs = native_beam.batch_search_topk(
         vals.float().cpu().numpy(), ids.int().cpu().numpy(),
@@ -37,33 +34,52 @@ def ctc_prefix_beam_search(ctc_probs: torch.Tensor,
 
 
 class AsrRunner:
-    """A model bound to a device, in eval mode."""
+    """A model bound to a device, in eval mode.  `dtype` (e.g.
+    torch.bfloat16) casts the floating weights, and the features with
+    them, as the JAX runner's `dtype` does."""
 
-    def __init__(self, model: torch.nn.Module, device='cuda'):
+    def __init__(self, model: torch.nn.Module, device='cuda',
+                 dtype: Optional[torch.dtype] = None):
         self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
+        model = model.to(self.device).eval()
+        if dtype is not None:
+            model = model.to(dtype)
+        self.dtype = dtype
+        self.model = model
 
     @torch.inference_mode()
     def decode(self, methods: List[str], feats, feats_lengths,
                beam_size: int = 10, decoding_chunk_size: int = -1,
                num_decoding_left_chunks: int = -1, ctc_weight: float = 0.0,
                reverse_weight: float = 0.0, blank_id: int = 0,
-               blank_penalty: float = 0.0
+               blank_penalty: float = 0.0, length_penalty: float = 0.0,
+               infos: Optional[Dict[str, List[str]]] = None
                ) -> Dict[str, List[DecodeResult]]:
         """feats: (B, T, F) array or tensor; feats_lengths: (B,).
+        `length_penalty` and `infos` (whisper's prompt: 'tasks', 'langs',
+        'no_timestamp') are for the `attention` mode.
         Returns {mode: one DecodeResult per utterance}."""
         unknown = [m for m in methods if m not in MODES]
         if unknown:
             raise NotImplementedError(f'decode modes not ported: {unknown}')
         feats = torch.as_tensor(feats, device=self.device)
+        if self.dtype is not None:
+            feats = feats.to(self.dtype)
         feats_lengths = torch.as_tensor(feats_lengths, device=self.device)
         model = self.model
         encoder_out, encoder_mask = model.forward_encoder(
             feats, feats_lengths, decoding_chunk_size,
             num_decoding_left_chunks)
         encoder_lens = encoder_mask[:, 0, :].sum(-1)
-        ctc_probs = model.ctc_logprobs(encoder_out, blank_penalty, blank_id)
         results: Dict[str, List[DecodeResult]] = {}
+        if 'attention' in methods:
+            results['attention'] = attention_beam_search(
+                model, encoder_out, encoder_mask, beam_size, length_penalty,
+                infos)
+        if not any(m.startswith('ctc_') or m == 'attention_rescoring'
+                   for m in methods):
+            return results
+        ctc_probs = model.ctc_logprobs(encoder_out, blank_penalty, blank_id)
         if 'ctc_greedy_search' in methods:
             results['ctc_greedy_search'] = ctc_greedy_search(
                 ctc_probs, encoder_lens, blank_id)

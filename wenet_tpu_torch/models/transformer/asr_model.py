@@ -1,7 +1,7 @@
 """Hybrid CTC/attention ASR model (U2/U2++): the joint training loss and
 the decode-side methods.  Counterpart of
 wenet_tpu/models/transformer/asr_model.py (`__call__`, `_calc_att_loss`
-and the decode methods :169-245)."""
+and the decode methods :169-250)."""
 
 from typing import Dict, Optional, Tuple
 
@@ -33,6 +33,7 @@ class ASRModel(nn.Module):
         self.reverse_weight = reverse_weight
         self.lsm_weight = lsm_weight
         self.length_normalized_loss = length_normalized_loss
+        self.special_tokens = special_tokens
         tokens = special_tokens or {}
         self.sos = tokens.get('<sos>', vocab_size - 1)
         self.eos = tokens.get('<eos>', vocab_size - 1)
@@ -154,3 +155,14 @@ class ASRModel(nn.Module):
         if r_decoder_out is not None:
             r_decoder_out = F.log_softmax(r_decoder_out, dim=-1)
         return decoder_out, r_decoder_out
+
+    # -- the attention beam search's step interface ----------------------
+    def decoder_init_state(self, encoder_out: torch.Tensor, max_len: int,
+                           beam_size: int = 1):
+        """encoder_out: (B, T, D); the self buffers get B·beam_size rows."""
+        return self.decoder.init_state(encoder_out, max_len, beam_size)
+
+    def decoder_forward_step(self, tokens: torch.Tensor, step: int, state,
+                             memory_mask: Optional[torch.Tensor]):
+        """tokens (R, 1) at position `step` -> (log-probs (R, V), state)."""
+        return self.decoder.forward_step(tokens, step, state, memory_mask)

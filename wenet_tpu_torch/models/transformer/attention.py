@@ -1,13 +1,23 @@
-"""Multi-head attention: plain MHA, cross attention and rel-pos MHA.
-Counterpart of wenet_tpu/models/transformer/attention.py.
+"""Multi-head attention: plain MHA (with the decoder's incremental step),
+cross attention and rel-pos MHA.  Counterpart of
+wenet_tpu/models/transformer/attention.py.
 
 Rel-pos self-attention always goes through `flash_attention_relpos`: the
 Hopper kernels for CUDA tensors, their plain versions for CPU tensors,
 with the backward kernels behind autograd.  In training its
 attention-weight dropout runs inside the kernels (a counter hash seeded
 per call from the host generator the train step passes down), as the JAX
-package's flash training path does.  The decoder's attention stays plain
-PyTorch, with `nn.Dropout` on the weights.
+package's flash training path does.
+
+`attention_core` (plain MHA and cross attention) launches K4
+(`flash_attention`) on CUDA tensors that pass the JAX package's gate
+(`_flash_eligible`, attention.py:70-82: both lengths >= 512, or both >=
+128 with B·h·T1·T2 >= 24M scores), and K4 raises on a dtype or head dim
+it has no instance for.  Below the gate and on the CPU it runs the plain
+matmul-softmax-matmul path, with `nn.Dropout` on the weights.  Training
+above the gate on the card (autograd recording or attention dropout)
+raises NotImplementedError: it needs K4's lse variant and its backward
+kernels K5 and K6, which are not ported yet.
 """
 
 import math
@@ -16,39 +26,74 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from wenet_tpu_torch.ops.flash_attention import (NEG_INF,
+from wenet_tpu_torch.ops.flash_attention import (NEG_INF, flash_attention,
                                                  flash_attention_relpos)
+
+T_CACHE = Tuple[torch.Tensor, torch.Tensor]  # (k, v): (B, h, T, d)
+
+# the JAX package's inference gate for the flash kernel (`_FLASH`)
+FLASH_GATE = {'min_len': 512, 'score_elems': 24 * 1024 * 1024}
+
+
+def flash_eligible(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """True where `attention_core` launches K4: CUDA (B, h, T, d) inputs
+    long enough to pass the gate, whatever their dtype and head dim."""
+    if q.device.type != 'cuda' or q.dim() != 4 or q.shape[1] != k.shape[1]:
+        return False
+    T1, T2 = q.shape[2], k.shape[2]
+    if T1 >= FLASH_GATE['min_len'] and T2 >= FLASH_GATE['min_len']:
+        return True
+    return (T1 >= 128 and T2 >= 128 and
+            q.shape[0] * q.shape[1] * T1 * T2 >= FLASH_GATE['score_elems'])
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mask: Optional[torch.Tensor], scale: float,
-                   dropout: nn.Module) -> torch.Tensor:
-    """softmax(q·kᵀ·scale masked) · v with fp32 scores.
+                   dropout: Optional[nn.Module] = None,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax((q·kᵀ + bias)·scale, masked) · v with fp32 scores.
 
     q: (..., h, T1, d); k, v: (..., h, T2, d); mask: bool broadcastable
-    to (..., 1|h, T1|1, T2), True == attend.  Fully masked rows give 0."""
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    to (..., 1|h, T1|1, T2), True == attend; bias: additive, added before
+    the scale.  Fully masked rows give 0.  CUDA tensors above the gate
+    run K4 (and raise in training); everything else the plain path."""
+    if flash_eligible(q, k):
+        if ((dropout is not None and dropout.training and dropout.p > 0.0)
+                or (torch.is_grad_enabled() and
+                    any(t.requires_grad for t in (q, k, v)))):
+            raise NotImplementedError(
+                'attention above the flash gate in training needs K4 with '
+                'lse and its backward kernels K5 and K6, not ported yet')
+        return flash_attention(q, k, v, mask, bias, scale)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if bias is not None:
+        scores = scores + bias.float()
+    scores = scores * scale
     if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     attn = torch.softmax(scores, dim=-1)
     if mask is not None:
         attn = attn.masked_fill(~mask, 0.0)
-    attn = dropout(attn).to(v.dtype)
-    return torch.matmul(attn, v)
+    if dropout is not None:
+        attn = dropout(attn)
+    return torch.matmul(attn.to(v.dtype), v)
 
 
 class MultiHeadedAttention(nn.Module):
-    """Multi-head attention with biased q/k/v/out projections."""
+    """Multi-head attention; `linear_out` has a bias when `query_bias`
+    does (whisper: no key bias)."""
 
-    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0):
+    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0,
+                 query_bias: bool = True, key_bias: bool = True,
+                 value_bias: bool = True):
         super().__init__()
         assert n_feat % n_head == 0
         self.h = n_head
         self.d_k = n_feat // n_head
-        self.linear_q = nn.Linear(n_feat, n_feat)
-        self.linear_k = nn.Linear(n_feat, n_feat)
-        self.linear_v = nn.Linear(n_feat, n_feat)
-        self.linear_out = nn.Linear(n_feat, n_feat)
+        self.linear_q = nn.Linear(n_feat, n_feat, bias=query_bias)
+        self.linear_k = nn.Linear(n_feat, n_feat, bias=key_bias)
+        self.linear_v = nn.Linear(n_feat, n_feat, bias=value_bias)
+        self.linear_out = nn.Linear(n_feat, n_feat, bias=query_bias)
         self.dropout = nn.Dropout(dropout_rate)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
@@ -58,8 +103,7 @@ class MultiHeadedAttention(nn.Module):
     def project_q(self, x: torch.Tensor) -> torch.Tensor:
         return self._heads(self.linear_q(x))
 
-    def project_kv(self, key: torch.Tensor, value: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def project_kv(self, key: torch.Tensor, value: torch.Tensor) -> T_CACHE:
         return self._heads(self.linear_k(key)), self._heads(self.linear_v(value))
 
     def _finish(self, ctx: torch.Tensor) -> torch.Tensor:
@@ -77,27 +121,54 @@ class MultiHeadedAttention(nn.Module):
                              self.dropout)
         return self._finish(ctx)
 
+    def decode_step(self, x_q: torch.Tensor, cache: T_CACHE,
+                    step: int) -> torch.Tensor:
+        """One decoder step.  x_q: (B, 1, F); cache: (k, v) buffers of
+        (B, h, L_max, d), updated IN PLACE at position `step`, and the
+        query attends positions <= step.  The JAX package masks the
+        positions after `step` out of the full buffer; here they are not
+        read at all, which gives the same weights."""
+        q = self.project_q(x_q)
+        k_new, v_new = self.project_kv(x_q, x_q)
+        k_buf, v_buf = cache
+        k_buf[:, :, step] = k_new[:, :, 0].to(k_buf.dtype)
+        v_buf[:, :, step] = v_new[:, :, 0].to(v_buf.dtype)
+        ctx = attention_core(q, k_buf[:, :, :step + 1],
+                             v_buf[:, :, :step + 1], None,
+                             1.0 / math.sqrt(self.d_k))
+        return self._finish(ctx)
+
 
 class MultiHeadedCrossAttention(MultiHeadedAttention):
     """Decoder-to-encoder attention.  Queries may be beam-expanded:
     (B*N, T1, F) against keys of (B, T2, F)."""
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
-                value: torch.Tensor, mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                value: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                cache: Optional[T_CACHE] = None) -> torch.Tensor:
+        """mask: (B, 1|T1, T2) bool.  With `cache`, the precomputed
+        encoder (k, v) (`project_kv` of the memory), key and value are not
+        read.  Beam-expanded queries are folded into the query rows of
+        their utterance, (B, h, N*T1, d), so each utterance's keys are
+        read once for all its beams (a broadcast batch dim would make
+        `torch.matmul` copy them N times)."""
         q = self.project_q(query)
-        k, v = self.project_kv(key, value)
+        k, v = cache if cache is not None else self.project_kv(key, value)
         m = None if mask is None else mask.unsqueeze(1)
         Bq, Bk = q.shape[0], k.shape[0]
         scale = 1.0 / math.sqrt(self.d_k)
-        if Bq != Bk:
-            q = q.reshape((Bk, Bq // Bk) + q.shape[1:])
-            ctx = attention_core(q, k.unsqueeze(1), v.unsqueeze(1),
-                                 None if m is None else m.unsqueeze(1),
-                                 scale, self.dropout)
-            ctx = ctx.reshape((Bq,) + ctx.shape[2:])
-        else:
-            ctx = attention_core(q, k, v, m, scale, self.dropout)
+        if Bq == Bk:
+            return self._finish(attention_core(q, k, v, m, scale,
+                                               self.dropout))
+        N = Bq // Bk
+        _, H, T1, D = q.shape
+        q = q.reshape(Bk, N, H, T1, D).transpose(1, 2).reshape(
+            Bk, H, N * T1, D)
+        if m is not None and m.shape[-2] != 1:
+            m = m.repeat(1, 1, N, 1)  # rows n*T1 + t, as the queries
+        ctx = attention_core(q, k, v, m, scale, self.dropout)
+        ctx = ctx.reshape(Bk, H, N, T1, D).transpose(1, 2).reshape(
+            Bq, H, T1, D)
         return self._finish(ctx)
 
 

@@ -1,8 +1,10 @@
-"""Sinusoidal positional encodings.  Counterpart of
-wenet_tpu/models/transformer/embedding.py (absolute and rel-pos).
+"""Positional encodings.  Counterpart of
+wenet_tpu/models/transformer/embedding.py (absolute, rel-pos, whisper's
+[sin | cos] and the learnable table of whisper's decoder).
 
-The encodings are computed for each call from the sequence length; no
-position table is stored, so the state dict has no `pe` entry."""
+The sinusoidal encodings are computed for each call from the sequence
+length; no position table is stored, so their state dict has no `pe`
+entry.  The learnable encoding's table is its `pe` parameter."""
 
 import math
 from typing import Tuple
@@ -11,10 +13,12 @@ import torch
 from torch import nn
 
 
-def sinusoidal_position_encoding(size: int, d_model: int,
-                                 device=None) -> torch.Tensor:
-    """Interleaved sin/cos encoding of positions [0, size) -> (1, size, d)."""
-    pos = torch.arange(size, device=device, dtype=torch.float32)
+def sinusoidal_position_encoding(size: int, d_model: int, device=None,
+                                 offset: int = 0) -> torch.Tensor:
+    """Interleaved sin/cos encoding of positions [offset, offset + size)
+    -> (1, size, d)."""
+    pos = torch.arange(offset, offset + size, device=device,
+                       dtype=torch.float32)
     div = torch.exp(
         torch.arange(0, d_model, 2, device=device, dtype=torch.float32) *
         (-math.log(10000.0) / d_model))
@@ -32,9 +36,10 @@ class PositionalEncoding(nn.Module):
         self.xscale = math.sqrt(d_model)
         self.dropout = nn.Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, offset: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         pos_emb = sinusoidal_position_encoding(x.shape[1], self.d_model,
-                                               x.device).to(x.dtype)
+                                               x.device, offset).to(x.dtype)
         return self.dropout(x * self.xscale + pos_emb), self.dropout(pos_emb)
 
 
@@ -45,3 +50,45 @@ class RelPositionalEncoding(PositionalEncoding):
         pos_emb = sinusoidal_position_encoding(x.shape[1], self.d_model,
                                                x.device).to(x.dtype)
         return self.dropout(x * self.xscale), self.dropout(pos_emb)
+
+
+def whisper_position_encoding(size: int, d_model: int,
+                              device=None) -> torch.Tensor:
+    """Whisper's [sin | cos] encoding (not interleaved; log step over
+    d/2 - 1) of positions [0, size) -> (1, size, d)."""
+    log_inc = math.log(10000.0) / (d_model // 2 - 1)
+    inv = torch.exp(-log_inc * torch.arange(d_model // 2, device=device,
+                                            dtype=torch.float32))
+    ang = torch.arange(size, device=device, dtype=torch.float32)[:, None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[None]
+
+
+class WhisperPositionalEncoding(PositionalEncoding):
+    """x + PE, no x-scale (whisper's encoder)."""
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        pos_emb = whisper_position_encoding(x.shape[1], self.d_model,
+                                            x.device).to(x.dtype)
+        return self.dropout(x + pos_emb), self.dropout(pos_emb)
+
+
+class LearnablePositionalEncoding(nn.Module):
+    """x + a learned (1, max_len, d) table (whisper's decoder).
+
+    Positions past `max_len` read NaN, as the JAX package's `jnp.take`
+    fills out-of-range rows; negative positions read row 0."""
+
+    def __init__(self, d_model: int, dropout_rate: float = 0.0,
+                 max_len: int = 448):
+        super().__init__()
+        self.max_len = max_len
+        self.pe = nn.Parameter(torch.empty(1, max_len, d_model))
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def forward(self, x: torch.Tensor, offset: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        idx = torch.arange(offset, offset + x.shape[1], device=x.device)
+        rows = self.pe[0, idx.clamp(0, self.max_len - 1)]
+        pos_emb = torch.where((idx < self.max_len)[:, None], rows,
+                              float('nan'))[None].to(x.dtype)
+        return self.dropout(x + pos_emb), self.dropout(pos_emb)

@@ -1,5 +1,6 @@
-"""Conformer encoder layer.  Counterpart of
-wenet_tpu/models/transformer/encoder_layer.py `ConformerEncoderLayer`."""
+"""Encoder layers.  Counterpart of
+wenet_tpu/models/transformer/encoder_layer.py `TransformerEncoderLayer`
+and `ConformerEncoderLayer`."""
 
 from typing import Optional
 
@@ -8,10 +9,35 @@ from torch import nn
 import torch.nn.functional as F
 
 from wenet_tpu_torch.models.transformer.attention import (
-    RelPositionMultiHeadedAttention)
+    MultiHeadedAttention, RelPositionMultiHeadedAttention)
 from wenet_tpu_torch.models.transformer.convolution import ConvolutionModule
 from wenet_tpu_torch.models.transformer.positionwise_feed_forward import (
-    PositionwiseFeedForward)
+    PositionwiseFeedForward, get_activation)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Pre-norm MHSA + FFN, each a residual block (whisper's encoder
+    block)."""
+
+    def __init__(self, size: int, attention_heads: int, linear_units: int,
+                 dropout_rate: float = 0.1,
+                 attention_dropout_rate: float = 0.0, norm_eps: float = 1e-5,
+                 activation_type: str = 'relu', query_bias: bool = True,
+                 key_bias: bool = True, value_bias: bool = True):
+        super().__init__()
+        self.self_attn = MultiHeadedAttention(
+            attention_heads, size, attention_dropout_rate, query_bias,
+            key_bias, value_bias)
+        self.feed_forward = PositionwiseFeedForward(
+            size, linear_units, dropout_rate, get_activation(activation_type))
+        self.norm1 = nn.LayerNorm(size, eps=norm_eps)
+        self.norm2 = nn.LayerNorm(size, eps=norm_eps)
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """x: (B, T, D); mask: (B, T|1, T) attention mask."""
+        x = x + self.dropout(self.self_attn(*(self.norm1(x),) * 3, mask))
+        return x + self.dropout(self.feed_forward(self.norm2(x)))
 
 
 class ConformerEncoderLayer(nn.Module):

@@ -9,6 +9,16 @@ from torch import nn
 import torch.nn.functional as F
 
 
+# the activations the ported configs name (gelu is the exact erf form)
+ACTIVATIONS = {'relu': F.relu, 'gelu': F.gelu, 'swish': F.silu}
+
+
+def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    if name not in ACTIVATIONS:
+        raise NotImplementedError(f'activation_type={name!r} is not ported')
+    return ACTIVATIONS[name]
+
+
 class PositionwiseFeedForward(nn.Module):
     """w_2(dropout(act(w_1(x))))."""
 

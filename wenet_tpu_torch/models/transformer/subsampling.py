@@ -1,5 +1,6 @@
-"""Conv2d x4 subsampling front end.  Counterpart of
-wenet_tpu/models/transformer/subsampling.py `Conv2dSubsampling4`.
+"""Subsampling front ends.  Counterpart of
+wenet_tpu/models/transformer/subsampling.py `Conv2dSubsampling4` and
+`Conv1dSubsampling2` (whisper).
 
 The convs run NCHW; the (C, F) flatten is channel-major, the order the
 JAX package reproduces from its NHWC layout, so converted weights of the
@@ -34,3 +35,27 @@ class Conv2dSubsampling4(nn.Module):
         x = self.out(x.transpose(1, 2).reshape(b, t, c * f))
         x, pos_emb = self.pos_enc(x)
         return x, pos_emb, x_mask[:, :, 2::2][:, :, 2::2]
+
+
+class Conv1dSubsampling2(nn.Module):
+    """Whisper's front end: conv k3, then conv k3 stride 2, each followed
+    by the exact GELU -> 1/2 length."""
+    subsampling_rate = 2
+    right_context = 4
+
+    def __init__(self, idim: int, odim: int, dropout_rate: float,
+                 pos_enc: nn.Module):
+        super().__init__()
+        self.conv = nn.Sequential(
+            nn.Conv1d(idim, odim, 3, padding=1), nn.GELU(),
+            nn.Conv1d(odim, odim, 3, stride=2, padding=1), nn.GELU())
+        self.pos_enc = pos_enc
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """x: (B, T, F); x_mask: (B, 1, T) -> (x (B, T', D), pos_emb
+        (1, T', D), mask (B, 1, T')), T' = ceil(T / 2)."""
+        time = x.shape[1]
+        x = self.conv(x.transpose(1, 2)).transpose(1, 2)
+        x, pos_emb = self.pos_enc(x)
+        return x, pos_emb, x_mask[:, :, (time + 1) % 2::2]

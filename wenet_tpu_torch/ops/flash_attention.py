@@ -1,8 +1,9 @@
-"""Fused rel-pos attention, forward and backward: the Hopper CUDA kernels,
-their plain PyTorch versions and the autograd Function around them.
+"""Flash attention on Hopper: the CUDA kernels, their plain PyTorch
+versions and the autograd Function around the rel-pos ones.
 
-Counterpart of `flash_attention_relpos` in wenet_tpu/ops/flash_attention.py.
-Three CUDA kernels replace the Pallas TPU kernels of that file:
+Counterpart of `flash_attention_relpos` and `flash_attention` in
+wenet_tpu/ops/flash_attention.py.  Four CUDA kernels replace the Pallas
+TPU kernels of that file:
 
   K1 `relpos_fwd_kernel`       (csrc/relpos_attention.cu)  <- _relpos_fwd_kernel
      s = (q1·kᵀ + q2·pᵀ)·scale, masked, online softmax over key tiles,
@@ -12,6 +13,9 @@ Three CUDA kernels replace the Pallas TPU kernels of that file:
      dq1, dq2 from ds = P·(D·(do·vᵀ) − delta)·scale, P = exp(s − lse).
   K3 `relpos_bwd_dkpv_kernel`  (csrc/relpos_attention_bwd.cu) <- _relpos_bwd_dkpv_kernel
      dk, dp, dv with the same ds, streaming query tiles.
+  K4 `flash_fwd_kernel`        (csrc/flash_attention.cu)   <- _fwd_kernel
+     s = (q·kᵀ + bias)·scale, masked, online softmax, out = softmax·v
+     (inference only: no lse; its backward K5/K6 is not ported yet).
 
 None of them writes the (T1, T2) scores to device memory.  The dropout mask
 D is a counter hash of (seed, b·h, global query, global key)
@@ -24,8 +28,9 @@ The kernels are compiled with nvcc for sm_90a at first use into
 `wenet_tpu_torch/build/` (one nvcc per source, run in parallel, keyed by
 the hash of all sources) and loaded with ctypes.  CPU tensors take the
 plain versions (`relpos_fwd_reference`, `relpos_bwd_dq_reference`,
-`relpos_bwd_dkpv_reference`); CUDA tensors always launch the kernels and
-raise on what they do not take.  `LAUNCHES` counts the kernel launches.
+`relpos_bwd_dkpv_reference`, `flash_fwd_reference`); CUDA tensors always
+launch the kernels and raise on what they do not take.  `LAUNCHES` counts
+the kernel launches.
 """
 
 import ctypes
@@ -44,7 +49,8 @@ NEG_INF = -1.0e30
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 SOURCES = {'relpos_attention': CSRC / 'relpos_attention.cu',
-           'relpos_attention_bwd': CSRC / 'relpos_attention_bwd.cu'}
+           'relpos_attention_bwd': CSRC / 'relpos_attention_bwd.cu',
+           'flash_attention': CSRC / 'flash_attention.cu'}
 HEADERS = (CSRC / 'dropout_hash.cuh', CSRC / 'relpos_common.cuh')
 BUILD_DIR = _PKG / 'build'
 _HEAD_DIMS = (32, 64, 128)
@@ -54,7 +60,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 # kernel launches on CUDA tensors, by kernel (the CPU path does not count)
 LAUNCHES = {'relpos_attention_fwd': 0, 'relpos_attention_fwd_train': 0,
-            'relpos_attention_bwd_dq': 0, 'relpos_attention_bwd_dkpv': 0}
+            'relpos_attention_bwd_dq': 0, 'relpos_attention_bwd_dkpv': 0,
+            'flash_attention_fwd': 0}
 
 
 def reset_launches() -> None:
@@ -215,7 +222,7 @@ def _nvcc() -> str:
     path = shutil.which('nvcc') or os.path.join(cuda_home, 'bin', 'nvcc')
     if not os.path.exists(path):
         raise RuntimeError('nvcc not found: set CUDA_HOME or put nvcc on '
-                           'PATH to build the rel-pos attention kernels')
+                           'PATH to build the attention kernels')
     return path
 
 
@@ -236,8 +243,12 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
     bwd.relpos_attention_bwd_dkpv.argtypes = [
         vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, strides, ci, ci, ci,
         ci, ci, ci, cf, ci, cu, cu, cf, vp]
+    flash = libs['flash_attention']
+    flash.flash_attention_fwd.argtypes = [
+        vp, vp, vp, vp, vp, vp, strides, ci, ci, ci, ci, ci, ci, cf, vp]
     for fn in (fwd.relpos_attention_fwd, fwd.relpos_attention_fwd_train,
-               bwd.relpos_attention_bwd_dq, bwd.relpos_attention_bwd_dkpv):
+               bwd.relpos_attention_bwd_dq, bwd.relpos_attention_bwd_dkpv,
+               flash.flash_attention_fwd):
         fn.restype = ci
 
 
@@ -428,7 +439,7 @@ def _bwd_cuda(which, q1, q2, k, p, v, m, do, lse, delta, scale, rate, seed):
 
 def _device_kind(t: torch.Tensor) -> str:
     if t.device.type not in ('cpu', 'cuda'):
-        raise ValueError(f'no rel-pos attention for device {t.device}')
+        raise ValueError(f'no attention kernel for device {t.device}')
     return t.device.type
 
 
@@ -521,3 +532,124 @@ def flash_attention_relpos(q1, q2, k, p, v,
                                      dropout_rate, dropout_seed)
     return relpos_fwd(q1, q2, k, p, v, mask, scale, False, dropout_rate,
                       dropout_seed)[0]
+
+
+# ---------------------------------------------------------------------------
+# K4: masked flash attention forward (mask + pre-scale bias)
+# ---------------------------------------------------------------------------
+def _mask_bias4(q, mask, bias):
+    """mask -> bool (B|1, 1|h, 1|T1, T2), bias -> (B|1, 1|h, 1|T1, T2);
+    3-d inputs (B|1, T1|1, T2) get the head dim, as `_fwd_call` does."""
+    if mask is not None and mask.dim() == 3:
+        mask = mask.unsqueeze(1)
+    if bias is not None and bias.dim() == 3:
+        bias = bias.unsqueeze(1)
+    return mask, bias
+
+
+def flash_fwd_reference(q, k, v, mask=None, bias=None, scale=1.0
+                        ) -> torch.Tensor:
+    """Plain version of K4 (mirrors `_fwd_kernel`'s arithmetic).
+
+    q: (B, h, T1, d); k, v: (B, h, T2, d); mask: bool broadcastable to
+    (B, h|1, T1|1, T2), True == attend; bias: additive, broadcastable to
+    (B, h|1, T1, T2), added before the scale.  Scores, softmax and the
+    last product are fp32; probabilities are zeroed where
+    s <= NEG_INF / 2, so a fully masked row gives 0.  Output in v's
+    dtype."""
+    mask, bias = _mask_bias4(q, mask, bias)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if bias is not None:
+        s = s + bias.float()
+    s = s * scale
+    if mask is not None:
+        s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(s <= NEG_INF * 0.5, 0.0, torch.exp(s - m))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p, v.float()) / torch.where(l > 0, l, 1.0)
+    return torch.where(l > 0, out, 0.0).to(v.dtype)
+
+
+def _flash_check(q, k, v, mask, bias):
+    B, H, T1, D = q.shape
+    T2 = k.shape[2]
+    dev = q.device
+    for name, t in (('k', k), ('v', v)):
+        if tuple(t.shape) != (B, H, T2, D):
+            raise ValueError(f'{name} has shape {tuple(t.shape)}, '
+                             f'expected {(B, H, T2, D)}')
+    if D not in _HEAD_DIMS:
+        raise ValueError(f'head dim {D} not in {_HEAD_DIMS}')
+    if q.dtype not in _DTYPES:
+        raise ValueError(f'dtype {q.dtype} not supported')
+    for name, t in (('q', q), ('k', k), ('v', v)):
+        if t.device != dev or t.dtype != q.dtype:
+            raise ValueError(f'{name} is {t.dtype} on {t.device}, expected '
+                             f'{q.dtype} on {dev}')
+        if t.stride(-1) != 1:
+            raise ValueError(f'{name} must be unit-stride in its last dim')
+    if B * H > 65535:
+        raise ValueError(f'B*h = {B * H} exceeds the grid limit')
+    for name, t, dtypes, rows in (('mask', mask, (torch.bool,), (1, T1)),
+                                  ('bias', bias, tuple(_DTYPES), (1, T1))):
+        if t is None:
+            continue
+        if (t.dtype not in dtypes or t.device != dev or t.dim() != 4
+                or t.shape[0] not in (1, B) or t.shape[1] not in (1, H)
+                or t.shape[2] not in rows or t.shape[3] != T2):
+            raise ValueError(f'{name} {t.dtype} {tuple(t.shape)} on '
+                             f'{t.device} does not broadcast to '
+                             f'({B}, {H}, {T1}, {T2}) on {dev}')
+
+
+def _bcast_strides(t):
+    """(batch, head, row, column) element strides, 0 on broadcast dims."""
+    if t is None:
+        return [0, 0, 0, 0]
+    return [0 if t.shape[i] == 1 else t.stride(i) for i in range(4)]
+
+
+def _flash_cuda(q, k, v, mask, bias, scale):
+    _flash_check(q, k, v, mask, bias)
+    B, H, T1, D = q.shape
+    T2 = k.shape[2]
+    out = _like_heads(q, v.dtype)
+    if out.numel() == 0:
+        return out
+    if T2 == 0:
+        return out.zero_()
+    if bias is not None:
+        bias = bias.float()  # the bias's own shape: no broadcast copied
+    strides = (_bht_strides(q) + _bht_strides(k) + _bht_strides(v) +
+               _bht_strides(out) + _bcast_strides(mask) +
+               _bcast_strides(bias))
+    c_strides = (ctypes.c_longlong * len(strides))(*strides)
+    lib = build()['flash_attention']
+    _run('flash_attention_fwd', lib.flash_attention_fwd, q.data_ptr(),
+         k.data_ptr(), v.data_ptr(),
+         None if mask is None else mask.data_ptr(),
+         None if bias is None else bias.data_ptr(), out.data_ptr(),
+         c_strides, B, H, T1, T2, D, _DTYPES[q.dtype], float(scale),
+         device=q.device)
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None,
+                    bias: Optional[torch.Tensor] = None,
+                    scale: float = 1.0) -> torch.Tensor:
+    """softmax((q·kᵀ + bias)·scale, masked) · v: K4 on CUDA tensors, its
+    plain version on CPU tensors.
+
+    Same contract as the JAX `flash_attention`: q (B, h, T1, d); k, v
+    (B, h, T2, d); mask bool (B|1, T1|1, T2) or (B|1, h|1, T1|1, T2),
+    True == attend; bias (B|1, T1, T2) or (B|1, h|1, T1|1, T2), added
+    before the scale.  A fully masked row gives 0.  CUDA tensors must be
+    float32 or bfloat16 with d in 32/64/128 and a unit-stride last dim
+    (strided (B, T, h, d) views are read in place); the kernel is
+    forward only, and the output has no gradient."""
+    mask, bias = _mask_bias4(q, mask, bias)
+    if _device_kind(q) == 'cpu':
+        return flash_fwd_reference(q, k, v, mask, bias, scale)
+    return _flash_cuda(q, k, v, mask, bias, scale)

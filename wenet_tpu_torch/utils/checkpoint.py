@@ -52,6 +52,9 @@ def torch_key(path: Tuple[str, ...]) -> str:
         elif seg == 'embed' and i > 0 and segs[i - 1] in (
                 'decoder', 'left_decoder', 'right_decoder'):
             out += ['embed', '0']  # nn.Embedding inside the Sequential
+        elif seg == 'pos_enc' and i > 0 and segs[i - 1] in (
+                'decoder', 'left_decoder', 'right_decoder'):
+            out += ['embed', '1']  # the learnable PE inside it (`pe`)
         else:
             out.append(seg)
     leaf = segs[-1]

@@ -1,6 +1,7 @@
-"""Config-driven model construction.  Counterpart of the `asr_model`
-entry of wenet_tpu/utils/init_model.py: a conformer encoder, a
-(bi)transformer decoder and a CTC head, from the same train.yaml schema.
+"""Config-driven model construction.  Counterpart of the `asr_model` and
+`whisper` entries of wenet_tpu/utils/init_model.py: a conformer or
+whisper-style transformer encoder, a (bi)transformer decoder and a CTC
+head, from the same train.yaml schema.
 
 `gradient_checkpointing` (activation recomputation, which trades memory
 and changes no result) and `use_sdpa` are accepted and ignored.  Options
@@ -21,11 +22,20 @@ from wenet_tpu_torch.models.transformer.attention import (
 from wenet_tpu_torch.models.transformer.cmvn import GlobalCMVN
 from wenet_tpu_torch.models.transformer.ctc import CTC
 from wenet_tpu_torch.models.transformer.decoder import (BiTransformerDecoder,
-                                                        TransformerDecoder)
-from wenet_tpu_torch.models.transformer.encoder import ConformerEncoder
+                                                        TransformerDecoder,
+                                                        _OutputBias)
+from wenet_tpu_torch.models.transformer.embedding import (
+    LearnablePositionalEncoding)
+from wenet_tpu_torch.models.transformer.encoder import (ConformerEncoder,
+                                                        TransformerEncoder)
+from wenet_tpu_torch.models.whisper.convert import default_special_tokens
+from wenet_tpu_torch.models.whisper.whisper import Whisper
 
+ENCODER_CLASSES = {'conformer': ConformerEncoder,
+                   'transformer': TransformerEncoder}
 DECODER_CLASSES = {'transformer': TransformerDecoder,
                    'bitransformer': BiTransformerDecoder}
+MODEL_CLASSES = {'asr_model': ASRModel, 'whisper': Whisper}
 # accepted and ignored (remat is not ported; it changes no result)
 _IGNORED = {'gradient_checkpointing', 'use_sdpa'}
 _ENCODER_FIXED = {'input_layer': 'conv2d', 'pos_enc_layer_type': 'rel_pos',
@@ -34,8 +44,16 @@ _ENCODER_FIXED = {'input_layer': 'conv2d', 'pos_enc_layer_type': 'rel_pos',
                   'macaron_style': True, 'use_cnn_module': True,
                   'final_norm': True, 'static_chunk_size': 0,
                   'cmvn_norm_var': True}
-_DECODER_FIXED = {'input_layer': 'embed', 'activation_type': 'relu',
-                  'normalize_before': True}
+_ENCODER_FIXED_BY_TYPE = {
+    'conformer': _ENCODER_FIXED,
+    'transformer': {'input_layer': 'conv1d2',
+                    'pos_enc_layer_type': 'abs_pos_whisper',
+                    'selfattention_layer_type': 'selfattn',
+                    'normalize_before': True, 'final_norm': True,
+                    'cmvn_norm_var': True},
+}
+_DECODER_FIXED = {'normalize_before': True, 'use_output_layer': True,
+                  'src_attention': True}
 
 
 def _params(fn) -> set:
@@ -57,17 +75,25 @@ def _conf(conf: dict, accepted: set, what: str, fixed=None) -> dict:
     return out
 
 
-def init_model(configs: dict,
-               generator: Optional[torch.Generator] = None) -> ASRModel:
-    """Build the model on the CPU from a wenet-style config (with
-    `input_dim` and `output_dim` set), weights drawn from `generator`.
+def init_model(configs: dict, generator: Optional[torch.Generator] = None,
+               device='cpu') -> ASRModel:
+    """Build the model from a wenet-style config (with `input_dim` and
+    `output_dim` set) on `device`, weights drawn from `generator` (a
+    generator of that device).  device='meta' builds the shapes only,
+    with no storage and no weights drawn.
 
     Load trained or converted weights with `load_state_dict`; set the
     cmvn buffers (`encoder.global_cmvn.mean` / `istd`) from the stats."""
-    for key, ported in (('encoder', 'conformer'), ('ctc', 'ctc'),
-                        ('model', 'asr_model')):
-        if configs.get(key, ported) != ported:
-            raise NotImplementedError(f'{key}={configs[key]!r} is not ported')
+    encoder_type = configs.get('encoder', 'conformer')
+    model_type = configs.get('model', 'asr_model')
+    for key, value, ported in (('encoder', encoder_type, ENCODER_CLASSES),
+                               ('ctc', configs.get('ctc', 'ctc'), ('ctc',)),
+                               ('model', model_type, MODEL_CLASSES)):
+        if value not in ported:
+            raise NotImplementedError(f'{key}={value!r} is not ported')
+    if configs.get('lora_conf', {}).get('use_lora', False):
+        raise NotImplementedError('LoRA (lora_conf.use_lora) is not ported')
+    enc_cls = ENCODER_CLASSES[encoder_type]
     vocab_size = configs['output_dim']
     decoder_type = configs.get('decoder', 'bitransformer')
     if decoder_type not in DECODER_CLASSES:
@@ -79,32 +105,36 @@ def init_model(configs: dict,
     dec_conf = _conf(configs.get('decoder_conf', {}), dec_params, 'decoder',
                      _DECODER_FIXED)
 
+    special_tokens = configs.get('tokenizer_conf', {}).get('special_tokens')
+    if special_tokens is None and model_type == 'whisper':
+        special_tokens = default_special_tokens(vocab_size)
+
     with torch.device('meta'):
-        encoder = ConformerEncoder(
+        encoder = enc_cls(
             configs['input_dim'],
             use_cmvn=configs.get('cmvn') == 'global_cmvn',
-            **_conf(configs['encoder_conf'],
-                    _params(ConformerEncoder.__init__), 'encoder',
-                    _ENCODER_FIXED))
+            **_conf(configs['encoder_conf'], _params(enc_cls.__init__),
+                    'encoder', _ENCODER_FIXED_BY_TYPE[encoder_type]))
         decoder = dec_cls(vocab_size, encoder.output_size(), **dec_conf)
         ctc = CTC(vocab_size, encoder.output_size(),
                   configs.get('ctc_conf', {}).get('ctc_blank_id', 0))
-        model = ASRModel(
+        model = MODEL_CLASSES[model_type](
             vocab_size, encoder, decoder, ctc,
-            special_tokens=configs.get('tokenizer_conf',
-                                       {}).get('special_tokens'),
+            special_tokens=special_tokens,
             **_conf(configs.get('model_conf', {}),
                     _params(ASRModel.__init__), 'model'))
-    model.to_empty(device='cpu')
-    init_weights(model, generator)
+    if torch.device(device).type != 'meta':
+        model.to_empty(device=device)
+        init_weights(model, generator)
     return model
 
 
 def init_weights(model: nn.Module,
                  generator: Optional[torch.Generator] = None) -> None:
     """Fill every parameter and buffer: fan-in uniform for Linear/Conv,
-    N(0, 1) embeddings, Xavier-uniform rel-pos biases, identity norms and
-    cmvn.  Raises if a tensor is left unset."""
+    N(0, 1) embeddings, N(0, 0.02) learnable positions, zero tied-output
+    biases, Xavier-uniform rel-pos biases, identity norms and cmvn.
+    Raises if a tensor is left unset."""
     done = set()
 
     def fill(t, fn):
@@ -133,6 +163,10 @@ def init_weights(model: nn.Module,
         elif isinstance(m, GlobalCMVN):
             fill(m.mean, nn.init.zeros_)
             fill(m.istd, nn.init.ones_)
+        elif isinstance(m, LearnablePositionalEncoding):
+            fill(m.pe, lambda t: t.normal_(0.0, 0.02, generator=generator))
+        elif isinstance(m, _OutputBias):
+            fill(m.bias, nn.init.zeros_)
         elif isinstance(m, RelPositionMultiHeadedAttention):
             h, d = m.pos_bias_u.shape
             for t in (m.pos_bias_u, m.pos_bias_v):

@@ -88,3 +88,18 @@ def add_optional_chunk_mask(masks: torch.Tensor, use_dynamic_chunk: bool,
     if chunk >= L and left < 0:
         return masks
     return masks & subsequent_chunk_mask(L, chunk, left, masks.device)[None]
+
+
+def mask_finished_scores(score: torch.Tensor,
+                         flag: torch.Tensor) -> torch.Tensor:
+    """For finished beams keep only branch 0 alive, at score 0.
+    score: (R, N) top-k log-probs; flag: (R, 1) finished."""
+    col = torch.arange(score.shape[-1], device=score.device)[None, :]
+    score = score.masked_fill(flag & (col > 0), -float('inf'))
+    return score.masked_fill(flag & (col == 0), 0.0)
+
+
+def mask_finished_preds(pred: torch.Tensor, flag: torch.Tensor,
+                        eos: int) -> torch.Tensor:
+    """Finished beams only emit <eos>."""
+    return pred.masked_fill(flag, eos)
