@@ -5,9 +5,10 @@
 Phases, each of which raises on failure (non-zero exit):
   1. device   needs CUDA; prints the card's name and power limit; TF32 off
   2. build    compiles the attention kernels (K1 forward, K2 and K3
-              backward, K4 masked forward; nvcc, sm_90a, one process per
-              source, all started together) and the port's C++ CTC
-              prefix-beam searcher (g++) from the checkout's sources
+              backward, K4 masked forward, K5 and K6 its backward; nvcc,
+              sm_90a, one process per source, all started together) and
+              the port's C++ CTC prefix-beam searcher (g++) from the
+              checkout's sources
   3. kernel   K1 (inference) against its plain PyTorch version, fp32 and
               bf16, at the encoder's shapes; prints both times (CUDA events),
               the card's bound and the SDPA call's time
@@ -42,6 +43,23 @@ Phases, each of which raises on failure (non-zero exit):
               bf16: AsrRunner.decode end to end (audio-sec/s) with the
               encoder's share, peak memory, device-busy share, profiler
               table
+  8a. K4-train, K5, K6: masked flash attention with lse and its backward
+              through the FlashAttention Function against dense autograd
+              of the plain version, fp32 and bf16, at whisper's train
+              shapes, ragged edges, mask + bias (dbias of three bias
+              shapes), a fully masked row and d=128; kernel, plain, SDPA
+              forward / backward and bound
+  8b. whisper large-v3 LoRA train step (examples/aishell/whisper/conf/
+              finetune_whisper_largev3.yaml, full width, 4 + 4 layers):
+              one step with the yaml's AdamW on the card against the CPU,
+              eight micro-steps through Executor.train (accum_grad 8; one
+              launch of K4-train, K5 and K6 per encoder layer and
+              micro-step), a checkpoint round trip, and twenty steps on one
+              batch that must lower the loss
+  8c. whisper train speed (informational): 32 + 32 layers, B=2 x 30 s,
+              eight micro-steps (one AdamW update) through Executor.train,
+              fp32 then bf16 autocast: ms per micro-step, audio-sec/s,
+              stage times, peak memory, device-busy share, profiler table
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX
 package (wenet_tpu), and checks so at the end.
@@ -306,7 +324,8 @@ def flagship_configs(dropout=True):
 def flagship_model(configs=None):
     from wenet_tpu_torch.utils.init_model import init_model
     configs = configs or flagship_configs()
-    model = init_model(configs, torch.Generator().manual_seed(SEED))
+    model = init_model(configs, torch.Generator().manual_seed(SEED),
+                       device='cpu')
     rng = np.random.RandomState(SEED)
     cmvn = model.encoder.global_cmvn
     cmvn.mean.copy_(torch.from_numpy(rng.randn(80).astype(np.float32)))
@@ -692,7 +711,7 @@ def train_check():
         print(f'  step {i + 1}: loss {m["loss"]:.4f} ctc {m["loss_ctc"]:.4f} '
               f'att {m["loss_att"]:.4f} acc {m["th_accuracy"]:.4f} '
               f'grad_norm {m["grad_norm"]:.4f} lr {m["lr"]:.3g}; launches '
-              + ' '.join(f'{k[17:]}={v}' for k, v in launches.items()))
+              + ' '.join(f'{k[17:]}={launches[k]}' for k in TRAIN_KERNELS))
         for name in TRAIN_KERNELS:
             if launches[name] != n_blocks:
                 raise RuntimeError(f'step {i + 1}: {name} ran '
@@ -821,7 +840,8 @@ def train_speed(smi):
 def flash_inputs(rng, B, h, T1, T2, d, mask_kind, use_bias, dtype):
     """q, k, v as (B, h, T, d) views of (B, T, h, d) buffers, as the
     attention module hands them; the mask (B, 1, 1|T1, T2) bool; the bias
-    (1, h, T1, T2) fp32."""
+    fp32, (1, h, T1, T2) when `use_bias` is True, else of the shape it
+    gives (or None)."""
     def t(*shape):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
     q, k, v = (t(B, T, h, d).transpose(1, 2).to(dtype)
@@ -838,7 +858,9 @@ def flash_inputs(rng, B, h, T1, T2, d, mask_kind, use_bias, dtype):
                 & pad[:, None, :])[:, None]
         if mask_kind == 'masked_row':
             mask[0, 0, 5] = False
-    bias = t(1, h, T1, T2) * 0.5 if use_bias else None
+    if use_bias is True:
+        use_bias = (1, h, T1, T2)
+    bias = t(*use_bias) * 0.5 if use_bias else None
     return q, k, v, mask, bias
 
 
@@ -893,8 +915,8 @@ def flash_kernel_check():
             scale = 1.0 / d ** 0.5
             got = fa.flash_attention(q, k, v, mask, bias, scale)
             torch.cuda.synchronize()
-            want = fa.flash_fwd_reference(q.float(), k.float(), v.float(),
-                                          mask, bias, scale)
+            want, _ = fa.flash_fwd_reference(q.float(), k.float(),
+                                             v.float(), mask, bias, scale)
             err = (got.float() - want).abs().max().item()
             tol = FLASH_TOL[dtype]
             # the largest share of its bar an element's error takes
@@ -975,19 +997,19 @@ def mel_features(rng, B, T, min_len):
     return feats, lens
 
 
-def shape_decoder_weights(model, generator):
+def shape_decoder_weights(model, generator, logit_std=7.0):
     """Random tied N(0, 1) token embeddings make every step repeat its
     input token, and a random decoder falls into a fixed point where eot
     either always or never wins.  Redraw the embeddings at N(0, 0.02),
     the learned positions at N(0, 1) (so each step's state moves with its
-    position) and raise the final norm's gain so that the output keeps a
-    standard deviation of about 7 logits."""
+    position) and set the final norm's gain so that the output keeps a
+    standard deviation of about `logit_std` logits."""
     dec = model.decoder
     d = dec.embed[0].weight.shape[1]
     with torch.no_grad():
         dec.embed[0].weight.normal_(0.0, 0.02, generator=generator)
         dec.embed[1].pe.normal_(0.0, 1.0, generator=generator)
-        dec.after_norm.weight.fill_(7.0 / (0.02 * d ** 0.5))
+        dec.after_norm.weight.fill_(logit_std / (0.02 * d ** 0.5))
 
 
 def set_eot_bias(model, value):
@@ -1067,7 +1089,7 @@ def whisper_check():
     from wenet_tpu_torch.utils.init_model import init_model
     configs = whisper_configs(4)
     gen = torch.Generator().manual_seed(SEED)
-    model = init_model(configs, gen)
+    model = init_model(configs, gen, device='cpu')
     shape_decoder_weights(model, gen)
     cpu_model = copy.deepcopy(model)
     runner = AsrRunner(model, 'cuda')
@@ -1204,6 +1226,547 @@ def whisper_speed(smi):
         del runner.model.decoder_forward_step, runner.model.forward_encoder
 
 
+# ---------------------------------------------------------------------------
+# 8. the whisper LoRA train slice
+# ---------------------------------------------------------------------------
+FLASH_TRAIN_KERNELS = {  # name: (source, TPU kernel it replaces)
+    'flash_attention_fwd_train': ('wenet_tpu_torch/csrc/flash_attention.cu',
+                                  'wenet_tpu/ops/flash_attention.py:68'),
+    'flash_attention_bwd_dq': ('wenet_tpu_torch/csrc/flash_attention_bwd.cu',
+                               'wenet_tpu/ops/flash_attention.py:237'),
+    'flash_attention_bwd_dkv': ('wenet_tpu_torch/csrc/flash_attention_bwd.cu',
+                                'wenet_tpu/ops/flash_attention.py:288'),
+}
+FLASH_TRAIN_SHAPES = [  # B, h, T1, T2, d, mask, bias shape
+    (2, 20, 1500, 1500, 64, 'pad', None),   # the train step's encoder, 2 x 30 s
+    (4, 20, 1000, 1000, 64, 'pad', None),   # four 20 s utterances
+    (2, 4, 37, 53, 64, None, None),          # ragged edges, no mask
+    (1, 2, 130, 257, 32, 'rows', (1, 2, 130, 257)),  # rows mask + bias
+    (2, 2, 130, 257, 32, 'rows', (2, 2, 130, 257)),  # dbias per (b, h)
+    (2, 2, 130, 257, 32, 'rows', (1, 2, 130, 257)),  # summed over the batch
+    (2, 2, 130, 257, 32, 'rows', (2, 130, 257)),     # summed over the heads
+    (2, 4, 64, 64, 64, 'masked_row', None),  # one fully masked row
+    (2, 4, 600, 600, 128, 'pad', None),      # d = 128
+]
+FINETUNE_CONFIG = os.path.join(REPO, 'examples/aishell/whisper/conf/'
+                               'finetune_whisper_largev3.yaml')
+WHISPER_TRAIN_LR = 2e-4  # 8b's twenty steps on one batch, no warmup
+
+
+def flash_train_kernel_check():
+    phase('8a K4-train, K5, K6 (masked flash attention backward) vs plain')
+    from wenet_tpu_torch.ops import flash_attention as fa
+    rng = np.random.RandomState(SEED + 9)
+    errs = {name: 0.0 for name in FLASH_TRAIN_KERNELS}
+    report = None
+    for B, h, T1, T2, d, mask_kind, bias_shape in FLASH_TRAIN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, mask, bias = flash_inputs(rng, B, h, T1, T2, d,
+                                               mask_kind, bias_shape, dtype)
+            do = torch.from_numpy(
+                rng.randn(B, h, T1, d).astype(np.float32)).cuda().to(dtype)
+            scale = 1.0 / d ** 0.5
+            # the kernels: K4-train in the Function's forward, K5 and K6
+            # in its backward (dbias summed over the broadcast dims)
+            leaves = [t.detach().requires_grad_()
+                      for t in (q, k, v, bias) if t is not None]
+            out = fa.flash_attention(*leaves[:3], mask,
+                                     leaves[3] if bias is not None else None,
+                                     scale)
+            out.backward(do)
+            _, lse = fa.flash_fwd(q, k, v, mask, bias, scale, True)
+            torch.cuda.synchronize()
+            # the plain version: dense autograd in fp32 on the same inputs
+            ref = [t.detach().float().requires_grad_() for t in leaves]
+            want, want_lse = fa.flash_fwd_reference(
+                *ref[:3], mask, ref[3] if bias is not None else None, scale,
+                True)
+            want.backward(do.float())
+            grads = [t.grad for t in leaves]
+            want_grads = [t.grad for t in ref]
+            pairs = {
+                'flash_attention_fwd_train': [(out, want), (lse, want_lse)],
+                'flash_attention_bwd_dq': [(grads[0], want_grads[0])] + (
+                    [(grads[3], want_grads[3])] if bias is not None else []),
+                'flash_attention_bwd_dkv': list(zip(grads[1:3],
+                                                    want_grads[1:3])),
+            }
+            line = []
+            for name, checks in pairs.items():
+                err = 0.0
+                for got, w in checks:
+                    if not torch.isfinite(got).all():
+                        raise RuntimeError(f'{name}: output is not finite')
+                    torch.testing.assert_close(got.float(), w.float(),
+                                               **TRAIN_TOL[dtype], msg=name)
+                    err = max(err, (got.float() - w.float()).abs().max()
+                              .item())
+                if dtype == torch.float32:
+                    errs[name] = max(errs[name], err)
+                line.append(f'{name[16:]} {err:.3g}')
+            if mask_kind == 'masked_row' and (
+                    out[0, :, 5].any() or grads[0][0, :, 5].any()
+                    or not lse[0, :, 5].eq(fa.NEG_INF).all()):
+                raise RuntimeError('fully masked row: output or dq not zero, '
+                                   'or lse not NEG_INF')
+            # CUDA-event times of each kernel and of its plain version on
+            # the same lse and delta
+            delta = (do.float() * want.detach()).sum(-1)
+            args = (mask, bias, do, want_lse.detach(), delta, scale)
+            t = {
+                'flash_attention_fwd_train': (
+                    cuda_time_ms(lambda: fa.flash_fwd(
+                        q, k, v, mask, bias, scale, True)),
+                    cuda_time_ms(lambda: fa.flash_fwd_reference(
+                        q, k, v, mask, bias, scale, True))),
+                'flash_attention_bwd_dq': (
+                    cuda_time_ms(lambda: fa.flash_bwd_dq(q, k, v, *args)),
+                    cuda_time_ms(lambda: fa.flash_bwd_dq_reference(
+                        q, k, v, *args))),
+                'flash_attention_bwd_dkv': (
+                    cuda_time_ms(lambda: fa.flash_bwd_dkv(q, k, v, *args)),
+                    cuda_time_ms(lambda: fa.flash_bwd_dkv_reference(
+                        q, k, v, *args))),
+            }
+            n_pairs = attended_pairs(mask, B, h, T1, T2)
+            common = nbytes(q, k, v, mask, bias, do, want_lse, delta)
+            bounds = {  # 2, 3 and 4 products of 2*d FLOPs per pair
+                'flash_attention_fwd_train': bound(
+                    4 * d * n_pairs, nbytes(q, k, v, mask, bias, out, lse),
+                    dtype),
+                'flash_attention_bwd_dq': bound(
+                    6 * d * n_pairs, common + nbytes(grads[0]) + (
+                        4 * B * h * T1 * T2 if bias is not None else 0),
+                    dtype),
+                'flash_attention_bwd_dkv': bound(
+                    8 * d * n_pairs, common + nbytes(*grads[1:3]), dtype),
+            }
+            sdpa = None
+            if bias is None and mask_kind in ('pad', None):
+                sdpa = flash_sdpa_train(q, k, v, mask, scale, do, out,
+                                        grads[:3])
+            print(f'  ({B},{h},{T1},{T2},{d}) mask={mask_kind} '
+                  f'bias={bias_shape} {str(dtype)[6:]}: max_abs_err '
+                  + ', '.join(line), flush=True)
+            print('    kernel / plain / bound ms: ' + ', '.join(
+                f'{n[16:]} {a:.4f} / {b:.4f} / {bounds[n][0]:.4f} '
+                f'({bounds[n][1]})' for n, (a, b) in t.items())
+                + ('' if sdpa is None else
+                   f'; SDPA forward {sdpa[0]:.4f}, backward (dq, dk, dv '
+                   f'together) {sdpa[1]:.4f}'), flush=True)
+            if report is None:  # the first shape in fp32 is the main path's
+                report = {n: dict(ms=t[n][0], plain_ms=t[n][1],
+                                  bound_ms=bounds[n][0],
+                                  bound_by=bounds[n][1],
+                                  library_ms=sdpa[0 if n.endswith('train')
+                                                  else 1])
+                          for n in FLASH_TRAIN_KERNELS}
+                print(f'    main shape: {n_pairs / 1e6:.1f}M attended pairs; '
+                      f'{4 * d * n_pairs / t["flash_attention_fwd_train"][0] / 1e9:.1f} / '
+                      f'{6 * d * n_pairs / t["flash_attention_bwd_dq"][0] / 1e9:.1f} / '
+                      f'{8 * d * n_pairs / t["flash_attention_bwd_dkv"][0] / 1e9:.1f}'
+                      f' TFLOP/s (K4-train / K5 / K6)', flush=True)
+    for name in FLASH_TRAIN_KERNELS:
+        report[name]['max_abs_err'] = errs[name]
+    return report
+
+
+def flash_sdpa_train(q, k, v, mask, scale, do, out, grads):
+    """One `F.scaled_dot_product_attention` forward (inputs requiring
+    grad, so it keeps what its backward needs) and its backward (dq, dk
+    and dv in one call) with the boolean mask: checked against the
+    kernels' outputs and timed (CUDA events) -> (forward ms, backward
+    ms).  The yardstick of K4-train, K5 and K6; the port never calls it."""
+    import torch.nn.functional as F
+    x = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        o = F.scaled_dot_product_attention(*x, attn_mask=mask, scale=scale)
+        g = torch.autograd.grad(o, x, do, retain_graph=True)
+    tol = TRAIN_TOL[q.dtype]
+    torch.testing.assert_close(o.detach().float(), out.detach().float(),
+                               **tol)
+    for got, want in zip(g, grads):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+    def forward():
+        with torch.enable_grad():
+            return F.scaled_dot_product_attention(*x, attn_mask=mask,
+                                                  scale=scale)
+    return (cuda_time_ms(forward),
+            cuda_time_ms(lambda: torch.autograd.grad(o, x, do,
+                                                     retain_graph=True)))
+
+
+def finetune_configs(n_layers):
+    """The whisper large-v3 LoRA finetune yaml (128 mel bins, large-v3's
+    51866 tokens) with `n_layers` encoder and decoder blocks."""
+    import yaml
+    with open(FINETUNE_CONFIG) as f:
+        configs = yaml.safe_load(f)
+    configs['input_dim'], configs['output_dim'] = WHISPER_V3['n_mels'], 51866
+    configs['encoder_conf']['num_blocks'] = n_layers
+    configs['decoder_conf']['num_blocks'] = n_layers
+    return configs
+
+
+def whisper_train_batch(rng, B, frames, min_frames):
+    """A Dataset-format batch: mel-shaped features of `min_frames` to
+    `frames` frames (the first full), text tokens of 16-64 ids below eot,
+    IGNORE_ID padded."""
+    feats, lens = mel_features(rng, B, frames, min_frames)
+    tl = rng.randint(16, 65, size=B)
+    tgt = np.full((B, 64), -1, np.int64)
+    for i, n in enumerate(tl):
+        tgt[i, :n] = rng.randint(0, 50257, size=n)
+    return dict(feats=feats, feats_lengths=lens, target=tgt,
+                target_lengths=tl.astype(np.int64))
+
+
+def whisper_train_model(configs, generator, device):
+    """The finetune model with weights from `generator`: the decoder
+    shaped as in 7b, at a logit spread of 3 (random N(0, 1) tied
+    embeddings give logits of std 36 and gradients near 100, where the
+    card's fp32 gradients sit 3e-5 relative from float64 and so beyond
+    8b's 1e-3 bar; the plain attention path on the card does the same),
+    and lora_B drawn N(0, 0.02) instead of zero, so that the LoRA term
+    and lora_A's gradient are not zero."""
+    from wenet_tpu_torch.utils.init_model import init_model
+    model = init_model(configs, generator, device=device)
+    shape_decoder_weights(model, generator, logit_std=3.0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith('lora_B'):
+                p.normal_(0.0, 0.02, generator=generator)
+    return model
+
+
+def whisper_train_check():
+    phase('8b whisper large-v3 LoRA train step (4 + 4 layers): card vs CPU, '
+          'Executor, checkpoint, loss')
+    import shutil
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.utils.checkpoint import load_checkpoint
+    from wenet_tpu_torch.utils.executor import Executor, to_device_batch
+    from wenet_tpu_torch.utils.init_model import init_model
+    from wenet_tpu_torch.utils.train_utils import (
+        TrainState, init_optimizer_and_scheduler, make_cv_step,
+        make_train_step)
+    configs = finetune_configs(4)
+    n_layers = configs['encoder_conf']['num_blocks']
+    accum, clip = configs['accum_grad'], configs['grad_clip']
+    rng = np.random.RandomState(SEED + 10)
+    model = whisper_train_model(configs, torch.Generator().manual_seed(SEED),
+                                'cpu')
+    n_lora = sum(p.numel() for n, p in model.named_parameters()
+                 if 'lora_' in n)
+    print(f'  {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M '
+          f'parameters, {n_lora} of them LoRA (rank '
+          f'{configs["lora_conf"]["lora_rank"]}, q/k/v/o of the encoder)')
+    cpu_model = copy.deepcopy(model)
+    model.cuda()
+
+    # (1) one train step with the yaml's optimizer (adamw, warmuplr, clip
+    # 5; accum_grad 1 so that it updates) on the card and on the CPU
+    b = whisper_train_batch(rng, 2, 1400, 1200)  # 14 s, 12-14 s: T' 600-700
+    outs = []
+    for m, dev in ((model, 'cuda'), (cpu_model, 'cpu')):
+        opt, schedule = init_optimizer_and_scheduler(configs, m)
+        step = make_train_step(m, opt, schedule, None, 1, clip)
+        fa.reset_launches()
+        _, metrics = step(TrainState(m, opt), to_device_batch(b, dev),
+                          (SEED, 0))
+        outs.append({k: float(v) for k, v in metrics.items()})
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+            for name in FLASH_TRAIN_KERNELS:
+                if fa.LAUNCHES[name] != n_layers:
+                    raise RuntimeError(
+                        f'{name}: {fa.LAUNCHES[name]} launches in one train '
+                        f'step, expected {n_layers}')
+            if fa.LAUNCHES['flash_attention_fwd']:
+                raise RuntimeError('the train step ran the inference K4')
+    for k in ('loss', 'loss_att', 'th_accuracy', 'grad_norm'):
+        a, w = outs[0][k], outs[1][k]
+        print(f'  B=2 x 12-14 s: {k} card {a:.6f} cpu {w:.6f}')
+        if not abs(a - w) <= 1e-4 * abs(w) + 1e-6:
+            raise RuntimeError(f'{k} differs from the CPU beyond rtol 1e-4')
+    worst, cpu_params = 0.0, dict(cpu_model.named_parameters())
+    for name, p in model.named_parameters():
+        want = cpu_params[name]
+        if name.startswith('ctc.'):  # no CTC loss at ctc_weight 0
+            continue
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise RuntimeError(f'{name}: no finite gradient on the card')
+        err = max((p.grad.cpu() - want.grad).abs().max().item(),
+                  (p.detach().cpu() - want.detach()).abs().max().item())
+        worst = max(worst, err)
+        if err > 1e-3:
+            raise RuntimeError(f'{name}: grad or updated weight differs '
+                               f'from the CPU by {err}')
+    print(f'  one launch of each of K4-train, K5, K6 per encoder layer; '
+          f'max |card - cpu| over clipped grads and updated weights = '
+          f'{worst:.3g} (bar 1e-3)')
+    del cpu_model, cpu_params
+
+    # (2) eight micro-steps through Executor.train: one AdamW update
+    opt, schedule = init_optimizer_and_scheduler(configs, model)
+    step_fn = make_train_step(model, opt, schedule, None, accum, clip)
+    per_step = []
+
+    def counted(state, batch, rng_seed):
+        before = dict(fa.LAUNCHES)
+        state, metrics = step_fn(state, batch, rng_seed)
+        per_step.append(({k: fa.LAUNCHES[k] - before[k] for k in before},
+                         {k: float(v) for k, v in metrics.items()}))
+        return state, metrics
+
+    batches = [whisper_train_batch(rng, 2, 1400, 1200) for _ in range(accum)]
+    model_dir = tempfile.mkdtemp(prefix='chip_smoke_whisper_')
+    run_conf = dict(configs, log_interval=accum, save_interval=accum,
+                    epoch=0, seed=SEED)
+    executor = Executor(device='cuda')
+    state = TrainState(model, opt)
+    fa.reset_launches()
+    state = executor.train(counted, state, batches, batches[:1],
+                           make_cv_step(model), None, run_conf,
+                           model_dir=model_dir)
+    torch.cuda.synchronize()
+    main_launches = {name: fa.LAUNCHES[name] for name in FLASH_TRAIN_KERNELS}
+    for i, (launches, m) in enumerate(per_step):
+        print(f'  micro-step {i + 1}: loss {m["loss"]:.4f} acc '
+              f'{m["th_accuracy"]:.4f} grad_norm {m["grad_norm"]:.4f} lr '
+              f'{m["lr"]:.3g}; launches ' + ' '.join(
+                  f'{k[16:]}={launches[k]}' for k in FLASH_TRAIN_KERNELS))
+        for name in FLASH_TRAIN_KERNELS:
+            if launches[name] != n_layers:
+                raise RuntimeError(f'micro-step {i + 1}: {name} ran '
+                                   f'{launches[name]} times, expected '
+                                   f'{n_layers}')
+        if not (np.isfinite(m['loss']) and np.isfinite(m['grad_norm'])):
+            raise RuntimeError(f'micro-step {i + 1}: loss or grad_norm not '
+                               'finite')
+    if executor.step != accum or state.step != accum:
+        raise RuntimeError(f'Executor.train did not run {accum} micro-steps')
+
+    # (3) the checkpoint the executor saved after the update, loaded back
+    fresh = init_model(configs, device='cpu')
+    infos = load_checkpoint(fresh, os.path.join(model_dir,
+                                                f'step_{accum}.pt'))
+    shutil.rmtree(model_dir)
+    lora_keys = [k for k in fresh.state_dict() if 'lora_' in k]
+    for (name, a), w in zip(model.state_dict().items(),
+                            fresh.state_dict().values()):
+        if not torch.equal(a.cpu(), w):
+            raise RuntimeError(f'checkpoint: {name} differs after loading')
+    if len(lora_keys) != 2 * 4 * n_layers:
+        raise RuntimeError(f'checkpoint holds {len(lora_keys)} LoRA tensors')
+    print(f'  checkpoint step_{accum}.pt: strict load, weights equal '
+          f'({len(lora_keys)} LoRA tensors), cv_loss {infos["cv_loss"]:.4f}')
+    del fresh
+
+    # (4) twenty steps on one fixed batch, no warmup, a raised lr
+    fixed = to_device_batch(batches[0], 'cuda')
+    const = make_train_step(model, opt, lambda step: WHISPER_TRAIN_LR, None,
+                            1, clip)
+    losses = []
+    for _ in range(20):
+        state, m = const(state, fixed, (SEED, 1))
+        losses.append(float(m['loss']))
+    end = float(np.mean(losses[-5:]))
+    print(f'  20 steps on one batch, lr {WHISPER_TRAIN_LR:g}: loss '
+          f'{losses[0]:.4f} -> {end:.4f} (mean of the last 5; must be < '
+          f'{LOSS_DROP} x first)')
+    if not np.isfinite(losses).all() or end >= LOSS_DROP * losses[0]:
+        raise RuntimeError('the whisper loss did not fall on a fixed batch')
+    return main_launches
+
+
+def whisper_train_speed(smi):
+    phase('8c whisper large-v3 LoRA train speed (informational)')
+    import gc
+    gc.collect()  # 7c's model
+    torch.cuda.empty_cache()
+    configs = finetune_configs(32)
+    t0 = time.perf_counter()
+    model = whisper_train_model(
+        configs, torch.Generator('cuda').manual_seed(SEED), 'cuda')
+    print(f'  32 + 32 layers built on the card in '
+          f'{time.perf_counter() - t0:.1f} s '
+          f'({sum(p.numel() for p in model.parameters()) / 1e9:.3f}B '
+          f'parameters)')
+    for dtype in (None, torch.bfloat16):
+        name = 'bf16 autocast' if dtype else 'fp32'
+        for B in (2, 1):
+            try:
+                whisper_train_speed_one(model, configs, dtype, B, smi)
+                break
+            except torch.cuda.OutOfMemoryError:
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                print(f'  {name} B={B}: out of memory (peak {peak:.2f} GiB); '
+                      f'{"retrying at B=1" if B == 2 else "giving up"}',
+                      flush=True)
+                torch.cuda.empty_cache()
+                if B == 1:
+                    raise
+
+
+def whisper_train_speed_one(model, configs, dtype, B, smi):
+    """8c at one dtype and batch size."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.utils.executor import Executor, to_device_batch
+    from wenet_tpu_torch.utils.train_utils import (
+        TrainState, apply_gradients, init_optimizer_and_scheduler,
+        make_train_step)
+    name = 'bf16 autocast' if dtype else 'fp32'
+    n_layers = configs['encoder_conf']['num_blocks']
+    accum, clip = configs['accum_grad'], configs['grad_clip']
+    rng = np.random.RandomState(SEED + 11)
+    batches = [whisper_train_batch(rng, B, 3000, 3000) for _ in range(accum)]
+    audio = float(sum(b['feats_lengths'].sum() for b in batches)) / 100
+    opt, schedule = init_optimizer_and_scheduler(configs, model)
+    state = TrainState(model, opt)
+    step = make_train_step(model, opt, schedule, dtype, accum, clip)
+    counts = []
+
+    def counted(state, batch, rng_seed):
+        before = dict(fa.LAUNCHES)
+        out = step(state, batch, rng_seed)
+        counts.append({k: fa.LAUNCHES[k] - before[k]
+                       for k in FLASH_TRAIN_KERNELS})
+        return out
+    run_conf = dict(configs, log_interval=10 ** 9, save_interval=None,
+                    epoch=0, seed=SEED)
+    try:
+        Executor(device='cuda').train(counted, state, batches, [], None,
+                                      None, run_conf)  # warm-up update
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        Executor(device='cuda').train(counted, state, batches, [], None,
+                                      None, run_conf)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / accum
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        bad = [c for c in counts if any(v != n_layers for v in c.values())]
+        if bad or len(counts) != 2 * accum:
+            raise RuntimeError(f'expected {n_layers} launches of each of '
+                               f'K4-train, K5, K6 per micro-step: {bad[:2]}')
+        print(f'  {name} B={B} x 30 s ({audio:.0f} s of audio in '
+              f'{accum} micro-steps, one AdamW update): '
+              f'{dt * 1e3:.1f} ms per micro-step, '
+              f'{B * 30.0 / dt:.1f} audio-sec/s; peak device memory '
+              f'{peak:.2f} GiB; {n_layers} launches of each of K4-train, '
+              f'K5, K6 per micro-step ({smi})', flush=True)
+        # one micro-step stage by stage, each ended by a synchronize, and
+        # the clip + AdamW update over its gradients
+        batch = to_device_batch(batches[0], 'cuda')
+        gen = torch.Generator().manual_seed(SEED)
+        opt.zero_grad(set_to_none=True)
+        stamps = [time.perf_counter()]
+        with torch.autocast('cuda', dtype=dtype, enabled=dtype is not None):
+            out = model(batch['feats'], batch['feats_lengths'],
+                        batch['target'], batch['target_lengths'],
+                        generator=gen)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        out['loss'].backward()
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        apply_gradients(TrainState(model, opt), schedule, clip, 1)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        print('    stages: ' + ', '.join(
+            f'{s} {(t1 - t0) * 1e3:.1f} ms' for s, t0, t1 in zip(
+                ('forward', 'backward', 'clip + AdamW update'), stamps,
+                stamps[1:])) + f' ({smi})', flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, batch, (SEED, 0))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, 'is_user_annotation', False)]
+        total = sum(e.self_device_time_total for e in rows) / 1e3
+        print(f'    kernel time in one profiled micro-step: {total:.2f} ms; '
+              f'{100 * total / (wall * 1e3):.0f}% of its {wall * 1e3:.1f} '
+              f'ms wall, {100 * total / (dt * 1e3):.0f}% of an unprofiled '
+              f'micro-step (device busy; {smi})', flush=True)
+        for label, key in (('K4-train', 'flash_fwd_kernel'),
+                           ('K5', 'flash_bwd_dq_kernel'),
+                           ('K6', 'flash_bwd_dkv_kernel')):
+            ms = sum(e.self_device_time_total for e in rows
+                     if key in e.key) / 1e3
+            print(f'    {label} {key}: {ms:.3f} ms, '
+                  f'{100 * ms / max(total, 1e-9):.1f}% of kernel time')
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
+            ms = e.self_device_time_total / 1e3
+            print(f'    {ms:8.3f} ms {100 * ms / max(total, 1e-9):5.1f}% '
+                  f'x{e.count:<5d} {e.key[:80]}')
+    finally:
+        opt.zero_grad(set_to_none=True)
+        state.acc_grads = None
+        del opt, state
+        torch.cuda.empty_cache()
+
+
+def grad_precision(smi):
+    """On demand, not run by `main` (python3 -c "import chip_smoke as c;
+    smi = c.device(); c.build(); c.grad_precision(smi)"): 8b's one train
+    step forward + backward at 4 + 4 layers on the card, with the flash
+    kernels and with the gate closed (the plain path), and on the CPU in
+    fp32 and float64, for the weights 8b uses and for init_model's own;
+    prints the global gradient norms and the worst |grad - float64| per
+    run.  It locates the card's gradient error (kernels or the rest)."""
+    phase('x whisper gradient precision: card, card plain path, CPU fp32 '
+          'vs CPU float64')
+    from wenet_tpu_torch.models.transformer import attention as A
+    from wenet_tpu_torch.utils.executor import to_device_batch
+    from wenet_tpu_torch.utils.init_model import init_model
+    configs = finetune_configs(4)
+    b = whisper_train_batch(np.random.RandomState(SEED + 10), 2, 1400, 1200)
+
+    def grads(model, dev, dtype=torch.float32):
+        model.to(dev, dtype).train()
+        tb = to_device_batch(b, dev)
+        tb['feats'] = tb['feats'].to(dtype)
+        out = model(tb['feats'], tb['feats_lengths'], tb['target'],
+                    tb['target_lengths'])
+        out['loss'].backward()
+        return {n: p.grad.detach().double().cpu()
+                for n, p in model.named_parameters() if p.grad is not None}
+
+    for label in ('8b weights', 'init_model weights'):
+        gen = torch.Generator().manual_seed(SEED)
+        model = (whisper_train_model(configs, gen, 'cpu')
+                 if label == '8b weights' else
+                 init_model(configs, gen, device='cpu'))
+        runs = {'cpu float64': grads(copy.deepcopy(model), 'cpu',
+                                     torch.float64),
+                'cpu fp32': grads(copy.deepcopy(model), 'cpu'),
+                'card': grads(copy.deepcopy(model), 'cuda')}
+        saved = dict(A.FLASH_GATE)
+        A.FLASH_GATE.update(min_len=1 << 40, score_elems=1 << 62)
+        try:
+            runs['card, plain attention'] = grads(copy.deepcopy(model),
+                                                  'cuda')
+        finally:
+            A.FLASH_GATE.update(saved)
+        ref = runs['cpu float64']
+        print(f'  {label}: max |grad| {max(g.abs().max().item() for g in ref.values()):.4g} ({smi})')
+        for name, g in runs.items():
+            norm = torch.stack([t.square().sum() for t in g.values()]).sum(
+                ).sqrt().item()
+            worst = sorted(((g[n] - ref[n]).abs().max().item(),
+                            ref[n].abs().max().item(), n) for n in ref)[-3:]
+            print(f'    {name}: grad norm {norm:.6f}; worst |grad - '
+                  f'float64| (max |grad| of the tensor): ' + ', '.join(
+                      f'{e:.3g} ({m:.3g}) {n}' for e, m, n in worst[::-1]))
+
+
 def main():
     smi = device()
     build()
@@ -1219,6 +1782,9 @@ def main():
     flash_report = flash_kernel_check()
     flash_launches = whisper_check()
     whisper_speed(smi)
+    flash_train_report = flash_train_kernel_check()
+    flash_train_launches = whisper_train_check()
+    whisper_train_speed(smi)
     foreign = [m for m in sys.modules
                if m == 'jax' or m.startswith('jax.') or m == 'wenet_tpu'
                or m.startswith('wenet_tpu.')]
@@ -1238,6 +1804,11 @@ def main():
                         source='wenet_tpu_torch/csrc/flash_attention.cu',
                         replaces='wenet_tpu/ops/flash_attention.py:68',
                         launches=flash_launches, **flash_report))
+    for name, (source, replaces) in FLASH_TRAIN_KERNELS.items():
+        kernels.append(dict(name=name, route='cuda', source=source,
+                            replaces=replaces,
+                            launches=flash_train_launches[name],
+                            **flash_train_report[name]))
     print(f'== done (at {time.perf_counter() - _T0:.0f} s)')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

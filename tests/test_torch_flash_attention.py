@@ -71,7 +71,7 @@ def test_reference_matches_jax_kernel(interpret_pallas, B, h, T1, T2, d,
                None if mask is None else jnp.asarray(mask),
                None if bias is None else jnp.asarray(bias), scale=scale,
                block_q=32, block_k=32)
-    got = fa.flash_fwd_reference(
+    got, _ = fa.flash_fwd_reference(
         *(torch.from_numpy(a) for a in (q, k, v)),
         None if mask is None else torch.from_numpy(mask),
         None if bias is None else torch.from_numpy(bias), scale)
@@ -87,7 +87,7 @@ def test_cpu_tensors_take_plain_version():
                                             True))
     before = dict(fa.LAUNCHES)
     got = fa.flash_attention(q, k, v, mask, bias, 0.2)
-    want = fa.flash_fwd_reference(q, k, v, mask, bias, 0.2)
+    want, _ = fa.flash_fwd_reference(q, k, v, mask, bias, 0.2)
     assert torch.equal(got, want)
     assert fa.LAUNCHES == before
 
@@ -100,7 +100,7 @@ def test_plain_path_matches_reference():
                            for a in _inputs(rng, 2, 3, 33, 45, 32,
                                             'masked_row', True))
     got = A.attention_core(q, k, v, mask.unsqueeze(1), 0.3, bias=bias)
-    want = fa.flash_fwd_reference(q, k, v, mask, bias, 0.3)
+    want, _ = fa.flash_fwd_reference(q, k, v, mask, bias, 0.3)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
@@ -148,15 +148,16 @@ def test_gate_is_cuda_only():
 
 
 def test_dispatch(monkeypatch):
-    """attention_core launches K4 above the gate in inference and the
-    plain path below it; above the gate, attention dropout or autograd
-    raise (K5 and K6 are not ported), below it they take the plain
-    path."""
+    """attention_core goes through `flash_attention` above the gate, in
+    inference and when autograd records, and takes the plain path below
+    it; above the gate, active attention dropout takes the plain path
+    too, as the JAX package sends every call with a dropout function to
+    XLA."""
     calls = []
 
     def fake_flash(q, k, v, mask, bias, scale):
         calls.append(q.shape)
-        return fa.flash_fwd_reference(q, k, v, mask, bias, scale)
+        return fa.flash_attention(q, k, v, mask, bias, scale)
 
     monkeypatch.setattr(A, 'flash_attention', fake_flash)
     monkeypatch.setattr(A, 'flash_eligible',
@@ -168,16 +169,19 @@ def test_dispatch(monkeypatch):
     assert len(calls) == 1
     A.attention_core(q[:, :, :8], k, v, None, 0.2)  # below the gate
     drop = torch.nn.Dropout(0.1).train()
-    with pytest.raises(NotImplementedError, match='K5 and K6'):
-        A.attention_core(q, k, v, None, 0.2, drop)  # training dropout
-    with pytest.raises(NotImplementedError, match='K5 and K6'):
-        A.attention_core(q.requires_grad_(), k, v, None, 0.2)  # autograd
+    A.attention_core(q, k, v, None, 0.2, drop)  # training dropout: plain
+    assert len(calls) == 1
+    out = A.attention_core(q.requires_grad_(), k, v, None, 0.2)  # autograd
+    assert len(calls) == 2 and type(out.grad_fn).__name__ == (
+        'FlashAttentionBackward')
+    out.sum().backward()
+    assert q.grad is not None
     out = A.attention_core(q[:, :, :8], k, v, None, 0.2, drop)  # below
     out.sum().backward()
-    assert q.grad is not None and len(calls) == 1
+    assert len(calls) == 2
     with torch.no_grad():
         A.attention_core(q, k, v, None, 0.2, drop.eval())
-    assert len(calls) == 2
+    assert len(calls) == 3
 
 
 @pytest.mark.parametrize('bad', ['mask_heads', 'mask_len', 'mask_dtype',
@@ -237,8 +241,8 @@ def test_cuda_kernel_matches_plain(dtype, B, h, T1, T2, d, mask_kind,
     got = fa.flash_attention(q, k, v, mask, bias, scale)
     torch.cuda.synchronize()
     assert fa.LAUNCHES['flash_attention_fwd'] == before + 1
-    want = fa.flash_fwd_reference(q.float(), k.float(), v.float(), mask,
-                                  bias, scale)
+    want, _ = fa.flash_fwd_reference(q.float(), k.float(), v.float(), mask,
+                                     bias, scale)
     # bf16: the reference is fp32 on the same rounded inputs, so the
     # kernel is held to the rounding of its output (about 2 bf16 ulps)
     atol, rtol = (2e-5, 1e-5) if dtype == torch.float32 else (1e-3, 8e-3)

@@ -176,4 +176,4 @@ def test_init_model_rejects_unported_options(section, key, value):
     cfg = tiny_config()
     (cfg if section is None else cfg[section])[key] = value
     with pytest.raises(NotImplementedError):
-        init_model(cfg)
+        init_model(cfg, device='cpu')

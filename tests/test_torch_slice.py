@@ -87,7 +87,8 @@ def test_port_runs_without_jax():
         from torch_port_utils import TINY_CONFIG, feats
         from wenet_tpu_torch.models.runner import AsrRunner
         from wenet_tpu_torch.utils.init_model import init_model
-        model = init_model(TINY_CONFIG, torch.Generator().manual_seed(0))
+        model = init_model(TINY_CONFIG, torch.Generator().manual_seed(0),
+                           device='cpu')
         x, lens = feats()
         out = AsrRunner(model, 'cpu').decode(
             ['ctc_greedy_search', 'ctc_prefix_beam_search',

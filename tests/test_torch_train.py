@@ -135,7 +135,7 @@ def test_every_parameter_gets_a_gradient():
     from wenet_tpu_torch.utils.train_utils import (
         TrainState, init_optimizer_and_scheduler, make_train_step)
     model = init_model(copy.deepcopy(TINY_CONFIG),
-                       torch.Generator().manual_seed(0))
+                       torch.Generator().manual_seed(0), device='cpu')
     graphs = []
     for layer in model.encoder.encoders:
         layer.self_attn.register_forward_hook(
@@ -307,7 +307,7 @@ def test_executor_trains_saves_and_resumes(tmp_path):
 
     def run():
         model = init_model(copy.deepcopy(TINY_CONFIG),
-                           torch.Generator().manual_seed(1))
+                           torch.Generator().manual_seed(1), device='cpu')
         opt, schedule = init_optimizer_and_scheduler(configs, model)
         state = TrainState(model, opt)
         step = make_train_step(model, opt, schedule, grad_clip=5.0)
@@ -329,7 +329,7 @@ def test_executor_trains_saves_and_resumes(tmp_path):
     model, schedule, state, ex, losses = run()
     assert ex.step == 3 and state.step == 3
     assert losses[2] < losses[0]
-    fresh = init_model(copy.deepcopy(TINY_CONFIG))
+    fresh = init_model(copy.deepcopy(TINY_CONFIG), device='cpu')
     infos = load_checkpoint(fresh, str(tmp_path / 'step_3.pt'))
     assert infos['step'] == 3 and np.isfinite(infos['cv_loss'])
     for (n, a), b in zip(model.state_dict().items(),
@@ -356,7 +356,8 @@ def test_cuda_train_step_matches_cpu():
     from wenet_tpu_torch.utils.train_utils import (
         TrainState, init_optimizer_and_scheduler, make_train_step)
     n_blocks = TINY_CONFIG['encoder_conf']['num_blocks']
-    model = init_model(no_dropout(), torch.Generator().manual_seed(2))
+    model = init_model(no_dropout(), torch.Generator().manual_seed(2),
+                       device='cpu')
     cpu_model = copy.deepcopy(model)
     model.cuda()
     b = batch(seed=5)
@@ -384,7 +385,7 @@ def test_cuda_train_step_matches_cpu():
                                    atol=1e-3, rtol=0, msg=name)
 
     model = init_model(copy.deepcopy(TINY_CONFIG),
-                       torch.Generator().manual_seed(4)).cuda()
+                       torch.Generator().manual_seed(4), device='cpu').cuda()
     opt, schedule = init_optimizer_and_scheduler(
         {'optim': 'adam', 'optim_conf': {'lr': 1e-3}}, model)
     step = make_train_step(model, opt, schedule, grad_clip=5.0)

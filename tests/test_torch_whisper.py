@@ -216,9 +216,10 @@ LARGE_V3 = {'n_mels': 128, 'n_vocab': 51866, 'n_audio_state': 1280,
             'n_text_ctx': 448}
 
 
-def test_large_v3_builds_with_jax_keys():
-    """large-v3 on the meta device: the JAX package's key set (through
-    `state_dict_from_jax`'s mapping) and parameter count, abstractly."""
+def _large_v3_keys(lora_conf=None):
+    """large-v3 on the meta device in the port, and abstractly in the JAX
+    package (`jax.eval_shape`): (the port's model, its key -> shape, the
+    JAX key -> shape through `state_dict_from_jax`'s mapping)."""
     import jax
     import jax.numpy as jnp
     from wenet_tpu.utils.init_model import init_model as jax_init_model
@@ -227,6 +228,8 @@ def test_large_v3_builds_with_jax_keys():
     from wenet_tpu_torch.utils.checkpoint import _flatten, torch_key
     from wenet_tpu_torch.utils.init_model import init_model
     cfg = build_config(LARGE_V3, default_special_tokens(51866))
+    if lora_conf is not None:
+        cfg['lora_conf'] = lora_conf
     model = init_model(copy.deepcopy(cfg), device='meta')
     shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     jmodel, _ = jax_init_model(None, copy.deepcopy(cfg))
@@ -235,21 +238,62 @@ def test_large_v3_builds_with_jax_keys():
         jnp.asarray([16]), jnp.zeros((1, 4), jnp.int32), jnp.asarray([4]))
     jax_keys = {torch_key(path): leaf.shape
                 for path, leaf in _flatten(abstract)}
+    return model, shapes, jax_keys
+
+
+def _n_params(shapes):
+    return sum(int(np.prod(s)) for s in shapes.values())
+
+
+def test_large_v3_builds_with_jax_keys():
+    """large-v3 on the meta device: the JAX package's key set (through
+    `state_dict_from_jax`'s mapping) and parameter count, abstractly."""
+    model, shapes, jax_keys = _large_v3_keys()
     assert set(shapes) == set(jax_keys)
-    n = sum(int(np.prod(s)) for s in shapes.values())
-    assert n == sum(int(np.prod(s)) for s in jax_keys.values())
+    n = _n_params(shapes)
+    assert n == _n_params(jax_keys)
     assert 1.55e9 < n < 1.65e9  # 1.54B + the CTC head
     assert model.sos == 50258 and model.eos == 50257
     assert 'encoder.encoders.0.self_attn.linear_k.bias' not in shapes
     assert shapes['decoder.embed.1.pe'] == (1, 448, 1280)
 
 
-def test_lora_raises():
+# the finetune yaml's lora_conf (examples/aishell/whisper/conf/
+# finetune_whisper_largev3.yaml)
+YAML_LORA = {'use_lora': True, 'lora_rank': 8, 'lora_alpha': 8,
+             'lora_dropout': 0.0, 'lora_list': ['o', 'q', 'k', 'v']}
+
+
+@pytest.mark.parametrize('lora_decoder', [False, True])
+def test_large_v3_lora_builds_with_jax_keys(lora_decoder):
+    """large-v3 with the finetune yaml's lora_conf on the meta device:
+    the JAX model's key set, shapes and parameter count; lora_A (8, 1280)
+    and lora_B (1280, 8) on every encoder projection, and on the
+    decoder's only with `lora_decoder`."""
+    model, shapes, jax_keys = _large_v3_keys(
+        dict(YAML_LORA, lora_decoder=lora_decoder))
+    assert set(shapes) == set(jax_keys)
+    assert all(np.prod(shapes[k]) == np.prod(jax_keys[k]) for k in shapes)
+    lora = [k for k in shapes if k.endswith(('lora_A', 'lora_B'))]
+    # lora_A / lora_B are in torch layout in both packages
+    assert all(shapes[k] == tuple(jax_keys[k]) for k in lora)
+    enc = 32 * 4 * 2
+    assert len(lora) == enc + (32 * 8 * 2 if lora_decoder else 0)
+    assert shapes['encoder.encoders.7.self_attn.linear_k.lora_A'] == (8,
+                                                                      1280)
+    assert shapes['encoder.encoders.7.self_attn.linear_out.lora_B'] == (
+        1280, 8)
+    assert (('decoder.decoders.0.src_attn.linear_v.lora_A' in shapes)
+            == lora_decoder)
+    from wenet_tpu_torch.models.whisper.convert import (
+        build_config, default_special_tokens)
     from wenet_tpu_torch.utils.init_model import init_model
-    cfg = whisper_config()
-    cfg['lora_conf'] = {'use_lora': True, 'lora_rank': 8}
-    with pytest.raises(NotImplementedError):
-        init_model(cfg)
+    plain = init_model(build_config(LARGE_V3, default_special_tokens(51866)),
+                       device='meta').state_dict()
+    assert {k: tuple(v.shape) for k, v in plain.items()} == {
+        k: v for k, v in shapes.items() if k not in lora}
+    assert _n_params(shapes) == _n_params(jax_keys) == (
+        sum(t.numel() for t in plain.values()) + len(lora) * 8 * 1280)
 
 
 def test_bf16_runner_decodes(models):
@@ -294,7 +338,7 @@ def test_whisper_decode_runs_without_jax():
         from wenet_tpu_torch.models.runner import AsrRunner
         from wenet_tpu_torch.utils.init_model import init_model
         model = init_model(whisper_config(),
-                           torch.Generator().manual_seed(0))
+                           torch.Generator().manual_seed(0), device='cpu')
         x, lens = whisper_feats()
         out = AsrRunner(model, 'cpu').decode(
             ['attention', 'ctc_prefix_beam_search'], x, lens, beam_size=2,

@@ -75,7 +75,7 @@ def torch_model(cfg, variables):
     """The port's model carrying the JAX variables (strict load)."""
     from wenet_tpu_torch.utils.checkpoint import state_dict_from_jax
     from wenet_tpu_torch.utils.init_model import init_model
-    model = init_model(copy.deepcopy(cfg))
+    model = init_model(copy.deepcopy(cfg), device='cpu')
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     return model.eval()
 

@@ -1,8 +1,12 @@
-// Masked flash attention forward for Hopper (sm_90a), plain C entry point.
+// Masked flash attention forward for Hopper (sm_90a), plain C entry points.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` (wenet_tpu/ops/
 // flash_attention.py), reached there through `flash_attention` from
-// `attention_core` for long sequences (whisper's 1500-frame encoder).
+// `attention_core` for long sequences (whisper's 1500-frame encoder), in
+// both its variants: inference (`flash_attention_fwd`) and training
+// (`flash_attention_fwd_train`, has_lse), which also writes the row
+// log-sum-exp lse = m + log l (NEG_INF on fully masked rows) that the
+// backward kernels (flash_attention_bwd.cu) read.
 // For every (batch, head) it computes
 //
 //   s   = (q . k^T + bias) * scale      bias added BEFORE the scale
@@ -19,7 +23,7 @@
 // Kernel contract, shared with the TPU kernel:
 //   * NEG_INF is the finite sentinel -1e30, and a probability is zeroed
 //     where s <= NEG_INF / 2, so l counts only attendable keys;
-//   * a fully masked row writes zeros;
+//   * a fully masked row writes zeros (and lse = NEG_INF);
 //   * fp32 and bf16 inputs are upcast on load, all math is fp32, and the
 //     output has v's type.
 // Ragged T1 / T2 edges are bounds-checked, not padded.  q, k, v and out
@@ -27,7 +31,9 @@
 // unit-stride feature dim, so the attention module's (B, T, h, d) buffers
 // are used in place.  The mask (B|1, 1|h, 1|T1, T2) and the fp32 bias
 // (B|1, 1|h, 1|T1, T2) are read through their own strides, 0 on a
-// broadcast dim: neither broadcast is materialized.
+// broadcast dim: neither broadcast is materialized.  lse is a contiguous
+// (B, h, T1) fp32 array (the TPU kernel's 128-lane copy of it is a TPU
+// tiling artefact).
 //
 // What bounds it on an H100: the two products run on the CUDA cores in
 // fp32 (67 TFLOP/s peak), not on the tensor cores.  At whisper's encoder
@@ -79,13 +85,14 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * ((BQ + 2 * BK) * (D + 1) + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v,
                      const uint8_t* __restrict__ mask,
                      const float* __restrict__ bias, T* __restrict__ out,
-                     Strides st, int H, int T1, int T2, float scale) {
+                     float* __restrict__ lse, Strides st, int H, int T1,
+                     int T2, float scale) {
   constexpr int LD = D + 1;   // padded feature row
   constexpr int LDS = BK + 1; // padded probability row
   constexpr int DC = D / 16;  // output columns per thread
@@ -221,6 +228,11 @@ __global__ void __launch_bounds__(THREADS)
       const float y = l[i] > 0.f ? acc[i][c] / l[i] : 0.f;
       ob[r * st.out[2] + tx + 16 * c] = from_float<T>(y);
     }
+    if constexpr (LSE) {
+      if (tx == 0)
+        lse[static_cast<long long>(blockIdx.y) * T1 + r] =
+            l[i] > 0.f ? m[i] + logf(l[i]) : NEG_INF;
+    }
   }
 }
 
@@ -228,15 +240,16 @@ struct Args {
   const void *q, *k, *v, *mask;
   const float* bias;
   void* out;
+  float* lse;  // training only
   Strides st;
   int B, H, T1, T2;
   float scale;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<T, D, LSE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -245,38 +258,30 @@ int launch(const Args& a, cudaStream_t stream) {
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const uint8_t*>(a.mask),
-      a.bias, static_cast<T*>(a.out), a.st, a.H, a.T1, a.T2, a.scale);
+      a.bias, static_cast<T*>(a.out), a.lse, a.st, a.H, a.T1, a.T2, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool LSE>
 int launch_d(int D, const Args& a, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(a, stream);
+      return launch<T, 32, LSE>(a, stream);
     case 64:
-      return launch<T, 64>(a, stream);
+      return launch<T, 64, LSE>(a, stream);
     case 128:
-      return launch<T, 128>(a, stream);
+      return launch<T, 128, LSE>(a, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-}  // namespace
-
-// strides: 20 element strides, (batch, head, time) for q, k, v and out,
-// then (batch, head, row, column) for the mask and for the bias.  mask
-// (uint8, non-zero == attend) and bias (float32) may be null.
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out).  Returns a
-// cudaError_t code (0 = ok).
-extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, const void* mask,
-                                   const void* bias, void* out,
-                                   const long long* strides, int B, int H,
-                                   int T1, int T2, int D, int dtype,
-                                   float scale, void* stream) {
-  Args a{q, k, v, mask, static_cast<const float*>(bias), out, {},
+template <bool LSE>
+int dispatch(const void* q, const void* k, const void* v, const void* mask,
+             const void* bias, void* out, float* lse,
+             const long long* strides, int B, int H, int T1, int T2, int D,
+             int dtype, float scale, void* stream) {
+  Args a{q, k, v, mask, static_cast<const float*>(bias), out, lse, {},
          B, H, T1, T2, scale};
   long long* dst[] = {a.st.q, a.st.k, a.st.v, a.st.out};
   for (int t = 0; t < 4; ++t)
@@ -286,7 +291,36 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     a.st.bias[i] = strides[16 + i];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float>(D, a, s);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(D, a, s);
+  if (dtype == 0) return launch_d<float, LSE>(D, a, s);
+  if (dtype == 1) return launch_d<__nv_bfloat16, LSE>(D, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// strides: 20 element strides, (batch, head, time) for q, k, v and out,
+// then (batch, head, row, column) for the mask and for the bias.  mask
+// (uint8, non-zero == attend) and bias (float32) may be null.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out).  Each returns a
+// cudaError_t code (0 = ok).
+extern "C" int flash_attention_fwd(const void* q, const void* k,
+                                   const void* v, const void* mask,
+                                   const void* bias, void* out,
+                                   const long long* strides, int B, int H,
+                                   int T1, int T2, int D, int dtype,
+                                   float scale, void* stream) {
+  return dispatch<false>(q, k, v, mask, bias, out, nullptr, strides, B, H,
+                         T1, T2, D, dtype, scale, stream);
+}
+
+// The train variant: also writes lse, contiguous (B, H, T1) fp32.
+extern "C" int flash_attention_fwd_train(const void* q, const void* k,
+                                         const void* v, const void* mask,
+                                         const void* bias, void* out,
+                                         void* lse, const long long* strides,
+                                         int B, int H, int T1, int T2, int D,
+                                         int dtype, float scale,
+                                         void* stream) {
+  return dispatch<true>(q, k, v, mask, bias, out, static_cast<float*>(lse),
+                        strides, B, H, T1, T2, D, dtype, scale, stream);
 }

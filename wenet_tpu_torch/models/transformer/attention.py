@@ -9,15 +9,20 @@ attention-weight dropout runs inside the kernels (a counter hash seeded
 per call from the host generator the train step passes down), as the JAX
 package's flash training path does.
 
-`attention_core` (plain MHA and cross attention) launches K4
-(`flash_attention`) on CUDA tensors that pass the JAX package's gate
+`attention_core` (plain MHA and cross attention) goes through
+`flash_attention` on CUDA tensors that pass the JAX package's gate
 (`_flash_eligible`, attention.py:70-82: both lengths >= 512, or both >=
-128 with B·h·T1·T2 >= 24M scores), and K4 raises on a dtype or head dim
-it has no instance for.  Below the gate and on the CPU it runs the plain
-matmul-softmax-matmul path, with `nn.Dropout` on the weights.  Training
-above the gate on the card (autograd recording or attention dropout)
-raises NotImplementedError: it needs K4's lse variant and its backward
-kernels K5 and K6, which are not ported yet.
+128 with B·h·T1·T2 >= 24M scores) when no attention dropout is active:
+K4 in inference; K4 with lse, then K5 and K6 in the backward, when
+autograd records (whisper's encoder in training).  The kernels raise on a
+dtype or head dim they have no instance for.  Active attention dropout,
+shapes below the gate and CPU tensors take the plain
+matmul-softmax-matmul path, with `nn.Dropout` on the weights, as the JAX
+package sends every call with a dropout function to XLA
+(attention.py:115).
+
+The q/k/v/out projections are `LoRALinear` where a lora conf lists them
+(`make_attention_linear`, the JAX `make_attention_dense`).
 """
 
 import math
@@ -26,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from wenet_tpu_torch.models.finetune.lora import make_attention_linear
 from wenet_tpu_torch.ops.flash_attention import (NEG_INF, flash_attention,
                                                  flash_attention_relpos)
 
@@ -36,8 +42,9 @@ FLASH_GATE = {'min_len': 512, 'score_elems': 24 * 1024 * 1024}
 
 
 def flash_eligible(q: torch.Tensor, k: torch.Tensor) -> bool:
-    """True where `attention_core` launches K4: CUDA (B, h, T, d) inputs
-    long enough to pass the gate, whatever their dtype and head dim."""
+    """True where `attention_core` takes the flash kernels: CUDA
+    (B, h, T, d) inputs long enough to pass the gate, whatever their dtype
+    and head dim."""
     if q.device.type != 'cuda' or q.dim() != 4 or q.shape[1] != k.shape[1]:
         return False
     T1, T2 = q.shape[2], k.shape[2]
@@ -56,14 +63,10 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (..., h, T1, d); k, v: (..., h, T2, d); mask: bool broadcastable
     to (..., 1|h, T1|1, T2), True == attend; bias: additive, added before
     the scale.  Fully masked rows give 0.  CUDA tensors above the gate
-    run K4 (and raise in training); everything else the plain path."""
-    if flash_eligible(q, k):
-        if ((dropout is not None and dropout.training and dropout.p > 0.0)
-                or (torch.is_grad_enabled() and
-                    any(t.requires_grad for t in (q, k, v)))):
-            raise NotImplementedError(
-                'attention above the flash gate in training needs K4 with '
-                'lse and its backward kernels K5 and K6, not ported yet')
+    with no active `dropout` run the flash kernels (with their backward
+    when autograd records); everything else the plain path."""
+    drop = dropout is not None and dropout.training and dropout.p > 0.0
+    if not drop and flash_eligible(q, k):
         return flash_attention(q, k, v, mask, bias, scale)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if bias is not None:
@@ -81,19 +84,23 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class MultiHeadedAttention(nn.Module):
     """Multi-head attention; `linear_out` has a bias when `query_bias`
-    does (whisper: no key bias)."""
+    does (whisper: no key bias).  lora_conf: {'lora_rank', 'lora_alpha',
+    'lora_dropout', 'lora_list'} or None."""
 
     def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0,
                  query_bias: bool = True, key_bias: bool = True,
-                 value_bias: bool = True):
+                 value_bias: bool = True, lora_conf: Optional[dict] = None):
         super().__init__()
         assert n_feat % n_head == 0
         self.h = n_head
         self.d_k = n_feat // n_head
-        self.linear_q = nn.Linear(n_feat, n_feat, bias=query_bias)
-        self.linear_k = nn.Linear(n_feat, n_feat, bias=key_bias)
-        self.linear_v = nn.Linear(n_feat, n_feat, bias=value_bias)
-        self.linear_out = nn.Linear(n_feat, n_feat, bias=query_bias)
+
+        def linear(bias, key):
+            return make_attention_linear(n_feat, n_feat, bias, key, lora_conf)
+        self.linear_q = linear(query_bias, 'q')
+        self.linear_k = linear(key_bias, 'k')
+        self.linear_v = linear(value_bias, 'v')
+        self.linear_out = linear(query_bias, 'o')
         self.dropout = nn.Dropout(dropout_rate)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
@@ -176,8 +183,9 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
     """Transformer-XL relative-position MHA (no rel_shift), computed by
     the fused rel-pos attention kernels."""
 
-    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0):
-        super().__init__(n_head, n_feat, dropout_rate)
+    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0,
+                 lora_conf: Optional[dict] = None):
+        super().__init__(n_head, n_feat, dropout_rate, lora_conf=lora_conf)
         self.linear_pos = nn.Linear(n_feat, n_feat, bias=False)
         self.pos_bias_u = nn.Parameter(torch.empty(n_head, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.empty(n_head, self.d_k))

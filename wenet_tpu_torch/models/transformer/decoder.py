@@ -34,7 +34,9 @@ class _OutputBias(nn.Module):
 class TransformerDecoder(nn.Module):
     """input_layer 'embed' (sinusoidal, x-scaled) or 'embed_learnable_pe'
     (whisper: a learned table of `learnable_pe_max_len` rows);
-    tie_word_embedding: logits = x·Eᵀ + an own bias."""
+    tie_word_embedding: logits = x·Eᵀ + an own bias; lora_conf makes the
+    attention projections LoRA layers (init_model passes it with
+    `lora_decoder`)."""
 
     def __init__(self, vocab_size: int, encoder_output_size: int,
                  attention_heads: int = 4, linear_units: int = 2048,
@@ -48,7 +50,8 @@ class TransformerDecoder(nn.Module):
                  activation_type: str = 'relu', query_bias: bool = True,
                  key_bias: bool = True, value_bias: bool = True,
                  src_query_bias: bool = True, src_key_bias: bool = True,
-                 src_value_bias: bool = True):
+                 src_value_bias: bool = True,
+                 lora_conf: Optional[dict] = None):
         super().__init__()
         dim = encoder_output_size
         if input_layer == 'embed':
@@ -69,7 +72,8 @@ class TransformerDecoder(nn.Module):
                          self_attention_dropout_rate,
                          src_attention_dropout_rate, norm_eps,
                          activation_type, query_bias, key_bias, value_bias,
-                         src_query_bias, src_key_bias, src_value_bias)
+                         src_query_bias, src_key_bias, src_value_bias,
+                         lora_conf)
             for _ in range(num_blocks)
         ])
 

@@ -24,14 +24,15 @@ class DecoderLayer(nn.Module):
                  norm_eps: float = 1e-5, activation_type: str = 'relu',
                  query_bias: bool = True, key_bias: bool = True,
                  value_bias: bool = True, src_query_bias: bool = True,
-                 src_key_bias: bool = True, src_value_bias: bool = True):
+                 src_key_bias: bool = True, src_value_bias: bool = True,
+                 lora_conf: Optional[dict] = None):
         super().__init__()
         self.self_attn = MultiHeadedAttention(
             attention_heads, size, self_attention_dropout_rate, query_bias,
-            key_bias, value_bias)
+            key_bias, value_bias, lora_conf)
         self.src_attn = MultiHeadedCrossAttention(
             attention_heads, size, src_attention_dropout_rate,
-            src_query_bias, src_key_bias, src_value_bias)
+            src_query_bias, src_key_bias, src_value_bias, lora_conf)
         self.feed_forward = PositionwiseFeedForward(
             size, linear_units, dropout_rate, get_activation(activation_type))
         self.norm1 = nn.LayerNorm(size, eps=norm_eps)

@@ -1,7 +1,8 @@
 """Conformer and transformer encoders, full-sequence forward.
 Counterpart of wenet_tpu/models/transformer/encoder.py `ConformerEncoder`
 and `TransformerEncoder` (the chunked streaming forward is not ported
-yet)."""
+yet).  `lora_conf` makes the attention projections LoRA layers, as the
+JAX encoders' field does."""
 
 from typing import Optional, Tuple
 
@@ -32,7 +33,8 @@ class ConformerEncoder(nn.Module):
                  use_dynamic_left_chunk: bool = False, use_cmvn: bool = False,
                  norm_eps: float = 1e-5, cnn_module_kernel: int = 15,
                  causal: bool = False, cnn_module_norm: str = 'batch_norm',
-                 conv_norm_eps: float = 1e-5):
+                 conv_norm_eps: float = 1e-5,
+                 lora_conf: Optional[dict] = None):
         super().__init__()
         self._output_size = output_size
         self.use_dynamic_chunk = use_dynamic_chunk
@@ -46,7 +48,7 @@ class ConformerEncoder(nn.Module):
             ConformerEncoderLayer(
                 output_size, attention_heads, linear_units, dropout_rate,
                 attention_dropout_rate, norm_eps, cnn_module_kernel, causal,
-                cnn_module_norm, conv_norm_eps)
+                cnn_module_norm, conv_norm_eps, lora_conf)
             for _ in range(num_blocks)
         ])
 
@@ -94,7 +96,7 @@ class TransformerEncoder(nn.Module):
                  static_chunk_size: int = 0, use_cmvn: bool = False,
                  norm_eps: float = 1e-5, activation_type: str = 'relu',
                  query_bias: bool = True, key_bias: bool = True,
-                 value_bias: bool = True):
+                 value_bias: bool = True, lora_conf: Optional[dict] = None):
         super().__init__()
         if static_chunk_size > 0:
             raise NotImplementedError('static_chunk_size > 0 is not ported')
@@ -110,7 +112,7 @@ class TransformerEncoder(nn.Module):
             TransformerEncoderLayer(
                 output_size, attention_heads, linear_units, dropout_rate,
                 attention_dropout_rate, norm_eps, activation_type,
-                query_bias, key_bias, value_bias)
+                query_bias, key_bias, value_bias, lora_conf)
             for _ in range(num_blocks)
         ])
 

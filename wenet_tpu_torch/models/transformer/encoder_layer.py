@@ -23,11 +23,12 @@ class TransformerEncoderLayer(nn.Module):
                  dropout_rate: float = 0.1,
                  attention_dropout_rate: float = 0.0, norm_eps: float = 1e-5,
                  activation_type: str = 'relu', query_bias: bool = True,
-                 key_bias: bool = True, value_bias: bool = True):
+                 key_bias: bool = True, value_bias: bool = True,
+                 lora_conf: Optional[dict] = None):
         super().__init__()
         self.self_attn = MultiHeadedAttention(
             attention_heads, size, attention_dropout_rate, query_bias,
-            key_bias, value_bias)
+            key_bias, value_bias, lora_conf)
         self.feed_forward = PositionwiseFeedForward(
             size, linear_units, dropout_rate, get_activation(activation_type))
         self.norm1 = nn.LayerNorm(size, eps=norm_eps)
@@ -49,10 +50,11 @@ class ConformerEncoderLayer(nn.Module):
                  attention_dropout_rate: float = 0.0, norm_eps: float = 1e-5,
                  cnn_module_kernel: int = 15, causal: bool = False,
                  cnn_module_norm: str = 'batch_norm',
-                 conv_norm_eps: float = 1e-5):
+                 conv_norm_eps: float = 1e-5,
+                 lora_conf: Optional[dict] = None):
         super().__init__()
         self.self_attn = RelPositionMultiHeadedAttention(
-            attention_heads, size, attention_dropout_rate)
+            attention_heads, size, attention_dropout_rate, lora_conf)
         self.feed_forward = PositionwiseFeedForward(
             size, linear_units, dropout_rate, F.silu)
         self.feed_forward_macaron = PositionwiseFeedForward(

@@ -8,7 +8,7 @@ of wenet_tpu/models/whisper/convert.py.
     ckpt = torch.load('large-v3.pt', map_location='cpu')
     configs = build_config(ckpt['dims'],
                            default_special_tokens(ckpt['dims']['n_vocab']))
-    model = init_model(configs)
+    model = init_model(configs, device='cpu')
     model.load_state_dict(convert_state_dict(ckpt['model_state_dict']),
                           strict=False)  # ctc.* is not in the checkpoint
 """

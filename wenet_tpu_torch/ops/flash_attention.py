@@ -1,8 +1,8 @@
 """Flash attention on Hopper: the CUDA kernels, their plain PyTorch
-versions and the autograd Function around the rel-pos ones.
+versions and the autograd Functions around them.
 
 Counterpart of `flash_attention_relpos` and `flash_attention` in
-wenet_tpu/ops/flash_attention.py.  Four CUDA kernels replace the Pallas
+wenet_tpu/ops/flash_attention.py.  Six CUDA kernels replace the Pallas
 TPU kernels of that file:
 
   K1 `relpos_fwd_kernel`       (csrc/relpos_attention.cu)  <- _relpos_fwd_kernel
@@ -14,21 +14,29 @@ TPU kernels of that file:
   K3 `relpos_bwd_dkpv_kernel`  (csrc/relpos_attention_bwd.cu) <- _relpos_bwd_dkpv_kernel
      dk, dp, dv with the same ds, streaming query tiles.
   K4 `flash_fwd_kernel`        (csrc/flash_attention.cu)   <- _fwd_kernel
-     s = (q·kᵀ + bias)·scale, masked, online softmax, out = softmax·v
-     (inference only: no lse; its backward K5/K6 is not ported yet).
+     s = (q·kᵀ + bias)·scale, masked, online softmax, out = softmax·v;
+     the train variant also writes lse.
+  K5 `flash_bwd_dq_kernel`     (csrc/flash_attention_bwd.cu) <- _bwd_dq_kernel
+     dq from ds = P·(do·vᵀ − delta)·scale, and ds itself as dbias when
+     there is a bias.
+  K6 `flash_bwd_dkv_kernel`    (csrc/flash_attention_bwd.cu) <- _bwd_dkv_kernel
+     dk = dsᵀ·q, dv = Pᵀ·do, streaming query tiles.
 
-None of them writes the (T1, T2) scores to device memory.  The dropout mask
-D is a counter hash of (seed, b·h, global query, global key)
-(`dropout_mult`, csrc/dropout_hash.cuh), so the three kernels regenerate
-the same mask whatever their tiling.  On an H100 the simple kernels are
-bound by fp32 FMA issue on the CUDA cores and the shared-memory reads
-feeding them; see the sources for the notes.
+None of them writes the (T1, T2) scores to device memory (K5's dbias is
+the gradient of a (T1, T2) input).  The dropout mask D is a counter hash
+of (seed, b·h, global query, global key) (`dropout_mult`,
+csrc/dropout_hash.cuh), so K1-K3 regenerate the same mask whatever their
+tiling; K4-K6 have no dropout, as the JAX package never routes attention
+dropout to them.  On an H100 the simple kernels are bound by fp32 FMA
+issue on the CUDA cores and the shared-memory reads feeding them; see
+the sources for the notes.
 
 The kernels are compiled with nvcc for sm_90a at first use into
 `wenet_tpu_torch/build/` (one nvcc per source, run in parallel, keyed by
 the hash of all sources) and loaded with ctypes.  CPU tensors take the
 plain versions (`relpos_fwd_reference`, `relpos_bwd_dq_reference`,
-`relpos_bwd_dkpv_reference`, `flash_fwd_reference`); CUDA tensors always
+`relpos_bwd_dkpv_reference`, `flash_fwd_reference`,
+`flash_bwd_dq_reference`, `flash_bwd_dkv_reference`); CUDA tensors always
 launch the kernels and raise on what they do not take.  `LAUNCHES` counts
 the kernel launches.
 """
@@ -50,7 +58,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 SOURCES = {'relpos_attention': CSRC / 'relpos_attention.cu',
            'relpos_attention_bwd': CSRC / 'relpos_attention_bwd.cu',
-           'flash_attention': CSRC / 'flash_attention.cu'}
+           'flash_attention': CSRC / 'flash_attention.cu',
+           'flash_attention_bwd': CSRC / 'flash_attention_bwd.cu'}
 HEADERS = (CSRC / 'dropout_hash.cuh', CSRC / 'relpos_common.cuh')
 BUILD_DIR = _PKG / 'build'
 _HEAD_DIMS = (32, 64, 128)
@@ -61,7 +70,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # kernel launches on CUDA tensors, by kernel (the CPU path does not count)
 LAUNCHES = {'relpos_attention_fwd': 0, 'relpos_attention_fwd_train': 0,
             'relpos_attention_bwd_dq': 0, 'relpos_attention_bwd_dkpv': 0,
-            'flash_attention_fwd': 0}
+            'flash_attention_fwd': 0, 'flash_attention_fwd_train': 0,
+            'flash_attention_bwd_dq': 0, 'flash_attention_bwd_dkv': 0}
 
 
 def reset_launches() -> None:
@@ -246,9 +256,18 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
     flash = libs['flash_attention']
     flash.flash_attention_fwd.argtypes = [
         vp, vp, vp, vp, vp, vp, strides, ci, ci, ci, ci, ci, ci, cf, vp]
+    flash.flash_attention_fwd_train.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, strides, ci, ci, ci, ci, ci, ci, cf, vp]
+    flash_bwd = libs['flash_attention_bwd']
+    for fn in (flash_bwd.flash_attention_bwd_dq,
+               flash_bwd.flash_attention_bwd_dkv):
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, strides, ci,
+                       ci, ci, ci, ci, ci, cf, vp]
     for fn in (fwd.relpos_attention_fwd, fwd.relpos_attention_fwd_train,
                bwd.relpos_attention_bwd_dq, bwd.relpos_attention_bwd_dkpv,
-               flash.flash_attention_fwd):
+               flash.flash_attention_fwd, flash.flash_attention_fwd_train,
+               flash_bwd.flash_attention_bwd_dq,
+               flash_bwd.flash_attention_bwd_dkv):
         fn.restype = ci
 
 
@@ -535,7 +554,7 @@ def flash_attention_relpos(q1, q2, k, p, v,
 
 
 # ---------------------------------------------------------------------------
-# K4: masked flash attention forward (mask + pre-scale bias)
+# K4, K5, K6: masked flash attention (mask + pre-scale bias)
 # ---------------------------------------------------------------------------
 def _mask_bias4(q, mask, bias):
     """mask -> bool (B|1, 1|h, 1|T1, T2), bias -> (B|1, 1|h, 1|T1, T2);
@@ -547,28 +566,73 @@ def _mask_bias4(q, mask, bias):
     return mask, bias
 
 
-def flash_fwd_reference(q, k, v, mask=None, bias=None, scale=1.0
-                        ) -> torch.Tensor:
-    """Plain version of K4 (mirrors `_fwd_kernel`'s arithmetic).
-
-    q: (B, h, T1, d); k, v: (B, h, T2, d); mask: bool broadcastable to
-    (B, h|1, T1|1, T2), True == attend; bias: additive, broadcastable to
-    (B, h|1, T1, T2), added before the scale.  Scores, softmax and the
-    last product are fp32; probabilities are zeroed where
-    s <= NEG_INF / 2, so a fully masked row gives 0.  Output in v's
-    dtype."""
-    mask, bias = _mask_bias4(q, mask, bias)
+def _flash_scores(q, k, mask, bias, scale) -> torch.Tensor:
+    """s = (q·kᵀ + bias)·scale in fp32, NEG_INF where masked."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if bias is not None:
         s = s + bias.float()
     s = s * scale
     if mask is not None:
         s = s.masked_fill(~mask, NEG_INF)
+    return s
+
+
+def flash_fwd_reference(q, k, v, mask=None, bias=None, scale=1.0,
+                        want_lse: bool = False
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of K4 (mirrors `_fwd_kernel`'s arithmetic) ->
+    (out, lse).
+
+    q: (B, h, T1, d); k, v: (B, h, T2, d); mask: bool broadcastable to
+    (B, h|1, T1|1, T2), True == attend; bias: additive, broadcastable to
+    (B, h|1, T1|1, T2), added before the scale.  Scores, softmax and the
+    last product are fp32; probabilities are zeroed where
+    s <= NEG_INF / 2, so a fully masked row gives 0.  out in v's dtype;
+    lse = m + log l, (B, h, T1) fp32, NEG_INF on fully masked rows (None
+    unless `want_lse`)."""
+    mask, bias = _mask_bias4(q, mask, bias)
+    s = _flash_scores(q, k, mask, bias, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(s <= NEG_INF * 0.5, 0.0, torch.exp(s - m))
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p, v.float()) / torch.where(l > 0, l, 1.0)
-    return torch.where(l > 0, out, 0.0).to(v.dtype)
+    safe_l = torch.where(l > 0, l, 1.0)
+    out = torch.matmul(p, v.float()) / safe_l
+    out = torch.where(l > 0, out, 0.0).to(v.dtype)
+    lse = None
+    if want_lse:
+        lse = torch.where(l > 0, m + torch.log(safe_l), NEG_INF)[..., 0]
+    return out, lse
+
+
+def _flash_ds(q, k, v, mask, bias, do, lse, delta, scale):
+    """(P, ds) of the backward kernels: P = exp(s − lse) (0 where
+    s <= NEG_INF / 2), ds = P·(do·vᵀ − delta)·scale, both fp32."""
+    mask, bias = _mask_bias4(q, mask, bias)
+    P = _probs(_flash_scores(q, k, mask, bias, scale), lse)
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return P, P * (dp - delta[..., None]) * scale
+
+
+def flash_bwd_dq_reference(q, k, v, mask, bias, do, lse, delta, scale=1.0
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of K5 -> (dq in q's dtype, dbias).
+
+    do: (B, h, T1, d); lse, delta: (B, h, T1) fp32 (delta =
+    rowsum(do·out)); the rest as in `flash_fwd_reference`.  dbias is ds,
+    fp32 per (b, h) as (B, h, T1, T2), when there is a bias (the caller
+    sums it over the bias's broadcast dims), else None."""
+    _, ds = _flash_ds(q, k, v, mask, bias, do, lse, delta, scale)
+    return torch.matmul(ds, k.float()).to(q.dtype), (
+        None if bias is None else ds)
+
+
+def flash_bwd_dkv_reference(q, k, v, mask, bias, do, lse, delta, scale=1.0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6 -> (dk in k's dtype, dv in v's dtype)."""
+    P, ds = _flash_ds(q, k, v, mask, bias, do, lse, delta, scale)
+    dv = torch.matmul(P.transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _flash_check(q, k, v, mask, bias):
@@ -610,15 +674,22 @@ def _bcast_strides(t):
     return [0 if t.shape[i] == 1 else t.stride(i) for i in range(4)]
 
 
-def _flash_cuda(q, k, v, mask, bias, scale):
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _flash_cuda(q, k, v, mask, bias, scale, want_lse=False):
+    """Launch K4, or its train variant (lse) when `want_lse`."""
     _flash_check(q, k, v, mask, bias)
     B, H, T1, D = q.shape
     T2 = k.shape[2]
     out = _like_heads(q, v.dtype)
-    if out.numel() == 0:
-        return out
-    if T2 == 0:
-        return out.zero_()
+    lse = (torch.empty(B, H, T1, dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    if out.numel() == 0 or T2 == 0:
+        if lse is not None:
+            lse.fill_(NEG_INF)
+        return out.zero_(), lse
     if bias is not None:
         bias = bias.float()  # the bias's own shape: no broadcast copied
     strides = (_bht_strides(q) + _bht_strides(k) + _bht_strides(v) +
@@ -626,13 +697,119 @@ def _flash_cuda(q, k, v, mask, bias, scale):
                _bcast_strides(bias))
     c_strides = (ctypes.c_longlong * len(strides))(*strides)
     lib = build()['flash_attention']
-    _run('flash_attention_fwd', lib.flash_attention_fwd, q.data_ptr(),
-         k.data_ptr(), v.data_ptr(),
-         None if mask is None else mask.data_ptr(),
-         None if bias is None else bias.data_ptr(), out.data_ptr(),
-         c_strides, B, H, T1, T2, D, _DTYPES[q.dtype], float(scale),
-         device=q.device)
-    return out
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+            _ptr(bias), out.data_ptr()]
+    dims = [B, H, T1, T2, D, _DTYPES[q.dtype], float(scale)]
+    if want_lse:
+        _run('flash_attention_fwd_train', lib.flash_attention_fwd_train,
+             *ptrs, lse.data_ptr(), c_strides, *dims, device=q.device)
+    else:
+        _run('flash_attention_fwd', lib.flash_attention_fwd, *ptrs,
+             c_strides, *dims, device=q.device)
+    return out, lse
+
+
+def _flash_bwd_cuda(which, q, k, v, mask, bias, do, lse, delta, scale):
+    """Launch K5 (which='dq') or K6 (which='dkv')."""
+    _flash_check(q, k, v, mask, bias)
+    if (do.dtype != q.dtype or tuple(do.shape) != tuple(q.shape)
+            or do.device != q.device or do.stride(-1) != 1):
+        raise ValueError(f'do is {do.dtype} {tuple(do.shape)} on '
+                         f'{do.device}, expected {q.dtype} '
+                         f'{tuple(q.shape)} on {q.device}, unit-stride')
+    B, H, T1, D = q.shape
+    T2 = k.shape[2]
+    for t in (lse, delta):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (B, H, T1)
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError('lse and delta must be contiguous float32 '
+                             f'({B}, {H}, {T1}) on {q.device}')
+    if which == 'dq':
+        outs = [_like_heads(q, q.dtype), None]
+        dbias = (torch.empty(B, H, T1, T2, dtype=torch.float32,
+                             device=q.device) if bias is not None else None)
+    else:
+        outs = [_like_heads(k, k.dtype), _like_heads(v, v.dtype)]
+        dbias = None
+    if q.numel() == 0 or k.numel() == 0:
+        for t in outs + [dbias]:
+            if t is not None:
+                t.zero_()
+        return (outs[0], dbias) if which == 'dq' else tuple(outs)
+    if bias is not None:
+        bias = bias.float()
+    strides = []
+    for t in (q, k, v, do, *outs):
+        strides += [0, 0, 0] if t is None else _bht_strides(t)
+    strides += _bcast_strides(mask) + _bcast_strides(bias)
+    c_strides = (ctypes.c_longlong * len(strides))(*strides)
+    lib = build()['flash_attention_bwd']
+    name = f'flash_attention_bwd_{which}'
+    g1 = dbias if which == 'dq' else outs[1]
+    _run(name, getattr(lib, name), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         _ptr(mask), _ptr(bias), do.data_ptr(), lse.data_ptr(),
+         delta.data_ptr(), outs[0].data_ptr(), _ptr(g1), c_strides, B, H,
+         T1, T2, D, _DTYPES[q.dtype], float(scale), device=q.device)
+    return (outs[0], dbias) if which == 'dq' else tuple(outs)
+
+
+def flash_fwd(q, k, v, mask=None, bias=None, scale=1.0, want_lse=False):
+    """K4 (with `want_lse`, its train variant) on CUDA tensors, its plain
+    version on CPU tensors -> (out, lse)."""
+    mask, bias = _mask_bias4(q, mask, bias)
+    if _device_kind(q) == 'cpu':
+        return flash_fwd_reference(q, k, v, mask, bias, scale, want_lse)
+    return _flash_cuda(q, k, v, mask, bias, scale, want_lse)
+
+
+def flash_bwd_dq(q, k, v, mask, bias, do, lse, delta, scale=1.0):
+    """K5 on CUDA tensors, its plain version on CPU tensors -> (dq,
+    dbias per (b, h) or None)."""
+    mask, bias = _mask_bias4(q, mask, bias)
+    if _device_kind(q) == 'cpu':
+        return flash_bwd_dq_reference(q, k, v, mask, bias, do, lse, delta,
+                                      scale)
+    return _flash_bwd_cuda('dq', q, k, v, mask, bias, do, lse, delta, scale)
+
+
+def flash_bwd_dkv(q, k, v, mask, bias, do, lse, delta, scale=1.0):
+    """K6 on CUDA tensors, its plain version on CPU tensors -> (dk, dv)."""
+    mask, bias = _mask_bias4(q, mask, bias)
+    if _device_kind(q) == 'cpu':
+        return flash_bwd_dkv_reference(q, k, v, mask, bias, do, lse, delta,
+                                       scale)
+    return _flash_bwd_cuda('dkv', q, k, v, mask, bias, do, lse, delta, scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward: K4 with lse; backward: delta = rowsum(do·out) in plain
+    torch, then K5 and K6, and dbias summed over the dims the bias
+    broadcast over (`_bwd_call` :427-442).  The mask gets no gradient.
+    The same code runs on both devices: `flash_*` pick the kernel or the
+    plain version by the tensors' device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, bias, scale):
+        out, lse = flash_fwd(q, k, v, mask, bias, scale, True)
+        ctx.save_for_backward(q, k, v, mask, bias, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, mask, bias, out, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:  # e.g. the expanded gradient of out.sum()
+            do = do.contiguous()
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, mask, bias, do, lse, delta, ctx.scale)
+        dq, dbias = flash_bwd_dq(*args)
+        dk, dv = flash_bwd_dkv(*args)
+        if dbias is not None:
+            dims = [i for i in range(4) if bias.shape[i] == 1]
+            if dims:
+                dbias = dbias.sum(dims, keepdim=True)
+            dbias = dbias.to(bias.dtype)
+        return dq, dk, dv, None, dbias, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -647,9 +824,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     True == attend; bias (B|1, T1, T2) or (B|1, h|1, T1|1, T2), added
     before the scale.  A fully masked row gives 0.  CUDA tensors must be
     float32 or bfloat16 with d in 32/64/128 and a unit-stride last dim
-    (strided (B, T, h, d) views are read in place); the kernel is
-    forward only, and the output has no gradient."""
+    (strided (B, T, h, d) views are read in place).
+
+    When autograd records (grad enabled and q, k, v or the bias requires
+    grad) the call goes through `FlashAttention`, so gradients reach q,
+    k, v and the bias on either device (K4 with lse, K5 and K6 on the
+    card); otherwise it runs the forward alone."""
     mask, bias = _mask_bias4(q, mask, bias)
-    if _device_kind(q) == 'cpu':
-        return flash_fwd_reference(q, k, v, mask, bias, scale)
-    return _flash_cuda(q, k, v, mask, bias, scale)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias)):
+        return FlashAttention.apply(q, k, v, mask, bias, scale)
+    return flash_fwd(q, k, v, mask, bias, scale)[0]

@@ -1,7 +1,9 @@
 """Config-driven model construction.  Counterpart of the `asr_model` and
 `whisper` entries of wenet_tpu/utils/init_model.py: a conformer or
 whisper-style transformer encoder, a (bi)transformer decoder and a CTC
-head, from the same train.yaml schema.
+head, from the same train.yaml schema, with LoRA attention projections
+when `lora_conf.use_lora` is set (the encoder's always, the decoder's
+with `lora_decoder`).
 
 `gradient_checkpointing` (activation recomputation, which trades memory
 and changes no result) and `use_sdpa` are accepted and ignored.  Options
@@ -16,6 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from wenet_tpu_torch.models.finetune.lora import LoRALinear
 from wenet_tpu_torch.models.transformer.asr_model import ASRModel
 from wenet_tpu_torch.models.transformer.attention import (
     RelPositionMultiHeadedAttention)
@@ -57,7 +60,9 @@ _DECODER_FIXED = {'normalize_before': True, 'use_output_layer': True,
 
 
 def _params(fn) -> set:
-    return set(inspect.signature(fn).parameters)
+    """The constructor's options a config section may set (the LoRA
+    settings come from `lora_conf`, not from a section)."""
+    return set(inspect.signature(fn).parameters) - {'lora_conf'}
 
 
 def _conf(conf: dict, accepted: set, what: str, fixed=None) -> dict:
@@ -75,12 +80,26 @@ def _conf(conf: dict, accepted: set, what: str, fixed=None) -> dict:
     return out
 
 
+def lora_conf_of(configs: dict) -> Optional[dict]:
+    """The LoRA settings of `configs['lora_conf']` with the JAX package's
+    defaults (rank 8, alpha 8, dropout 0, list o/q/k/v), or None when
+    `use_lora` is not set."""
+    lc = configs.get('lora_conf') or {}
+    if not lc.get('use_lora', False):
+        return None
+    return {'lora_rank': lc.get('lora_rank', 8),
+            'lora_alpha': lc.get('lora_alpha', 8),
+            'lora_dropout': lc.get('lora_dropout', 0.0),
+            'lora_list': tuple(lc.get('lora_list', ['o', 'q', 'k', 'v']))}
+
+
 def init_model(configs: dict, generator: Optional[torch.Generator] = None,
-               device='cpu') -> ASRModel:
+               device='cuda') -> ASRModel:
     """Build the model from a wenet-style config (with `input_dim` and
-    `output_dim` set) on `device`, weights drawn from `generator` (a
-    generator of that device).  device='meta' builds the shapes only,
-    with no storage and no weights drawn.
+    `output_dim` set) on `device` (the card unless the caller asks for
+    'cpu'), weights drawn from `generator` (a generator of that device).
+    device='meta' builds the shapes only, with no storage and no weights
+    drawn.
 
     Load trained or converted weights with `load_state_dict`; set the
     cmvn buffers (`encoder.global_cmvn.mean` / `istd`) from the stats."""
@@ -91,8 +110,9 @@ def init_model(configs: dict, generator: Optional[torch.Generator] = None,
                                ('model', model_type, MODEL_CLASSES)):
         if value not in ported:
             raise NotImplementedError(f'{key}={value!r} is not ported')
-    if configs.get('lora_conf', {}).get('use_lora', False):
-        raise NotImplementedError('LoRA (lora_conf.use_lora) is not ported')
+    lora_conf = lora_conf_of(configs)
+    dec_lora = (lora_conf if (configs.get('lora_conf') or {}).get(
+        'lora_decoder', False) else None)
     enc_cls = ENCODER_CLASSES[encoder_type]
     vocab_size = configs['output_dim']
     decoder_type = configs.get('decoder', 'bitransformer')
@@ -113,9 +133,11 @@ def init_model(configs: dict, generator: Optional[torch.Generator] = None,
         encoder = enc_cls(
             configs['input_dim'],
             use_cmvn=configs.get('cmvn') == 'global_cmvn',
+            lora_conf=lora_conf,
             **_conf(configs['encoder_conf'], _params(enc_cls.__init__),
                     'encoder', _ENCODER_FIXED_BY_TYPE[encoder_type]))
-        decoder = dec_cls(vocab_size, encoder.output_size(), **dec_conf)
+        decoder = dec_cls(vocab_size, encoder.output_size(),
+                          lora_conf=dec_lora, **dec_conf)
         ctc = CTC(vocab_size, encoder.output_size(),
                   configs.get('ctc_conf', {}).get('ctc_blank_id', 0))
         model = MODEL_CLASSES[model_type](
@@ -133,8 +155,10 @@ def init_weights(model: nn.Module,
                  generator: Optional[torch.Generator] = None) -> None:
     """Fill every parameter and buffer: fan-in uniform for Linear/Conv,
     N(0, 1) embeddings, N(0, 0.02) learnable positions, zero tied-output
-    biases, Xavier-uniform rel-pos biases, identity norms and cmvn.
-    Raises if a tensor is left unset."""
+    biases, Xavier-uniform rel-pos biases, identity norms and cmvn; LoRA
+    lora_A kaiming-uniform (fan-in uniform, torch's `a=sqrt(5)`) and
+    lora_B zero, so a fresh LoRA layer adds nothing.  Raises if a tensor
+    is left unset."""
     done = set()
 
     def fill(t, fn):
@@ -151,6 +175,9 @@ def init_weights(model: nn.Module,
             fill(m.weight, uniform(bound))
             if m.bias is not None:
                 fill(m.bias, uniform(bound))
+            if isinstance(m, LoRALinear):
+                fill(m.lora_A, uniform(1.0 / math.sqrt(m.lora_A.shape[1])))
+                fill(m.lora_B, nn.init.zeros_)
         elif isinstance(m, nn.Embedding):
             fill(m.weight, lambda t: t.normal_(generator=generator))
         elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d)):
