@@ -32,8 +32,10 @@ Phases, each of which raises on failure (non-zero exit):
               device-busy share and the profiler table, fp32 and bf16
   7a. K4      masked flash attention against its plain version, fp32 and
               bf16, at whisper's encoder shapes, ragged edges, mask + bias,
-              a fully masked row and d=128; kernel, plain, SDPA and bound;
-              K4 and the ordinary path above and below the gate
+              a fully masked row, d=128, a peaked softmax and key tiles
+              closed mid-row; kernel, plain, SDPA and bound (fp32: 3xTF32
+              beside FFMA) in both types; K4 and the ordinary path above
+              and below the gate
   7b. whisper large-v3 at full width (4 + 4 layers) through
               AsrRunner.decode(['attention']) on the card against the CPU,
               beam 5, with and without timestamps: identical hypotheses,
@@ -114,6 +116,7 @@ LOSS_DROP = 0.8  # 30 steps on one batch must end below 80% of the first loss
 # published H100 SXM peaks: fp32 on the CUDA cores, bf16 dense tensor
 # cores, HBM3 (the kernels' bounds are computed against these)
 FP32_FLOPS, BF16_FLOPS, HBM_BYTES = 67e12, 989e12, 3.35e12
+TF32_FLOPS = 495e12  # dense tf32 tensor cores: K4's fp32 route (3xTF32)
 FLASH_SHAPES = [  # B, h, T1, T2, d, mask, bias
     (4, 20, 1500, 1500, 64, 'pad', False),   # whisper large-v3's encoder
     (4, 20, 1000, 1000, 64, 'pad', False),   # a 20 s batch
@@ -121,6 +124,8 @@ FLASH_SHAPES = [  # B, h, T1, T2, d, mask, bias
     (1, 2, 130, 257, 32, 'rows', True),      # (B, 1, T1, T2) mask + bias
     (2, 4, 64, 64, 64, 'masked_row', False),  # one fully masked row
     (2, 4, 600, 600, 128, 'pad', False),     # d = 128
+    (2, 4, 300, 300, 64, 'peaked', False),   # q scaled by 8
+    (2, 4, 200, 448, 64, 'gap', False),      # key tiles closed mid-row
 ]
 # K4's reference runs in fp32 on the same (rounded) inputs: in bf16 the
 # kernel is held to the rounding of its output, about 2 bf16 ulps
@@ -137,11 +142,19 @@ WHISPER_V3 = {'n_mels': 128, 'n_vocab': 51866, 'n_audio_state': 1280,
 WHISPER_SPEED_EOT_BIAS = 17.129
 
 
-def bound(flops, nbytes, dtype=torch.float32):
+def bound(flops, nbytes, dtype=torch.float32, tf32_split=False):
     """(ms, 'operations' | 'bytes'): the least time the card could take for
     `flops` at the peak of the inputs' type and `nbytes` at the memory
-    rate."""
-    t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+    rate (3.35 TB/s).  bf16: the tensor cores' 989 TFLOP/s.  fp32: the
+    CUDA cores' FFMA peak, 67 TFLOP/s, or with `tf32_split`, the fp32
+    route of K4, three tf32 products for each fp32 one at the tensor
+    cores' 495 TFLOP/s (so 165 TFLOP/s of fp32 work)."""
+    if dtype == torch.bfloat16:
+        t_ops = flops / BF16_FLOPS
+    elif tf32_split:
+        t_ops = 3 * flops / TF32_FLOPS
+    else:
+        t_ops = flops / FP32_FLOPS
     t_bytes = nbytes / HBM_BYTES
     return (1e3 * max(t_ops, t_bytes),
             'operations' if t_ops >= t_bytes else 'bytes')
@@ -249,7 +262,7 @@ def kernel_check():
     rng = np.random.RandomState(SEED)
     report = None
     max_err_fp32 = 0.0
-    for B, h, T1, T2, d, mask_kind in KERNEL_SHAPES:
+    for i, (B, h, T1, T2, d, mask_kind) in enumerate(KERNEL_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             (q1, q2, k, p, v), mask = kernel_inputs(rng, B, h, T1, T2, d,
                                                     mask_kind, dtype)
@@ -274,16 +287,20 @@ def kernel_check():
                   f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms', flush=True)
             if dtype == torch.float32:
                 max_err_fp32 = max(max_err_fp32, err)
-                if report is None:  # the first shape is the main path's
-                    # 3 products of 2*d FLOPs per attended pair
-                    n_pairs = attended_pairs(mask, B, h, T1, T2)
-                    b_ms, b_by = bound(6 * d * n_pairs, nbytes(
-                        q1, q2, k, p, v, mask, got))
-                    lib_ms = relpos_sdpa(q1, q2, k, p, v, mask, scale, got)
+            if i == 0:  # the first shape is the main path's
+                # 3 products of 2*d FLOPs per attended pair
+                n_pairs = attended_pairs(mask, B, h, T1, T2)
+                b_ms, b_by = bound(6 * d * n_pairs, nbytes(
+                    q1, q2, k, p, v, mask, got), dtype)
+                lib_ms = relpos_sdpa(q1, q2, k, p, v, mask, scale, got)
+                if dtype == torch.float32:
                     report = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                   bound_by=b_by, library_ms=lib_ms)
-                    print(f'    bound {b_ms:.4f} ms ({b_by}), SDPA '
-                          f'{lib_ms:.4f} ms', flush=True)
+                else:
+                    report.update(ms_bf16=ms, bound_ms_bf16=b_ms,
+                                  library_ms_bf16=lib_ms)
+                print(f'    bound {b_ms:.4f} ms ({b_by}), SDPA '
+                      f'{lib_ms:.4f} ms', flush=True)
     report['max_abs_err'] = max_err_fp32
     return report
 
@@ -461,8 +478,8 @@ def train_kernel_check():
     from wenet_tpu_torch.ops import flash_attention as fa
     rng = np.random.RandomState(SEED + 3)
     errs = {name: 0.0 for name in TRAIN_KERNELS}
-    times = {}
-    for B, h, T1, T2, d, mask_kind, rate in TRAIN_SHAPES:
+    main = {}  # dtype -> (times, bounds) at the main shape
+    for i, (B, h, T1, T2, d, mask_kind, rate) in enumerate(TRAIN_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             x, mask = kernel_inputs(rng, B, h, T1, T2, d, mask_kind, dtype)
             do = torch.from_numpy(
@@ -525,23 +542,24 @@ def train_kernel_check():
                     cuda_time_ms(lambda: fa.relpos_bwd_dkpv_reference(
                         *x, *args))),
             }
-            if not times:  # the first shape in fp32 is the main path's
-                times = t
+            if i == 0:  # the first shape is the main path's
                 n_pairs = attended_pairs(mask, B, h, T1, T2)
                 common = nbytes(*x, mask, do, want_lse, delta)
                 bounds = {  # 3, 5 and 6 products of 2*d FLOPs per pair
                     'relpos_attention_fwd_train': bound(
-                        6 * d * n_pairs, nbytes(*x, mask, out, lse)),
+                        6 * d * n_pairs, nbytes(*x, mask, out, lse), dtype),
                     'relpos_attention_bwd_dq': bound(
-                        10 * d * n_pairs, common + nbytes(*grads[:2])),
+                        10 * d * n_pairs, common + nbytes(*grads[:2]),
+                        dtype),
                     'relpos_attention_bwd_dkpv': bound(
-                        12 * d * n_pairs, common + nbytes(*grads[2:])),
+                        12 * d * n_pairs, common + nbytes(*grads[2:]),
+                        dtype),
                 }
+                main[dtype] = t, bounds
                 print('    bounds: ' + ', '.join(
                     f'{n[17:]} {b[0]:.4f} ms ({b[1]})'
                     for n, b in bounds.items()), flush=True)
-            if (rate == 0.0 and mask_kind == 'pad'
-                    and dtype == torch.float32):
+            if rate == 0.0 and mask_kind == 'pad':
                 relpos_sdpa_train(x, mask, do, scale, out, grads)
             print(f'  ({B},{h},{T1},{T2},{d}) mask={mask_kind} '
                   f'dropout={rate} {str(dtype)[6:]}: max_abs_err '
@@ -551,9 +569,13 @@ def train_kernel_check():
                 flush=True)
     # the main shape's dropout has no library counterpart: library_ms is
     # null there; the no-dropout SDPA times are printed for the record
+    (times, bounds), (times16, bounds16) = (main[torch.float32],
+                                            main[torch.bfloat16])
     return {name: dict(max_abs_err=errs[name], ms=times[name][0],
                        plain_ms=times[name][1], bound_ms=bounds[name][0],
-                       bound_by=bounds[name][1], library_ms=None)
+                       bound_by=bounds[name][1], library_ms=None,
+                       ms_bf16=times16[name][0],
+                       bound_ms_bf16=bounds16[name][0], library_ms_bf16=None)
             for name in TRAIN_KERNELS}
 
 
@@ -565,6 +587,7 @@ def relpos_sdpa_train(x, mask, do, scale, out, grads):
     import torch.nn.functional as F
     q1, q2, k, p, v = x
     B, _, _, d = q1.shape
+    tol = TRAIN_TOL[q1.dtype]
     qc = torch.cat([q1, q2], -1).detach().requires_grad_()
     kc = torch.cat([k, p.expand(B, -1, -1, -1)], -1).detach()
     kc.requires_grad_()
@@ -575,19 +598,20 @@ def relpos_sdpa_train(x, mask, do, scale, out, grads):
                                            scale=scale)
         dq, dk, dv = torch.autograd.grad(o, (qc, kc, vv), do,
                                          retain_graph=True)
-    tol = TRAIN_TOL[torch.float32]
-    torch.testing.assert_close(o.detach(), out.detach(), **tol)
+    torch.testing.assert_close(o.detach().float(), out.detach().float(),
+                               **tol)
     for got, want in ((dq[..., :d], grads[0]), (dq[..., d:], grads[1]),
                       (dk[..., :d], grads[2]),
                       (dk[..., d:].sum(0, keepdim=True), grads[3]),
                       (dv, grads[4])):
-        torch.testing.assert_close(got, want.float(), **tol)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
     fwd_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
         qc.detach(), kc.detach(), vv, attn_mask=m, scale=scale))
     bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
         o, (qc, kc, vv), do, retain_graph=True))
-    print(f'    SDPA, no dropout: forward {fwd_ms:.4f} ms, backward '
-          f'(dq, dk, dv: K2 + K3 together) {bwd_ms:.4f} ms', flush=True)
+    print(f'    SDPA, no dropout, {str(q1.dtype)[6:]}: forward {fwd_ms:.4f} '
+          f'ms, backward (dq, dk, dv: K2 + K3 together) {bwd_ms:.4f} ms',
+          flush=True)
 
 
 def mask_check():
@@ -839,7 +863,8 @@ def train_speed(smi):
 # ---------------------------------------------------------------------------
 def flash_inputs(rng, B, h, T1, T2, d, mask_kind, use_bias, dtype):
     """q, k, v as (B, h, T, d) views of (B, T, h, d) buffers, as the
-    attention module hands them; the mask (B, 1, 1|T1, T2) bool; the bias
+    attention module hands them (q scaled by 8 and contiguous for
+    'peaked'); the mask (B, 1, 1|T1, T2) bool; the bias
     fp32, (1, h, T1, T2) when `use_bias` is True, else of the shape it
     gives (or None)."""
     def t(*shape):
@@ -850,8 +875,13 @@ def flash_inputs(rng, B, h, T1, T2, d, mask_kind, use_bias, dtype):
     lens[0] = T2
     pad = torch.arange(T2, device='cuda')[None, :] < lens[:, None]
     mask = None
-    if mask_kind == 'pad':
+    if mask_kind in ('pad', 'peaked', 'gap'):
         mask = pad[:, None, None, :]
+        if mask_kind == 'peaked':  # a peaked softmax
+            q = q * 8
+        elif mask_kind == 'gap':  # keys 64..191 closed for every query
+            keys = torch.arange(T2, device='cuda')
+            mask = mask & ((keys < 64) | (keys >= 192))
     elif mask_kind in ('rows', 'masked_row'):  # causal over key padding
         rows = torch.arange(T1, device='cuda')[:, None]
         mask = ((torch.arange(T2, device='cuda')[None, :] <= rows)[None]
@@ -908,7 +938,7 @@ def flash_kernel_check():
     from wenet_tpu_torch.ops import flash_attention as fa
     rng = np.random.RandomState(SEED + 6)
     report, max_err = None, 0.0
-    for B, h, T1, T2, d, mask_kind, use_bias in FLASH_SHAPES:
+    for i, (B, h, T1, T2, d, mask_kind, use_bias) in enumerate(FLASH_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, mask, bias = flash_inputs(rng, B, h, T1, T2, d,
                                                mask_kind, use_bias, dtype)
@@ -935,20 +965,26 @@ def flash_kernel_check():
             # 2 products of 2*d FLOPs per attended pair
             flops = 4 * d * attended_pairs(mask, B, h, T1, T2)
             moved = nbytes(q, k, v, mask, bias, got)
-            b_ms, b_by = bound(flops, moved, dtype)
+            b_ms, b_by = bound(flops, moved, dtype, tf32_split=True)
             extra = ''
-            if dtype == torch.bfloat16:  # the kernel's math is fp32 FFMA
-                extra = f', {bound(flops, moved)[0]:.4f} ms at fp32 FFMA'
+            if dtype == torch.float32:  # 3xTF32, beside the CUDA cores' FFMA
+                extra = f' at 3xTF32, {bound(flops, moved)[0]:.4f} ms at FFMA'
             print(f'  ({B},{h},{T1},{T2},{d}) mask={mask_kind} '
                   f'bias={use_bias} {str(dtype)[6:]}: max_abs_err={err:.3g} '
                   f'({100 * of_bar:.0f}% of the bar) kernel {ms:.4f} ms, '
-                  f'plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}{extra}); '
+                  f'plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, '
+                  f'bound {b_ms:.4f} ms ({b_by}{extra}); '
                   f'{flops / ms / 1e9:.1f} TFLOP/s', flush=True)
             if dtype == torch.float32:
                 max_err = max(max_err, err)
-                if report is None:  # whisper's encoder: the main shape
-                    report = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                  bound_by=b_by, library_ms=lib_ms)
+            if i == 0 and dtype == torch.float32:  # whisper's encoder
+                report = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=lib_ms,
+                              tflops=flops / ms / 1e9)
+            elif i == 0:
+                report.update(ms_bf16=ms, bound_ms_bf16=b_ms,
+                              library_ms_bf16=lib_ms,
+                              tflops_bf16=flops / ms / 1e9)
 
     # the gate: K4 against attention_core's ordinary path above and below
     for B, h, T1, T2, d in (FLASH_SHAPES[0][:5], GATE_BELOW):
@@ -1211,7 +1247,7 @@ def whisper_speed(smi):
                 and not getattr(e, 'is_user_annotation', False)]
         total = sum(e.self_device_time_total for e in rows) / 1e3
         k4 = sum(e.self_device_time_total for e in rows
-                 if 'flash_fwd_kernel' in e.key) / 1e3
+                 if 'flash_fwd_' in e.key) / 1e3
         busy = 100 * total / (prof_wall * 1e3)
         print(f'    kernel time in one profiled decode: {total:.2f} ms of '
               f'{prof_wall * 1e3:.1f} ms wall ({busy:.0f}% device busy); '
@@ -1259,7 +1295,8 @@ def flash_train_kernel_check():
     rng = np.random.RandomState(SEED + 9)
     errs = {name: 0.0 for name in FLASH_TRAIN_KERNELS}
     report = None
-    for B, h, T1, T2, d, mask_kind, bias_shape in FLASH_TRAIN_SHAPES:
+    for i, (B, h, T1, T2, d, mask_kind, bias_shape) in enumerate(
+            FLASH_TRAIN_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, mask, bias = flash_inputs(rng, B, h, T1, T2, d,
                                                mask_kind, bias_shape, dtype)
@@ -1284,26 +1321,39 @@ def flash_train_kernel_check():
             want.backward(do.float())
             grads = [t.grad for t in leaves]
             want_grads = [t.grad for t in ref]
+            # K4-train is held to K4's bars (its output to its dtype's,
+            # its fp32 lse to fp32's), the gradients to TRAIN_TOL
+            g_tol = TRAIN_TOL[dtype]
             pairs = {
-                'flash_attention_fwd_train': [(out, want), (lse, want_lse)],
-                'flash_attention_bwd_dq': [(grads[0], want_grads[0])] + (
-                    [(grads[3], want_grads[3])] if bias is not None else []),
-                'flash_attention_bwd_dkv': list(zip(grads[1:3],
-                                                    want_grads[1:3])),
+                'flash_attention_fwd_train': [
+                    (out, want, FLASH_TOL[dtype]),
+                    (lse, want_lse, FLASH_TOL[torch.float32])],
+                'flash_attention_bwd_dq': [
+                    (grads[0], want_grads[0], g_tol)] + (
+                    [(grads[3], want_grads[3], g_tol)]
+                    if bias is not None else []),
+                'flash_attention_bwd_dkv': [
+                    (g, w, g_tol) for g, w in zip(grads[1:3],
+                                                  want_grads[1:3])],
             }
             line = []
             for name, checks in pairs.items():
-                err = 0.0
-                for got, w in checks:
+                err = of_bar = 0.0
+                for got, w, tol in checks:
                     if not torch.isfinite(got).all():
                         raise RuntimeError(f'{name}: output is not finite')
+                    diff = (got.float() - w.float()).abs()
                     torch.testing.assert_close(got.float(), w.float(),
-                                               **TRAIN_TOL[dtype], msg=name)
-                    err = max(err, (got.float() - w.float()).abs().max()
-                              .item())
+                                               **tol, msg=name)
+                    err = max(err, diff.max().item())
+                    # the largest share of its bar an element's error takes
+                    of_bar = max(of_bar, (diff / (tol['atol'] + tol['rtol']
+                                                  * w.float().abs()))
+                                 .max().item())
                 if dtype == torch.float32:
                     errs[name] = max(errs[name], err)
-                line.append(f'{name[16:]} {err:.3g}')
+                line.append(f'{name[16:]} {err:.3g} ({100 * of_bar:.0f}% '
+                            f'of the bar)')
             if mask_kind == 'masked_row' and (
                     out[0, :, 5].any() or grads[0][0, :, 5].any()
                     or not lse[0, :, 5].eq(fa.NEG_INF).all()):
@@ -1333,7 +1383,7 @@ def flash_train_kernel_check():
             bounds = {  # 2, 3 and 4 products of 2*d FLOPs per pair
                 'flash_attention_fwd_train': bound(
                     4 * d * n_pairs, nbytes(q, k, v, mask, bias, out, lse),
-                    dtype),
+                    dtype, tf32_split=True),
                 'flash_attention_bwd_dq': bound(
                     6 * d * n_pairs, common + nbytes(grads[0]) + (
                         4 * B * h * T1 * T2 if bias is not None else 0),
@@ -1354,18 +1404,27 @@ def flash_train_kernel_check():
                 + ('' if sdpa is None else
                    f'; SDPA forward {sdpa[0]:.4f}, backward (dq, dk, dv '
                    f'together) {sdpa[1]:.4f}'), flush=True)
-            if report is None:  # the first shape in fp32 is the main path's
-                report = {n: dict(ms=t[n][0], plain_ms=t[n][1],
-                                  bound_ms=bounds[n][0],
-                                  bound_by=bounds[n][1],
-                                  library_ms=sdpa[0 if n.endswith('train')
-                                                  else 1])
-                          for n in FLASH_TRAIN_KERNELS}
+            if i == 0:  # the first shape is the main path's
+                # SDPA's forward is K4-train's yardstick, its backward
+                # K5 + K6 together's
+                key = '' if dtype == torch.float32 else '_bf16'
+                if report is None:
+                    report = {n: {} for n in FLASH_TRAIN_KERNELS}
+                for n in FLASH_TRAIN_KERNELS:
+                    report[n].update({
+                        'ms' + key: t[n][0], 'bound_ms' + key: bounds[n][0],
+                        'library_ms' + key: sdpa[0 if n.endswith('train')
+                                                 else 1]})
+                    if not key:
+                        report[n].update(plain_ms=t[n][1],
+                                         bound_by=bounds[n][1])
+                tflops = [f * d * n_pairs / t[n][0] / 1e9 for f, n in
+                          zip((4, 6, 8), FLASH_TRAIN_KERNELS)]
+                report['flash_attention_fwd_train']['tflops' + key] = (
+                    tflops[0])
                 print(f'    main shape: {n_pairs / 1e6:.1f}M attended pairs; '
-                      f'{4 * d * n_pairs / t["flash_attention_fwd_train"][0] / 1e9:.1f} / '
-                      f'{6 * d * n_pairs / t["flash_attention_bwd_dq"][0] / 1e9:.1f} / '
-                      f'{8 * d * n_pairs / t["flash_attention_bwd_dkv"][0] / 1e9:.1f}'
-                      f' TFLOP/s (K4-train / K5 / K6)', flush=True)
+                      + ' / '.join(f'{x:.1f}' for x in tflops)
+                      + ' TFLOP/s (K4-train / K5 / K6)', flush=True)
     for name in FLASH_TRAIN_KERNELS:
         report[name]['max_abs_err'] = errs[name]
     return report
@@ -1695,7 +1754,7 @@ def whisper_train_speed_one(model, configs, dtype, B, smi):
               f'{100 * total / (wall * 1e3):.0f}% of its {wall * 1e3:.1f} '
               f'ms wall, {100 * total / (dt * 1e3):.0f}% of an unprofiled '
               f'micro-step (device busy; {smi})', flush=True)
-        for label, key in (('K4-train', 'flash_fwd_kernel'),
+        for label, key in (('K4-train', 'flash_fwd_'),
                            ('K5', 'flash_bwd_dq_kernel'),
                            ('K6', 'flash_bwd_dkv_kernel')):
             ms = sum(e.self_device_time_total for e in rows

@@ -29,14 +29,20 @@ def _inputs(rng, B, h, T1, T2, d, mask_kind, use_bias):
     q = rng.randn(B, h, T1, d).astype(np.float32)
     k, v = (rng.randn(B, h, T2, d).astype(np.float32) for _ in range(2))
     lens = rng.randint(T2 // 2, T2 + 1, size=(B,))
+    if mask_kind == 'short':  # the last two 64-key tiles closed
+        lens = rng.randint(T2 // 4, T2 - 127, size=(B,))
     pad = np.arange(T2)[None, :] < lens[:, None]
     if mask_kind is None:
         mask = None
-    elif mask_kind == 'pad':  # (B, 1, T2) key padding
+    elif mask_kind in ('pad', 'short', 'peaked'):  # (B, 1, T2) key padding
         mask = pad[:, None, :]
-    elif mask_kind == 'heads':  # (B, h, 1, T2): a pad mask per head
+        if mask_kind == 'peaked':  # a peaked softmax
+            q = q * 8
+    elif mask_kind in ('heads', 'gap'):  # (B, h, 1, T2): a pad mask per head
         mask = np.stack([np.arange(T2)[None, :] < rng.randint(
             1, T2 + 1, size=(B, 1)) for _ in range(h)], axis=1)[:, :, None]
+        if mask_kind == 'gap':  # keys 64..191 closed: whole tiles mid-row
+            mask = mask & ((np.arange(T2) < 64) | (np.arange(T2) >= 192))
     else:  # (B, T1, T2): causal over key padding
         mask = ((np.arange(T2)[None, :] <= np.arange(T1)[:, None])[None]
                 & pad[:, None, :])
@@ -56,6 +62,12 @@ CASES = [  # B, h, T1, T2, d, mask, bias
     (2, 2, 48, 48, 32, 'causal', False),       # a (B, T1, T2) mask
     (1, 2, 24, 24, 32, 'masked_row', False),   # one fully masked row
     (1, 2, 40, 70, 128, 'pad', True),          # d = 128
+    (2, 2, 70, 20, 64, 'pad', False),          # T2 shorter than a key tile
+    (1, 2, 129, 191, 64, 'pad', True),         # one past a 64- and a 128-tile
+    (1, 2, 191, 129, 32, 'causal', False),     # the same, the other way
+    (2, 3, 40, 320, 64, 'gap', False),         # closed key tiles mid-row
+    (1, 2, 64, 320, 128, 'short', False),      # d = 128, last two tiles closed
+    (2, 2, 100, 150, 64, 'peaked', False),     # q scaled by 8
 ]
 
 
@@ -186,7 +198,7 @@ def test_dispatch(monkeypatch):
 
 @pytest.mark.parametrize('bad', ['mask_heads', 'mask_len', 'mask_dtype',
                                  'bias_rows', 'head_dim', 'dtype',
-                                 'inner_stride', 'kv_len'])
+                                 'inner_stride', 'kv_len', 'unaligned'])
 def test_kernel_wrapper_rejects(bad):
     """What the kernel does not take raises before launch (checked on
     shape-only meta tensors, so no card is needed)."""
@@ -198,7 +210,7 @@ def test_kernel_wrapper_rejects(bad):
     k, v = t(B, h, T2, d), t(B, h, T2, d)
     mask = t(B, 1, 1, T2, dtype=torch.bool)
     bias = t(1, h, T1, T2)
-    fa._flash_check(q, k, v, mask, bias)
+    fa._flash_check(q, k, v, mask, bias, aligned=True)
     if bad == 'mask_heads':
         mask = t(B, 3, T1, T2, dtype=torch.bool)
     elif bad == 'mask_len':
@@ -213,10 +225,12 @@ def test_kernel_wrapper_rejects(bad):
         q = t(B, h, T1, d, dtype=torch.float16)
     elif bad == 'inner_stride':
         v = t(B, h, d, T2).transpose(2, 3)
+    elif bad == 'unaligned':  # rows 4 * 65 bytes apart: no 16-byte copies
+        k = t(B, h, T2, d + 1)[..., :d]
     else:
         k = t(B, h, T2 + 1, d)
     with pytest.raises(ValueError):
-        fa._flash_check(q, k, v, mask, bias)
+        fa._flash_check(q, k, v, mask, bias, aligned=True)
 
 
 @pytest.mark.cuda
@@ -249,3 +263,56 @@ def test_cuda_kernel_matches_plain(dtype, B, h, T1, T2, d, mask_kind,
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
     if mask_kind == 'masked_row':
         assert not got[0, :, 3].any()
+
+
+# Run in a process of its own: the bias lies at the end of the mapped
+# device memory, so a read past its last row is an illegal address (which
+# ends the process's CUDA context) rather than a read of a neighbour.
+_BIAS_AT_END = '''
+import sys, torch
+from wenet_tpu_torch.ops import flash_attention as fa
+dtype = getattr(torch, sys.argv[1])
+B, h, T1, T2, d = 1, 2, 129, 1024, 64
+g = torch.Generator().manual_seed(5)
+q, k, v = (torch.randn(B, h, T, d, generator=g).cuda().to(dtype)
+           for T in (T1, T2, T2))
+mask = (torch.arange(T2) < 1000).view(1, 1, 1, T2).cuda()  # one row
+# expandable segments grow the large pool 20 MiB at a time: a buffer of
+# 20 MiB, the pool's first, ends where the mapping does (checked here)
+n = B * h * T1 * T2
+buf = torch.empty((20 << 20) // 4, device='cuda')
+end = buf.data_ptr() + 4 * buf.numel()
+segs = [(s['address'], s['total_size']) for s in torch.cuda.memory_snapshot()
+        if s['address'] <= buf.data_ptr() < s['address'] + s['total_size']]
+assert [a + size for a, size in segs] == [end], (buf.data_ptr(), end, segs)
+bias = buf[buf.numel() - n:].view(B, h, T1, T2)
+bias.copy_(torch.randn(B, h, T1, T2, generator=g))
+got = fa.flash_attention(q, k, v, mask, bias, 0.125)
+torch.cuda.synchronize()
+want, _ = fa.flash_fwd_reference(q.float(), k.float(), v.float(), mask,
+                                 bias, 0.125)
+tol = (2e-5, 1e-5) if dtype == torch.float32 else (1e-3, 8e-3)
+torch.testing.assert_close(got.float(), want, atol=tol[0], rtol=tol[1])
+print('ok')
+'''
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_cuda_bias_read_stays_in_bounds(dtype):
+    """The last query block of a ragged T1 (129: 63 rows past it) with a
+    one-row mask and a bias: the rows past T1 read no bias, even where
+    the bias ends at the end of mapped device memory."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device to run the Hopper kernel')
+    import os
+    import subprocess
+    import sys
+    fa.build()  # here, so that the child only loads the library
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF='expandable_segments:True')
+    run = subprocess.run([sys.executable, '-c', _BIAS_AT_END, dtype],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert run.returncode == 0 and run.stdout.strip() == 'ok', (
+        run.stdout[-2000:] + run.stderr[-4000:])

@@ -309,6 +309,10 @@ CUDA_CASES = CASES + [
 ]
 TOL = {torch.float32: dict(atol=2e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=5e-2, rtol=2e-2)}
+# K4-train's output and lse are held to K4's bars: fp32's, and in bf16
+# the rounding of the output (fp32 reference on the same rounded inputs)
+FWD_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5),
+           torch.bfloat16: dict(atol=1e-3, rtol=8e-3)}
 
 
 @pytest.fixture
@@ -334,7 +338,8 @@ def _cuda_inputs(rng, dtype, *case):
 def test_cuda_train_kernels_match_plain(cuda, dtype, B, h, T1, T2, d,
                                         mask_kind, bias_shape):
     """K4-train, K5 and K6, each against its plain version in fp32 on the
-    same (bf16-rounded) inputs and the same lse and delta."""
+    same (bf16-rounded) inputs and the same lse and delta: K4-train at
+    K4's bars, the gradients at TOL."""
     rng = np.random.RandomState(7)
     q, k, v, mask, bias, do = _cuda_inputs(rng, dtype, B, h, T1, T2, d,
                                            mask_kind, bias_shape)
@@ -344,8 +349,8 @@ def test_cuda_train_kernels_match_plain(cuda, dtype, B, h, T1, T2, d,
     out, lse = fa.flash_fwd(q, k, v, mask, bias, scale, want_lse=True)
     want, want_lse = fa.flash_fwd_reference(*x32, mask, bias, scale, True)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out.float(), want, **TOL[dtype])
-    torch.testing.assert_close(lse, want_lse, **TOL[dtype])
+    torch.testing.assert_close(out.float(), want, **FWD_TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **FWD_TOL[torch.float32])
     delta = (do.float() * want).sum(-1)
     args = (mask, bias, do, want_lse, delta, scale)
     dq, dbias = fa.flash_bwd_dq(q, k, v, *args)

@@ -60,7 +60,8 @@ SOURCES = {'relpos_attention': CSRC / 'relpos_attention.cu',
            'relpos_attention_bwd': CSRC / 'relpos_attention_bwd.cu',
            'flash_attention': CSRC / 'flash_attention.cu',
            'flash_attention_bwd': CSRC / 'flash_attention_bwd.cu'}
-HEADERS = (CSRC / 'dropout_hash.cuh', CSRC / 'relpos_common.cuh')
+HEADERS = (CSRC / 'dropout_hash.cuh', CSRC / 'relpos_common.cuh',
+           CSRC / 'hopper_mma.cuh')
 BUILD_DIR = _PKG / 'build'
 _HEAD_DIMS = (32, 64, 128)
 _TRAIN_HEAD_DIMS = (32, 64)  # K3's shared-memory tiles do not fit d=128
@@ -635,7 +636,10 @@ def flash_bwd_dkv_reference(q, k, v, mask, bias, do, lse, delta, scale=1.0
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _flash_check(q, k, v, mask, bias):
+def _flash_check(q, k, v, mask, bias, aligned=False):
+    """Raise on what the flash kernels do not take; `aligned`: K4's
+    16-byte copies also need q, k and v's base and strides 16-byte
+    aligned (the attention module's views are)."""
     B, H, T1, D = q.shape
     T2 = k.shape[2]
     dev = q.device
@@ -653,6 +657,12 @@ def _flash_check(q, k, v, mask, bias):
                              f'{q.dtype} on {dev}')
         if t.stride(-1) != 1:
             raise ValueError(f'{name} must be unit-stride in its last dim')
+        if aligned and (t.data_ptr() % 16 or any(
+                t.stride(i) * t.element_size() % 16
+                for i in range(3) if t.shape[i] > 1)):
+            raise ValueError(f'{name} must have a 16-byte aligned base and '
+                             f'strides, has {t.data_ptr() % 16} and '
+                             f'{t.stride()}')
     if B * H > 65535:
         raise ValueError(f'B*h = {B * H} exceeds the grid limit')
     for name, t, dtypes, rows in (('mask', mask, (torch.bool,), (1, T1)),
@@ -680,7 +690,7 @@ def _ptr(t) -> Optional[int]:
 
 def _flash_cuda(q, k, v, mask, bias, scale, want_lse=False):
     """Launch K4, or its train variant (lse) when `want_lse`."""
-    _flash_check(q, k, v, mask, bias)
+    _flash_check(q, k, v, mask, bias, aligned=True)
     B, H, T1, D = q.shape
     T2 = k.shape[2]
     out = _like_heads(q, v.dtype)
