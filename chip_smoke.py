@@ -1283,6 +1283,9 @@ FLASH_TRAIN_SHAPES = [  # B, h, T1, T2, d, mask, bias shape
     (2, 2, 130, 257, 32, 'rows', (2, 130, 257)),     # summed over the heads
     (2, 4, 64, 64, 64, 'masked_row', None),  # one fully masked row
     (2, 4, 600, 600, 128, 'pad', None),      # d = 128
+    (2, 4, 300, 300, 64, 'peaked', None),    # q scaled by 8
+    (2, 4, 200, 448, 64, 'gap', (2, 4, 200, 448)),  # closed tiles + bias
+    (2, 4, 129, 300, 64, 'pad', (2, 4, 129, 300)),  # T1 = 129 + bias
 ]
 FINETUNE_CONFIG = os.path.join(REPO, 'examples/aishell/whisper/conf/'
                                'finetune_whisper_largev3.yaml')
@@ -1313,14 +1316,28 @@ def flash_train_kernel_check():
             out.backward(do)
             _, lse = fa.flash_fwd(q, k, v, mask, bias, scale, True)
             torch.cuda.synchronize()
-            # the plain version: dense autograd in fp32 on the same inputs
-            ref = [t.detach().float().requires_grad_() for t in leaves]
-            want, want_lse = fa.flash_fwd_reference(
-                *ref[:3], mask, ref[3] if bias is not None else None, scale,
-                True)
-            want.backward(do.float())
+            # the plain versions chained as the Function chains them, in
+            # fp32 on the same inputs: the forward, its output rounded to
+            # the Function's type, delta = rowsum(do·out) of that (as the
+            # JAX package's `_bwd_call` takes it), plain K5 and K6, and
+            # dbias summed over the bias's broadcast dims.  In fp32 this
+            # is dense autograd; in bf16 dense autograd would also hold
+            # the kernels to the rounding of out, which on the peaked
+            # shape alone takes dk past the bar with exact kernels.
             grads = [t.grad for t in leaves]
-            want_grads = [t.grad for t in ref]
+            x32 = [t.float() for t in (q, k, v)]
+            want, want_lse = fa.flash_fwd_reference(*x32, mask, bias, scale,
+                                                    True)
+            ref_args = (mask, bias, do.float(), want_lse,
+                        (do.float() * want.to(dtype).float()).sum(-1), scale)
+            want_dq, want_dbias = fa.flash_bwd_dq_reference(*x32, *ref_args)
+            want_grads = [want_dq,
+                          *fa.flash_bwd_dkv_reference(*x32, *ref_args)]
+            if bias is not None:
+                b4 = bias if bias.dim() == 4 else bias.unsqueeze(1)
+                dims = [i for i in range(4) if b4.shape[i] == 1]
+                want_grads.append((want_dbias.sum(dims, keepdim=True)
+                                   if dims else want_dbias).view(bias.shape))
             # K4-train is held to K4's bars (its output to its dtype's,
             # its fp32 lse to fp32's), the gradients to TRAIN_TOL
             g_tol = TRAIN_TOL[dtype]
@@ -1380,17 +1397,19 @@ def flash_train_kernel_check():
             }
             n_pairs = attended_pairs(mask, B, h, T1, T2)
             common = nbytes(q, k, v, mask, bias, do, want_lse, delta)
-            bounds = {  # 2, 3 and 4 products of 2*d FLOPs per pair
-                'flash_attention_fwd_train': bound(
-                    4 * d * n_pairs, nbytes(q, k, v, mask, bias, out, lse),
-                    dtype, tf32_split=True),
-                'flash_attention_bwd_dq': bound(
+            # 2, 3 and 4 products of 2*d FLOPs per pair; each kernel's
+            # fp32 route is 3xTF32 (FFMA printed beside it)
+            work = {
+                'flash_attention_fwd_train': (
+                    4 * d * n_pairs, nbytes(q, k, v, mask, bias, out, lse)),
+                'flash_attention_bwd_dq': (
                     6 * d * n_pairs, common + nbytes(grads[0]) + (
-                        4 * B * h * T1 * T2 if bias is not None else 0),
-                    dtype),
-                'flash_attention_bwd_dkv': bound(
-                    8 * d * n_pairs, common + nbytes(*grads[1:3]), dtype),
+                        4 * B * h * T1 * T2 if bias is not None else 0)),
+                'flash_attention_bwd_dkv': (
+                    8 * d * n_pairs, common + nbytes(*grads[1:3])),
             }
+            bounds = {n: bound(*w, dtype, tf32_split=True)
+                      for n, w in work.items()}
             sdpa = None
             if bias is None and mask_kind in ('pad', None):
                 sdpa = flash_sdpa_train(q, k, v, mask, scale, do, out,
@@ -1400,7 +1419,10 @@ def flash_train_kernel_check():
                   + ', '.join(line), flush=True)
             print('    kernel / plain / bound ms: ' + ', '.join(
                 f'{n[16:]} {a:.4f} / {b:.4f} / {bounds[n][0]:.4f} '
-                f'({bounds[n][1]})' for n, (a, b) in t.items())
+                f'({bounds[n][1]}' + (
+                    f', FFMA {bound(*work[n])[0]:.4f}'
+                    if dtype == torch.float32 else '') + ')'
+                for n, (a, b) in t.items())
                 + ('' if sdpa is None else
                    f'; SDPA forward {sdpa[0]:.4f}, backward (dq, dk, dv '
                    f'together) {sdpa[1]:.4f}'), flush=True)
@@ -1420,8 +1442,8 @@ def flash_train_kernel_check():
                                          bound_by=bounds[n][1])
                 tflops = [f * d * n_pairs / t[n][0] / 1e9 for f, n in
                           zip((4, 6, 8), FLASH_TRAIN_KERNELS)]
-                report['flash_attention_fwd_train']['tflops' + key] = (
-                    tflops[0])
+                for n, x in zip(FLASH_TRAIN_KERNELS, tflops):
+                    report[n]['tflops' + key] = x
                 print(f'    main shape: {n_pairs / 1e6:.1f}M attended pairs; '
                       + ' / '.join(f'{x:.1f}' for x in tflops)
                       + ' TFLOP/s (K4-train / K5 / K6)', flush=True)
@@ -1755,8 +1777,8 @@ def whisper_train_speed_one(model, configs, dtype, B, smi):
               f'ms wall, {100 * total / (dt * 1e3):.0f}% of an unprofiled '
               f'micro-step (device busy; {smi})', flush=True)
         for label, key in (('K4-train', 'flash_fwd_'),
-                           ('K5', 'flash_bwd_dq_kernel'),
-                           ('K6', 'flash_bwd_dkv_kernel')):
+                           ('K5', 'flash_bwd_dq_'),
+                           ('K6', 'flash_bwd_dkv_')):
             ms = sum(e.self_device_time_total for e in rows
                      if key in e.key) / 1e3
             print(f'    {label} {key}: {ms:.3f} ms, '

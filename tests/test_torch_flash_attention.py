@@ -277,22 +277,46 @@ g = torch.Generator().manual_seed(5)
 q, k, v = (torch.randn(B, h, T, d, generator=g).cuda().to(dtype)
            for T in (T1, T2, T2))
 mask = (torch.arange(T2) < 1000).view(1, 1, 1, T2).cuda()  # one row
-# expandable segments grow the large pool 20 MiB at a time: a buffer of
-# 20 MiB, the pool's first, ends where the mapping does (checked here)
+# expandable segments grow the large pool 20 MiB at a time: its first
+# blocks are a hole of n floats (K5's dbias takes it) and a buffer of the
+# rest of the 20 MiB, which ends where the mapping does (checked here,
+# and again after the kernels)
 n = B * h * T1 * T2
-buf = torch.empty((20 << 20) // 4, device='cuda')
+hole = torch.empty(n, device='cuda')
+buf = torch.empty((20 << 20) // 4 - n, device='cuda')
 end = buf.data_ptr() + 4 * buf.numel()
-segs = [(s['address'], s['total_size']) for s in torch.cuda.memory_snapshot()
-        if s['address'] <= buf.data_ptr() < s['address'] + s['total_size']]
-assert [a + size for a, size in segs] == [end], (buf.data_ptr(), end, segs)
+
+
+def ends_mapping():
+    segs = [(s['address'], s['total_size'])
+            for s in torch.cuda.memory_snapshot()
+            if s['address'] <= buf.data_ptr() < s['address'] + s['total_size']]
+    assert [a + size for a, size in segs] == [end], (buf.data_ptr(), end,
+                                                     segs)
+
+
+ends_mapping()
+del hole
 bias = buf[buf.numel() - n:].view(B, h, T1, T2)
 bias.copy_(torch.randn(B, h, T1, T2, generator=g))
 got = fa.flash_attention(q, k, v, mask, bias, 0.125)
+# K5 on the same bias (K4-train gives its lse)
+do = torch.randn(B, h, T1, d, generator=g).cuda().to(dtype)
+_, lse = fa.flash_fwd(q, k, v, mask, bias, 0.125, want_lse=True)
+delta = (do.float() * got.float()).sum(-1)
+dq, dbias = fa.flash_bwd_dq(q, k, v, mask, bias, do, lse, delta, 0.125)
 torch.cuda.synchronize()
+ends_mapping()
 want, _ = fa.flash_fwd_reference(q.float(), k.float(), v.float(), mask,
                                  bias, 0.125)
 tol = (2e-5, 1e-5) if dtype == torch.float32 else (1e-3, 8e-3)
 torch.testing.assert_close(got.float(), want, atol=tol[0], rtol=tol[1])
+want_dq, want_dbias = fa.flash_bwd_dq_reference(
+    q.float(), k.float(), v.float(), mask, bias, do.float(), lse, delta,
+    0.125)
+tol = (2e-4, 1e-4) if dtype == torch.float32 else (5e-2, 2e-2)
+torch.testing.assert_close(dq.float(), want_dq, atol=tol[0], rtol=tol[1])
+torch.testing.assert_close(dbias, want_dbias, atol=tol[0], rtol=tol[1])
 print('ok')
 '''
 
@@ -301,8 +325,8 @@ print('ok')
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 def test_cuda_bias_read_stays_in_bounds(dtype):
     """The last query block of a ragged T1 (129: 63 rows past it) with a
-    one-row mask and a bias: the rows past T1 read no bias, even where
-    the bias ends at the end of mapped device memory."""
+    one-row mask and a bias, in K4 and in K5: the rows past T1 read no
+    bias, even where the bias ends at the end of mapped device memory."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device to run the Hopper kernel')
     import os

@@ -39,8 +39,12 @@ def _inputs(rng, B, h, T1, T2, d, mask_kind, bias_shape):
     pad = np.arange(T2)[None, :] < lens[:, None]
     if mask_kind is None:
         mask = None
-    elif mask_kind == 'pad':  # (B, 1, T2) key padding
+    elif mask_kind in ('pad', 'peaked', 'gap'):  # (B, 1, T2) key padding
         mask = pad[:, None, :]
+        if mask_kind == 'peaked':  # a peaked softmax
+            q = q * 8
+        elif mask_kind == 'gap':  # keys 64..191 closed: whole tiles mid-row
+            mask = mask & ((np.arange(T2) < 64) | (np.arange(T2) >= 192))
     elif mask_kind == 'heads':  # (B, h, 1, T2): a pad mask per head
         mask = np.stack([np.arange(T2)[None, :] < rng.randint(
             1, T2 + 1, size=(B, 1)) for _ in range(h)], axis=1)[:, :, None]
@@ -64,6 +68,9 @@ CASES = [  # B, h, T1, T2, d, mask, bias shape
     (1, 2, 24, 24, 32, 'masked_row', None),       # one fully masked row
     (2, 3, 40, 40, 32, 'heads', None),            # a mask per head
     (1, 2, 40, 70, 128, 'pad', (1, 2, 40, 70)),   # d = 128
+    (1, 2, 40, 256, 32, 'gap', (1, 2, 40, 256)),  # closed key tiles, a bias
+    (1, 2, 60, 90, 64, 'peaked', None),           # q scaled by 8
+    (1, 2, 129, 70, 32, 'pad', (1, 2, 129, 70)),  # T1 one past two tiles
 ]
 
 
@@ -73,19 +80,13 @@ def _torch(*arrays, grad=False):
             for a in arrays]
 
 
-@pytest.mark.parametrize('B,h,T1,T2,d,mask_kind,bias_shape', CASES)
-def test_function_matches_jax(interpret_pallas, B, h, T1, T2, d, mask_kind,
-                              bias_shape):
-    """out, lse and the gradients of sum(o·cos(o)) against the JAX kernels
-    in interpret mode (jax.grad through the custom VJP)."""
+def _jax_vjp(q, k, v, mask, bias, scale):
+    """The JAX `flash_attention` (its Pallas kernels in interpret mode) ->
+    (out, lse, grads of sum(o·cos(o)) for q, k, v and the bias)."""
     import jax
     import jax.numpy as jnp
     from wenet_tpu.ops.flash_attention import _fwd_call
     from wenet_tpu.ops.flash_attention import flash_attention as jfa
-    rng = np.random.RandomState(0)
-    q, k, v, mask, bias, _ = _inputs(rng, B, h, T1, T2, d, mask_kind,
-                                     bias_shape)
-    scale = 1.0 / np.sqrt(d)
     jmask = None if mask is None else jnp.asarray(mask)
 
     def loss(q, k, v, bias):
@@ -96,36 +97,90 @@ def test_function_matches_jax(interpret_pallas, B, h, T1, T2, d, mask_kind,
     jargs = [jnp.asarray(a) for a in (q, k, v)] + [
         None if bias is None else jnp.asarray(bias)]
     argnums = (0, 1, 2) if bias is None else (0, 1, 2, 3)
-    (_, want), want_grads = jax.value_and_grad(
+    (_, out), grads = jax.value_and_grad(
         loss, argnums=argnums, has_aux=True)(*jargs)
     m4 = None if mask is None else (jmask[:, None] if mask.ndim == 3
                                     else jmask)
     b4 = None if bias is None else (jargs[3][:, None] if bias.ndim == 3
                                     else jargs[3])
-    _, want_lse = _fwd_call(*jargs[:3], m4, b4, scale, BLOCK, BLOCK,
-                            want_lse=True)
+    _, lse = _fwd_call(*jargs[:3], m4, b4, scale, BLOCK, BLOCK,
+                       want_lse=True)
+    return (np.asarray(out), np.asarray(lse),
+            [np.asarray(g) for g in grads])
 
-    tq, tk, tv, tbias = _torch(q, k, v, bias, grad=True)
+
+def _port_vjp(q, k, v, mask, bias, scale, dtype=torch.float32):
+    """The port's Function on CPU tensors (plain K4-train, K5, K6) in
+    `dtype` -> (out, lse, the leaves q, k, v, bias with their .grad)."""
+    x = [None if a is None else
+         torch.from_numpy(a).to(dtype).requires_grad_() for a in (q, k, v,
+                                                                   bias)]
     tmask = None if mask is None else torch.from_numpy(mask)
-    got = fa.flash_attention(tq, tk, tv, tmask, tbias, scale)
-    assert type(got.grad_fn).__name__ == 'FlashAttentionBackward'
-    (got * torch.cos(got)).sum().backward()
-    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
-                               atol=ATOL, rtol=ATOL)
+    out = fa.flash_attention(*x[:3], tmask, x[3], scale)
+    assert type(out.grad_fn).__name__ == 'FlashAttentionBackward'
+    (out * torch.cos(out)).sum().backward()
     with torch.no_grad():
-        _, lse = fa.flash_fwd_reference(tq, tk, tv, tmask, tbias, scale,
+        _, lse = fa.flash_fwd_reference(*x[:3], tmask, x[3], scale,
                                         want_lse=True)
+    return out.detach(), lse, x
+
+
+JAX_CASES = [c for c in CASES if c[5] != 'peaked']
+
+
+@pytest.mark.parametrize('B,h,T1,T2,d,mask_kind,bias_shape', JAX_CASES)
+def test_function_matches_jax(interpret_pallas, B, h, T1, T2, d, mask_kind,
+                              bias_shape):
+    """out, lse and the gradients of sum(o·cos(o)) against the JAX kernels
+    in interpret mode (jax.grad through the custom VJP)."""
+    rng = np.random.RandomState(0)
+    q, k, v, mask, bias, _ = _inputs(rng, B, h, T1, T2, d, mask_kind,
+                                     bias_shape)
+    scale = 1.0 / np.sqrt(d)
+    want, want_lse, want_grads = _jax_vjp(q, k, v, mask, bias, scale)
+    got, lse, (tq, tk, tv, tbias) = _port_vjp(q, k, v, mask, bias, scale)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=ATOL)
     assert lse.shape == (B, h, T1)
-    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
-                               atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=ATOL, rtol=ATOL)
     names = ('dq', 'dk', 'dv', 'dbias')
     for name, t, w in zip(names, (tq, tk, tv, tbias), want_grads):
         assert t.grad.shape == t.shape, name
-        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
-                                   atol=ATOL, rtol=ATOL, err_msg=name)
+        np.testing.assert_allclose(t.grad.numpy(), w, atol=ATOL, rtol=ATOL,
+                                   err_msg=name)
     if mask_kind == 'masked_row':
         assert lse[0, :, 3].eq(fa.NEG_INF).all()
         assert not got[0, :, 3].any() and not tq.grad[0, :, 3].any()
+    if mask_kind == 'gap':  # no gradient reaches the closed keys
+        assert not tbias.grad[..., 64:192].any()
+        assert not tk.grad[:, :, 64:192].any()
+
+
+@pytest.mark.parametrize('B,h,T1,T2,d,mask_kind,bias_shape',
+                         [c for c in CASES if c[5] == 'peaked'])
+def test_peaked_function_matches_jax_and_float64(
+        interpret_pallas, B, h, T1, T2, d, mask_kind, bias_shape):
+    """q scaled by 8: scores reach ≈ 30, where fp32 rounding of s − lse
+    moves P by a few 1e-6.  out, lse, dq and dv against the JAX kernels at
+    1e-5 as above; dk (dsᵀ·q, with q eight times larger) against the
+    float64 evaluation of the same Function at that bar, because the JAX
+    kernel's own fp32 dk is 5.4e-5 from float64 on this case, 2.7 times
+    the bar, where the port's is 8.8e-6, half of it (held in
+    tests/test_torch_flash_bwd_precision.py): the JAX side would miss the
+    bar, not the port."""
+    rng = np.random.RandomState(0)
+    q, k, v, mask, bias, _ = _inputs(rng, B, h, T1, T2, d, mask_kind,
+                                     bias_shape)
+    scale = 1.0 / np.sqrt(d)
+    want, want_lse, want_grads = _jax_vjp(q, k, v, mask, bias, scale)
+    got, lse, (tq, tk, tv, _) = _port_vjp(q, k, v, mask, bias, scale)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=ATOL, rtol=ATOL)
+    for name, t, w in (('dq', tq, want_grads[0]), ('dv', tv, want_grads[2])):
+        np.testing.assert_allclose(t.grad.numpy(), w, atol=ATOL, rtol=ATOL,
+                                   err_msg=name)
+    _, _, exact = _port_vjp(q, k, v, mask, bias, scale, torch.float64)
+    np.testing.assert_allclose(tk.grad.numpy(), exact[1].grad.numpy(),
+                               atol=ATOL, rtol=ATOL, err_msg='dk')
 
 
 @pytest.mark.parametrize('B,h,T1,T2,d,mask_kind,bias_shape', CASES[1:7])
@@ -201,6 +256,24 @@ def test_expanded_upstream_grad():
         torch.testing.assert_close(t.grad, r.grad, atol=ATOL, rtol=ATOL)
 
 
+def test_unaligned_upstream_grad():
+    """An upstream gradient at an offset that is not 16-byte aligned (a
+    view into a larger buffer) is taken, and gives the same gradients."""
+    rng = np.random.RandomState(10)
+    q, k, v, _, _, do = _inputs(rng, 2, 2, 20, 20, 32, None, None)
+    flat = torch.from_numpy(np.concatenate([[0.0], do.ravel()]).astype(
+        np.float32))
+    odd = flat[1:].view(do.shape)  # 4 bytes past an aligned base
+    assert odd.data_ptr() % 16 != 0
+    x = _torch(q, k, v, grad=True)
+    fa.flash_attention(*x, None, None, 0.2).backward(odd)
+    ref = _torch(q, k, v, grad=True)
+    fa.flash_fwd_reference(*ref, None, None, 0.2)[0].backward(
+        torch.from_numpy(do))
+    for t, r in zip(x, ref):
+        torch.testing.assert_close(t.grad, r.grad, atol=ATOL, rtol=ATOL)
+
+
 def _open_gate(monkeypatch, calls):
     """Gate open at T >= 16 for CPU tensors; count the flash calls."""
     def counted(*args):
@@ -270,7 +343,8 @@ def test_dispatch_attention_dropout_takes_plain_path(monkeypatch):
 
 
 @pytest.mark.parametrize('bad', ['do_dtype', 'do_shape', 'do_stride',
-                                 'lse_shape', 'delta_dtype', 'head_dim'])
+                                 'lse_shape', 'delta_dtype', 'head_dim',
+                                 'unaligned'])
 def test_bwd_wrapper_rejects(bad):
     """What K5 and K6 do not take raises before the build (checked on
     shape-only meta tensors, so no card is needed)."""
@@ -291,6 +365,8 @@ def test_bwd_wrapper_rejects(bad):
         lse = t(B, h, T1 + 1)
     elif bad == 'delta_dtype':
         delta = t(B, h, T1, dtype=torch.bfloat16)
+    elif bad == 'unaligned':  # rows of d + 1 floats: 16-byte copies fail
+        do = t(B, h, T1, d + 1)[..., :d]
     else:
         q, k, v, do = (t(*x.shape[:3], 48) for x in (q, k, v, do))
     for which in ('dq', 'dkv'):
@@ -306,6 +382,9 @@ CUDA_CASES = CASES + [
     (2, 20, 300, 300, 64, 'pad', None),
     (1, 2, 130, 257, 32, 'rows', (1, 2, 130, 257)),
     (2, 2, 130, 257, 32, 'rows', (2, 130, 257)),
+    (2, 4, 300, 300, 64, 'peaked', None),           # q scaled by 8
+    (2, 4, 200, 448, 64, 'gap', (2, 4, 200, 448)),  # closed tiles, a bias
+    (2, 4, 129, 300, 64, 'pad', (2, 4, 129, 300)),  # T1 = 129, a bias
 ]
 TOL = {torch.float32: dict(atol=2e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=5e-2, rtol=2e-2)}
@@ -392,3 +471,51 @@ def test_cuda_function_matches_cpu_function(cuda):
     for t, w in zip(dev, cpu):
         torch.testing.assert_close(t.grad.cpu(), w.grad,
                                    **TOL[torch.float32])
+
+
+def _fill_allocator_with_nan():
+    """Leave the caching allocator's free blocks, small and large, full of
+    NaN (allocate, fill, free), so that an output the kernels do not
+    write reads NaN."""
+    blocks = [torch.full((1 << 18,), float('nan'), device='cuda')
+              for _ in range(32)]  # 1 MiB each: the small pool
+    blocks.append(torch.full((1 << 26,), float('nan'), device='cuda'))
+    torch.cuda.synchronize()
+    del blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_cuda_closed_tiles_write_zeros(cuda, dtype):
+    """K5 skips the key tiles the mask closes for every row, K6 the key
+    blocks it closes for every query: their dbias, dk and dv are written
+    as zeros, not left as what the allocator held (NaN here)."""
+    rng = np.random.RandomState(11)
+    B, h, T1, T2, d = 2, 4, 200, 448, 64
+    q, k, v, mask, bias, do = _cuda_inputs(rng, dtype, B, h, T1, T2, d,
+                                           'gap', (B, h, T1, T2))
+    scale = 1.0 / np.sqrt(d)
+    out, lse = fa.flash_fwd(q, k, v, mask, bias, scale, want_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (mask, bias, do, lse, delta, scale)
+    _fill_allocator_with_nan()
+    dq, dbias = fa.flash_bwd_dq(q, k, v, *args)
+    _fill_allocator_with_nan()
+    dk, dv = fa.flash_bwd_dkv(q, k, v, *args)
+    torch.cuda.synchronize()
+    closed = ~mask[:, None].expand(B, h, T1, T2)  # (B, 1, T2) key mask
+    assert closed[..., 64:192].all()
+    for name, g in (('dq', dq), ('dbias', dbias), ('dk', dk), ('dv', dv)):
+        assert torch.isfinite(g).all(), name
+    assert dbias[closed].eq(0).all()
+    keys = closed.all(2)  # (B, h, T2): keys no query attends
+    assert dk[keys].eq(0).all() and dv[keys].eq(0).all()
+    rdq, rdbias = fa.flash_bwd_dq_reference(
+        q.float(), k.float(), v.float(), mask, bias, do.float(), lse, delta,
+        scale)
+    rdk, rdv = fa.flash_bwd_dkv_reference(
+        q.float(), k.float(), v.float(), mask, bias, do.float(), lse, delta,
+        scale)
+    for name, g, r in (('dq', dq, rdq), ('dbias', dbias, rdbias),
+                       ('dk', dk, rdk), ('dv', dv, rdv)):
+        torch.testing.assert_close(g.float(), r, **TOL[dtype], msg=name)

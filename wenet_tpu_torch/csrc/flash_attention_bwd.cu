@@ -1,63 +1,120 @@
 // Masked flash attention backward for Hopper (sm_90a), plain C entry
 // points.  Two kernels, as in the TPU version:
 //
-//   K5 flash_bwd_dq_kernel   replaces `_bwd_dq_kernel`
-//   K6 flash_bwd_dkv_kernel  replaces `_bwd_dkv_kernel`
+//   K5 flash_bwd_dq_*   replaces `_bwd_dq_kernel`  (wenet_tpu/ops/
+//                       flash_attention.py:237, called at :418)
+//   K6 flash_bwd_dkv_*  replaces `_bwd_dkv_kernel` (:288, called at :472)
 //
-// (wenet_tpu/ops/flash_attention.py, reached there through the custom VJP
-// of `flash_attention`, which `attention_core` calls for long sequences:
-// whisper's 1500-frame encoder in training).  Both recompute, tile by
-// tile, what the forward kernel (flash_attention.cu, train variant)
-// computed, from the saved row log-sum-exp instead of the (T1, T2)
-// probabilities:
+// reached there through the custom VJP of `flash_attention`, which
+// `attention_core` calls for long sequences (whisper's 1500-frame encoder
+// in training).  Both recompute, tile by tile, what the forward kernel
+// (flash_attention.cu, train variant) computed, from the saved row
+// log-sum-exp instead of the (T1, T2) probabilities:
 //
-//   s  = (q . k^T + bias) * scale, NEG_INF where masked
-//   P  = exp(s - lse), 0 where s <= NEG_INF / 2
-//   ds = P . (do . v^T - delta) * scale    delta = rowsum(do . out), given
+//   S  = (Q . K^T + bias) * scale, masked   bias added BEFORE the scale
+//   P  = exp(S - lse), 0 where masked (where S <= NEG_INF / 2)
+//   dS = P (dO . V^T - delta) * scale        delta = rowsum(dO . out), given
 //
-//   K5:  dq = ds . k, and dbias = ds (only when there is a bias)
-//   K6:  dv = P^T . do,  dk = ds^T . q
+//   K5:  dQ = dS . K, and dbias = dS (only when there is a bias)
+//   K6:  dV = P^T . dO,  dK = dS^T . Q
 //
-// K5 gives one block to (64 query rows, b*h): q and do are staged once,
-// 64-key tiles of k and v stream through shared memory, dq accumulates in
-// fp32 registers.  K6 gives one block to (64 keys, b*h): k and v are
-// staged once, 64-row tiles of q, do, lse and delta stream through, and
-// dk, dv accumulate in fp32 registers.  Neither needs a reduction across
-// blocks (no atomics), so the results do not depend on the schedule.
-// dbias is written per (b, h) as a contiguous (B, h, T1, T2) fp32 array;
-// the caller sums it over the dims the bias broadcast over.
+// K5 gives one block (one warpgroup, 128 threads) to 64 query rows of one
+// (batch, head): Q and dO are staged once, 64-key tiles of K and V stream
+// through shared memory, dQ accumulates in fp32 registers.  K6 gives one
+// block to 64 keys: K and V are staged once, 64-row tiles of Q, dO, lse
+// and delta stream through, dK and dV accumulate in fp32 registers.
+// Neither needs a reduction across blocks (no atomics), so the results do
+// not depend on the schedule.  dbias is written per (batch, head) as a
+// contiguous (B, H, T1, T2) fp32 array; the caller sums it over the dims
+// the bias broadcast over.
 //
 // Contract (as the forward): NEG_INF = -1e30; fully masked rows have
-// lse = NEG_INF, so P = 0: zero dq and dbias, nothing added to dk and dv;
-// fp32 and bf16 inputs are upcast on load and all math is fp32; ragged
-// T1 / T2 edges are bounds-checked, not padded.  q, k, v, do and the
-// gradients are read and written through (batch, head, time) strides with
-// a unit-stride feature dim (the attention module's (B, T, h, d)
-// buffers), the mask (B|1, 1|h, 1|T1, T2) and the fp32 bias through their
-// own strides, 0 on a broadcast dim.
+// lse = NEG_INF and P = 0: zero dQ and dbias, nothing added to dK and dV;
+// softmax and accumulation are fp32; ragged T1 / T2 edges are
+// zero-filled on load and masked.  q, k, v, do and the gradients are read
+// and written through (batch, head, time) strides with a unit-stride
+// feature dim (the attention module's (B, T, h, d) buffers), with bases
+// and strides 16-byte aligned (the wrapper checks); the mask
+// (B|1, 1|h, 1|T1, T2) and the fp32 bias through their own strides, 0 on
+// a broadcast dim.  Only elements inside T1 x T2 whose mask bit is set
+// read the bias.
 //
-// What bounds it on an H100: as the forward, fp32 products of 64x64 tiles
-// on the CUDA cores (67 TFLOP/s FFMA), fed from shared memory: K5 does
-// three (q.k^T, do.v^T, ds.k: 6 d FLOPs per attended pair), K6 four
-// (q.k^T, do.v^T, ds^T.q, P^T.do: 8 d), against a few bytes per pair of
-// device traffic, so FMA issue bounds both, far from the 3.35 TB/s memory
-// line (except K5's dbias write, 4 bytes per pair, which only small
-// shapes have).  Each thread owns a 4x4 block of the score tile, so each
-// shared-memory read of the score phase feeds 2 FMAs; rows are padded by
-// one float.  Shared memory at d = 64: K5 83,200 bytes, K6 100,352; at
-// d = 128: K5 148,736, K6 165,888 (under the 227 KB a block may take).
-// wgmma on bf16 tiles and TMA loads are the later step.
+// The seven products (d <= 64), each a wgmma m64nNk16 (bf16) or m64nNk8
+// (tf32) over 64 x 64 tiles in hopper_mma.cuh's 128-byte swizzled layout:
+//   K5  S   = Q . K^T    A = Q, B = K: both from shared memory, K-major
+//       dP  = dO . V^T   A = dO, B = V: the same
+//       dQ += dS . K     A = dS from registers: the accumulator layout of
+//                        dP is the A fragment (as K4's P); B = K as
+//                        stored, MN-major through the transpose bit
+//   K6  S^T  = K . Q^T   A = K, B = Q: both K-major
+//       dP^T = V . dO^T  A = V, B = dO: both K-major
+//       dV  += P^T . dO  A = P^T from registers; B = dO, MN-major
+//       dK  += dS^T . Q  A = dS^T from registers; B = Q, MN-major
+// K6 computes the transposed tiles so that P^T and dS^T come out of the
+// accumulators already in the A-fragment layout of its two output
+// products, with its own 64 keys as the rows: no shuffle, no trip through
+// shared memory.  lse and delta are then per column: each tile's values
+// come with Q and dO into shared memory, and each thread reads its 16
+// columns there.
+//
+// bf16: Q, K, V and dO are exact bf16 tiles, which arrive by cp.async into
+// a ring of two stages (the next tile's copy in flight while this one
+// computes).  P and dS are rounded to bf16 for the products that take
+// them, once, except dS in K6's dK = dS^T . Q, which goes in as two bf16
+// halves hi = bf16(dS) and lo = bf16(dS - hi), as K4's P does: one more
+// wgmma per k-step.  A rounding costs 2^-9 relative per element; the
+// gradient bars (atol 5e-2, rtol 2e-2 against fp32 on the same rounded
+// inputs) are about 50 times looser than K4's output bar, and a single
+// rounding stays within 20% of them on 8a's shapes except in dK on the
+// peaked shape (q scaled by 8, which dK's product multiplies back in):
+// there it takes 52-60% of the bar (emulated in fp32 by
+// tests/test_torch_flash_bwd_precision.py), and with the halves 19%
+// (8a).  The other roundings stay single (15-20% on that shape).
+// fp32: 3xTF32, as K4.  Each operand is split x = hi + lo, both rounded to
+// tf32, and hi.hi + hi.lo + lo.hi is accumulated in fp32.  tf32 takes
+// both operands K-major, so the MN-major operands (K in K5, Q and dO in
+// K6) get a second, transposed copy, with rows permuted within each
+// group of 8 so that the accumulator is the A fragment without shuffles
+// (split_cols, flash_tiles.cuh).  The streamed fp32 tiles arrive raw by
+// cp.async a tile ahead and are split from shared memory, so no global
+// load waits on the tile's critical path.  One block fills an SM's
+// shared memory (K5 193 KB, K6 226 KB at d = 64), so nothing else hides
+// a block's latency: registers decide, and two things starved them:
+// every wgmma descriptor of a tile computed up front (kstep orders
+// them), and the bias code even where there is no bias (each kernel has
+// an instance with the bias and one without).  Removing both took 8a's
+// fp32 K5 + K6 from 2.45 to 1.59 ms on an H100.
+//
+// Skipped tiles.  K5 walks its key tiles with K4's Walker and skips those
+// the mask closes for every row of the block; dQ is unchanged by them,
+// but dbias (allocated empty) gets zeros on them.  K6 skips query tiles
+// closed for every (query, key) pair of its block: a mask with one row
+// (the pad mask) is read once per thread, for its two keys, so a key
+// block in the padded tail skips every tile and writes zeros to dK and
+// dV (allocated empty); other masks are read per element, transposed.
+//
+// What bounds them on an H100: 6 d (K5) and 8 d (K6) FLOPs per attended
+// pair against a few bytes of device traffic per pair (K5's dbias, 4
+// bytes per pair, only with a bias), so the tensor cores: 989 TFLOP/s in
+// bf16, and in fp32, as three tf32 products, 495 / 3 TFLOP/s.  In
+// practice latency: the per-element exp2 and mask between the products,
+// and in fp32 the register path that splits the tiles.
+//
+// d = 128 keeps the first port's body, fp32 FFMA 4x4 register tiles fed
+// from padded fp32 shared memory (namespace ffma), chosen at compile time
+// by D: in fp32 the split tiles of K5 and K6 would need 385 and 450 KB, and in
+// bf16 K6 would hold two 128-wide fp32 accumulators per thread beside
+// the score tiles and their fragments, past the 255 registers a thread
+// may have.
 
+#include <type_traits>
+
+#include "flash_tiles.cuh"
 #include "relpos_common.cuh"
 
 namespace {
 
-using relpos::BK;
-using relpos::BQ;
-using relpos::from_float;
-using relpos::NEG_INF;
-using relpos::THREADS;
-using relpos::to_float;
+using namespace flash;
 
 // Element strides: (batch, head, time) for q, k, v, do and the two
 // gradient slots g0, g1 (K5: dq, unused; K6: dk, dv), each with a
@@ -77,6 +134,756 @@ struct Args {
   int B, H, T1, T2;
   float scale;
 };
+
+// ---------------------------------------------------------------------------
+// the tile's gradient, on the accumulator fragment
+// ---------------------------------------------------------------------------
+
+// One element: s (the product q . k, bias added) -> P = 2^(s scale log2 e
+// - lse log2 e), 0 where closed; dp (do . v) -> dS = P (dp - delta) scale.
+__device__ __forceinline__ void grad(float& s, float& dp, bool open,
+                                     float lse2, float delta, float sl2,
+                                     float scale) {
+  const float p = open ? ex2(fmaf(s, sl2, -lse2)) : 0.f;
+  s = p;
+  dp = p * (dp - delta) * scale;
+}
+
+// The bias of the open elements of a fragment whose rows r0, r0 + 8 and
+// columns c0 + 8 j + {0, 1} lie rs and cs elements apart in b, added to
+// s.  The strides pass through an empty asm, so that the 32 addresses
+// are computed here, per tile, and not hoisted out of the tile loop into
+// registers that the fp32 kernels cannot spare.
+__device__ __forceinline__ void add_bias(float (&s)[32], uint32_t bits,
+                                         const float* b, long long rs,
+                                         long long cs, int r0, int c0) {
+  asm volatile("" : "+l"(rs), "+l"(cs));
+  const float* p = b + r0 * rs + c0 * cs;
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    if ((bits >> i) & 1u)
+      s[i] += p[8 * ((i >> 1) & 1) * rs + (8 * (i >> 2) + (i & 1)) * cs];
+}
+
+// bf16 A fragments of a 64 x 64 accumulator tile: k-step ks = columns
+// 16 ks .. 16 ks + 15, register x holds elements 8 ks + 2 x and
+// 8 ks + 2 x + 1.
+__device__ __forceinline__ void frag_bf16(const float (&x)[32],
+                                          uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[ks][i] = pack_bf16(
+          __floats2bfloat162_rn(x[8 * ks + 2 * i], x[8 * ks + 2 * i + 1]));
+}
+
+// The same with each element split into hi = bf16(x) and lo =
+// bf16(x - hi): hi . B + lo . B keeps 16 bits of x.
+__device__ __forceinline__ void frag_bf16_split(const float (&x)[32],
+                                                uint32_t (&hi)[4][4],
+                                                uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x0 = x[8 * ks + 2 * i], x1 = x[8 * ks + 2 * i + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(h);
+      hi[ks][i] = pack_bf16(h);
+      lo[ks][i] = pack_bf16(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+    }
+}
+
+// tf32 hi and lo A fragments: k-step ks = columns 8 ks .. 8 ks + 7 in
+// split_cols's order: (row g, position t) = column 2 t, (row g + 8, t),
+// (row g, t + 4) = column 2 t + 1, (row g + 8, t + 4).
+__device__ __forceinline__ void frag_tf32(const float (&x)[32],
+                                          uint32_t (&hi)[8][4],
+                                          uint32_t (&lo)[8][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    const float y[4] = {x[4 * ks], x[4 * ks + 2], x[4 * ks + 1],
+                        x[4 * ks + 3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float h = tf32(y[e]);
+      hi[ks][e] = __float_as_uint(h);
+      lo[ks][e] = __float_as_uint(tf32(y[e] - h));
+    }
+  }
+}
+
+// The first D columns of an accumulator tile (rows r0, r0 + 8 of a
+// tensor with `limit` rows, row stride ld) in T.
+template <int D, typename T, int N>
+__device__ __forceinline__ void store_tile(const float (&acc)[N], T* base,
+                                           long long ld, int r0, int tq,
+                                           int limit) {
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const int r = r0 + 8 * row;
+    if (r >= limit) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(base + r * ld + 8 * j + 2 * tq, acc[4 * j + 2 * row],
+             acc[4 * j + 2 * row + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5: the per-row state and dbias
+// ---------------------------------------------------------------------------
+
+// lse (times log2 e) and delta of the thread's two query rows.
+struct Rows {
+  float lse2[2], delta[2];
+  __device__ Rows(const float* lse, const float* delta_, int r0, int T1) {
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      const int r = r0 + 8 * row;
+      lse2[row] = r < T1 ? lse[r] * LOG2E : 0.f;
+      delta[row] = r < T1 ? delta_[r] : 0.f;
+    }
+  }
+};
+
+// K5's gradient of one key tile (first key kt) on the fragment, and dS
+// into dbias (db: this (batch, head)'s (T1, T2) array, or null).
+__device__ __forceinline__ void grad_rows(float (&s)[32], float (&dp)[32],
+                                          uint32_t bits, const Rows& rows,
+                                          const float* bb, float* db,
+                                          const Strides& st, int r0, int tq,
+                                          int kt, int T1, int T2,
+                                          float scale) {
+  if (bb != nullptr)
+    add_bias(s, bits, bb, st.bias[2], st.bias[3], r0, kt + 2 * tq);
+  const float sl2 = scale * LOG2E;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int row = (i >> 1) & 1;
+    grad(s[i], dp[i], (bits >> i) & 1u, rows.lse2[row], rows.delta[row],
+         sl2, scale);
+  }
+  if (db == nullptr) return;
+  long long ld = T2;  // as add_bias: addresses computed here, per tile
+  asm volatile("" : "+l"(ld));
+  float* p = db + r0 * ld + kt + 2 * tq;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = r0 + 8 * ((i >> 1) & 1), c = 8 * (i >> 2) + (i & 1);
+    if (r < T1 && kt + 2 * tq + c < T2) p[8 * ((i >> 1) & 1) * ld + c] = dp[i];
+  }
+}
+
+// Zeros into dbias columns [c0, c1) of the block's rows: the key tiles
+// the walk skipped.
+__device__ __forceinline__ void zero_cols(float* db, int q0, int T1, int T2,
+                                          int c0, int c1, int tid) {
+  if (db == nullptr) return;
+  const int n = min(c1, T2) - c0, rows = min(BQ, T1 - q0);
+  for (int i = tid; i < rows * n; i += THREADS)
+    db[static_cast<long long>(q0 + i / n) * T2 + c0 + i % n] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// K5, bf16: wgmma on bf16 tiles, cp.async into two stages
+// ---------------------------------------------------------------------------
+
+constexpr int TILE16 = 64 * 128;  // 64 rows of 64 bf16 (D = 32: half used)
+constexpr size_t BF16_SMEM = 1024 + 6 * TILE16;
+
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(THREADS, 3)
+    flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const uint8_t* __restrict__ mask,
+                      const float* __restrict__ bias,
+                      const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dq,
+                      float* __restrict__ dbias, Strides st, int H, int T1,
+                      int T2, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u, sdo = sq + TILE16;
+  auto stage_k = [&](int stage) {  // K, then V
+    return sq + 2 * TILE16 + 2 * stage * TILE16;
+  };
+
+  const int tid = threadIdx.x, tq = tid & 3;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * BQ;
+  const int r0 = q0 + 16 * (tid >> 5) + ((tid & 31) >> 2);
+  const __nv_bfloat16* kb = k + b * st.k[0] + h * st.k[1];
+  const __nv_bfloat16* vb = v + b * st.v[0] + h * st.v[1];
+  const uint8_t* mb =
+      mask == nullptr ? nullptr : mask + b * st.mask[0] + h * st.mask[1];
+  const float* bb = BIAS ? bias + b * st.bias[0] + h * st.bias[1] : nullptr;
+  float* db = BIAS ? dbias + static_cast<long long>(bh) * T1 * T2 : nullptr;
+
+  load_rows<D, BQ>(sq, q + b * st.q[0] + h * st.q[1], st.q[2], q0, T1, tid);
+  load_rows<D, BQ>(sdo, dout + b * st.dout[0] + h * st.dout[1], st.dout[2],
+                   q0, T1, tid);
+  cp_async_commit();
+  const Rows rows(lse + static_cast<long long>(bh) * T1,
+                  delta + static_cast<long long>(bh) * T1, r0, T1);
+  __shared__ uint32_t votes[4];
+  Walker walk{mb, st.mask[2], st.mask[3], T1, T2, r0, tq, tid >> 5, tid & 31,
+              votes, mb == nullptr || st.mask[2] == 0};
+  if (walk.cols) walk.prefetch();
+  uint32_t bits;
+  int kt = walk.next(bits);
+  if (kt < T2) {
+    load_rows<D, BK>(stage_k(0), kb, st.k[2], kt, T2, tid);
+    load_rows<D, BK>(stage_k(0) + TILE16, vb, st.v[2], kt, T2, tid);
+  }
+  cp_async_commit();
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  int stage = 0, done = 0;  // done: dbias columns written
+  while (kt < T2) {
+    // the vote is a barrier: every warp is done with the stage refilled
+    uint32_t bits_next;
+    const int kn = walk.next(bits_next);
+    if (kn < T2) {
+      load_rows<D, BK>(stage_k(stage ^ 1), kb, st.k[2], kn, T2, tid);
+      load_rows<D, BK>(stage_k(stage ^ 1) + TILE16, vb, st.v[2], kn, T2,
+                       tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // Q, dO and this tile have landed
+    fence_async_smem();
+    __syncthreads();
+    const uint32_t sk = stage_k(stage), sv = sk + TILE16;
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      mma_bf16_ss(s, desc_k(sq, BQ, ks), desc_k(sk, BK, ks));
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      mma_bf16_ss(dp, desc_k(sdo, BQ, ks), desc_k(sv, BK, ks));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+    pin(dp);
+
+    zero_cols(db, q0, T1, T2, done, kt, tid);
+    done = kt + BK;
+    grad_rows(s, dp, bits, rows, bb, db, st, r0, tq, kt, T1, T2, scale);
+    uint32_t ds[4][4];
+    frag_bf16(dp, ds);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)  // K's k-step: 16 key rows of 128 bytes
+      mma_bf16_rs(acc, ds[ks], desc(sk + ks * 16 * 128, BK * 128));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(acc);
+    pin(ds);
+    kt = kn;
+    bits = bits_next;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+  zero_cols(db, q0, T1, T2, done, T2, tid);
+  store_tile<D>(acc, dq + b * st.g0[0] + h * st.g0[1], st.g0[2], r0, tq, T1);
+}
+
+// ---------------------------------------------------------------------------
+// K5, fp32: 3xTF32
+// ---------------------------------------------------------------------------
+
+// The descriptor of k-step ks of a K-major tile of `rows` rows at byte
+// offset `off` from the tile whose descriptor is `base`: an add to the
+// address field (which holds the shared address / 16, far from carrying
+// over).  `base` passes through an empty asm first, which orders the add
+// after the products issued before it: otherwise the compiler computes
+// every descriptor of the tile loop up front, and they hold some hundred
+// registers (they starved the fp32 kernels).
+__device__ __forceinline__ uint64_t kstep(uint64_t base, int off, int rows,
+                                          int ks) {
+  asm volatile("" : "+l"(base));
+  return base + static_cast<uint64_t>(
+                    (off + (ks >> 2) * rows * 128 + (ks & 3) * 32) >> 4);
+}
+
+// fp32 shared memory: 64 x D tiles, hi and lo of each split operand, then
+// the raw tiles that stage the next streamed operands by cp.async while
+// this tile computes (split from there: no global load on the tile's
+// critical path).
+template <int D>
+constexpr int TILE32 = 64 * D * 4;
+
+// Q, dO, K, V, K^T (hi, lo each); raw K, V
+template <int D>
+constexpr size_t dq_tf32_smem() {
+  return 1024 + 12 * TILE32<D>;
+}
+
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const uint8_t* __restrict__ mask,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dq,
+                      float* __restrict__ dbias, Strides st, int H, int T1,
+                      int T2, float scale) {
+  constexpr int TILE = TILE32<D>;
+  enum { QH, QL, DOH, DOL, KH, KL, VH, VL, KTH, KTL, RK, RV };
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  auto tile = [&](int i) { return base + i * TILE; };
+
+  const int tid = threadIdx.x, tq = tid & 3;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * BQ;
+  const int r0 = q0 + 16 * (tid >> 5) + ((tid & 31) >> 2);
+  const float* kb = k + b * st.k[0] + h * st.k[1];
+  const float* vb = v + b * st.v[0] + h * st.v[1];
+  const uint8_t* mb =
+      mask == nullptr ? nullptr : mask + b * st.mask[0] + h * st.mask[1];
+  const float* bb = BIAS ? bias + b * st.bias[0] + h * st.bias[1] : nullptr;
+  float* db = BIAS ? dbias + static_cast<long long>(bh) * T1 * T2 : nullptr;
+  auto stage = [&](int kt) {
+    stage_raw<D>(smem_u32(tile(RK)), kb, st.k[2], kt, T2, tid);
+    stage_raw<D>(smem_u32(tile(RV)), vb, st.v[2], kt, T2, tid);
+  };
+
+  split_rows<D, BQ>(tile(QH), tile(QL),
+                    GlobalRows{q + b * st.q[0] + h * st.q[1], st.q[2], q0,
+                               T1},
+                    tid);
+  split_rows<D, BQ>(tile(DOH), tile(DOL),
+                    GlobalRows{dout + b * st.dout[0] + h * st.dout[1],
+                               st.dout[2], q0, T1},
+                    tid);
+  const Rows rows(lse + static_cast<long long>(bh) * T1,
+                  delta + static_cast<long long>(bh) * T1, r0, T1);
+  __shared__ uint32_t votes[4];
+  Walker walk{mb, st.mask[2], st.mask[3], T1, T2, r0, tq, tid >> 5, tid & 31,
+              votes, mb == nullptr || st.mask[2] == 0};
+  if (walk.cols) walk.prefetch();
+  uint32_t bits;
+  int kt = walk.next(bits);
+  if (kt < T2) stage(kt);
+  cp_async_commit();
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  int done = 0;
+  while (kt < T2) {
+    cp_async_wait<0>();
+    __syncthreads();  // the raw tiles have landed; the last products are done
+    split_rows<D, BK>(tile(KH), tile(KL), RawTile<D>{tile(RK)}, tid);
+    split_rows<D, BK>(tile(VH), tile(VL), RawTile<D>{tile(RV)}, tid);
+    split_cols<D>(tile(KTH), tile(KTL), RawTile<D>{tile(RK)}, tid);
+    fence_async_smem();
+    __syncthreads();  // the split tiles are published, the raw ones free
+    uint32_t bits_next;
+    const int kn = walk.next(bits_next);
+    if (kn < T2) stage(kn);
+    cp_async_commit();
+
+    const uint64_t d0 = desc(smem_u32(base));
+    auto kmaj = [&](int i, int rows, int ks) {  // k-step ks of tile i
+      return kstep(d0, i * TILE, rows, ks);
+    };
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {  // the small terms first
+      mma_tf32_ss(s, kmaj(QL, BQ, ks), kmaj(KH, BK, ks));
+      mma_tf32_ss(s, kmaj(QH, BQ, ks), kmaj(KL, BK, ks));
+      mma_tf32_ss(dp, kmaj(DOL, BQ, ks), kmaj(VH, BK, ks));
+      mma_tf32_ss(dp, kmaj(DOH, BQ, ks), kmaj(VL, BK, ks));
+    }
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      mma_tf32_ss(s, kmaj(QH, BQ, ks), kmaj(KH, BK, ks));
+      mma_tf32_ss(dp, kmaj(DOH, BQ, ks), kmaj(VH, BK, ks));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+    pin(dp);
+
+    zero_cols(db, q0, T1, T2, done, kt, tid);
+    done = kt + BK;
+    grad_rows(s, dp, bits, rows, bb, db, st, r0, tq, kt, T1, T2, scale);
+    uint32_t dsh[8][4], dsl[8][4];
+    frag_tf32(dp, dsh, dsl);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      mma_tf32_rs(acc, dsl[ks], kmaj(KTH, D, ks));
+      mma_tf32_rs(acc, dsh[ks], kmaj(KTL, D, ks));
+    }
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) mma_tf32_rs(acc, dsh[ks], kmaj(KTH, D, ks));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(acc);
+    pin(dsh);
+    pin(dsl);
+    kt = kn;
+    bits = bits_next;
+  }
+  cp_async_wait<0>();
+  zero_cols(db, q0, T1, T2, done, T2, tid);
+  store_tile<D>(acc, dq + b * st.g0[0] + h * st.g0[1], st.g0[2], r0, tq, T1);
+}
+
+// ---------------------------------------------------------------------------
+// K6: the query walk and the per-column gradient
+// ---------------------------------------------------------------------------
+
+// Walks the query tiles of a block of keys (rows kr0, kr0 + 8 of the
+// thread), skipping those the mask closes for every (query, key) pair of
+// the block.  A mask whose rows are one (`cols`: the pad mask, or none)
+// gives each thread the bits of its two keys once (kbits), cut per tile
+// to the queries inside T1; it closes every tile of a block or none.
+// Other masks are read per element, transposed.  Each vote is a block
+// barrier.
+struct QueryWalker {
+  const uint8_t* mb;
+  long long ms_row, ms_col;
+  int T1, T2, kr0, tq;
+  bool cols;
+  uint32_t kbits = 0;
+
+  __device__ void init() {
+    if (!cols) return;
+    const bool o0 = kr0 < T2 && (mb == nullptr || mb[kr0 * ms_col] != 0);
+    const bool o1 =
+        kr0 + 8 < T2 && (mb == nullptr || mb[(kr0 + 8) * ms_col] != 0);
+    kbits = (o0 ? 0x33333333u : 0u) | (o1 ? 0xccccccccu : 0u);
+  }
+
+  __device__ uint32_t bits_at(int q) const {
+    if (!cols) return tile_bits(mb, ms_col, ms_row, kr0, tq, q, T2, T1);
+    const int n = T1 - q;  // query columns inside T1
+    if (n >= BQ) return kbits;
+    uint32_t in = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (8 * j + 2 * tq + e < n) in |= 5u << (4 * j + e);
+    return kbits & in;
+  }
+
+  // The first live tile from q on (T1 if none) and this thread's bits.
+  __device__ int next(int q, uint32_t& bits) const {
+    for (; q < T1; q += BQ) {
+      bits = bits_at(q);
+      if (__syncthreads_or(cols ? kbits != 0u : bits != 0u)) return q;
+      if (cols) break;
+    }
+    return T1;
+  }
+};
+
+// K6's gradient of one query tile (first query qt) on the transposed
+// fragment: rows are keys, columns queries, whose lse and delta are in
+// shared memory (ls, dl: the tile's 64 values).
+__device__ __forceinline__ void grad_cols(float (&s)[32], float (&dp)[32],
+                                          uint32_t bits, const float* ls,
+                                          const float* dl, const float* bb,
+                                          const Strides& st, int kr0, int tq,
+                                          int qt, float scale) {
+  if (bb != nullptr)  // rows are keys, columns queries
+    add_bias(s, bits, bb, st.bias[3], st.bias[2], kr0, qt + 2 * tq);
+  const float sl2 = scale * LOG2E;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int c = 8 * (i >> 2) + 2 * tq + (i & 1);
+    grad(s[i], dp[i], (bits >> i) & 1u, ls[c] * LOG2E, dl[c], sl2, scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6, bf16
+// ---------------------------------------------------------------------------
+
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(THREADS, 2)
+    flash_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const uint8_t* __restrict__ mask,
+                       const float* __restrict__ bias,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv, Strides st, int H,
+                       int T1, int T2, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float cols_s[2][2][BQ];  // per stage: the tile's lse, delta
+  const uint32_t sk = (smem_u32(smem_raw) + 1023) & ~1023u, sv = sk + TILE16;
+  auto stage_q = [&](int stage) {  // Q, then dO
+    return sk + 2 * TILE16 + 2 * stage * TILE16;
+  };
+
+  const int tid = threadIdx.x, tq = tid & 3;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * BK;
+  const int kr0 = k0 + 16 * (tid >> 5) + ((tid & 31) >> 2);
+  const __nv_bfloat16* qb = q + b * st.q[0] + h * st.q[1];
+  const __nv_bfloat16* dob = dout + b * st.dout[0] + h * st.dout[1];
+  const float* lb = lse + static_cast<long long>(bh) * T1;
+  const float* dlb = delta + static_cast<long long>(bh) * T1;
+  const uint8_t* mb =
+      mask == nullptr ? nullptr : mask + b * st.mask[0] + h * st.mask[1];
+  const float* bb = BIAS ? bias + b * st.bias[0] + h * st.bias[1] : nullptr;
+
+  load_rows<D, BK>(sk, k + b * st.k[0] + h * st.k[1], st.k[2], k0, T2, tid);
+  load_rows<D, BK>(sv, v + b * st.v[0] + h * st.v[1], st.v[2], k0, T2, tid);
+  auto load_tile = [&](int stage, int qt) {
+    load_rows<D, BQ>(stage_q(stage), qb, st.q[2], qt, T1, tid);
+    load_rows<D, BQ>(stage_q(stage) + TILE16, dob, st.dout[2], qt, T1, tid);
+    const int i = tid % BQ;
+    const float* src = tid < BQ ? lb : dlb;
+    const bool ok = qt + i < T1;
+    cp_async4(smem_u32(&cols_s[stage][tid / BQ][i]), ok ? src + qt + i : src,
+              ok ? 4 : 0);
+  };
+  QueryWalker walk{mb, st.mask[2], st.mask[3], T1, T2, kr0, tq,
+                   mb == nullptr || st.mask[2] == 0};
+  walk.init();
+  uint32_t bits;
+  int qt = walk.next(0, bits);
+  if (qt < T1) load_tile(0, qt);
+  cp_async_commit();  // K, V and the first tile
+
+  float dka[32], dva[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+  int stage = 0;
+  while (qt < T1) {
+    // the vote is a barrier: every warp is done with the stage refilled
+    uint32_t bits_next;
+    const int qn = walk.next(qt + BQ, bits_next);
+    if (qn < T1) load_tile(stage ^ 1, qn);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_smem();
+    __syncthreads();
+    const uint32_t sq = stage_q(stage), sdo = sq + TILE16;
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      mma_bf16_ss(s, desc_k(sk, BK, ks), desc_k(sq, BQ, ks));
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      mma_bf16_ss(dp, desc_k(sv, BK, ks), desc_k(sdo, BQ, ks));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+    pin(dp);
+
+    grad_cols(s, dp, bits, cols_s[stage][0], cols_s[stage][1], bb, st, kr0,
+              tq, qt, scale);
+    // dS^T as hi + lo halves for dK (dS^T . Q, q as large as it comes)
+    uint32_t pf[4][4], dsh[4][4], dsl[4][4];
+    frag_bf16(s, pf);
+    frag_bf16_split(dp, dsh, dsl);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {  // 16 query rows of 128 bytes
+      const uint64_t bq = desc(sq + ks * 16 * 128, BQ * 128);
+      mma_bf16_rs(dva, pf[ks], desc(sdo + ks * 16 * 128, BQ * 128));
+      mma_bf16_rs(dka, dsl[ks], bq);
+      mma_bf16_rs(dka, dsh[ks], bq);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(dva);
+    pin(dka);
+    pin(pf);
+    pin(dsh);
+    pin(dsl);
+    qt = qn;
+    bits = bits_next;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+  store_tile<D>(dka, dk + b * st.g0[0] + h * st.g0[1], st.g0[2], kr0, tq, T2);
+  store_tile<D>(dva, dv + b * st.g1[0] + h * st.g1[1], st.g1[2], kr0, tq, T2);
+}
+
+// ---------------------------------------------------------------------------
+// K6, fp32: 3xTF32
+// ---------------------------------------------------------------------------
+
+// K, V, Q, dO, Q^T, dO^T (hi, lo each); raw Q, dO; raw lse, delta
+template <int D>
+constexpr size_t dkv_tf32_smem() {
+  return 1024 + 14 * TILE32<D> + 2 * BQ * 4;
+}
+
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dkv_tf32(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const uint8_t* __restrict__ mask,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, float* __restrict__ dk,
+                       float* __restrict__ dv, Strides st, int H, int T1,
+                       int T2, float scale) {
+  constexpr int TILE = TILE32<D>;
+  enum { KH, KL, VH, VL, QH, QL, DOH, DOL, QTH, QTL, DOTH, DOTL, RQ, RDO,
+         RLSE };
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float cols_s[2][BQ];  // the tile's lse, delta
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  auto tile = [&](int i) { return base + i * TILE; };
+  const float* raw_cols = reinterpret_cast<const float*>(tile(RLSE));
+
+  const int tid = threadIdx.x, tq = tid & 3;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * BK;
+  const int kr0 = k0 + 16 * (tid >> 5) + ((tid & 31) >> 2);
+  const float* qb = q + b * st.q[0] + h * st.q[1];
+  const float* dob = dout + b * st.dout[0] + h * st.dout[1];
+  const float* lb = lse + static_cast<long long>(bh) * T1;
+  const float* dlb = delta + static_cast<long long>(bh) * T1;
+  const uint8_t* mb =
+      mask == nullptr ? nullptr : mask + b * st.mask[0] + h * st.mask[1];
+  const float* bb = BIAS ? bias + b * st.bias[0] + h * st.bias[1] : nullptr;
+  auto stage = [&](int qt) {
+    stage_raw<D>(smem_u32(tile(RQ)), qb, st.q[2], qt, T1, tid);
+    stage_raw<D>(smem_u32(tile(RDO)), dob, st.dout[2], qt, T1, tid);
+    const int i = tid % BQ;  // threads 0-63: lse, 64-127: delta
+    const float* src = tid < BQ ? lb : dlb;
+    const bool ok = qt + i < T1;
+    cp_async4(smem_u32(raw_cols + tid), ok ? src + qt + i : src, ok ? 4 : 0);
+  };
+
+  split_rows<D, BK>(tile(KH), tile(KL),
+                    GlobalRows{k + b * st.k[0] + h * st.k[1], st.k[2], k0,
+                               T2},
+                    tid);
+  split_rows<D, BK>(tile(VH), tile(VL),
+                    GlobalRows{v + b * st.v[0] + h * st.v[1], st.v[2], k0,
+                               T2},
+                    tid);
+  QueryWalker walk{mb, st.mask[2], st.mask[3], T1, T2, kr0, tq,
+                   mb == nullptr || st.mask[2] == 0};
+  walk.init();
+  uint32_t bits;
+  int qt = walk.next(0, bits);
+  if (qt < T1) stage(qt);
+  cp_async_commit();
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  while (qt < T1) {
+    cp_async_wait<0>();
+    __syncthreads();  // the raw tiles have landed; the last products are done
+    split_rows<D, BQ>(tile(QH), tile(QL), RawTile<D>{tile(RQ)}, tid);
+    split_rows<D, BQ>(tile(DOH), tile(DOL), RawTile<D>{tile(RDO)}, tid);
+    split_cols<D>(tile(QTH), tile(QTL), RawTile<D>{tile(RQ)}, tid);
+    split_cols<D>(tile(DOTH), tile(DOTL), RawTile<D>{tile(RDO)}, tid);
+    cols_s[tid / BQ][tid % BQ] = raw_cols[tid];
+    fence_async_smem();
+    __syncthreads();  // the split tiles are published, the raw ones free
+    uint32_t bits_next;
+    const int qn = walk.next(qt + BQ, bits_next);
+    if (qn < T1) stage(qn);
+    cp_async_commit();
+
+    const uint64_t d0 = desc(smem_u32(base));
+    auto kmaj = [&](int i, int rows, int ks) {  // k-step ks of tile i
+      return kstep(d0, i * TILE, rows, ks);
+    };
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {  // the small terms first
+      mma_tf32_ss(s, kmaj(KL, BK, ks), kmaj(QH, BQ, ks));
+      mma_tf32_ss(s, kmaj(KH, BK, ks), kmaj(QL, BQ, ks));
+      mma_tf32_ss(dp, kmaj(VL, BK, ks), kmaj(DOH, BQ, ks));
+      mma_tf32_ss(dp, kmaj(VH, BK, ks), kmaj(DOL, BQ, ks));
+    }
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      mma_tf32_ss(s, kmaj(KH, BK, ks), kmaj(QH, BQ, ks));
+      mma_tf32_ss(dp, kmaj(VH, BK, ks), kmaj(DOH, BQ, ks));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+    pin(dp);
+
+    grad_cols(s, dp, bits, cols_s[0], cols_s[1], bb, st, kr0, tq, qt, scale);
+    uint32_t ph[8][4], pl[8][4], dsh[8][4], dsl[8][4];
+    frag_tf32(s, ph, pl);
+    frag_tf32(dp, dsh, dsl);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      mma_tf32_rs(dva, pl[ks], kmaj(DOTH, D, ks));
+      mma_tf32_rs(dva, ph[ks], kmaj(DOTL, D, ks));
+      mma_tf32_rs(dka, dsl[ks], kmaj(QTH, D, ks));
+      mma_tf32_rs(dka, dsh[ks], kmaj(QTL, D, ks));
+    }
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      mma_tf32_rs(dva, ph[ks], kmaj(DOTH, D, ks));
+      mma_tf32_rs(dka, dsh[ks], kmaj(QTH, D, ks));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(dva);
+    pin(dka);
+    pin(ph);
+    pin(pl);
+    pin(dsh);
+    pin(dsl);
+    qt = qn;
+    bits = bits_next;
+  }
+  cp_async_wait<0>();
+  store_tile<D>(dka, dk + b * st.g0[0] + h * st.g0[1], st.g0[2], kr0, tq, T2);
+  store_tile<D>(dva, dv + b * st.g1[0] + h * st.g1[1], st.g1[2], kr0, tq, T2);
+}
+
+// ---------------------------------------------------------------------------
+// d = 128: fp32 FFMA on 4x4 register tiles (the first port's body).  256
+// threads; each thread owns a 4x4 block of the score tile, so each
+// shared-memory read of the score phase feeds 2 FMAs; rows are padded by
+// one float.
+// Shared memory: K5 148,736 bytes, K6 165,888.
+// ---------------------------------------------------------------------------
+namespace ffma {
+
+using relpos::BK;
+using relpos::BQ;
+using relpos::from_float;
+using relpos::NEG_INF;
+using relpos::THREADS;
+using relpos::to_float;
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
@@ -115,7 +922,6 @@ __device__ __forceinline__ float score(float x, const uint8_t* mb,
   if (bb != nullptr) x += bb[r * st.bias[2] + t * st.bias[3]];
   return x * scale;
 }
-
 // ---------------------------------------------------------------------------
 // K5: dq (and dbias).  Thread (ty, tx) owns query rows ty*4+i, score
 // columns tx+16j and output columns tx+16c.
@@ -390,52 +1196,68 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 }
+}  // namespace ffma
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-template <typename T, int D>
-int launch_dq(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.T1 + BQ - 1) / BQ, a.B * a.H);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const uint8_t*>(a.mask),
-      a.bias, static_cast<const T*>(a.dout), a.lse, a.delta,
-      static_cast<T*>(a.g0), static_cast<float*>(a.g1), a.st, a.H, a.T1,
-      a.T2, a.scale);
-  return static_cast<int>(cudaGetLastError());
-}
 
-template <typename T, int D>
-int launch_dkv(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+// One block per 64 rows of `rows` (K5: T1, K6: T2) and per (batch, head).
+template <typename T, typename G, typename Kernel>
+int launch_kernel(Kernel kernel, size_t smem, int threads, int rows,
+                  const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.T2 + BK - 1) / BK, a.B * a.H);
-  kernel<<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((rows + 63) / 64, a.B * a.H);
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const uint8_t*>(a.mask),
       a.bias, static_cast<const T*>(a.dout), a.lse, a.delta,
-      static_cast<T*>(a.g0), static_cast<T*>(a.g1), a.st, a.H, a.T1, a.T2,
+      static_cast<T*>(a.g0), static_cast<G*>(a.g1), a.st, a.H, a.T1, a.T2,
       a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// K5 (DQ) or K6 in T at head dim D: the tensor-core kernels for d <= 64
+// (an instance without the bias and one with it: the bias's code, unused,
+// still cost the kernel without a bias a fifth of its time in registers),
+// the FFMA body for d = 128.
 template <bool DQ, typename T, int D>
 int launch_one(const Args& a, cudaStream_t s) {
-  if constexpr (DQ)
-    return launch_dq<T, D>(a, s);
-  else
-    return launch_dkv<T, D>(a, s);
+  using G = std::conditional_t<DQ, float, T>;  // K5: dbias, K6: dv
+  const int rows = DQ ? a.T1 : a.T2;
+  const bool bias = a.bias != nullptr;
+  if constexpr (D == 128) {
+    if constexpr (DQ)
+      return launch_kernel<T, G>(ffma::flash_bwd_dq_kernel<T, D>,
+                                 ffma::dq_smem_bytes<D>(), ffma::THREADS,
+                                 rows, a, s);
+    else
+      return launch_kernel<T, G>(ffma::flash_bwd_dkv_kernel<T, D>,
+                                 ffma::dkv_smem_bytes<D>(), ffma::THREADS,
+                                 rows, a, s);
+  } else if constexpr (std::is_same_v<T, float>) {
+    constexpr size_t smem = DQ ? dq_tf32_smem<D>() : dkv_tf32_smem<D>();
+    if constexpr (DQ)
+      return launch_kernel<T, G>(bias ? flash_bwd_dq_tf32<D, true>
+                                      : flash_bwd_dq_tf32<D, false>,
+                                 smem, THREADS, rows, a, s);
+    else
+      return launch_kernel<T, G>(bias ? flash_bwd_dkv_tf32<D, true>
+                                      : flash_bwd_dkv_tf32<D, false>,
+                                 smem, THREADS, rows, a, s);
+  } else {
+    if constexpr (DQ)
+      return launch_kernel<T, G>(bias ? flash_bwd_dq_bf16<D, true>
+                                      : flash_bwd_dq_bf16<D, false>,
+                                 BF16_SMEM, THREADS, rows, a, s);
+    else
+      return launch_kernel<T, G>(bias ? flash_bwd_dkv_bf16<D, true>
+                                      : flash_bwd_dkv_bf16<D, false>,
+                                 BF16_SMEM, THREADS, rows, a, s);
+  }
 }
 
 template <bool DQ, typename T>

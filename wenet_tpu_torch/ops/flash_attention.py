@@ -27,9 +27,10 @@ the gradient of a (T1, T2) input).  The dropout mask D is a counter hash
 of (seed, b·h, global query, global key) (`dropout_mult`,
 csrc/dropout_hash.cuh), so K1-K3 regenerate the same mask whatever their
 tiling; K4-K6 have no dropout, as the JAX package never routes attention
-dropout to them.  On an H100 the simple kernels are bound by fp32 FMA
-issue on the CUDA cores and the shared-memory reads feeding them; see
-the sources for the notes.
+dropout to them.  K4-K6 run on Hopper's tensor cores (wgmma on bf16
+tiles, fp32 as three tf32 products), except K5 and K6 at d = 128; K1-K3
+and those two instances run fp32 FMA on the CUDA cores.  See the sources
+for the notes.
 
 The kernels are compiled with nvcc for sm_90a at first use into
 `wenet_tpu_torch/build/` (one nvcc per source, run in parallel, keyed by
@@ -61,7 +62,7 @@ SOURCES = {'relpos_attention': CSRC / 'relpos_attention.cu',
            'flash_attention': CSRC / 'flash_attention.cu',
            'flash_attention_bwd': CSRC / 'flash_attention_bwd.cu'}
 HEADERS = (CSRC / 'dropout_hash.cuh', CSRC / 'relpos_common.cuh',
-           CSRC / 'hopper_mma.cuh')
+           CSRC / 'hopper_mma.cuh', CSRC / 'flash_tiles.cuh')
 BUILD_DIR = _PKG / 'build'
 _HEAD_DIMS = (32, 64, 128)
 _TRAIN_HEAD_DIMS = (32, 64)  # K3's shared-memory tiles do not fit d=128
@@ -636,8 +637,15 @@ def flash_bwd_dkv_reference(q, k, v, mask, bias, do, lse, delta, scale=1.0
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _aligned16(t: torch.Tensor) -> bool:
+    """Base and (batch, head, time) strides 16-byte aligned."""
+    return t.data_ptr() % 16 == 0 and not any(
+        t.stride(i) * t.element_size() % 16 for i in range(3)
+        if t.shape[i] > 1)
+
+
 def _flash_check(q, k, v, mask, bias, aligned=False):
-    """Raise on what the flash kernels do not take; `aligned`: K4's
+    """Raise on what the flash kernels do not take; `aligned`: their
     16-byte copies also need q, k and v's base and strides 16-byte
     aligned (the attention module's views are)."""
     B, H, T1, D = q.shape
@@ -657,9 +665,7 @@ def _flash_check(q, k, v, mask, bias, aligned=False):
                              f'{q.dtype} on {dev}')
         if t.stride(-1) != 1:
             raise ValueError(f'{name} must be unit-stride in its last dim')
-        if aligned and (t.data_ptr() % 16 or any(
-                t.stride(i) * t.element_size() % 16
-                for i in range(3) if t.shape[i] > 1)):
+        if aligned and not _aligned16(t):
             raise ValueError(f'{name} must have a 16-byte aligned base and '
                              f'strides, has {t.data_ptr() % 16} and '
                              f'{t.stride()}')
@@ -721,12 +727,14 @@ def _flash_cuda(q, k, v, mask, bias, scale, want_lse=False):
 
 def _flash_bwd_cuda(which, q, k, v, mask, bias, do, lse, delta, scale):
     """Launch K5 (which='dq') or K6 (which='dkv')."""
-    _flash_check(q, k, v, mask, bias)
+    _flash_check(q, k, v, mask, bias, aligned=True)
     if (do.dtype != q.dtype or tuple(do.shape) != tuple(q.shape)
-            or do.device != q.device or do.stride(-1) != 1):
+            or do.device != q.device or do.stride(-1) != 1
+            or not _aligned16(do)):
         raise ValueError(f'do is {do.dtype} {tuple(do.shape)} on '
                          f'{do.device}, expected {q.dtype} '
-                         f'{tuple(q.shape)} on {q.device}, unit-stride')
+                         f'{tuple(q.shape)} on {q.device}, unit-stride '
+                         f'with a 16-byte aligned base and strides')
     B, H, T1, D = q.shape
     T2 = k.shape[2]
     for t in (lse, delta):
@@ -808,8 +816,10 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, mask, bias, out, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:  # e.g. the expanded gradient of out.sum()
-            do = do.contiguous()
+        # e.g. the expanded gradient of out.sum(), or a view at an odd
+        # offset: the kernels' 16-byte copies take a fresh copy
+        if do.stride(-1) != 1 or not _aligned16(do):
+            do = do.clone(memory_format=torch.contiguous_format)
         delta = (do.float() * out.float()).sum(-1)
         args = (q, k, v, mask, bias, do, lse, delta, ctx.scale)
         dq, dbias = flash_bwd_dq(*args)
