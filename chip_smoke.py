@@ -10,8 +10,12 @@ Phases, each of which raises on failure (non-zero exit):
               the port's C++ CTC prefix-beam searcher (g++) from the
               checkout's sources
   3. kernel   K1 (inference) against its plain PyTorch version, fp32 and
-              bf16, at the encoder's shapes; prints both times (CUDA events),
-              the card's bound and the SDPA call's time
+              bf16, at the encoder's shapes, ragged edges, a fully masked
+              row, a peaked softmax, key tiles closed mid-row and a
+              streaming chunk step (T1 = 16, T2 = 80); each check's share
+              of its bar, both times (CUDA events), and at the main shape
+              the bound (fp32: 3xTF32 beside FFMA), TFLOP/s and the SDPA
+              call's time
   4. slice    the flagship U2++ conformer (examples/aishell/s0/conf/
               train_u2pp_conformer.yaml, full width, random weights from
               a seed) through AsrRunner.decode on the card: K1 must run
@@ -21,7 +25,8 @@ Phases, each of which raises on failure (non-zero exit):
               device time by kernel from torch.profiler
   6a. train kernels: K1 with lse and dropout, and K2/K3 through the
               autograd Function's backward, against the plain versions
-              (dense autograd), fp32 and bf16, at the train step's shapes
+              chained as the Function chains them, fp32 and bf16, at the
+              train step's shapes and a peaked softmax
   6b. mask    the in-kernel dropout mask equals the plain hash bit for bit
   6c. train   the flagship train step: one step on the card against the
               CPU (every dropout 0), five steps through Executor.train
@@ -90,15 +95,18 @@ KERNEL_SHAPES = [  # B, h, T1, T2, d, mask
     (16, 4, 375, 375, 64, 'chunk'),   # (B, T1, T2) static chunk of 16
     (2, 4, 64, 64, 64, 'masked_row'),  # one fully masked row
     (2, 4, 1500, 1500, 64, 'pad'),
+    (2, 4, 300, 300, 64, 'peaked'),   # q1, q2 scaled by 8
+    (2, 4, 200, 448, 64, 'gap'),      # key tiles closed mid-row
+    (16, 4, 16, 80, 64, 'step'),      # a streaming chunk step: 16 + 64 cache
+    (2, 4, 130, 200, 128, 'pad'),     # d = 128 (fp32: the FFMA body)
 ]
-TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5),
-       torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
 TRAIN_SHAPES = [  # B, h, T1, T2, d, mask, dropout rate
     (16, 4, 299, 299, 64, 'chunk', 0.1),  # the train step's shape, B=16 x 12 s
     (16, 4, 299, 299, 64, 'pad', 0.0),
     (2, 4, 37, 53, 64, None, 0.1),         # ragged edges, no mask
     (2, 4, 64, 64, 64, 'masked_row', 0.1),  # one fully masked row
     (2, 2, 70, 70, 32, 'chunk', 0.1),
+    (2, 4, 300, 300, 64, 'peaked', 0.1),   # q1, q2 scaled by 8
 ]
 # fp32: summation order only; bf16: inputs rounded to bf16, math in fp32
 TRAIN_TOL = {torch.float32: dict(atol=2e-4, rtol=1e-4),
@@ -127,9 +135,10 @@ FLASH_SHAPES = [  # B, h, T1, T2, d, mask, bias
     (2, 4, 300, 300, 64, 'peaked', False),   # q scaled by 8
     (2, 4, 200, 448, 64, 'gap', False),      # key tiles closed mid-row
 ]
-# K4's reference runs in fp32 on the same (rounded) inputs: in bf16 the
-# kernel is held to the rounding of its output, about 2 bf16 ulps
-FLASH_TOL = {torch.float32: TOL[torch.float32],
+# K1's and K4's bars.  The reference runs in fp32 on the same (rounded)
+# inputs: in bf16 the kernel is held to the rounding of its output, about
+# 2 bf16 ulps
+FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5),
              torch.bfloat16: dict(atol=1e-3, rtol=8e-3)}
 GATE_BELOW = (2, 20, 400, 400, 64)  # two 8 s utterances: 6.4M < 24M scores
 WHISPER_V3 = {'n_mels': 128, 'n_vocab': 51866, 'n_audio_state': 1280,
@@ -182,11 +191,30 @@ def phase(name):
     print(f'== {name} (at {time.perf_counter() - _T0:.0f} s)', flush=True)
 
 
+def host_ms(fn, reps=20):
+    """The host's time to enqueue one call of `fn` (no synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * dt / reps
+
+
 def cuda_time_ms(fn, reps=20, warmup=3):
+    """The card's time for one call of `fn`: CUDA events around `reps`
+    calls back to back.  The card first sleeps for twice the host's
+    enqueue time of the calls, so that the events time the card's work
+    and not the host's enqueue, which takes longer than a small kernel
+    (a wrapper's checks and ctypes call, 0.05-0.1 ms)."""
     for _ in range(warmup):
         fn()
+    enqueue = host_ms(fn, 2) / 1e3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # cycles at 2 GHz, above the H100's top clock: at least that long
+    torch.cuda._sleep(int(2e9 * (2 * reps * enqueue + 1e-3)))
     start.record()
     for _ in range(reps):
         fn()
@@ -232,27 +260,50 @@ def build():
 
 
 def kernel_inputs(rng, B, h, T1, T2, d, mask_kind, dtype):
+    """q1, q2 as the attention module hands them, (B, h, T1, d) views of
+    (B, T1, h, d) buffers (scaled by 8 for 'peaked'); k, v (B, h, T2, d);
+    p (1, h, T2, d), shared by the batch; the mask: (B, 1, T2) key
+    padding ('pad', 'peaked'), with keys 64..191 closed ('gap'), a
+    streaming chunk step's ('step': the last T1 keys are the chunk, the
+    cache before it holds a random number of frames, none for the first
+    utterance), or (B, T1, T2) static chunks of 16 over key padding
+    ('chunk', 'masked_row' with row 5 of the first utterance closed)."""
     def t(*shape):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
-    # q1/q2 as the attention module hands them: (B, h, T, d) views of a
-    # (B, T, h, d) buffer; p shared by the batch
     q1 = t(B, T1, h, d).transpose(1, 2)
     q2 = t(B, T1, h, d).transpose(1, 2)
     k, p, v = t(B, h, T2, d), t(1, h, T2, d), t(B, h, T2, d)
     lens = torch.from_numpy(rng.randint(T2 // 2, T2 + 1, size=B)).cuda()
     lens[0] = T2
-    pad = torch.arange(T2, device='cuda')[None, :] < lens[:, None]
-    if mask_kind == 'pad':
+    keys = torch.arange(T2, device='cuda')
+    pad = keys[None, :] < lens[:, None]
+    if mask_kind in ('pad', 'peaked', 'gap'):
         mask = pad[:, None, :]
+        if mask_kind == 'peaked':  # a peaked softmax
+            q1, q2 = q1 * 8, q2 * 8
+        elif mask_kind == 'gap':
+            mask = mask & ((keys < 64) | (keys >= 192))
+    elif mask_kind == 'step':
+        cache = torch.from_numpy(
+            rng.randint(0, T2 - T1 + 1, size=B)).cuda()
+        cache[0] = 0
+        mask = (keys[None, :] >= T2 - T1 - cache[:, None])[:, None, :]
     elif mask_kind is None:
         mask = None
     else:
         rows = torch.arange(T1, device='cuda')[:, None] // 16
-        mask = (torch.arange(T2, device='cuda')[None, :] < (rows + 1) * 16)
+        mask = (keys[None, :] < (rows + 1) * 16)
         mask = mask[None] & pad[:, None, :]
         if mask_kind == 'masked_row':
             mask[0, 5] = False
     return [x.to(dtype) for x in (q1, q2, k, p, v)], mask
+
+
+def share_of_bar(got, want, tol):
+    """The largest share of its bar that an element's error takes."""
+    diff = (got.float() - want.float()).abs()
+    return (diff / (tol['atol'] + tol['rtol'] * want.float().abs())).max(
+        ).item()
 
 
 def kernel_check():
@@ -273,7 +324,8 @@ def kernel_check():
             f32 = [x.float() for x in (q1, q2, k, p, v)]
             want, _ = relpos_fwd_reference(*f32, mask, scale)
             err = (got.float() - want).abs().max().item()
-            torch.testing.assert_close(got.float(), want, **TOL[dtype])
+            of_bar = share_of_bar(got, want, FLASH_TOL[dtype])
+            torch.testing.assert_close(got.float(), want, **FLASH_TOL[dtype])
             if not torch.isfinite(got).all():
                 raise RuntimeError('kernel output is not finite')
             if mask_kind == 'masked_row' and got[0, :, 5].any():
@@ -284,23 +336,41 @@ def kernel_check():
                 lambda: relpos_fwd_reference(q1, q2, k, p, v, mask, scale))
             print(f'  ({B},{h},{T1},{T2},{d}) mask={mask_kind} '
                   f'{str(dtype)[6:]}: max_abs_err={err:.3g} '
-                  f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms', flush=True)
+                  f'({100 * of_bar:.0f}% of the bar) kernel {ms:.4f} ms, '
+                  f'plain {plain_ms:.4f} ms', flush=True)
             if dtype == torch.float32:
                 max_err_fp32 = max(max_err_fp32, err)
             if i == 0:  # the first shape is the main path's
-                # 3 products of 2*d FLOPs per attended pair
+                # 3 products of 2*d FLOPs per attended pair; fp32 runs as
+                # 3xTF32 (FFMA printed beside it)
                 n_pairs = attended_pairs(mask, B, h, T1, T2)
-                b_ms, b_by = bound(6 * d * n_pairs, nbytes(
-                    q1, q2, k, p, v, mask, got), dtype)
+                flops = 6 * d * n_pairs
+                moved = nbytes(q1, q2, k, p, v, mask, got)
+                b_ms, b_by = bound(flops, moved, dtype, tf32_split=True)
                 lib_ms = relpos_sdpa(q1, q2, k, p, v, mask, scale, got)
+                tflops = flops / ms / 1e9
+                key = '' if dtype == torch.float32 else '_bf16'
+                if report is None:
+                    report = dict(plain_ms=plain_ms, bound_by=b_by)
+                report.update({'ms' + key: ms, 'bound_ms' + key: b_ms,
+                               'library_ms' + key: lib_ms,
+                               'tflops' + key: tflops})
+                extra = ''
                 if dtype == torch.float32:
-                    report = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                  bound_by=b_by, library_ms=lib_ms)
-                else:
-                    report.update(ms_bf16=ms, bound_ms_bf16=b_ms,
-                                  library_ms_bf16=lib_ms)
-                print(f'    bound {b_ms:.4f} ms ({b_by}), SDPA '
-                      f'{lib_ms:.4f} ms', flush=True)
+                    extra = (f' at 3xTF32, {bound(flops, moved)[0]:.4f} ms '
+                             'at FFMA')
+                wrapper_ms = host_ms(lambda: flash_attention_relpos(
+                    q1, q2, k, p, v, mask, scale))
+                # the same mask given a row per query: read per element
+                # (tile_bits), not voted a tile ahead
+                rows = mask.expand(B, T1, T2).contiguous()
+                rows_ms = cuda_time_ms(lambda: flash_attention_relpos(
+                    q1, q2, k, p, v, rows, scale))
+                print(f'    main shape: {n_pairs / 1e6:.2f}M attended pairs, '
+                      f'bound {b_ms:.4f} ms ({b_by}{extra}), SDPA '
+                      f'{lib_ms:.4f} ms, {tflops:.1f} TFLOP/s; the host '
+                      f'enqueues a call in {wrapper_ms:.4f} ms; the pad '
+                      f'mask given per row {rows_ms:.4f} ms', flush=True)
     report['max_abs_err'] = max_err_fp32
     return report
 
@@ -463,6 +533,10 @@ def speed(runner, smi):
     print(f'  kernel time in one profiled decode: {total:.2f} ms of '
           f'{wall * 1e3:.1f} ms wall ({100 * total / (wall * 1e3):.0f}% '
           f'device busy)')
+    k1 = [e for e in rows if 'relpos_fwd_' in e.key]
+    k1_ms = sum(e.self_device_time_total for e in k1) / 1e3
+    print(f'    K1: {k1_ms:.3f} ms over {sum(e.count for e in k1)} launches, '
+          f'{100 * k1_ms / max(total, 1e-9):.1f}% of kernel time')
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         ms = e.self_device_time_total / 1e3
         print(f'    {ms:8.3f} ms {100 * ms / max(total, 1e-9):5.1f}% '
@@ -493,13 +567,24 @@ def train_kernel_check():
             out.backward(do)
             _, lse = fa.relpos_fwd(*x, mask, scale, True, rate, seed)
             torch.cuda.synchronize()
-            # the plain versions: dense autograd in fp32 on the same inputs
-            ref = [t.detach().float().requires_grad_() for t in x]
-            want, want_lse = fa.relpos_fwd_reference(*ref, mask, scale, True,
+            # the plain versions chained as the Function chains them, in
+            # fp32 on the same inputs: the forward, its output rounded to
+            # the Function's type, delta = rowsum(do·out) of that (as the
+            # JAX package's `_relpos_vjp_bwd` takes it), plain K2 and K3,
+            # and dp summed over the batch.  In fp32 this is dense
+            # autograd; in bf16 dense autograd would also hold the kernels
+            # to the rounding of out, which on the peaked shape alone
+            # takes dk and dp past the bar with exact kernels (as 8a).
+            x32 = [t.float() for t in x]
+            want, want_lse = fa.relpos_fwd_reference(*x32, mask, scale, True,
                                                      rate, seed)
-            want.backward(do.float())
+            ref_args = (mask, do.float(), want_lse,
+                        (do.float() * want.to(dtype).float()).sum(-1), scale,
+                        rate, seed)
+            want_grads = list(fa.relpos_bwd_dq_reference(*x32, *ref_args) +
+                              fa.relpos_bwd_dkpv_reference(*x32, *ref_args))
+            want_grads[3] = want_grads[3].sum(0, keepdim=True)
             grads = [t.grad for t in leaves]
-            want_grads = [t.grad for t in ref]
             pairs = {
                 'relpos_attention_fwd_train': [(out, want), (lse, want_lse)],
                 'relpos_attention_bwd_dq': list(zip(grads[:2],
@@ -509,7 +594,7 @@ def train_kernel_check():
             }
             line = []
             for name, checks in pairs.items():
-                err = 0.0
+                err = of_bar = 0.0
                 for got, w in checks:
                     if not torch.isfinite(got).all():
                         raise RuntimeError(f'{name}: output is not finite')
@@ -517,16 +602,19 @@ def train_kernel_check():
                                                **TRAIN_TOL[dtype], msg=name)
                     err = max(err, (got.float() - w.float()).abs().max()
                               .item())
+                    of_bar = max(of_bar, share_of_bar(got, w,
+                                                      TRAIN_TOL[dtype]))
                 if dtype == torch.float32:
                     errs[name] = max(errs[name], err)
-                line.append(f'{name[17:]} {err:.3g}')
+                line.append(f'{name[17:]} {err:.3g} ({100 * of_bar:.0f}% '
+                            'of the bar)')
             if mask_kind == 'masked_row' and (out[0, :, 5].any() or
                                               grads[0][0, :, 5].any()):
                 raise RuntimeError('fully masked row is not zero')
             # CUDA-event times of each kernel and its plain version on the
             # same lse and delta
-            delta = (do.float() * want.detach()).sum(-1)
-            args = (mask, do, want_lse.detach(), delta, scale, rate, seed)
+            delta = (do.float() * want).sum(-1)
+            args = (mask, do, want_lse, delta, scale, rate, seed)
             t = {
                 'relpos_attention_fwd_train': (
                     cuda_time_ms(lambda: fa.relpos_fwd(
@@ -545,9 +633,13 @@ def train_kernel_check():
             if i == 0:  # the first shape is the main path's
                 n_pairs = attended_pairs(mask, B, h, T1, T2)
                 common = nbytes(*x, mask, do, want_lse, delta)
-                bounds = {  # 3, 5 and 6 products of 2*d FLOPs per pair
+                # 3, 5 and 6 products of 2*d FLOPs per pair; K1-train's
+                # fp32 runs as 3xTF32 (FFMA printed beside it), K2's and
+                # K3's on FFMA
+                k1_work = (6 * d * n_pairs, nbytes(*x, mask, out, lse))
+                bounds = {
                     'relpos_attention_fwd_train': bound(
-                        6 * d * n_pairs, nbytes(*x, mask, out, lse), dtype),
+                        *k1_work, dtype, tf32_split=True),
                     'relpos_attention_bwd_dq': bound(
                         10 * d * n_pairs, common + nbytes(*grads[:2]),
                         dtype),
@@ -555,10 +647,15 @@ def train_kernel_check():
                         12 * d * n_pairs, common + nbytes(*grads[2:]),
                         dtype),
                 }
-                main[dtype] = t, bounds
+                tflops = k1_work[0] / t['relpos_attention_fwd_train'][0] / 1e9
+                main[dtype] = t, bounds, tflops
                 print('    bounds: ' + ', '.join(
                     f'{n[17:]} {b[0]:.4f} ms ({b[1]})'
-                    for n, b in bounds.items()), flush=True)
+                    for n, b in bounds.items())
+                    + (f'; fwd_train at FFMA {bound(*k1_work)[0]:.4f} ms'
+                       if dtype == torch.float32 else '')
+                    + f'; {n_pairs / 1e6:.2f}M attended pairs, K1-train '
+                    f'{tflops:.1f} TFLOP/s', flush=True)
             if rate == 0.0 and mask_kind == 'pad':
                 relpos_sdpa_train(x, mask, do, scale, out, grads)
             print(f'  ({B},{h},{T1},{T2},{d}) mask={mask_kind} '
@@ -569,14 +666,18 @@ def train_kernel_check():
                 flush=True)
     # the main shape's dropout has no library counterpart: library_ms is
     # null there; the no-dropout SDPA times are printed for the record
-    (times, bounds), (times16, bounds16) = (main[torch.float32],
-                                            main[torch.bfloat16])
-    return {name: dict(max_abs_err=errs[name], ms=times[name][0],
-                       plain_ms=times[name][1], bound_ms=bounds[name][0],
-                       bound_by=bounds[name][1], library_ms=None,
-                       ms_bf16=times16[name][0],
-                       bound_ms_bf16=bounds16[name][0], library_ms_bf16=None)
-            for name in TRAIN_KERNELS}
+    (times, bounds, tflops), (times16, bounds16, tflops16) = (
+        main[torch.float32], main[torch.bfloat16])
+    report = {name: dict(max_abs_err=errs[name], ms=times[name][0],
+                         plain_ms=times[name][1], bound_ms=bounds[name][0],
+                         bound_by=bounds[name][1], library_ms=None,
+                         ms_bf16=times16[name][0],
+                         bound_ms_bf16=bounds16[name][0],
+                         library_ms_bf16=None)
+              for name in TRAIN_KERNELS}
+    report['relpos_attention_fwd_train'].update(tflops=tflops,
+                                                tflops_bf16=tflops16)
+    return report
 
 
 def relpos_sdpa_train(x, mask, do, scale, out, grads):
@@ -845,7 +946,7 @@ def train_speed(smi):
               f'{100 * total / (wall * 1e3):.0f}% of its {wall * 1e3:.1f} ms '
               f'wall, {100 * total / (dt * 1e3):.0f}% of an unprofiled step '
               f'(device busy; {smi})')
-        for label, key in (('K1', 'relpos_fwd_kernel'),
+        for label, key in (('K1', 'relpos_fwd_'),
                            ('K2', 'relpos_bwd_dq_kernel'),
                            ('K3', 'relpos_bwd_dkpv_kernel')):
             ms = sum(e.self_device_time_total for e in rows
@@ -949,9 +1050,7 @@ def flash_kernel_check():
                                              v.float(), mask, bias, scale)
             err = (got.float() - want).abs().max().item()
             tol = FLASH_TOL[dtype]
-            # the largest share of its bar an element's error takes
-            of_bar = ((got.float() - want).abs() /
-                      (tol['atol'] + tol['rtol'] * want.abs())).max().item()
+            of_bar = share_of_bar(got, want, tol)
             torch.testing.assert_close(got.float(), want, **tol)
             if not torch.isfinite(got).all():
                 raise RuntimeError('K4 output is not finite')
@@ -1363,10 +1462,7 @@ def flash_train_kernel_check():
                     torch.testing.assert_close(got.float(), w.float(),
                                                **tol, msg=name)
                     err = max(err, diff.max().item())
-                    # the largest share of its bar an element's error takes
-                    of_bar = max(of_bar, (diff / (tol['atol'] + tol['rtol']
-                                                  * w.float().abs()))
-                                 .max().item())
+                    of_bar = max(of_bar, share_of_bar(got, w, tol))
                 if dtype == torch.float32:
                     errs[name] = max(errs[name], err)
                 line.append(f'{name[16:]} {err:.3g} ({100 * of_bar:.0f}% '

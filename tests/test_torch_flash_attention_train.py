@@ -21,6 +21,8 @@ import torch
 from wenet_tpu_torch.models.transformer import attention as A
 from wenet_tpu_torch.ops import flash_attention as fa
 
+from torch_port_utils import fill_allocator_with_nan
+
 ATOL = 1e-5
 BLOCK = 16  # the JAX kernels' tiles: ragged T is padded to them
 
@@ -473,17 +475,6 @@ def test_cuda_function_matches_cpu_function(cuda):
                                    **TOL[torch.float32])
 
 
-def _fill_allocator_with_nan():
-    """Leave the caching allocator's free blocks, small and large, full of
-    NaN (allocate, fill, free), so that an output the kernels do not
-    write reads NaN."""
-    blocks = [torch.full((1 << 18,), float('nan'), device='cuda')
-              for _ in range(32)]  # 1 MiB each: the small pool
-    blocks.append(torch.full((1 << 26,), float('nan'), device='cuda'))
-    torch.cuda.synchronize()
-    del blocks
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_cuda_closed_tiles_write_zeros(cuda, dtype):
@@ -498,9 +489,9 @@ def test_cuda_closed_tiles_write_zeros(cuda, dtype):
     out, lse = fa.flash_fwd(q, k, v, mask, bias, scale, want_lse=True)
     delta = (do.float() * out.float()).sum(-1)
     args = (mask, bias, do, lse, delta, scale)
-    _fill_allocator_with_nan()
+    fill_allocator_with_nan()
     dq, dbias = fa.flash_bwd_dq(q, k, v, *args)
-    _fill_allocator_with_nan()
+    fill_allocator_with_nan()
     dk, dv = fa.flash_bwd_dkv(q, k, v, *args)
     torch.cuda.synchronize()
     closed = ~mask[:, None].expand(B, h, T1, T2)  # (B, 1, T2) key mask

@@ -170,6 +170,25 @@ def test_training_wrapper_rejects_unsupported_head_dim():
         fa._check(t, t, t, t, t, None, train=True)
 
 
+@pytest.mark.parametrize('bad', ['q1', 'q2', 'k', 'p', 'v', 'base'])
+def test_training_wrapper_rejects_unaligned(bad):
+    """K1-train's 16-byte copies need every operand's base and (batch,
+    head, time) strides 16-byte aligned: a view with rows d + 1 floats
+    apart, or one that starts 4 bytes into its storage, raises before
+    launch (shape-only meta tensors, so no card is needed)."""
+    B, h, T, d = 2, 2, 5, 64
+    x = {n: torch.empty(B, h, T, d, device='meta')
+         for n in ('q1', 'q2', 'k', 'p', 'v')}
+    fa._check(*x.values(), None, train=True, aligned=True)
+    if bad == 'base':
+        x['k'] = torch.empty(B * h * T * d + 1, device='meta')[1:].view(
+            B, h, T, d)
+    else:
+        x[bad] = torch.empty(B, h, T, d + 1, device='meta')[..., :d]
+    with pytest.raises(ValueError):
+        fa._check(*x.values(), None, train=True, aligned=True)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------

@@ -123,3 +123,15 @@ def whisper_feats(seed=0, B=3, T=63):
     lens = np.asarray([T] + list(rng.randint(T // 2, T, size=B - 1)),
                       np.int32)
     return x, lens
+
+
+def fill_allocator_with_nan():
+    """Leave the CUDA caching allocator's free blocks, small and large,
+    full of NaN (allocate, fill, free), so that an output a kernel does
+    not write reads NaN."""
+    import torch
+    blocks = [torch.full((1 << 18,), float('nan'), device='cuda')
+              for _ in range(32)]  # 1 MiB each: the small pool
+    blocks.append(torch.full((1 << 26,), float('nan'), device='cuda'))
+    torch.cuda.synchronize()
+    del blocks

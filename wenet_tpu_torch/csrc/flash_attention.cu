@@ -86,99 +86,23 @@ struct Strides {
   long long mask[4], bias[4];
 };
 
-// One online-softmax step on a tile's scores s (the product q . k^T in
-// the accumulator layout of flash_tiles.cuh; on return, the
-// probabilities): bias, scale and mask (-inf where closed), the running
-// max m of the thread's two rows, its share of their sums l (summed over
-// the quad at the end), and the rescale of the output accumulator o.  A
-// probability is zero where s <= NEG_INF / 2: a row whose max is that
-// low keeps none, and below a higher max exp2 underflows to 0.  bb: the
-// bias of this (batch, head) or null; c0: the tile's first key plus 2 tq.
-template <int NO>
-__device__ __forceinline__ void online_softmax(
-    float (&s)[32], float (&o)[NO], float (&m)[2], float (&l)[2],
-    uint32_t bits, const float* bb, const Strides& st, int r0, int c0,
-    float scale) {
-  if (bb != nullptr) {
+// The bias of the open elements of a tile, added to its scores s (the
+// product q . k^T in the accumulator layout of flash_tiles.cuh) before
+// the softmax step.  bb: the bias of this (batch, head); c0: the tile's
+// first key plus 2 tq.
+__device__ __forceinline__ void add_bias(float (&s)[32], uint32_t bits,
+                                         const float* bb, const Strides& st,
+                                         int r0, int c0) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
-      if ((bits >> i) & 1u)
-        s[i] += bb[(r0 + 8 * ((i >> 1) & 1)) * st.bias[2] +
-                   (c0 + 8 * (i >> 2) + (i & 1)) * st.bias[3]];
-  }
-  float mx[2] = {-INFINITY, -INFINITY};
-  if (bits == 0xffffffffu) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      s[i] *= scale;
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      s[i] = (bits >> i) & 1u ? s[i] * scale : -INFINITY;
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-    }
-  }
-  float corr[2], ml[2];
-#pragma unroll
-  for (int row = 0; row < 2; ++row) {
-    mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
-    mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
-    const float m_new = fmaxf(m[row], mx[row]);
-    corr[row] = ex2((m[row] - m_new) * LOG2E);
-    m[row] = m_new;
-    ml[row] = m_new <= NEG_INF * 0.5f ? INFINITY : m_new * LOG2E;
-    l[row] *= corr[row];
-  }
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int row = (i >> 1) & 1;
-    s[i] = ex2(fmaf(s[i], LOG2E, -ml[row]));
-    l[row] += s[i];
-  }
-#pragma unroll
-  for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
-}
-
-// out = o / l on the thread's two rows (the first D columns of o; l
-// summed over the quad first), and with lse, lse = m + log l; zeros and
-// NEG_INF on fully masked rows.
-template <int D, typename T, int NO>
-__device__ __forceinline__ void store_rows(const float (&o)[NO],
-                                           const float (&m)[2], float (&l)[2],
-                                           T* ob, long long so, float* lse,
-                                           int r0, int tq, int T1) {
-#pragma unroll
-  for (int row = 0; row < 2; ++row) {
-    l[row] += __shfl_xor_sync(0xffffffffu, l[row], 1);
-    l[row] += __shfl_xor_sync(0xffffffffu, l[row], 2);
-  }
-#pragma unroll
-  for (int row = 0; row < 2; ++row) {
-    const int r = r0 + 8 * row;
-    if (r >= T1) continue;
-    const float lr = l[row];
-    T* orow = ob + r * so + 2 * tq;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const float y0 = lr > 0.f ? o[4 * j + 2 * row] / lr : 0.f;
-      const float y1 = lr > 0.f ? o[4 * j + 2 * row + 1] / lr : 0.f;
-      store2(orow + 8 * j, y0, y1);
-    }
-    if (lse != nullptr && tq == 0)
-      lse[r] = lr > 0.f ? m[row] + logf(lr) : NEG_INF;
-  }
+  for (int i = 0; i < 32; ++i)
+    if ((bits >> i) & 1u)
+      s[i] += bb[(r0 + 8 * ((i >> 1) & 1)) * st.bias[2] +
+                 (c0 + 8 * (i >> 2) + (i & 1)) * st.bias[3]];
 }
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma on bf16 tiles, cp.async into two stages
 // ---------------------------------------------------------------------------
-
-template <int D>
-__host__ __device__ constexpr int bf16_width() {
-  return D < 64 ? 64 : D;  // whole 128-byte blocks: wgmma N of P . V
-}
 
 template <int D>
 constexpr size_t bf16_smem() {
@@ -260,21 +184,11 @@ __global__ void __launch_bounds__(THREADS, D < 128 ? 4 : 1)
     wgmma_wait_all();
     pin(s);
 
-    online_softmax(s, o, m, l, bits, bb, st, r0, kt + 2 * tq, scale);
+    if (bb != nullptr) add_bias(s, bits, bb, st, r0, kt + 2 * tq);
+    online_softmax(s, o, m, l, bits, scale);
 
-    // P as wgmma's A fragments, k-step ks = keys 16 ks .. 16 ks + 15:
-    // register x holds s[8 ks + 2 x], s[8 ks + 2 x + 1]
-    uint32_t ph[4][4], pl[4][4];
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const float p0 = s[8 * ks + 2 * x], p1 = s[8 * ks + 2 * x + 1];
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-        const float2 hf = __bfloat1622float2(hi);
-        ph[ks][x] = pack_bf16(hi);
-        pl[ks][x] = pack_bf16(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
-      }
+    uint32_t ph[4][4], pl[4][4];  // P's A fragments, hi and lo halves
+    frag_bf16_split(s, ph, pl);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
@@ -377,23 +291,11 @@ __global__ void __launch_bounds__(THREADS)
     wgmma_wait_all();
     pin(s);
 
-    online_softmax(s, o, m, l, bits, bb, st, r0, kt + 2 * tq, scale);
+    if (bb != nullptr) add_bias(s, bits, bb, st, r0, kt + 2 * tq);
+    online_softmax(s, o, m, l, bits, scale);
 
-    // P's A fragments, k-step ks = keys 8 ks .. 8 ks + 7 in split_cols's
-    // order: (row g, position t) = key 2 t, (row g + 8, t), (row g,
-    // t + 4) = key 2 t + 1, (row g + 8, t + 4)
-    uint32_t ph[8][4], pl[8][4];
-#pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
-      const float x[4] = {s[4 * ks], s[4 * ks + 2], s[4 * ks + 1],
-                          s[4 * ks + 3]};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float hi = tf32(x[e]);
-        ph[ks][e] = __float_as_uint(hi);
-        pl[ks][e] = __float_as_uint(tf32(x[e] - hi));
-      }
-    }
+    uint32_t ph[8][4], pl[8][4];  // P's A fragments in split_cols's order
+    frag_tf32(s, ph, pl);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 8; ++ks) {

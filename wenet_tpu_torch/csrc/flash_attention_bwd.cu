@@ -178,42 +178,6 @@ __device__ __forceinline__ void frag_bf16(const float (&x)[32],
           __floats2bfloat162_rn(x[8 * ks + 2 * i], x[8 * ks + 2 * i + 1]));
 }
 
-// The same with each element split into hi = bf16(x) and lo =
-// bf16(x - hi): hi . B + lo . B keeps 16 bits of x.
-__device__ __forceinline__ void frag_bf16_split(const float (&x)[32],
-                                                uint32_t (&hi)[4][4],
-                                                uint32_t (&lo)[4][4]) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float x0 = x[8 * ks + 2 * i], x1 = x[8 * ks + 2 * i + 1];
-      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-      const float2 hf = __bfloat1622float2(h);
-      hi[ks][i] = pack_bf16(h);
-      lo[ks][i] = pack_bf16(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-    }
-}
-
-// tf32 hi and lo A fragments: k-step ks = columns 8 ks .. 8 ks + 7 in
-// split_cols's order: (row g, position t) = column 2 t, (row g + 8, t),
-// (row g, t + 4) = column 2 t + 1, (row g + 8, t + 4).
-__device__ __forceinline__ void frag_tf32(const float (&x)[32],
-                                          uint32_t (&hi)[8][4],
-                                          uint32_t (&lo)[8][4]) {
-#pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
-    const float y[4] = {x[4 * ks], x[4 * ks + 2], x[4 * ks + 1],
-                        x[4 * ks + 3]};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float h = tf32(y[e]);
-      hi[ks][e] = __float_as_uint(h);
-      lo[ks][e] = __float_as_uint(tf32(y[e] - h));
-    }
-  }
-}
-
 // The first D columns of an accumulator tile (rows r0, r0 + 8 of a
 // tensor with `limit` rows, row stride ld) in T.
 template <int D, typename T, int N>
@@ -400,27 +364,10 @@ __global__ void __launch_bounds__(THREADS, 3)
 // K5, fp32: 3xTF32
 // ---------------------------------------------------------------------------
 
-// The descriptor of k-step ks of a K-major tile of `rows` rows at byte
-// offset `off` from the tile whose descriptor is `base`: an add to the
-// address field (which holds the shared address / 16, far from carrying
-// over).  `base` passes through an empty asm first, which orders the add
-// after the products issued before it: otherwise the compiler computes
-// every descriptor of the tile loop up front, and they hold some hundred
-// registers (they starved the fp32 kernels).
-__device__ __forceinline__ uint64_t kstep(uint64_t base, int off, int rows,
-                                          int ks) {
-  asm volatile("" : "+l"(base));
-  return base + static_cast<uint64_t>(
-                    (off + (ks >> 2) * rows * 128 + (ks & 3) * 32) >> 4);
-}
-
-// fp32 shared memory: 64 x D tiles, hi and lo of each split operand, then
-// the raw tiles that stage the next streamed operands by cp.async while
-// this tile computes (split from there: no global load on the tile's
-// critical path).
-template <int D>
-constexpr int TILE32 = 64 * D * 4;
-
+// fp32 shared memory: 64 x D tiles (TILE32), hi and lo of each split
+// operand, then the raw tiles that stage the next streamed operands by
+// cp.async while this tile computes (split from there: no global load on
+// the tile's critical path).
 // Q, dO, K, V, K^T (hi, lo each); raw K, V
 template <int D>
 constexpr size_t dq_tf32_smem() {

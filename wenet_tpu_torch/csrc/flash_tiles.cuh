@@ -1,8 +1,8 @@
-// Tiles, the mask walk and the operand loaders shared by the masked
-// flash attention kernels: K4 (flash_attention.cu) and K5, K6
-// (flash_attention_bwd.cu).  One block is one warpgroup of 128 threads
-// that owns 64 rows; tiles are 64 wide and use hopper_mma.cuh's 128-byte
-// swizzled layout.
+// Tiles, the mask walk, the operand loaders and the softmax step shared
+// by the tensor-core attention kernels: K1 (relpos_attention.cu), K4
+// (flash_attention.cu) and K5, K6 (flash_attention_bwd.cu).  One block is
+// one warpgroup of 128 threads that owns 64 rows; tiles are 64 wide and
+// use hopper_mma.cuh's 128-byte swizzled layout.
 //
 // The accumulator layout of a 64 x 64 product (wgmma's, fp32): the thread
 // holds rows r0 and r0 + 8 (r0 = 16 warp + lane / 4) and columns
@@ -25,25 +25,31 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // Row masks: bit i is set where element i may attend, inside T1 x T2
 // and not masked, read per thread.  Only elements with their bit set read
-// the bias, so a row past T1 reads none of it.
+// the bias, so a row past T1 reads none of it.  The 32 mask bytes are
+// loaded unconditionally, from rows and columns clamped into T1 x T2, and
+// what lies outside is cleared after: a load behind a bounds branch
+// waits for the one before it, and 32 such loads in a row held K1 at
+// (16,4,375,375,64) with a chunk mask at 1.6 times its time with the pad
+// mask (fp32 on an H100; chip_smoke 3), where it now takes the same.
 __device__ __forceinline__ uint32_t tile_bits(const uint8_t* mb,
                                               long long ms_row,
                                               long long ms_col, int r0,
                                               int tq, int k0, int T1,
                                               int T2) {
   uint32_t bits = 0;
-  const bool in0 = r0 < T1, in1 = r0 + 8 < T1;
+  const uint32_t in0 = r0 < T1, in1 = r0 + 8 < T1;
+  const uint8_t* m0 = mb + min(r0, T1 - 1) * ms_row;
+  const uint8_t* m1 = mb + min(r0 + 8, T1 - 1) * ms_row;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int c = k0 + 8 * j + 2 * tq + e;
-      if (c >= T2) continue;
-      const uint8_t* mc = mb + c * ms_col;
-      const bool a0 = in0 && mc[r0 * ms_row] != 0;
-      const bool a1 = in1 && mc[(r0 + 8) * ms_row] != 0;
-      bits |= (static_cast<uint32_t>(a0) << (4 * j + e)) |
-              (static_cast<uint32_t>(a1) << (4 * j + 2 + e));
+      const long long cc = min(c, T2 - 1) * ms_col;
+      const uint32_t ok = c < T2;
+      const uint32_t a0 = ok & in0 & (m0[cc] != 0);
+      const uint32_t a1 = ok & in1 & (m1[cc] != 0);
+      bits |= (a0 << (4 * j + e)) | (a1 << (4 * j + 2 + e));
     }
   return bits;
 }
@@ -257,6 +263,151 @@ __device__ __forceinline__ void split_cols(uint8_t* hi, uint8_t* lo,
       *reinterpret_cast<float*>(lo + off) = lv[e];
     }
   }
+}
+
+// The descriptor of k-step ks of a K-major tile of `rows` rows at byte
+// offset `off` from the tile whose descriptor is `base`: an add to the
+// address field (which holds the shared address / 16, far from carrying
+// over).  `base` passes through an empty asm first, which orders the add
+// after the products issued before it: otherwise the compiler computes
+// every descriptor of the tile loop up front, and they hold some hundred
+// registers (they starved the fp32 kernels).
+__device__ __forceinline__ uint64_t kstep(uint64_t base, int off, int rows,
+                                          int ks) {
+  asm volatile("" : "+l"(base));
+  return base + static_cast<uint64_t>(
+                    (off + (ks >> 2) * rows * 128 + (ks & 3) * 32) >> 4);
+}
+
+// fp32 shared memory: a 64 x D tile, one split half of an operand or a
+// raw staged one.
+template <int D>
+constexpr int TILE32 = 64 * D * 4;
+
+// ---------------------------------------------------------------------------
+// the accumulator fragment: A fragments, the softmax step, the epilogue
+// ---------------------------------------------------------------------------
+
+// bf16 A fragments of a 64 x 64 accumulator tile, each element split into
+// hi = bf16(x) and lo = bf16(x - hi), so that hi . B + lo . B keeps 16
+// bits of x: k-step ks = columns 16 ks .. 16 ks + 15, register i holds
+// elements 8 ks + 2 i and 8 ks + 2 i + 1.
+__device__ __forceinline__ void frag_bf16_split(const float (&x)[32],
+                                                uint32_t (&hi)[4][4],
+                                                uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x0 = x[8 * ks + 2 * i], x1 = x[8 * ks + 2 * i + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(h);
+      hi[ks][i] = pack_bf16(h);
+      lo[ks][i] = pack_bf16(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+    }
+}
+
+// tf32 hi and lo A fragments: k-step ks = columns 8 ks .. 8 ks + 7 in
+// split_cols's order: (row g, position t) = column 2 t, (row g + 8, t),
+// (row g, t + 4) = column 2 t + 1, (row g + 8, t + 4).
+__device__ __forceinline__ void frag_tf32(const float (&x)[32],
+                                          uint32_t (&hi)[8][4],
+                                          uint32_t (&lo)[8][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    const float y[4] = {x[4 * ks], x[4 * ks + 2], x[4 * ks + 1],
+                        x[4 * ks + 3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float h = tf32(y[e]);
+      hi[ks][e] = __float_as_uint(h);
+      lo[ks][e] = __float_as_uint(tf32(y[e] - h));
+    }
+  }
+}
+
+// One online-softmax step on a tile's scores s (a product in the
+// accumulator layout above, any bias added; on return, the
+// probabilities): scale and mask (-inf where closed), the running max m
+// of the thread's two rows, its share of their sums l (summed over the
+// quad at the end), and the rescale of the output accumulator o.  A
+// probability is zero where s <= NEG_INF / 2: a row whose max is that
+// low keeps none, and below a higher max exp2 underflows to 0.
+template <int NO>
+__device__ __forceinline__ void online_softmax(float (&s)[32],
+                                               float (&o)[NO], float (&m)[2],
+                                               float (&l)[2], uint32_t bits,
+                                               float scale) {
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (bits == 0xffffffffu) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] *= scale;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = (bits >> i) & 1u ? s[i] * scale : -INFINITY;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+  }
+  float corr[2], ml[2];
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
+    mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
+    const float m_new = fmaxf(m[row], mx[row]);
+    corr[row] = ex2((m[row] - m_new) * LOG2E);
+    m[row] = m_new;
+    ml[row] = m_new <= NEG_INF * 0.5f ? INFINITY : m_new * LOG2E;
+    l[row] *= corr[row];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int row = (i >> 1) & 1;
+    s[i] = ex2(fmaf(s[i], LOG2E, -ml[row]));
+    l[row] += s[i];
+  }
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
+}
+
+// out = o / l on the thread's two rows (the first D columns of o; l
+// summed over the quad first), and with lse, lse = m + log l; zeros and
+// NEG_INF on fully masked rows.
+template <int D, typename T, int NO>
+__device__ __forceinline__ void store_rows(const float (&o)[NO],
+                                           const float (&m)[2], float (&l)[2],
+                                           T* ob, long long so, float* lse,
+                                           int r0, int tq, int T1) {
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    l[row] += __shfl_xor_sync(0xffffffffu, l[row], 1);
+    l[row] += __shfl_xor_sync(0xffffffffu, l[row], 2);
+  }
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const int r = r0 + 8 * row;
+    if (r >= T1) continue;
+    const float lr = l[row];
+    T* orow = ob + r * so + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const float y0 = lr > 0.f ? o[4 * j + 2 * row] / lr : 0.f;
+      const float y1 = lr > 0.f ? o[4 * j + 2 * row + 1] / lr : 0.f;
+      store2(orow + 8 * j, y0, y1);
+    }
+    if (lse != nullptr && tq == 0)
+      lse[r] = lr > 0.f ? m[row] + logf(lr) : NEG_INF;
+  }
+}
+
+// The width of a bf16 tile of D values a row: whole 128-byte blocks, the
+// N of the P . V product.
+template <int D>
+__host__ __device__ constexpr int bf16_width() {
+  return D < 64 ? 64 : D;
 }
 
 }  // namespace flash

@@ -1,59 +1,86 @@
-// Fused rel-pos attention forward for Hopper (sm_90a), plain C entry point.
+// Fused rel-pos attention forward for Hopper (sm_90a), plain C entry points.
 //
 // Replaces the Pallas TPU kernel `_relpos_fwd_kernel`
-// (wenet_tpu/ops/flash_attention.py), reached there through
-// `flash_attention_relpos`.  It computes, for every (batch, head):
+// (wenet_tpu/ops/flash_attention.py:548, called at :698), reached there
+// through `flash_attention_relpos`, in both its variants: inference
+// (`relpos_attention_fwd`) and training (`relpos_attention_fwd_train`,
+// has_lse and dropout_rate).  For every (batch, head) it computes
 //
 //   s   = (q1 . k^T + q2 . p^T) * scale        q1 = q + pos_bias_u
 //   s   = mask ? s : NEG_INF                    q2 = q + pos_bias_v
 //   out = softmax(s) . v                        p  = projected pos_emb
 //
-// without ever writing the (T1, T2) scores or the rel-pos bias to device
-// memory: one block owns BQ query rows of one (batch, head), walks the
-// keys in BK-wide tiles staged in shared memory, and keeps the running
-// max m, normalizer l and output accumulator in fp32 registers (online
-// softmax).
-//
-// The training variant (`relpos_attention_fwd_train`, template flags
-// WITH_LSE and DROPOUT) also writes lse = m + log(l) for the backward
-// kernels (relpos_attention_bwd.cu) and applies attention-weight dropout
-// with the counter hash of dropout_hash.cuh to the v-accumulator only:
-// l stays the full normalizer, as in the TPU kernel.  The inference
-// instantiation <false, false> compiles to the same code as before those
-// flags existed.
+// without writing the (T1, T2) scores or the rel-pos bias to device
+// memory: one block, one warpgroup of 128 threads, owns BQ = 64 query rows
+// of one (batch, head), walks the keys in BK = 64-wide tiles staged in
+// shared memory, and keeps the running max m, normalizer l and output
+// accumulator in fp32 registers (online softmax), in wgmma's accumulator
+// layout (flash_tiles.cuh).  The training variant also writes lse =
+// m + log l, a contiguous (B, H, T1) fp32 array for the backward kernels
+// (relpos_attention_bwd.cu), and applies attention-weight dropout with
+// the counter hash of dropout_hash.cuh to the weights that feed the
+// v-accumulator only: l stays the full normalizer, as in the TPU kernel.
 //
 // Kernel contract, shared with the TPU kernel:
 //   * NEG_INF is the finite sentinel -1e30, and a probability is zeroed
 //     where s <= NEG_INF / 2, so l counts only attendable keys;
-//   * a fully masked row writes zeros;
-//   * fp32 and bf16 inputs are upcast on load, all math is fp32, and the
-//     output has the input type.
-// Ragged T1 / T2 edges are bounds-checked, not padded.  p may be shared
-// by the whole batch (batch stride 0) and the mask may be one row for all
-// queries (row stride 0); neither broadcast is materialized.
+//   * a fully masked row writes zeros (and lse = NEG_INF);
+//   * the products are exact or split to fp32 accuracy (below), softmax
+//     and accumulation are fp32, and the output has the input type.
+// Ragged T1 / T2 edges are zero-filled on load and masked, and T1 != T2
+// is allowed.  q1, q2, k, p, v and out are read and written through
+// (batch, head, time) strides with a unit-stride feature dim, so the
+// attention module's (B, T, h, d) buffers are used in place; their bases
+// and strides must be 16-byte aligned (the wrapper checks).  p may be
+// shared by the whole batch (batch stride 0) and the mask may be one row
+// for all queries (row stride 0); neither broadcast is materialized.
 //
-// What bounds it on an H100: the three products run on the CUDA cores in
-// fp32 (67 TFLOP/s peak), not on the tensor cores, so at the conformer's
-// shapes (T ~ 375, d = 64) the kernel is bound by FMA issue and by the
-// shared-memory reads that feed it; device-memory traffic (each q, k, p, v
-// element read once per query tile) is well below the 3.35 TB/s line.
-// The simple design answers with register tiling: each thread owns a 4x4
-// block of scores and a 4 x (D/16) block of the output, so every
-// shared-memory read feeds 2 FMAs, and rows are padded by one float so
-// the column walks hit 16 distinct banks.  wgmma on bf16 tiles and TMA
-// loads are the later step.
+// What bounds it on an H100: 6 d FLOPs per attended (query, key) pair
+// (two score products and P . V) against (2 T1 + 3 T2) d elements read,
+// so the tensor cores, not the 3.35 TB/s memory: 989 TFLOP/s in bf16,
+// and in fp32, which runs as three tf32 products, 495 / 3 TFLOP/s (67
+// TFLOP/s on the CUDA cores).  The design is K4's (flash_attention.cu),
+// with the rel-pos term folded into the score product:
+//   * q1 . k^T + q2 . p^T = [q1 | q2] . [k | p]^T, so S is one
+//     accumulator fed by the k-steps of both products.  Q1 and Q2 stay in
+//     shared memory for the whole block; K, P and V stream through it.
+//   * bf16: the score k-steps are wgmma m64n64k16 with both operands
+//     K-major as stored; O += P . V takes P from registers (S's
+//     accumulator is wgmma's A fragment) as hi = bf16(P) and lo =
+//     bf16(P - hi), two products, and V as stored, MN-major, through the
+//     transpose bit.  K, P and V arrive by cp.async in a ring of two
+//     stages, the next tile's copies in flight while this one computes.
+//   * fp32: 3xTF32.  Q1, Q2, K and P are split x = hi + lo, both rounded
+//     to tf32, and hi.hi + hi.lo + lo.hi is accumulated in fp32: six tf32
+//     products per pair of k-steps for S.  V is stored transposed and
+//     split, with its keys permuted within each group of 8 so that S's
+//     accumulator is P's A fragment (split_cols).  The streamed K, P and
+//     V tiles arrive raw by cp.async a tile ahead and are split from
+//     shared memory (208 KB at d = 64: one block per SM), and the wgmma
+//     descriptors are derived after each product issues (kstep), as in
+//     K5.
+//   * dropout multiplies the probabilities on the accumulator fragment,
+//     after l took their undropped sum and before P is split; each
+//     element's (global row, global key) comes from the fragment layout.
+//   * a key tile that the mask closes for every row of the block is
+//     skipped (Walker): the pad mask closes the padded tail of short
+//     utterances, a dynamic-chunk mask most key tiles of the early query
+//     blocks.  A block with no open tile still writes its zeros and lse.
+// d = 128: bf16 on wgmma as above (one block per SM, 129 KB); fp32 keeps
+// the first port's body, FFMA on 4x4 register tiles fed from padded fp32
+// shared memory (namespace ffma, inference only: the training kernels
+// take d <= 64), since its split tiles would need 320 KB of shared
+// memory.
+
+#include <type_traits>
 
 #include "dropout_hash.cuh"
+#include "flash_tiles.cuh"
 #include "relpos_common.cuh"
 
 namespace {
 
-using relpos::BK;
-using relpos::BQ;
-using relpos::from_float;
-using relpos::NEG_INF;
-using relpos::THREADS;
-using relpos::to_float;
+using namespace flash;
 
 // Element strides of (batch, head, time) for each (B, H, T, D) operand;
 // the feature dim is unit-stride.  The mask has (batch, row, column).
@@ -62,23 +89,283 @@ struct Strides {
   long long mask[3];
 };
 
+// The dropout mask on a tile's probabilities s (the accumulator
+// fragment): element i is row r0 + 8 ((i >> 1) & 1), key
+// c0 + 8 (i >> 2) + (i & 1); bh = b * H + h, as the TPU kernel's.
+__device__ __forceinline__ void drop(float (&s)[32], const DropoutParams& dp,
+                                     int bh, int r0, int c0) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    s[i] *= dropout_mult(dp, bh, r0 + 8 * ((i >> 1) & 1),
+                         c0 + 8 * (i >> 2) + (i & 1));
+}
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma on bf16 tiles, cp.async into two stages
+// ---------------------------------------------------------------------------
+
+template <int D>
+constexpr size_t bf16_smem() {  // Q1, Q2, 2 x (K, P, V)
+  return 1024 + 2 * bf16_width<D>() * (2 * BQ + 6 * BK);
+}
+
+// Three blocks an SM where the output fits in 32 registers a thread (66 KB
+// of shared memory each), one at d = 128.
+template <int D, bool LSE, bool DROPOUT>
+__global__ void __launch_bounds__(THREADS, D < 128 ? 3 : 1)
+    relpos_fwd_bf16(const __nv_bfloat16* __restrict__ q1,
+                    const __nv_bfloat16* __restrict__ q2,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ p,
+                    const __nv_bfloat16* __restrict__ v,
+                    const uint8_t* __restrict__ mask,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                    Strides st, int H, int T1, int T2, float scale,
+                    DropoutParams dp) {
+  constexpr int W = bf16_width<D>();
+  constexpr int TILE = 64 * W * 2;  // 64 rows (BQ = BK) of W bf16 values
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq1 = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq2 = sq1 + TILE;
+  auto stage_k = [&](int stage) {  // K, then P, then V
+    return sq1 + 2 * TILE + 3 * stage * TILE;
+  };
+
+  const int tid = threadIdx.x, tq = tid & 3;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * BQ;
+  const int r0 = q0 + 16 * (tid >> 5) + ((tid & 31) >> 2);
+  const __nv_bfloat16* kb = k + b * st.k[0] + h * st.k[1];
+  const __nv_bfloat16* pb = p + b * st.p[0] + h * st.p[1];
+  const __nv_bfloat16* vb = v + b * st.v[0] + h * st.v[1];
+  const uint8_t* mb = mask == nullptr ? nullptr : mask + b * st.mask[0];
+  auto load = [&](int stage, int kt) {
+    const uint32_t t = stage_k(stage);
+    load_rows<D, BK>(t, kb, st.k[2], kt, T2, tid);
+    load_rows<D, BK>(t + TILE, pb, st.p[2], kt, T2, tid);
+    load_rows<D, BK>(t + 2 * TILE, vb, st.v[2], kt, T2, tid);
+  };
+
+  load_rows<D, BQ>(sq1, q1 + b * st.q1[0] + h * st.q1[1], st.q1[2], q0, T1,
+                   tid);
+  load_rows<D, BQ>(sq2, q2 + b * st.q2[0] + h * st.q2[1], st.q2[2], q0, T1,
+                   tid);
+  cp_async_commit();
+  __shared__ uint32_t votes[4];
+  Walker walk{mb, st.mask[1], st.mask[2], T1, T2, r0, tq, tid >> 5, tid & 31,
+              votes, mb == nullptr || st.mask[1] == 0};
+  if (walk.cols) walk.prefetch();
+  uint32_t bits;
+  int kt = walk.next(bits);
+  if (kt < T2) load(0, kt);
+  cp_async_commit();
+
+  float o[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  int stage = 0;
+  while (kt < T2) {
+    // the vote is a barrier: every warp is done with the stage refilled
+    uint32_t bits_next;
+    const int kn = walk.next(bits_next);
+    if (kn < T2) load(stage ^ 1, kn);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q1, Q2 and this tile have landed
+    fence_async_smem();
+    __syncthreads();
+    const uint32_t sk = stage_k(stage), sp = sk + TILE, sv = sp + TILE;
+
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      mma_bf16_ss(s, desc_k(sq1, BQ, ks), desc_k(sk, BK, ks));
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      mma_bf16_ss(s, desc_k(sq2, BQ, ks), desc_k(sp, BK, ks));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+
+    online_softmax(s, o, m, l, bits, scale);
+    if constexpr (DROPOUT) drop(s, dp, bh, r0, kt + 2 * tq);
+    uint32_t ph[4][4], pl[4][4];  // P's A fragments, hi and lo halves
+    frag_bf16_split(s, ph, pl);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      // V's k-step: 16 key rows of 128 bytes; 64-wide column blocks are
+      // BK rows apart
+      const uint64_t dv = desc(sv + ks * 16 * 128, BK * 128);
+      mma_bf16_rs(o, pl[ks], dv);
+      mma_bf16_rs(o, ph[ks], dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(o);
+    pin(ph);
+    pin(pl);
+    kt = kn;
+    bits = bits_next;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+  store_rows<D>(o, m, l, out + b * st.out[0] + h * st.out[1], st.out[2],
+                LSE ? lse + static_cast<long long>(bh) * T1 : nullptr, r0,
+                tq, T1);
+}
+
+// ---------------------------------------------------------------------------
+// fp32: 3xTF32 wgmma
+// ---------------------------------------------------------------------------
+
+template <int D>  // Q1, Q2, K, P, V^T (hi, lo each); raw K, P, V
+constexpr size_t tf32_smem() {
+  return 1024 + 13 * TILE32<D>;
+}
+
+template <int D, bool LSE, bool DROPOUT>
+__global__ void __launch_bounds__(THREADS)
+    relpos_fwd_tf32(const float* __restrict__ q1, const float* __restrict__ q2,
+                    const float* __restrict__ k, const float* __restrict__ p,
+                    const float* __restrict__ v,
+                    const uint8_t* __restrict__ mask, float* __restrict__ out,
+                    float* __restrict__ lse, Strides st, int H, int T1,
+                    int T2, float scale, DropoutParams dp) {
+  constexpr int TILE = TILE32<D>;
+  enum { Q1H, Q1L, Q2H, Q2L, KH, KL, PH, PL, VH, VL, RK, RP, RV };
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  auto tile = [&](int i) { return base + i * TILE; };
+
+  const int tid = threadIdx.x, tq = tid & 3;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * BQ;
+  const int r0 = q0 + 16 * (tid >> 5) + ((tid & 31) >> 2);
+  const float* kb = k + b * st.k[0] + h * st.k[1];
+  const float* pb = p + b * st.p[0] + h * st.p[1];
+  const float* vb = v + b * st.v[0] + h * st.v[1];
+  const uint8_t* mb = mask == nullptr ? nullptr : mask + b * st.mask[0];
+  auto stage = [&](int kt) {
+    stage_raw<D>(smem_u32(tile(RK)), kb, st.k[2], kt, T2, tid);
+    stage_raw<D>(smem_u32(tile(RP)), pb, st.p[2], kt, T2, tid);
+    stage_raw<D>(smem_u32(tile(RV)), vb, st.v[2], kt, T2, tid);
+  };
+
+  split_rows<D, BQ>(
+      tile(Q1H), tile(Q1L),
+      GlobalRows{q1 + b * st.q1[0] + h * st.q1[1], st.q1[2], q0, T1}, tid);
+  split_rows<D, BQ>(
+      tile(Q2H), tile(Q2L),
+      GlobalRows{q2 + b * st.q2[0] + h * st.q2[1], st.q2[2], q0, T1}, tid);
+  __shared__ uint32_t votes[4];
+  Walker walk{mb, st.mask[1], st.mask[2], T1, T2, r0, tq, tid >> 5, tid & 31,
+              votes, mb == nullptr || st.mask[1] == 0};
+  if (walk.cols) walk.prefetch();
+  uint32_t bits;
+  int kt = walk.next(bits);
+  if (kt < T2) stage(kt);
+  cp_async_commit();
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  while (kt < T2) {
+    cp_async_wait<0>();
+    __syncthreads();  // the raw tiles have landed; the last products are done
+    split_rows<D, BK>(tile(KH), tile(KL), RawTile<D>{tile(RK)}, tid);
+    split_rows<D, BK>(tile(PH), tile(PL), RawTile<D>{tile(RP)}, tid);
+    split_cols<D>(tile(VH), tile(VL), RawTile<D>{tile(RV)}, tid);
+    fence_async_smem();
+    __syncthreads();  // the split tiles are published, the raw ones free
+    uint32_t bits_next;
+    const int kn = walk.next(bits_next);
+    if (kn < T2) stage(kn);
+    cp_async_commit();
+
+    const uint64_t d0 = desc(smem_u32(base));
+    auto kmaj = [&](int i, int rows, int ks) {  // k-step ks of tile i
+      return kstep(d0, i * TILE, rows, ks);
+    };
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {  // the small terms first
+      mma_tf32_ss(s, kmaj(Q1L, BQ, ks), kmaj(KH, BK, ks));
+      mma_tf32_ss(s, kmaj(Q1H, BQ, ks), kmaj(KL, BK, ks));
+      mma_tf32_ss(s, kmaj(Q2L, BQ, ks), kmaj(PH, BK, ks));
+      mma_tf32_ss(s, kmaj(Q2H, BQ, ks), kmaj(PL, BK, ks));
+    }
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      mma_tf32_ss(s, kmaj(Q1H, BQ, ks), kmaj(KH, BK, ks));
+      mma_tf32_ss(s, kmaj(Q2H, BQ, ks), kmaj(PH, BK, ks));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+
+    online_softmax(s, o, m, l, bits, scale);
+    if constexpr (DROPOUT) drop(s, dp, bh, r0, kt + 2 * tq);
+    uint32_t ph[8][4], pl[8][4];  // P's A fragments in split_cols's order
+    frag_tf32(s, ph, pl);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      mma_tf32_rs(o, pl[ks], kmaj(VH, D, ks));
+      mma_tf32_rs(o, ph[ks], kmaj(VL, D, ks));
+    }
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) mma_tf32_rs(o, ph[ks], kmaj(VH, D, ks));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(o);
+    pin(ph);
+    pin(pl);
+    kt = kn;
+    bits = bits_next;
+  }
+  cp_async_wait<0>();
+  store_rows<D>(o, m, l, out + b * st.out[0] + h * st.out[1], st.out[2],
+                LSE ? lse + static_cast<long long>(bh) * T1 : nullptr, r0,
+                tq, T1);
+}
+
+// ---------------------------------------------------------------------------
+// fp32 at d = 128 (inference): FFMA on the CUDA cores
+// ---------------------------------------------------------------------------
+
+namespace ffma {
+
+using relpos::BK;
+using relpos::BQ;
+using relpos::NEG_INF;
+using relpos::THREADS;
+
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * ((2 * BQ + 3 * BK) * (D + 1) + BQ * (BK + 1));
 }
 
-// WITH_LSE: also write lse = m + log(l) per row, (B, H, T1) fp32 (NEG_INF
-// for a fully masked row).  DROPOUT: multiply the weights that feed the
-// v-accumulator by the hash mask; l stays the full softmax normalizer, so
-// out = (D . softmax(s)) . v.  <false, false> is the inference kernel.
-template <typename T, int D, bool WITH_LSE, bool DROPOUT>
+// Each of the 256 threads owns a 4x4 block of scores and a 4 x (D/16)
+// block of the output, so every shared-memory read feeds 2 FMAs; rows are
+// padded by one float so that the column walks hit 16 distinct banks.
+// The signature is the tensor-core kernels'; lse and dp are unused.
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-    relpos_fwd_kernel(const T* __restrict__ q1, const T* __restrict__ q2,
-                      const T* __restrict__ k, const T* __restrict__ p,
-                      const T* __restrict__ v,
-                      const uint8_t* __restrict__ mask, T* __restrict__ out,
-                      float* __restrict__ lse, Strides st, int H, int T1,
-                      int T2, float scale, DropoutParams dp) {
+    relpos_fwd_kernel(const float* __restrict__ q1,
+                      const float* __restrict__ q2,
+                      const float* __restrict__ k,
+                      const float* __restrict__ p,
+                      const float* __restrict__ v,
+                      const uint8_t* __restrict__ mask,
+                      float* __restrict__ out, float* __restrict__ lse,
+                      Strides st, int H, int T1, int T2, float scale,
+                      DropoutParams dp) {
   constexpr int LD = D + 1;   // padded feature row
   constexpr int LDS = BK + 1; // padded probability row
   constexpr int DC = D / 16;  // output columns per thread
@@ -97,22 +384,17 @@ __global__ void __launch_bounds__(THREADS)
   const int h = blockIdx.y % H;
   const int q0 = blockIdx.x * BQ;
 
-  const T* q1b = q1 + b * st.q1[0] + h * st.q1[1];
-  const T* q2b = q2 + b * st.q2[0] + h * st.q2[1];
-  const T* kb = k + b * st.k[0] + h * st.k[1];
-  const T* pb = p + b * st.p[0] + h * st.p[1];
-  const T* vb = v + b * st.v[0] + h * st.v[1];
+  const float* q1b = q1 + b * st.q1[0] + h * st.q1[1];
+  const float* q2b = q2 + b * st.q2[0] + h * st.q2[1];
+  const float* kb = k + b * st.k[0] + h * st.k[1];
+  const float* pb = p + b * st.p[0] + h * st.p[1];
+  const float* vb = v + b * st.v[0] + h * st.v[1];
   const uint8_t* mb = mask == nullptr ? nullptr : mask + b * st.mask[0];
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D, t = q0 + r;
-    float a = 0.f, w = 0.f;
-    if (t < T1) {
-      a = to_float(q1b[t * st.q1[2] + c]);
-      w = to_float(q2b[t * st.q2[2] + c]);
-    }
-    sq1[r * LD + c] = a;
-    sq2[r * LD + c] = w;
+    sq1[r * LD + c] = t < T1 ? q1b[t * st.q1[2] + c] : 0.f;
+    sq2[r * LD + c] = t < T1 ? q2b[t * st.q2[2] + c] : 0.f;
   }
 
   float acc[4][DC];
@@ -129,15 +411,9 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();  // the previous tile is no longer read
     for (int i = tid; i < BK * D; i += THREADS) {
       const int r = i / D, c = i % D, t = k0 + r;
-      float a = 0.f, w = 0.f, x = 0.f;
-      if (t < T2) {
-        a = to_float(kb[t * st.k[2] + c]);
-        w = to_float(pb[t * st.p[2] + c]);
-        x = to_float(vb[t * st.v[2] + c]);
-      }
-      sk[r * LD + c] = a;
-      sp[r * LD + c] = w;
-      sv[r * LD + c] = x;
+      sk[r * LD + c] = t < T2 ? kb[t * st.k[2] + c] : 0.f;
+      sp[r * LD + c] = t < T2 ? pb[t * st.p[2] + c] : 0.f;
+      sv[r * LD + c] = t < T2 ? vb[t * st.v[2] + c] : 0.f;
     }
     __syncthreads();
 
@@ -190,11 +466,7 @@ __global__ void __launch_bounds__(THREADS)
       for (int j = 0; j < 4; ++j) {
         const float pr =
             s[i][j] <= NEG_INF * 0.5f ? 0.f : expf(s[i][j] - m_new);
-        if constexpr (DROPOUT)
-          ss[(ty * 4 + i) * LDS + tx + 16 * j] =
-              pr * dropout_mult(dp, blockIdx.y, r, k0 + tx + 16 * j);
-        else
-          ss[(ty * 4 + i) * LDS + tx + 16 * j] = pr;
+        ss[(ty * 4 + i) * LDS + tx + 16 * j] = pr;
         row_sum += pr;
       }
 #pragma unroll
@@ -221,49 +493,64 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  T* ob = out + b * st.out[0] + h * st.out[1];
+  float* ob = out + b * st.out[0] + h * st.out[1];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
     if (r >= T1) continue;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const float y = l[i] > 0.f ? acc[i][c] / l[i] : 0.f;
-      ob[r * st.out[2] + tx + 16 * c] = from_float<T>(y);
-    }
-    if constexpr (WITH_LSE) {
-      if (tx == 0)
-        lse[static_cast<long long>(blockIdx.y) * T1 + r] =
-            l[i] > 0.f ? m[i] + logf(l[i]) : NEG_INF;
-    }
+    for (int c = 0; c < DC; ++c)
+      ob[r * st.out[2] + tx + 16 * c] = l[i] > 0.f ? acc[i][c] / l[i] : 0.f;
   }
 }
+
+}  // namespace ffma
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
 
 struct Args {
   const void *q1, *q2, *k, *p, *v, *mask;
   void* out;
-  float* lse;
+  float* lse;  // training only
   Strides st;
   int B, H, T1, T2;
   float scale;
   DropoutParams dp;
 };
 
-template <typename T, int D, bool WITH_LSE, bool DROPOUT>
-int launch(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kernel = relpos_fwd_kernel<T, D, WITH_LSE, DROPOUT>;
+template <typename T, typename Kernel>
+int launch_kernel(Kernel kernel, size_t smem, int threads, const Args& a,
+                  cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.T1 + BQ - 1) / BQ, a.B * a.H);
-  kernel<<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(a.q1), static_cast<const T*>(a.q2),
       static_cast<const T*>(a.k), static_cast<const T*>(a.p),
       static_cast<const T*>(a.v), static_cast<const uint8_t*>(a.mask),
       static_cast<T*>(a.out), a.lse, a.st, a.H, a.T1, a.T2, a.scale, a.dp);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel for T at head dim D: wgmma on bf16 tiles, 3xTF32 wgmma for
+// fp32 at d <= 64, the FFMA body for fp32 at d = 128 (inference only).
+template <typename T, int D, bool LSE, bool DROPOUT>
+int launch(const Args& a, cudaStream_t s) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return launch_kernel<T>(relpos_fwd_bf16<D, LSE, DROPOUT>, bf16_smem<D>(),
+                            THREADS, a, s);
+  } else if constexpr (D == 128) {
+    static_assert(!LSE && !DROPOUT, "fp32 training takes d <= 64");
+    return launch_kernel<T>(ffma::relpos_fwd_kernel<D>,
+                            ffma::smem_bytes<D>(), ffma::THREADS, a, s);
+  } else {
+    return launch_kernel<T>(relpos_fwd_tf32<D, LSE, DROPOUT>, tf32_smem<D>(),
+                            THREADS, a, s);
+  }
 }
 
 // the inference kernel for d in {32, 64, 128}

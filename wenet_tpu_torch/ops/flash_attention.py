@@ -27,10 +27,11 @@ the gradient of a (T1, T2) input).  The dropout mask D is a counter hash
 of (seed, b·h, global query, global key) (`dropout_mult`,
 csrc/dropout_hash.cuh), so K1-K3 regenerate the same mask whatever their
 tiling; K4-K6 have no dropout, as the JAX package never routes attention
-dropout to them.  K4-K6 run on Hopper's tensor cores (wgmma on bf16
-tiles, fp32 as three tf32 products), except K5 and K6 at d = 128; K1-K3
-and those two instances run fp32 FMA on the CUDA cores.  See the sources
-for the notes.
+dropout to them.  K1 and K4-K6 run on Hopper's tensor cores (wgmma on
+bf16 tiles, fp32 as three tf32 products), except K1 in fp32 and K5, K6
+at d = 128; K2, K3 and those instances run fp32 FMA on the CUDA cores.
+The tensor-core kernels copy 16 bytes at a time, so their wrappers need
+16-byte aligned bases and strides.  See the sources for the notes.
 
 The kernels are compiled with nvcc for sm_90a at first use into
 `wenet_tpu_torch/build/` (one nvcc per source, run in parallel, keyed by
@@ -313,8 +314,11 @@ def build() -> Dict[str, ctypes.CDLL]:
     return _libs
 
 
-def _check(q1, q2, k, p, v, m, train: bool = False):
-    """m: the mask as (B|1, 1, T1|1, T2), or None."""
+def _check(q1, q2, k, p, v, m, train: bool = False, aligned: bool = False):
+    """Raise on what the rel-pos kernels do not take.  m: the mask as
+    (B|1, 1, T1|1, T2), or None; `aligned`: K1's 16-byte copies also need
+    q1, q2, k, p and v's base and strides 16-byte aligned (the attention
+    module's views are)."""
     B, H, T1, D = q1.shape
     T2 = k.shape[2]
     dev = q1.device
@@ -339,6 +343,10 @@ def _check(q1, q2, k, p, v, m, train: bool = False):
                              f'{q1.dtype} on {dev}')
         if t.stride(-1) != 1:
             raise ValueError(f'{name} must be unit-stride in its last dim')
+        if aligned and not _aligned16(t):
+            raise ValueError(f'{name} must have a 16-byte aligned base and '
+                             f'strides, has {t.data_ptr() % 16} and '
+                             f'{t.stride()}')
     if B * H > 65535:
         raise ValueError(f'B*h = {B * H} exceeds the grid limit')
     if m is not None and (
@@ -389,7 +397,7 @@ def _run(name: str, fn, *args, device) -> None:
 
 def _fwd_cuda(q1, q2, k, p, v, m, scale, want_lse, rate, seed):
     train = want_lse or rate > 0.0
-    _check(q1, q2, k, p, v, m, train)
+    _check(q1, q2, k, p, v, m, train, aligned=True)
     B, H, T1, D = q1.shape
     T2 = k.shape[2]
     out = _like_heads(q1, v.dtype)
@@ -544,7 +552,8 @@ def flash_attention_relpos(q1, q2, k, p, v,
     and v on either device; otherwise it runs the forward alone.  CPU
     tensors take the plain versions; CUDA tensors launch the kernels
     (float32 or bfloat16; d in 32/64/128 for inference, 32/64 for
-    training) and raise on anything they do not take."""
+    training; K1 needs 16-byte aligned bases and strides) and raise on
+    anything they do not take."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError('dropout_rate > 0 needs a dropout_seed')
     if torch.is_grad_enabled() and any(
