@@ -26,7 +26,11 @@ Phases, each of which raises on failure (non-zero exit):
   6a. train kernels: K1 with lse and dropout, and K2/K3 through the
               autograd Function's backward, against the plain versions
               chained as the Function chains them, fp32 and bf16, at the
-              train step's shapes and a peaked softmax
+              train step's shapes, a peaked softmax, key tiles closed
+              mid-row and key blocks wholly in the padding; each output's
+              share of its bar, kernel and plain times, and at the main
+              shape the bounds (fp32: 3xTF32 beside FFMA) and TFLOP/s;
+              K2 + K3 against SDPA's backward at the pad shape
   6b. mask    the in-kernel dropout mask equals the plain hash bit for bit
   6c. train   the flagship train step: one step on the card against the
               CPU (every dropout 0), five steps through Executor.train
@@ -107,7 +111,14 @@ TRAIN_SHAPES = [  # B, h, T1, T2, d, mask, dropout rate
     (2, 4, 64, 64, 64, 'masked_row', 0.1),  # one fully masked row
     (2, 2, 70, 70, 32, 'chunk', 0.1),
     (2, 4, 300, 300, 64, 'peaked', 0.1),   # q1, q2 scaled by 8
+    (2, 4, 200, 448, 64, 'gap', 0.1),      # key tiles closed mid-row
+    (2, 4, 130, 300, 64, 'tail', 0.0),     # key blocks wholly in the padding
 ]
+TRAIN_OUTPUTS = {  # the outputs each training kernel is held to, in order
+    'relpos_attention_fwd_train': ('out', 'lse'),
+    'relpos_attention_bwd_dq': ('dq1', 'dq2'),
+    'relpos_attention_bwd_dkpv': ('dk', 'dp', 'dv'),
+}
 # fp32: summation order only; bf16: inputs rounded to bf16, math in fp32
 TRAIN_TOL = {torch.float32: dict(atol=2e-4, rtol=1e-4),
              torch.bfloat16: dict(atol=5e-2, rtol=2e-2)}
@@ -120,6 +131,7 @@ TRAIN_KERNELS = {  # name: (source, TPU kernel it replaces)
         'wenet_tpu_torch/csrc/relpos_attention_bwd.cu',
         'wenet_tpu/ops/flash_attention.py:784'),
 }
+PAD_SHAPE = '(16,4,299,299,64) pad'  # TRAIN_SHAPES[1], SDPA's yardstick
 LOSS_DROP = 0.8  # 30 steps on one batch must end below 80% of the first loss
 # published H100 SXM peaks: fp32 on the CUDA cores, bf16 dense tensor
 # cores, HBM3 (the kernels' bounds are computed against these)
@@ -263,7 +275,9 @@ def kernel_inputs(rng, B, h, T1, T2, d, mask_kind, dtype):
     """q1, q2 as the attention module hands them, (B, h, T1, d) views of
     (B, T1, h, d) buffers (scaled by 8 for 'peaked'); k, v (B, h, T2, d);
     p (1, h, T2, d), shared by the batch; the mask: (B, 1, T2) key
-    padding ('pad', 'peaked'), with keys 64..191 closed ('gap'), a
+    padding ('pad', 'peaked'; 'tail': the last utterance T2 // 3 long, so
+    that whole key blocks lie in its padding), with keys 64..191 closed
+    ('gap'), a
     streaming chunk step's ('step': the last T1 keys are the chunk, the
     cache before it holds a random number of frames, none for the first
     utterance), or (B, T1, T2) static chunks of 16 over key padding
@@ -275,9 +289,11 @@ def kernel_inputs(rng, B, h, T1, T2, d, mask_kind, dtype):
     k, p, v = t(B, h, T2, d), t(1, h, T2, d), t(B, h, T2, d)
     lens = torch.from_numpy(rng.randint(T2 // 2, T2 + 1, size=B)).cuda()
     lens[0] = T2
+    if mask_kind == 'tail':
+        lens[-1] = T2 // 3
     keys = torch.arange(T2, device='cuda')
     pad = keys[None, :] < lens[:, None]
-    if mask_kind in ('pad', 'peaked', 'gap'):
+    if mask_kind in ('pad', 'peaked', 'gap', 'tail'):
         mask = pad[:, None, :]
         if mask_kind == 'peaked':  # a peaked softmax
             q1, q2 = q1 * 8, q2 * 8
@@ -552,7 +568,8 @@ def train_kernel_check():
     from wenet_tpu_torch.ops import flash_attention as fa
     rng = np.random.RandomState(SEED + 3)
     errs = {name: 0.0 for name in TRAIN_KERNELS}
-    main = {}  # dtype -> (times, bounds) at the main shape
+    main = {}  # dtype -> (times, bounds, TFLOP/s) at the main shape
+    pad = {}  # dtype -> (times, SDPA forward / backward) at the pad shape
     for i, (B, h, T1, T2, d, mask_kind, rate) in enumerate(TRAIN_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             x, mask = kernel_inputs(rng, B, h, T1, T2, d, mask_kind, dtype)
@@ -594,19 +611,21 @@ def train_kernel_check():
             }
             line = []
             for name, checks in pairs.items():
-                err = of_bar = 0.0
-                for got, w in checks:
+                err, shares = 0.0, []
+                for out_name, (got, w) in zip(TRAIN_OUTPUTS[name], checks):
                     if not torch.isfinite(got).all():
-                        raise RuntimeError(f'{name}: output is not finite')
+                        raise RuntimeError(f'{name}: {out_name} is not '
+                                           'finite')
                     torch.testing.assert_close(got.float(), w.float(),
-                                               **TRAIN_TOL[dtype], msg=name)
+                                               **TRAIN_TOL[dtype],
+                                               msg=f'{name}: {out_name}')
                     err = max(err, (got.float() - w.float()).abs().max()
                               .item())
-                    of_bar = max(of_bar, share_of_bar(got, w,
-                                                      TRAIN_TOL[dtype]))
+                    of_bar = share_of_bar(got, w, TRAIN_TOL[dtype])
+                    shares.append(f'{out_name} {100 * of_bar:.0f}%')
                 if dtype == torch.float32:
                     errs[name] = max(errs[name], err)
-                line.append(f'{name[17:]} {err:.3g} ({100 * of_bar:.0f}% '
+                line.append(f'{name[17:]} {err:.3g} ({", ".join(shares)} '
                             'of the bar)')
             if mask_kind == 'masked_row' and (out[0, :, 5].any() or
                                               grads[0][0, :, 5].any()):
@@ -633,50 +652,66 @@ def train_kernel_check():
             if i == 0:  # the first shape is the main path's
                 n_pairs = attended_pairs(mask, B, h, T1, T2)
                 common = nbytes(*x, mask, do, want_lse, delta)
-                # 3, 5 and 6 products of 2*d FLOPs per pair; K1-train's
-                # fp32 runs as 3xTF32 (FFMA printed beside it), K2's and
-                # K3's on FFMA
-                k1_work = (6 * d * n_pairs, nbytes(*x, mask, out, lse))
-                bounds = {
-                    'relpos_attention_fwd_train': bound(
-                        *k1_work, dtype, tf32_split=True),
-                    'relpos_attention_bwd_dq': bound(
-                        10 * d * n_pairs, common + nbytes(*grads[:2]),
-                        dtype),
-                    'relpos_attention_bwd_dkpv': bound(
-                        12 * d * n_pairs, common + nbytes(*grads[2:]),
-                        dtype),
+                # 3, 5 and 6 products of 2*d FLOPs per attended pair; fp32
+                # runs as 3xTF32 (FFMA printed beside it)
+                work = {
+                    'relpos_attention_fwd_train': (
+                        6 * d * n_pairs, nbytes(*x, mask, out, lse)),
+                    'relpos_attention_bwd_dq': (
+                        10 * d * n_pairs, common + nbytes(*grads[:2])),
+                    'relpos_attention_bwd_dkpv': (
+                        12 * d * n_pairs, common + nbytes(*grads[2:])),
                 }
-                tflops = k1_work[0] / t['relpos_attention_fwd_train'][0] / 1e9
-                main[dtype] = t, bounds, tflops
+                bounds = {n: bound(*w, dtype, tf32_split=True)
+                          for n, w in work.items()}
+                tflops = {n: w[0] / t[n][0] / 1e9 for n, w in work.items()}
+                ffma = {n: bound(*w)[0] for n, w in work.items()}
+                main[dtype] = t, bounds, tflops, ffma
                 print('    bounds: ' + ', '.join(
-                    f'{n[17:]} {b[0]:.4f} ms ({b[1]})'
-                    for n, b in bounds.items())
-                    + (f'; fwd_train at FFMA {bound(*k1_work)[0]:.4f} ms'
-                       if dtype == torch.float32 else '')
-                    + f'; {n_pairs / 1e6:.2f}M attended pairs, K1-train '
-                    f'{tflops:.1f} TFLOP/s', flush=True)
+                    f'{n[17:]} {b[0]:.4f} ms ({b[1]}'
+                    + (f'; FFMA {ffma[n]:.4f}' if dtype == torch.float32
+                       else '') + ')' for n, b in bounds.items())
+                    + f'; {n_pairs / 1e6:.2f}M attended pairs; TFLOP/s: '
+                    + ', '.join(f'{n[17:]} {f:.1f}'
+                                for n, f in tflops.items()), flush=True)
             if rate == 0.0 and mask_kind == 'pad':
-                relpos_sdpa_train(x, mask, do, scale, out, grads)
+                pad[dtype] = t, relpos_sdpa_train(x, mask, do, scale, out,
+                                                  grads)
             print(f'  ({B},{h},{T1},{T2},{d}) mask={mask_kind} '
                   f'dropout={rate} {str(dtype)[6:]}: max_abs_err '
                   + ', '.join(line), flush=True)
             print('    kernel / plain ms: ' + ', '.join(
                 f'{n[17:]} {a:.4f} / {b:.4f}' for n, (a, b) in t.items()),
                 flush=True)
-    # the main shape's dropout has no library counterpart: library_ms is
-    # null there; the no-dropout SDPA times are printed for the record
-    (times, bounds, tflops), (times16, bounds16, tflops16) = (
-        main[torch.float32], main[torch.bfloat16])
-    report = {name: dict(max_abs_err=errs[name], ms=times[name][0],
-                         plain_ms=times[name][1], bound_ms=bounds[name][0],
-                         bound_by=bounds[name][1], library_ms=None,
-                         ms_bf16=times16[name][0],
-                         bound_ms_bf16=bounds16[name][0],
-                         library_ms_bf16=None)
-              for name in TRAIN_KERNELS}
-    report['relpos_attention_fwd_train'].update(tflops=tflops,
-                                                tflops_bf16=tflops16)
+    # the main shape's dropout has no library counterpart; K2's and K3's
+    # library_ms is SDPA's backward at the pad shape, which computes both
+    for dtype, (t, (_, sdpa_bwd)) in pad.items():
+        both = (t['relpos_attention_bwd_dq'][0] +
+                t['relpos_attention_bwd_dkpv'][0])
+        print(f'  K2 + K3 at {PAD_SHAPE}, {str(dtype)[6:]}: {both:.4f} ms '
+              f'against SDPA backward {sdpa_bwd:.4f} ms '
+              f'({both / sdpa_bwd:.2f}x)', flush=True)
+    report = {}
+    for name in TRAIN_KERNELS:
+        entry = dict(max_abs_err=errs[name])
+        for dtype, key in ((torch.float32, ''), (torch.bfloat16, '_bf16')):
+            times, bounds, tflops, ffma = main[dtype]
+            pad_times, (sdpa_fwd, sdpa_bwd) = pad[dtype]
+            entry.update({'ms' + key: times[name][0],
+                          'bound_ms' + key: bounds[name][0],
+                          'tflops' + key: tflops[name],
+                          'ms_pad' + key: pad_times[name][0]})
+            if dtype == torch.float32:
+                entry.update(plain_ms=times[name][1], bound_by=bounds[name][1],
+                             bound_ms_ffma=ffma[name])
+            if name == 'relpos_attention_fwd_train':
+                entry['library_ms' + key] = None
+            else:
+                entry['library_ms' + key] = sdpa_bwd
+        if name != 'relpos_attention_fwd_train':
+            entry['library_of'] = (f'K2 + K3: SDPA backward (dq, dk, dv) at '
+                                   f'{PAD_SHAPE}, no dropout')
+        report[name] = entry
     return report
 
 
@@ -684,7 +719,7 @@ def relpos_sdpa_train(x, mask, do, scale, out, grads):
     """SDPA forward and its backward (dq, dk, dv of [q1|q2], [k|p], v in
     one call: K2 and K3 together) on the kernels' inputs without dropout,
     checked against the kernels' outputs and timed (CUDA events);
-    prints the times."""
+    prints and returns the times (forward, backward) in ms."""
     import torch.nn.functional as F
     q1, q2, k, p, v = x
     B, _, _, d = q1.shape
@@ -713,6 +748,7 @@ def relpos_sdpa_train(x, mask, do, scale, out, grads):
     print(f'    SDPA, no dropout, {str(q1.dtype)[6:]}: forward {fwd_ms:.4f} '
           f'ms, backward (dq, dk, dv: K2 + K3 together) {bwd_ms:.4f} ms',
           flush=True)
+    return fwd_ms, bwd_ms
 
 
 def mask_check():
@@ -947,8 +983,8 @@ def train_speed(smi):
               f'wall, {100 * total / (dt * 1e3):.0f}% of an unprofiled step '
               f'(device busy; {smi})')
         for label, key in (('K1', 'relpos_fwd_'),
-                           ('K2', 'relpos_bwd_dq_kernel'),
-                           ('K3', 'relpos_bwd_dkpv_kernel')):
+                           ('K2', 'relpos_bwd_dq_'),
+                           ('K3', 'relpos_bwd_dkpv_')):
             ms = sum(e.self_device_time_total for e in rows
                      if key in e.key) / 1e3
             print(f'    {label} {key}: {ms:.3f} ms, '

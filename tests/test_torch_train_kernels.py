@@ -19,6 +19,8 @@ import torch
 
 from wenet_tpu_torch.ops import flash_attention as fa
 
+from torch_port_utils import fill_allocator_with_nan
+
 ATOL = 1e-5
 SEEDS = [0, 1, 0x9E3779B1, 0xFFFFFFFF]
 
@@ -56,11 +58,17 @@ def _inputs(rng, B, h, T1, T2, d, p_batch, mask_kind):
     k, v = (rng.randn(B, h, T2, d).astype(np.float32) for _ in range(2))
     p = rng.randn(p_batch, h, T2, d).astype(np.float32)
     lens = rng.randint(T2 // 2, T2 + 1, size=(B,))
+    if mask_kind == 'tail':  # whole key blocks in the last one's padding
+        lens[-1] = T2 // 3
     pad = np.arange(T2)[None, :] < lens[:, None]
     if mask_kind is None:
         mask = None
-    elif mask_kind == 'pad':  # (B, 1, T2) key padding
+    elif mask_kind in ('pad', 'tail', 'peaked', 'gap'):  # (B, 1, T2)
         mask = pad[:, None, :]
+        if mask_kind == 'peaked':  # a peaked softmax
+            q1, q2 = q1 * 8, q2 * 8
+        elif mask_kind == 'gap':  # keys 64..191 closed: whole tiles mid-row
+            mask = mask & ((np.arange(T2) < 64) | (np.arange(T2) >= 192))
     else:  # (B, T1, T2) dynamic chunk of 8 over key padding
         row = np.arange(T1)[:, None] // 8
         mask = (np.arange(T2)[None, :] < (row + 1) * 8)[None] & pad[:, None]
@@ -189,6 +197,30 @@ def test_training_wrapper_rejects_unaligned(bad):
         fa._check(*x.values(), None, train=True, aligned=True)
 
 
+@pytest.mark.parametrize('bad', ['do', 'q1', 'k', 'do_base'])
+def test_backward_wrapper_rejects_unaligned(bad):
+    """K2's and K3's 16-byte copies need q1, q2, k, p, v and do with
+    16-byte aligned bases and strides: an unaligned one raises before
+    launch, do included (the Function makes do contiguous only when its
+    last dim is not unit-stride); shape-only meta tensors, so no card is
+    needed."""
+    B, h, T, d = 2, 2, 5, 64
+    x = {n: torch.empty(B, h, T, d, device='meta')
+         for n in ('q1', 'q2', 'k', 'p', 'v', 'do')}
+
+    def check():
+        fa._bwd_check(*(x[n] for n in ('q1', 'q2', 'k', 'p', 'v')), None,
+                      x['do'])
+    check()
+    if bad == 'do_base':
+        x['do'] = torch.empty(B * h * T * d + 1, device='meta')[1:].view(
+            B, h, T, d)
+    else:
+        x[bad] = torch.empty(B, h, T, d + 1, device='meta')[..., :d]
+    with pytest.raises(ValueError):
+        check()
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -196,6 +228,10 @@ CUDA_CASES = CASES + [
     (3, 4, 130, 200, 64, 3, 'pad'),
     (2, 4, 299, 299, 64, 1, 'chunk'),
     (2, 2, 70, 70, 32, 1, 'chunk'),
+    (2, 4, 300, 300, 64, 1, 'peaked'),  # q1, q2 scaled by 8
+    (2, 4, 200, 448, 64, 1, 'gap'),     # key tiles closed mid-row
+    (2, 4, 130, 300, 64, 1, 'tail'),    # key blocks wholly in the padding
+    (2, 2, 100, 150, 32, 1, 'tail'),
 ]
 TOL = {torch.float32: dict(atol=2e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=5e-2, rtol=2e-2)}
@@ -288,3 +324,39 @@ def test_cuda_dropout_mask_bit_exact(cuda, rate):
                                seed)
         want = fa.dense_dropout(B, h, T1, T2, rate, seed, 'cuda') / T2
         assert torch.equal(out, want), seed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rate', [0.0, 0.1])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_cuda_closed_tiles_write_zeros(cuda, dtype, rate):
+    """K3 skips the key blocks the mask closes for every query (the gap's
+    keys 64..191 and the padded tail of the second utterance) and writes
+    zeros to their dk, dp and dv; K2 writes every row of dq1 and dq2.
+    The caching allocator holds NaN before each kernel, so a row or a
+    block left unwritten shows."""
+    rng = np.random.RandomState(12)
+    B, h, T1, T2, d = 2, 4, 130, 448, 64
+    x, mask, do = _cuda_inputs(rng, dtype, B, h, T1, T2, d, 1, 'gap')
+    mask[-1, :, T2 // 3:] = False  # the second utterance's padded tail
+    scale, seed = 1.0 / np.sqrt(d), 77
+    out, lse = fa.relpos_fwd(*x, mask, scale, True, rate, seed)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (mask, do, lse, delta, scale, rate, seed)
+    fill_allocator_with_nan()
+    dq1, dq2 = fa.relpos_bwd_dq(*x, *args)
+    fill_allocator_with_nan()
+    dk, dp, dv = fa.relpos_bwd_dkpv(*x, *args)
+    torch.cuda.synchronize()
+    grads = {'dq1': dq1, 'dq2': dq2, 'dk': dk, 'dp': dp, 'dv': dv}
+    for name, g in grads.items():
+        assert torch.isfinite(g).all(), name
+    closed = ~mask[:, 0]  # (B, T2): keys no query attends
+    assert closed[:, 64:192].all() and closed[-1, 192:].all()
+    for name in ('dk', 'dp', 'dv'):
+        assert grads[name].transpose(1, 2)[closed].eq(0).all(), name
+    x32 = [t.float() for t in x]
+    ref = (fa.relpos_bwd_dq_reference(*x32, mask, do.float(), *args[2:]) +
+           fa.relpos_bwd_dkpv_reference(*x32, mask, do.float(), *args[2:]))
+    for (name, g), r in zip(grads.items(), ref):
+        torch.testing.assert_close(g.float(), r, **TOL[dtype], msg=name)

@@ -14,7 +14,7 @@
 
 struct DropoutParams {
   uint32_t seed;  // per-call seed
-  uint32_t thr;   // keep where hash >= thr
+  uint32_t thr;   // keep where hash >= thr (flash_tiles.cuh: keep_bits)
   float scale;    // keep multiplier 1 / (1 - rate)
 };
 
@@ -28,14 +28,4 @@ __device__ __forceinline__ uint32_t dropout_hash(uint32_t seed, uint32_t bh,
   u *= 0xC2B2AE35u;
   u ^= u >> 16;
   return u;
-}
-
-// 0 or the keep multiplier for (bh, global row qi, global column ki)
-__device__ __forceinline__ float dropout_mult(const DropoutParams& dp,
-                                              int bh, int qi, int ki) {
-  return dropout_hash(dp.seed, static_cast<uint32_t>(bh),
-                      static_cast<uint32_t>(qi),
-                      static_cast<uint32_t>(ki)) >= dp.thr
-             ? dp.scale
-             : 0.f;
 }

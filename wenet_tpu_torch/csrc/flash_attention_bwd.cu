@@ -136,18 +136,9 @@ struct Args {
 };
 
 // ---------------------------------------------------------------------------
-// the tile's gradient, on the accumulator fragment
+// the tile's gradient, on the accumulator fragment (grad, Rows and
+// QueryWalker: flash_tiles.cuh)
 // ---------------------------------------------------------------------------
-
-// One element: s (the product q . k, bias added) -> P = 2^(s scale log2 e
-// - lse log2 e), 0 where closed; dp (do . v) -> dS = P (dp - delta) scale.
-__device__ __forceinline__ void grad(float& s, float& dp, bool open,
-                                     float lse2, float delta, float sl2,
-                                     float scale) {
-  const float p = open ? ex2(fmaf(s, sl2, -lse2)) : 0.f;
-  s = p;
-  dp = p * (dp - delta) * scale;
-}
 
 // The bias of the open elements of a fragment whose rows r0, r0 + 8 and
 // columns c0 + 8 j + {0, 1} lie rs and cs elements apart in b, added to
@@ -165,52 +156,9 @@ __device__ __forceinline__ void add_bias(float (&s)[32], uint32_t bits,
       s[i] += p[8 * ((i >> 1) & 1) * rs + (8 * (i >> 2) + (i & 1)) * cs];
 }
 
-// bf16 A fragments of a 64 x 64 accumulator tile: k-step ks = columns
-// 16 ks .. 16 ks + 15, register x holds elements 8 ks + 2 x and
-// 8 ks + 2 x + 1.
-__device__ __forceinline__ void frag_bf16(const float (&x)[32],
-                                          uint32_t (&f)[4][4]) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      f[ks][i] = pack_bf16(
-          __floats2bfloat162_rn(x[8 * ks + 2 * i], x[8 * ks + 2 * i + 1]));
-}
-
-// The first D columns of an accumulator tile (rows r0, r0 + 8 of a
-// tensor with `limit` rows, row stride ld) in T.
-template <int D, typename T, int N>
-__device__ __forceinline__ void store_tile(const float (&acc)[N], T* base,
-                                           long long ld, int r0, int tq,
-                                           int limit) {
-#pragma unroll
-  for (int row = 0; row < 2; ++row) {
-    const int r = r0 + 8 * row;
-    if (r >= limit) continue;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      store2(base + r * ld + 8 * j + 2 * tq, acc[4 * j + 2 * row],
-             acc[4 * j + 2 * row + 1]);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K5: the per-row state and dbias
+// K5: dbias
 // ---------------------------------------------------------------------------
-
-// lse (times log2 e) and delta of the thread's two query rows.
-struct Rows {
-  float lse2[2], delta[2];
-  __device__ Rows(const float* lse, const float* delta_, int r0, int T1) {
-#pragma unroll
-    for (int row = 0; row < 2; ++row) {
-      const int r = r0 + 8 * row;
-      lse2[row] = r < T1 ? lse[r] * LOG2E : 0.f;
-      delta[row] = r < T1 ? delta_[r] : 0.f;
-    }
-  }
-};
 
 // K5's gradient of one key tile (first key kt) on the fragment, and dS
 // into dbias (db: this (batch, head)'s (T1, T2) array, or null).
@@ -254,7 +202,6 @@ __device__ __forceinline__ void zero_cols(float* db, int q0, int T1, int T2,
 // K5, bf16: wgmma on bf16 tiles, cp.async into two stages
 // ---------------------------------------------------------------------------
 
-constexpr int TILE16 = 64 * 128;  // 64 rows of 64 bf16 (D = 32: half used)
 constexpr size_t BF16_SMEM = 1024 + 6 * TILE16;
 
 template <int D, bool BIAS>
@@ -493,54 +440,8 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// K6: the query walk and the per-column gradient
+// K6: the per-column gradient
 // ---------------------------------------------------------------------------
-
-// Walks the query tiles of a block of keys (rows kr0, kr0 + 8 of the
-// thread), skipping those the mask closes for every (query, key) pair of
-// the block.  A mask whose rows are one (`cols`: the pad mask, or none)
-// gives each thread the bits of its two keys once (kbits), cut per tile
-// to the queries inside T1; it closes every tile of a block or none.
-// Other masks are read per element, transposed.  Each vote is a block
-// barrier.
-struct QueryWalker {
-  const uint8_t* mb;
-  long long ms_row, ms_col;
-  int T1, T2, kr0, tq;
-  bool cols;
-  uint32_t kbits = 0;
-
-  __device__ void init() {
-    if (!cols) return;
-    const bool o0 = kr0 < T2 && (mb == nullptr || mb[kr0 * ms_col] != 0);
-    const bool o1 =
-        kr0 + 8 < T2 && (mb == nullptr || mb[(kr0 + 8) * ms_col] != 0);
-    kbits = (o0 ? 0x33333333u : 0u) | (o1 ? 0xccccccccu : 0u);
-  }
-
-  __device__ uint32_t bits_at(int q) const {
-    if (!cols) return tile_bits(mb, ms_col, ms_row, kr0, tq, q, T2, T1);
-    const int n = T1 - q;  // query columns inside T1
-    if (n >= BQ) return kbits;
-    uint32_t in = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        if (8 * j + 2 * tq + e < n) in |= 5u << (4 * j + e);
-    return kbits & in;
-  }
-
-  // The first live tile from q on (T1 if none) and this thread's bits.
-  __device__ int next(int q, uint32_t& bits) const {
-    for (; q < T1; q += BQ) {
-      bits = bits_at(q);
-      if (__syncthreads_or(cols ? kbits != 0u : bits != 0u)) return q;
-      if (cols) break;
-    }
-    return T1;
-  }
-};
 
 // K6's gradient of one query tile (first query qt) on the transposed
 // fragment: rows are keys, columns queries, whose lse and delta are in

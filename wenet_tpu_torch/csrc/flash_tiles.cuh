@@ -1,16 +1,20 @@
-// Tiles, the mask walk, the operand loaders and the softmax step shared
-// by the tensor-core attention kernels: K1 (relpos_attention.cu), K4
+// Tiles, the mask walks, the operand loaders, the softmax step and the
+// gradient on the fragment shared by the tensor-core attention kernels:
+// K1 (relpos_attention.cu), K2, K3 (relpos_attention_bwd.cu), K4
 // (flash_attention.cu) and K5, K6 (flash_attention_bwd.cu).  One block is
-// one warpgroup of 128 threads that owns 64 rows; tiles are 64 wide and
-// use hopper_mma.cuh's 128-byte swizzled layout.
+// one warpgroup of 128 threads that owns 64 rows; tiles are 64 wide (the
+// fp32 rel-pos backward streams 32-wide halves of them) and use
+// hopper_mma.cuh's 128-byte swizzled layout.
 //
-// The accumulator layout of a 64 x 64 product (wgmma's, fp32): the thread
+// The accumulator layout of a 64 x N product (wgmma's, fp32): the thread
 // holds rows r0 and r0 + 8 (r0 = 16 warp + lane / 4) and columns
-// 8 j + 2 tq and 8 j + 2 tq + 1 for j < 8 (tq = lane % 4); element
-// 4 j + 2 (row) + (column & 1).  A tile's mask reaches a thread as 32
-// bits, bit i for element i.
+// 8 j + 2 tq and 8 j + 2 tq + 1 for j < N / 8 (tq = lane % 4); element
+// 4 j + 2 (row) + (column & 1).  A 64-wide tile's mask reaches a thread as
+// 32 bits, bit i for element i; bits 16 h .. 16 h + 15 are those of its
+// 32-wide half h.
 #pragma once
 
+#include "dropout_hash.cuh"
 #include "hopper_mma.cuh"
 
 namespace flash {
@@ -194,15 +198,15 @@ struct RawTile {
   }
 };
 
-// Rows row0.. of a tensor with `limit` rows (zeros past it) into a raw
-// tile, by cp.async.
-template <int D>
+// ROWS rows row0.. of a tensor with `limit` rows (zeros past it) into a
+// raw tile, by cp.async.
+template <int D, int ROWS = 64>
 __device__ __forceinline__ void stage_raw(uint32_t raw, const float* src,
                                           long long ld, int row0, int limit,
                                           int tid) {
   constexpr int CPR = D / 4;
 #pragma unroll
-  for (int n = 0; n < 64 * CPR / THREADS; ++n) {
+  for (int n = 0; n < ROWS * CPR / THREADS; ++n) {
     const int i = tid + n * THREADS, r = i / CPR, c = i % CPR;
     const bool ok = row0 + r < limit;
     cp_async16(raw + r * D * 4 + ((c ^ (r & 7)) << 4),
@@ -233,27 +237,28 @@ __device__ __forceinline__ void split_rows(uint8_t* hi, uint8_t* lo,
   }
 }
 
-// 64 rows of D fp32 values into hi and lo tiles of their transpose (D
-// rows of 64 values, K-major, 32 values per column block).  Row
-// 8 g + 2 t + e goes to position 8 g + t + 4 e: the A fragment of tf32
-// wgmma holds columns t and t + 4 of each 8-wide k-step where a product's
-// accumulator holds 2 t and 2 t + 1, so an accumulator used as A meets
-// this operand in the same order without moving.  A warp's lanes take 32
-// consecutive rows of one feature chunk, so their stores fall in distinct
-// banks.
-template <int D, typename Src>
+// ROWS (64 or 32) rows of D fp32 values into hi and lo tiles of their
+// transpose (D rows of ROWS values, K-major, 32 values per column block).
+// Row 8 g + 2 t + e goes to position 8 g + t + 4 e: the A fragment of
+// tf32 wgmma holds columns t and t + 4 of each 8-wide k-step where a
+// product's accumulator holds 2 t and 2 t + 1, so an accumulator used as
+// A meets this operand in the same order without moving.  A warp's lanes
+// take 32 consecutive rows of one feature chunk, so their stores fall in
+// distinct banks.
+template <int D, int ROWS = BK, typename Src>
 __device__ __forceinline__ void split_cols(uint8_t* hi, uint8_t* lo,
                                            const Src& src, int tid) {
   constexpr int CPR = D / 4;
-  constexpr int N = BK * CPR / THREADS;
-  const int key = tid % BK;
+  constexpr int N = ROWS * CPR / THREADS;
+  const int key = tid % ROWS;
   const int pos = (key & ~7) | ((key & 7) >> 1) | ((key & 1) << 2);
   float4 x[N];
 #pragma unroll
-  for (int n = 0; n < N; ++n) x[n] = src(key, tid / BK + (THREADS / BK) * n);
+  for (int n = 0; n < N; ++n)
+    x[n] = src(key, tid / ROWS + (THREADS / ROWS) * n);
 #pragma unroll
   for (int n = 0; n < N; ++n) {
-    const int c = tid / BK + (THREADS / BK) * n;
+    const int c = tid / ROWS + (THREADS / ROWS) * n;
     const float4 h = split_hi(x[n]), w = split_lo(x[n], h);
     const float hv[4] = {h.x, h.y, h.z, h.w}, lv[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
@@ -284,6 +289,9 @@ __device__ __forceinline__ uint64_t kstep(uint64_t base, int off, int rows,
 template <int D>
 constexpr int TILE32 = 64 * D * 4;
 
+// bf16 shared memory: a 64-row tile of 64 bf16 values (D = 32: half used).
+constexpr int TILE16 = 64 * 128;
+
 // ---------------------------------------------------------------------------
 // the accumulator fragment: A fragments, the softmax step, the epilogue
 // ---------------------------------------------------------------------------
@@ -307,14 +315,29 @@ __device__ __forceinline__ void frag_bf16_split(const float (&x)[32],
     }
 }
 
-// tf32 hi and lo A fragments: k-step ks = columns 8 ks .. 8 ks + 7 in
-// split_cols's order: (row g, position t) = column 2 t, (row g + 8, t),
-// (row g, t + 4) = column 2 t + 1, (row g + 8, t + 4).
-__device__ __forceinline__ void frag_tf32(const float (&x)[32],
-                                          uint32_t (&hi)[8][4],
-                                          uint32_t (&lo)[8][4]) {
+// bf16 A fragments of a 64 x 64 accumulator tile, each element rounded
+// once: k-step ks = columns 16 ks .. 16 ks + 15, register i holds
+// elements 8 ks + 2 i and 8 ks + 2 i + 1.
+__device__ __forceinline__ void frag_bf16(const float (&x)[32],
+                                          uint32_t (&f)[4][4]) {
 #pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[ks][i] = pack_bf16(
+          __floats2bfloat162_rn(x[8 * ks + 2 * i], x[8 * ks + 2 * i + 1]));
+}
+
+// tf32 hi and lo A fragments of a 64 x 2N accumulator tile: k-step ks =
+// columns 8 ks .. 8 ks + 7 in split_cols's order: (row g, position t) =
+// column 2 t, (row g + 8, t), (row g, t + 4) = column 2 t + 1,
+// (row g + 8, t + 4).
+template <int N>
+__device__ __forceinline__ void frag_tf32(const float (&x)[N],
+                                          uint32_t (&hi)[N / 4][4],
+                                          uint32_t (&lo)[N / 4][4]) {
+#pragma unroll
+  for (int ks = 0; ks < N / 4; ++ks) {
     const float y[4] = {x[4 * ks], x[4 * ks + 2], x[4 * ks + 1],
                         x[4 * ks + 3]};
 #pragma unroll
@@ -402,6 +425,134 @@ __device__ __forceinline__ void store_rows(const float (&o)[NO],
       lse[r] = lr > 0.f ? m[row] + logf(lr) : NEG_INF;
   }
 }
+
+// The first D columns of an accumulator tile (rows r0, r0 + 8 of a
+// tensor with `limit` rows, row stride ld) in T.
+template <int D, typename T, int N>
+__device__ __forceinline__ void store_tile(const float (&acc)[N], T* base,
+                                           long long ld, int r0, int tq,
+                                           int limit) {
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const int r = r0 + 8 * row;
+    if (r >= limit) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(base + r * ld + 8 * j + 2 * tq, acc[4 * j + 2 * row],
+             acc[4 * j + 2 * row + 1]);
+  }
+}
+
+// The dropout's keep bits of an accumulator fragment of N elements: bit i
+// is set where element i, at fragment row r0 + 8 ((i >> 1) & 1) and
+// column c0 + 8 (i >> 2) + (i & 1) (c0 = the tile's first column + 2 tq),
+// is kept.  The rows are queries and the columns keys, or with KEY_ROWS
+// the other way round (K3's transposed tiles); bh = b * H + h, as the TPU
+// kernel's.  One register holds the mask, so it can be drawn while the
+// tile's products run.
+template <int N, bool KEY_ROWS = false>
+__device__ __forceinline__ uint32_t keep_bits(const DropoutParams& dp, int bh,
+                                              int r0, int c0) {
+  uint32_t keep = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const uint32_t r = r0 + 8 * ((i >> 1) & 1);
+    const uint32_t c = c0 + 8 * (i >> 2) + (i & 1);
+    const uint32_t u = KEY_ROWS ? dropout_hash(dp.seed, bh, c, r)
+                                : dropout_hash(dp.seed, bh, r, c);
+    keep |= static_cast<uint32_t>(u >= dp.thr) << i;
+  }
+  return keep;
+}
+
+// x times element i's dropout multiplier: 0 or the keep scale.
+__device__ __forceinline__ float dropped(float x, uint32_t keep, int i,
+                                         const DropoutParams& dp) {
+  return (keep >> i) & 1u ? x * dp.scale : 0.f;
+}
+
+// The dropout mask on a fragment whose rows are queries (keep_bits).
+template <int N>
+__device__ __forceinline__ void drop(float (&s)[N], const DropoutParams& dp,
+                                     int bh, int r0, int c0) {
+  const uint32_t keep = keep_bits<N>(dp, bh, r0, c0);
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] = dropped(s[i], keep, i, dp);
+}
+
+// ---------------------------------------------------------------------------
+// the backward kernels: the gradient of a tile on the fragment
+// ---------------------------------------------------------------------------
+
+// One element: s (the score product, any bias added) -> P = 2^(s scale
+// log2 e - lse log2 e), 0 where closed; dp (do . v, any dropout applied)
+// -> dS = P (dp - delta) scale.
+__device__ __forceinline__ void grad(float& s, float& dp, bool open,
+                                     float lse2, float delta, float sl2,
+                                     float scale) {
+  const float p = open ? ex2(fmaf(s, sl2, -lse2)) : 0.f;
+  s = p;
+  dp = p * (dp - delta) * scale;
+}
+
+// lse (times log2 e) and delta of the thread's two query rows.
+struct Rows {
+  float lse2[2], delta[2];
+  __device__ Rows(const float* lse, const float* delta_, int r0, int T1) {
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      const int r = r0 + 8 * row;
+      lse2[row] = r < T1 ? lse[r] * LOG2E : 0.f;
+      delta[row] = r < T1 ? delta_[r] : 0.f;
+    }
+  }
+};
+
+// Walks the query tiles of a block of keys (rows kr0, kr0 + 8 of the
+// thread), skipping those the mask closes for every (query, key) pair of
+// the block.  A mask whose rows are one (`cols`: the pad mask, or none)
+// gives each thread the bits of its two keys once (kbits), cut per tile
+// to the queries inside T1; it closes every tile of a block or none.
+// Other masks are read per element, transposed.  Each vote is a block
+// barrier.
+struct QueryWalker {
+  const uint8_t* mb;
+  long long ms_row, ms_col;
+  int T1, T2, kr0, tq;
+  bool cols;
+  uint32_t kbits = 0;
+
+  __device__ void init() {
+    if (!cols) return;
+    const bool o0 = kr0 < T2 && (mb == nullptr || mb[kr0 * ms_col] != 0);
+    const bool o1 =
+        kr0 + 8 < T2 && (mb == nullptr || mb[(kr0 + 8) * ms_col] != 0);
+    kbits = (o0 ? 0x33333333u : 0u) | (o1 ? 0xccccccccu : 0u);
+  }
+
+  __device__ uint32_t bits_at(int q) const {
+    if (!cols) return tile_bits(mb, ms_col, ms_row, kr0, tq, q, T2, T1);
+    const int n = T1 - q;  // query columns inside T1
+    if (n >= BQ) return kbits;
+    uint32_t in = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (8 * j + 2 * tq + e < n) in |= 5u << (4 * j + e);
+    return kbits & in;
+  }
+
+  // The first live tile from q on (T1 if none) and this thread's bits.
+  __device__ int next(int q, uint32_t& bits) const {
+    for (; q < T1; q += BQ) {
+      bits = bits_at(q);
+      if (__syncthreads_or(cols ? kbits != 0u : bits != 0u)) return q;
+      if (cols) break;
+    }
+    return T1;
+  }
+};
 
 // The width of a bf16 tile of D values a row: whole 128-byte blocks, the
 // N of the P . V product.

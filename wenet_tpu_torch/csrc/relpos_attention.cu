@@ -74,7 +74,6 @@
 
 #include <type_traits>
 
-#include "dropout_hash.cuh"
 #include "flash_tiles.cuh"
 #include "relpos_common.cuh"
 
@@ -88,17 +87,6 @@ struct Strides {
   long long q1[3], q2[3], k[3], p[3], v[3], out[3];
   long long mask[3];
 };
-
-// The dropout mask on a tile's probabilities s (the accumulator
-// fragment): element i is row r0 + 8 ((i >> 1) & 1), key
-// c0 + 8 (i >> 2) + (i & 1); bh = b * H + h, as the TPU kernel's.
-__device__ __forceinline__ void drop(float (&s)[32], const DropoutParams& dp,
-                                     int bh, int r0, int c0) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i)
-    s[i] *= dropout_mult(dp, bh, r0 + 8 * ((i >> 1) & 1),
-                         c0 + 8 * (i >> 2) + (i & 1));
-}
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma on bf16 tiles, cp.async into two stages

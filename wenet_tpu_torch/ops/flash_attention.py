@@ -9,9 +9,9 @@ TPU kernels of that file:
      s = (q1·kᵀ + q2·pᵀ)·scale, masked, online softmax over key tiles,
      out = softmax·v; the train variant also writes lse and applies the
      attention-weight dropout to the v-accumulator only.
-  K2 `relpos_bwd_dq_kernel`    (csrc/relpos_attention_bwd.cu) <- _relpos_bwd_dq_kernel
+  K2 `relpos_bwd_dq_*`         (csrc/relpos_attention_bwd.cu) <- _relpos_bwd_dq_kernel
      dq1, dq2 from ds = P·(D·(do·vᵀ) − delta)·scale, P = exp(s − lse).
-  K3 `relpos_bwd_dkpv_kernel`  (csrc/relpos_attention_bwd.cu) <- _relpos_bwd_dkpv_kernel
+  K3 `relpos_bwd_dkpv_*`       (csrc/relpos_attention_bwd.cu) <- _relpos_bwd_dkpv_kernel
      dk, dp, dv with the same ds, streaming query tiles.
   K4 `flash_fwd_kernel`        (csrc/flash_attention.cu)   <- _fwd_kernel
      s = (q·kᵀ + bias)·scale, masked, online softmax, out = softmax·v;
@@ -24,14 +24,14 @@ TPU kernels of that file:
 
 None of them writes the (T1, T2) scores to device memory (K5's dbias is
 the gradient of a (T1, T2) input).  The dropout mask D is a counter hash
-of (seed, b·h, global query, global key) (`dropout_mult`,
+of (seed, b·h, global query, global key) (`dropout_hash`,
 csrc/dropout_hash.cuh), so K1-K3 regenerate the same mask whatever their
 tiling; K4-K6 have no dropout, as the JAX package never routes attention
-dropout to them.  K1 and K4-K6 run on Hopper's tensor cores (wgmma on
-bf16 tiles, fp32 as three tf32 products), except K1 in fp32 and K5, K6
-at d = 128; K2, K3 and those instances run fp32 FMA on the CUDA cores.
-The tensor-core kernels copy 16 bytes at a time, so their wrappers need
-16-byte aligned bases and strides.  See the sources for the notes.
+dropout to them.  All six run on Hopper's tensor cores (wgmma on bf16
+tiles, fp32 as three tf32 products), except fp32 K1, K5 and K6 at
+d = 128, which run FMA on the CUDA cores.  The tensor-core kernels
+copy 16 bytes at a time, so their wrappers need 16-byte aligned bases and
+strides.  See the sources for the notes.
 
 The kernels are compiled with nvcc for sm_90a at first use into
 `wenet_tpu_torch/build/` (one nvcc per source, run in parallel, keyed by
@@ -316,9 +316,9 @@ def build() -> Dict[str, ctypes.CDLL]:
 
 def _check(q1, q2, k, p, v, m, train: bool = False, aligned: bool = False):
     """Raise on what the rel-pos kernels do not take.  m: the mask as
-    (B|1, 1, T1|1, T2), or None; `aligned`: K1's 16-byte copies also need
-    q1, q2, k, p and v's base and strides 16-byte aligned (the attention
-    module's views are)."""
+    (B|1, 1, T1|1, T2), or None; `aligned`: the 16-byte copies of K1-K3
+    also need q1, q2, k, p and v's base and strides 16-byte aligned (the
+    attention module's views are)."""
     B, H, T1, D = q1.shape
     T2 = k.shape[2]
     dev = q1.device
@@ -426,12 +426,26 @@ def _fwd_cuda(q1, q2, k, p, v, m, scale, want_lse, rate, seed):
     return out, lse
 
 
+def _bwd_check(q1, q2, k, p, v, m, do):
+    """Raise on what K2 and K3 do not take: `_check`'s training
+    conditions, and do as q1 with a unit-stride last dim; their 16-byte
+    copies need q1, q2, k, p, v and do with 16-byte aligned bases and
+    strides."""
+    _check(q1, q2, k, p, v, m, train=True, aligned=True)
+    if (do.dtype != q1.dtype or do.device != q1.device
+            or tuple(do.shape) != tuple(q1.shape)):
+        raise ValueError(f'do is {do.dtype} {tuple(do.shape)} on '
+                         f'{do.device}, expected {q1.dtype} '
+                         f'{tuple(q1.shape)} on {q1.device}')
+    if do.stride(-1) != 1 or not _aligned16(do):
+        raise ValueError('do must be unit-stride in its last dim with a '
+                         '16-byte aligned base and strides, has '
+                         f'{do.data_ptr() % 16} and {do.stride()}')
+
+
 def _bwd_cuda(which, q1, q2, k, p, v, m, do, lse, delta, scale, rate, seed):
     """Launch K2 (which='dq') or K3 (which='dkpv')."""
-    _check(q1, q2, k, p, v, m, train=True)
-    if do.dtype != q1.dtype or tuple(do.shape) != tuple(q1.shape):
-        raise ValueError(f'do is {do.dtype} {tuple(do.shape)}, expected '
-                         f'{q1.dtype} {tuple(q1.shape)}')
+    _bwd_check(q1, q2, k, p, v, m, do)
     B, H, T1, D = q1.shape
     T2 = k.shape[2]
     if which == 'dq':
@@ -552,7 +566,7 @@ def flash_attention_relpos(q1, q2, k, p, v,
     and v on either device; otherwise it runs the forward alone.  CPU
     tensors take the plain versions; CUDA tensors launch the kernels
     (float32 or bfloat16; d in 32/64/128 for inference, 32/64 for
-    training; K1 needs 16-byte aligned bases and strides) and raise on
+    training; K1-K3 need 16-byte aligned bases and strides) and raise on
     anything they do not take."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError('dropout_rate > 0 needs a dropout_seed')
