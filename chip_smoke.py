@@ -11,11 +11,13 @@ Phases, each of which raises on failure (non-zero exit):
               checkout's sources
   3. kernel   K1 (inference) against its plain PyTorch version, fp32 and
               bf16, at the encoder's shapes, ragged edges, a fully masked
-              row, a peaked softmax, key tiles closed mid-row and a
-              streaming chunk step (T1 = 16, T2 = 80); each check's share
-              of its bar, both times (CUDA events), and at the main shape
-              the bound (fp32: 3xTF32 beside FFMA), TFLOP/s and the SDPA
-              call's time
+              row, a peaked softmax, key tiles closed mid-row, a chunk
+              step (T1 = 16, T2 = 80) and the serving chunk step of 9c
+              (one stream, 16 queries, 512 cache slots + 16 keys: 16 and
+              256 valid slots, and a padded tail chunk); each check's
+              share of its bar, both times (CUDA events), and at the main
+              and the serving shapes the bound (fp32: 3xTF32; FFMA beside
+              it at the main shape), TFLOP/s and the SDPA call's time
   4. slice    the flagship U2++ conformer (examples/aishell/s0/conf/
               train_u2pp_conformer.yaml, full width, random weights from
               a seed) through AsrRunner.decode on the card: K1 must run
@@ -25,7 +27,8 @@ Phases, each of which raises on failure (non-zero exit):
               device time by kernel from torch.profiler
   6a. train kernels: K1 with lse and dropout, and K2/K3 through the
               autograd Function's backward, against the plain versions
-              chained as the Function chains them, fp32 and bf16, at the
+              chained as the Function chains them (delta from the
+              Function's own output, K1's), fp32 and bf16, at the
               train step's shapes, a peaked softmax, key tiles closed
               mid-row and key blocks wholly in the padding; each output's
               share of its bar, kernel and plain times, and at the main
@@ -71,6 +74,25 @@ Phases, each of which raises on failure (non-zero exit):
               eight micro-steps (one AdamW update) through Executor.train,
               fp32 then bf16 autocast: ms per micro-step, audio-sec/s,
               stage times, peak memory, device-busy share, profiler table
+  9a. front end: the kaldi fbank on the card against the host's numpy
+              one (B=16 x 15 s synthesized waveforms), and decode_wav on
+              the card giving the hypotheses of decode on the host's
+              features
+  9b. chunk step: the flagship's forward_chunk_by_chunk (chunk 16, a
+              512-frame cache) on the card against its full forward under
+              the chunk mask (1e-4) and against the CPU (2e-4), 12 K1
+              launches per chunk step; decode(simulate_streaming=True) on
+              the card giving the CPU's hypotheses
+  9c. AsrDecoder: three utterances fed in 200 ms pieces; every partial
+              and the final after rescoring equal to the CPU decoder's;
+              12 K1 launches per chunk step
+  9d. HTTP: make_server on 127.0.0.1:0, two client threads POST four
+              RIFF files and one raw s16le body; every answer's nbest is
+              9c's final for its audio
+  9e. streaming speed (informational): card time per chunk step (CUDA
+              events) and K1's share of it, first-partial and final
+              latency and real-time factor of one stream, the two HTTP
+              clients' real-time factors, the device-busy share
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX
 package (wenet_tpu), and checks so at the end.
@@ -103,7 +125,15 @@ KERNEL_SHAPES = [  # B, h, T1, T2, d, mask
     (2, 4, 200, 448, 64, 'gap'),      # key tiles closed mid-row
     (16, 4, 16, 80, 64, 'step'),      # a streaming chunk step: 16 + 64 cache
     (2, 4, 130, 200, 128, 'pad'),     # d = 128 (fp32: the FFMA body)
+    # the flagship's serving chunk step (9c): 16 queries against 512 cache
+    # slots + 16 keys, one stream, with 16 and 256 valid cache slots, and
+    # a padded tail chunk (368 valid slots, 7 valid frames of 16)
+    (1, 4, 16, 528, 64, 'cache16'),
+    (1, 4, 16, 528, 64, 'cache256'),
+    (1, 4, 16, 528, 64, 'tailstep'),
 ]
+# mask kind -> (valid cache slots, valid chunk frames)
+SERVING = {'cache16': (16, 16), 'cache256': (256, 16), 'tailstep': (368, 7)}
 TRAIN_SHAPES = [  # B, h, T1, T2, d, mask, dropout rate
     (16, 4, 299, 299, 64, 'chunk', 0.1),  # the train step's shape, B=16 x 12 s
     (16, 4, 299, 299, 64, 'pad', 0.0),
@@ -185,6 +215,20 @@ def nbytes(*tensors):
     """Bytes of each tensor in its own shape (a broadcast operand once)."""
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
+
+
+def open_key_nbytes(q1, q2, k, p, v, mask, out):
+    """Bytes K1 must move where the mask closes whole key columns, as the
+    serving step's cache mask does: q1, q2, the mask and the output whole,
+    and k, p and v only at the key positions some query may attend (p, of
+    one batch row, at those of any row); a closed key is never read."""
+    B, h, _, d = q1.shape
+    if mask.dim() == 4:
+        mask = mask[:, 0]
+    opened = mask.expand(B, mask.shape[1], mask.shape[2]).any(dim=1)
+    per_key = h * d * k.element_size()
+    return (nbytes(q1, q2, mask, out) + 2 * per_key * int(opened.sum())
+            + per_key * int(opened.any(dim=0).sum()))
 
 
 def attended_pairs(mask, B, h, T1, T2):
@@ -280,8 +324,10 @@ def kernel_inputs(rng, B, h, T1, T2, d, mask_kind, dtype):
     ('gap'), a
     streaming chunk step's ('step': the last T1 keys are the chunk, the
     cache before it holds a random number of frames, none for the first
-    utterance), or (B, T1, T2) static chunks of 16 over key padding
-    ('chunk', 'masked_row' with row 5 of the first utterance closed)."""
+    utterance; `SERVING`'s kinds: the serving chunk step's right-aligned
+    cache mask from `streaming_att_mask`), or (B, T1, T2) static chunks
+    of 16 over key padding ('chunk', 'masked_row' with row 5 of the first
+    utterance closed)."""
     def t(*shape):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
     q1 = t(B, T1, h, d).transpose(1, 2)
@@ -304,6 +350,11 @@ def kernel_inputs(rng, B, h, T1, T2, d, mask_kind, dtype):
             rng.randint(0, T2 - T1 + 1, size=B)).cuda()
         cache[0] = 0
         mask = (keys[None, :] >= T2 - T1 - cache[:, None])[:, None, :]
+    elif mask_kind in SERVING:
+        from wenet_tpu_torch.models.transformer.streaming import (
+            streaming_att_mask)
+        mask = streaming_att_mask(B, T2 - T1, T1, *SERVING[mask_kind],
+                                  device='cuda')
     elif mask_kind is None:
         mask = None
     else:
@@ -328,6 +379,7 @@ def kernel_check():
         flash_attention_relpos, relpos_fwd_reference)
     rng = np.random.RandomState(SEED)
     report = None
+    serving = {}  # mask kind -> readings at the serving chunk step
     max_err_fp32 = 0.0
     for i, (B, h, T1, T2, d, mask_kind) in enumerate(KERNEL_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -356,6 +408,21 @@ def kernel_check():
                   f'plain {plain_ms:.4f} ms', flush=True)
             if dtype == torch.float32:
                 max_err_fp32 = max(max_err_fp32, err)
+            if mask_kind in SERVING:
+                n_pairs = attended_pairs(mask, B, h, T1, T2)
+                flops = 6 * d * n_pairs
+                moved = open_key_nbytes(q1, q2, k, p, v, mask, got)
+                b_ms, b_by = bound(flops, moved, dtype, tf32_split=True)
+                lib_ms = relpos_sdpa(q1, q2, k, p, v, mask, scale, got)
+                key = '' if dtype == torch.float32 else '_bf16'
+                serving.setdefault(mask_kind, {}).update({
+                    'ms' + key: ms, 'plain_ms' + key: plain_ms,
+                    'bound_ms' + key: b_ms, 'bound_by' + key: b_by,
+                    'library_ms' + key: lib_ms, 'max_abs_err' + key: err})
+                print(f'    serving chunk step: {n_pairs} attended pairs, '
+                      f'{moved} bytes over the open keys, bound '
+                      f'{b_ms:.4g} ms ({b_by}), SDPA {lib_ms:.4f} ms, '
+                      f'{flops / ms / 1e9:.2f} TFLOP/s', flush=True)
             if i == 0:  # the first shape is the main path's
                 # 3 products of 2*d FLOPs per attended pair; fp32 runs as
                 # 3xTF32 (FFMA printed beside it)
@@ -388,6 +455,7 @@ def kernel_check():
                       f'enqueues a call in {wrapper_ms:.4f} ms; the pad '
                       f'mask given per row {rows_ms:.4f} ms', flush=True)
     report['max_abs_err'] = max_err_fp32
+    report['serving'] = serving
     return report
 
 
@@ -585,23 +653,40 @@ def train_kernel_check():
             _, lse = fa.relpos_fwd(*x, mask, scale, True, rate, seed)
             torch.cuda.synchronize()
             # the plain versions chained as the Function chains them, in
-            # fp32 on the same inputs: the forward, its output rounded to
-            # the Function's type, delta = rowsum(do·out) of that (as the
-            # JAX package's `_relpos_vjp_bwd` takes it), plain K2 and K3,
-            # and dp summed over the batch.  In fp32 this is dense
-            # autograd; in bf16 dense autograd would also hold the kernels
-            # to the rounding of out, which on the peaked shape alone
-            # takes dk and dp past the bar with exact kernels (as 8a).
+            # fp32 on the same inputs: the forward (K1's output and lse are
+            # held to it below), delta = rowsum(do·out) of the Function's
+            # own output, K1's (as the Function and the JAX package's
+            # `_relpos_vjp_bwd` take it), plain K2 and K3, and dp summed
+            # over the batch.  So K2 and K3 are held on the delta they were
+            # given: a delta from the reference's own rounded output would
+            # hold them to where K1's bf16 output rounds the other way,
+            # which alone reads up to 105% of the bar on a peaked softmax
+            # with exact kernels (tests/test_torch_relpos_bwd_precision.py).
             x32 = [t.float() for t in x]
             want, want_lse = fa.relpos_fwd_reference(*x32, mask, scale, True,
                                                      rate, seed)
-            ref_args = (mask, do.float(), want_lse,
-                        (do.float() * want.to(dtype).float()).sum(-1), scale,
+
+            def chained(out_for_delta):
+                args = (mask, do.float(), want_lse,
+                        (do.float() * out_for_delta.float()).sum(-1), scale,
                         rate, seed)
-            want_grads = list(fa.relpos_bwd_dq_reference(*x32, *ref_args) +
-                              fa.relpos_bwd_dkpv_reference(*x32, *ref_args))
-            want_grads[3] = want_grads[3].sum(0, keepdim=True)
+                g = list(fa.relpos_bwd_dq_reference(*x32, *args) +
+                         fa.relpos_bwd_dkpv_reference(*x32, *args))
+                g[3] = g[3].sum(0, keepdim=True)
+                return g
+            want_grads = chained(out.detach())
             grads = [t.grad for t in leaves]
+            if dtype == torch.bfloat16:
+                # before: delta from the reference's output rounded to bf16
+                old = chained(want.to(dtype))
+                print('    bf16 dk / dp share of the bar, delta from the '
+                      'rounded reference (before) -> from K1 (now): '
+                      + ', '.join(
+                          f'{n} {100 * share_of_bar(g, o, TRAIN_TOL[dtype]):.0f}%'
+                          f' -> {100 * share_of_bar(g, w, TRAIN_TOL[dtype]):.0f}%'
+                          for n, g, o, w in zip(('dk', 'dp'), grads[2:4],
+                                                old[2:4], want_grads[2:4])),
+                      flush=True)
             pairs = {
                 'relpos_attention_fwd_train': [(out, want), (lse, want_lse)],
                 'relpos_attention_bwd_dq': list(zip(grads[:2],
@@ -1980,6 +2065,393 @@ def grad_precision(smi):
                       f'{e:.3g} ({m:.3g}) {n}' for e, m, n in worst[::-1]))
 
 
+# ---------------------------------------------------------------------------
+# 9. the streaming slice: the front end, the chunk step, AsrDecoder, HTTP
+# ---------------------------------------------------------------------------
+SR = 16000
+PIECE = SR // 5  # AsrDecoder is fed 200 ms pieces
+STREAM_OPTS = dict(chunk_size=16, num_left_chunks=-1, beam_size=10,
+                   ctc_weight=0.3, reverse_weight=0.3)
+# the card's fbank against the host's numpy one: both take the FFT in
+# float64; what is left is float32 DC removal and pre-emphasis (4.8e-5 on
+# the CPU, tests/test_torch_fbank.py), on features of about 5-25
+FBANK_TOL = 2e-4
+FULL_TOL = 1e-4  # streaming equal to full (the repo's bar)
+CHUNK_CPU_TOL = 2e-4  # card against CPU, the torch-import bar
+# beam scores, sums of a few hundred frames' log-probs (about -1e3), card
+# against CPU
+SCORE_TOL = dict(atol=1e-3, rtol=1e-5)
+STREAM_SECONDS = (4.0, 6.5, 9.0)  # 9c's three utterances
+
+
+def speech_like(rng, seconds):
+    """A [-1, 1] waveform on the int16 grid (what a 16-bit wav holds):
+    noise and three tones that come and go."""
+    t = np.arange(int(SR * seconds)) / SR
+    x = 0.1 * rng.randn(len(t))
+    for f, rate in zip(rng.uniform(120, 3500, 3), rng.uniform(0.5, 3, 3)):
+        x += 0.15 * np.sin(2 * np.pi * f * t) * (np.sin(2 * np.pi * rate * t)
+                                                 > 0)
+    return (np.round(np.clip(x, -1, 1) * 32767) / 32768).astype(np.float32)
+
+
+def flagship_tokenizer():
+    from wenet_tpu_torch.text.char_tokenizer import CharTokenizer
+    syms = {'<blank>': 0, '<unk>': 1, '<sos/eos>': 2}
+    syms.update({chr(0x4e00 + i): i for i in range(3, 4233)})
+    return CharTokenizer(syms)
+
+
+def streaming_decoder(model, device, tokenizer):
+    from wenet_tpu_torch.runtime.asr_decoder import AsrDecoder, DecodeOptions
+    from wenet_tpu_torch.runtime.feature_pipeline import (
+        FeaturePipelineConfig)
+    return AsrDecoder(model, tokenizer, DecodeOptions(**STREAM_OPTS),
+                      FeaturePipelineConfig(num_mel_bins=80), device=device)
+
+
+def stream_utterance(dec, wav):
+    """Feed `wav` to `dec` in 200 ms pieces as fast as it decodes ->
+    (partials after each decode(), final after rescoring(), times): the
+    first partial's latency (from the accept_waveform of the piece that
+    completed the first chunk to its decode() returning), the final's
+    (from set_input_finished() to rescoring() returning), the wall time."""
+    dec.reset()
+    partials, first = [], None
+    t0 = time.perf_counter()
+    for lo in range(0, len(wav), PIECE):
+        t_piece = time.perf_counter()
+        before = dec.offset
+        dec.accept_waveform(wav[lo:lo + PIECE])
+        dec.decode()
+        if first is None and dec.offset > before:
+            first = time.perf_counter() - t_piece
+        partials.append([(r.sentence, r.score) for r in dec.result])
+    t_end = time.perf_counter()
+    dec.set_input_finished()
+    dec.decode()
+    partials.append([(r.sentence, r.score) for r in dec.result])
+    dec.rescoring()
+    t_final = time.perf_counter()
+    final = [(r.sentence, r.score) for r in dec.result]
+    return partials, final, dict(first_ms=1e3 * first,
+                                 final_ms=1e3 * (t_final - t_end),
+                                 wall_s=t_final - t0)
+
+
+def same_results(got, want, what, tol=SCORE_TOL):
+    """Raise unless the sentences are identical and the scores close."""
+    if [s for s, _ in got] != [s for s, _ in want]:
+        raise RuntimeError(f'{what}: sentences differ: '
+                           f'{[s[:20] for s, _ in got[:3]]} vs '
+                           f'{[s[:20] for s, _ in want[:3]]}')
+    a, b = np.array([x for _, x in got]), np.array([x for _, x in want])
+    if not np.all(np.abs(a - b) <= tol['atol'] + tol['rtol'] * np.abs(b)):
+        raise RuntimeError(f'{what}: scores differ by '
+                           f'{np.abs(a - b).max():.3g}')
+    return float(np.abs(a - b).max()) if len(a) else 0.0
+
+
+def fbank_check(model):
+    phase('9a front end: fbank on the card vs the host, decode_wav')
+    from wenet_tpu_torch.models.runner import AsrRunner
+    from wenet_tpu_torch.ops.fbank import compute_fbank, compute_fbank_np
+    rng = np.random.RandomState(SEED + 11)
+    B, seconds = 16, 15.0
+    wav = np.stack([speech_like(rng, seconds) for _ in range(B)])
+    lens = rng.randint(10 * SR, wav.shape[1] + 1, size=B)
+    lens[0] = wav.shape[1]
+    wav_gpu = torch.from_numpy(wav).cuda()
+    with torch.inference_mode():
+        got = compute_fbank(wav_gpu * (1 << 15))
+    t0 = time.perf_counter()
+    want = compute_fbank_np(wav * (1 << 15))
+    host = time.perf_counter() - t0
+    err = (got.cpu() - torch.from_numpy(want)).abs().max().item()
+    if not torch.isfinite(got).all() or err > FBANK_TOL:
+        raise RuntimeError(f'fbank on the card differs from the host by '
+                           f'{err:.3g} (bar {FBANK_TOL})')
+    with torch.inference_mode():
+        card = cuda_time_ms(lambda: compute_fbank(wav_gpu * (1 << 15)),
+                            reps=5)
+    print(f'  fbank B={B} x {seconds:.0f} s {tuple(got.shape)}: max |card - '
+          f'host| = {err:.3g} ({100 * err / FBANK_TOL:.0f}% of the bar '
+          f'{FBANK_TOL}); card {card:.3f} ms, host numpy {1e3 * host:.1f} ms')
+    runner = AsrRunner(model, 'cuda')
+    kw = dict(beam_size=10, ctc_weight=0.3, reverse_weight=0.3)
+    got = runner.decode_wav(MODES, wav, lens, **kw)
+    flen = np.minimum((lens - SR * 25 // 1000) // (SR // 100) + 1,
+                      want.shape[1])
+    ref = runner.decode(MODES, want, flen, **kw)
+    for mode in MODES:
+        same = sum(g.tokens == w.tokens for g, w in zip(got[mode],
+                                                        ref[mode]))
+        print(f'  decode_wav {mode}: {same}/{B} hypotheses equal to decode '
+              f'on the host features (token counts '
+              f'{[len(r.tokens) for r in got[mode]][:4]}...)')
+        if same != B:
+            raise RuntimeError(f'decode_wav {mode} differs from decode on '
+                               'the host features')
+    return want
+
+
+def chunk_check(model, cpu_model, feats):
+    phase('9b chunk step: chunk by chunk vs full forward, card vs CPU')
+    from wenet_tpu_torch.models.runner import AsrRunner
+    from wenet_tpu_torch.models.transformer.streaming import (
+        StreamingConfig, forward_chunk_by_chunk)
+    from wenet_tpu_torch.ops import flash_attention as fa
+    cfg = StreamingConfig(16, -1, model.encoder.subsampling_rate,
+                          model.encoder.right_context)
+    x = torch.from_numpy(feats[None])
+    T = x.shape[1]
+    n_chunks = len(range(0, T - cfg.right_context, cfg.stride))
+    with torch.inference_mode():
+        fa.reset_launches()
+        ys, _ = forward_chunk_by_chunk(model, x.cuda(), cfg)
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES['relpos_attention_fwd']
+        full, _ = model.forward_encoder(x.cuda(), torch.tensor([T]).cuda(),
+                                        16, -1)
+        cpu_ys, _ = forward_chunk_by_chunk(cpu_model, x, cfg)
+    n_blocks = len(model.encoder.encoders)
+    if launches != n_blocks * n_chunks:
+        raise RuntimeError(f'{launches} K1 launches over {n_chunks} chunk '
+                           f'steps, expected {n_blocks} per step')
+    if not torch.isfinite(ys).all() or ys.shape != full.shape:
+        raise RuntimeError(f'chunk output {tuple(ys.shape)} is not finite '
+                           f'or not the full forward\'s {tuple(full.shape)}')
+    e_full = (ys - full).abs().max().item()
+    e_cpu = (ys.cpu() - cpu_ys).abs().max().item()
+    print(f'  {T / 100:.0f} s, {n_chunks} chunk steps, {launches} K1 '
+          f'launches, output {tuple(ys.shape)}: max |chunks - full forward '
+          f'(chunk 16)| = {e_full:.3g} (bar {FULL_TOL}), max |card - cpu| = '
+          f'{e_cpu:.3g} (bar {CHUNK_CPU_TOL})')
+    if e_full > FULL_TOL or e_cpu > CHUNK_CPU_TOL:
+        raise RuntimeError('the chunk loop misses its bar')
+    kw = dict(beam_size=10, ctc_weight=0.3, reverse_weight=0.3,
+              decoding_chunk_size=16, num_decoding_left_chunks=-1,
+              simulate_streaming=True)
+    got = AsrRunner(model, 'cuda').decode(MODES, x, [T], **kw)
+    want = AsrRunner(cpu_model, 'cpu').decode(MODES, x, [T], **kw)
+    for mode in MODES:
+        if got[mode][0].tokens != want[mode][0].tokens:
+            raise RuntimeError(f'simulate_streaming {mode}: the card\'s '
+                               'hypothesis differs from the CPU\'s')
+    print('  decode(simulate_streaming=True): hypotheses equal to the CPU '
+          'run (token counts ' + ', '.join(
+              f'{m} {len(got[m][0].tokens)}' for m in MODES) + ')')
+
+
+def decoder_check(model, cpu_model, tokenizer):
+    phase('9c AsrDecoder on the card vs the CPU, 200 ms pieces')
+    from wenet_tpu_torch.ops import flash_attention as fa
+    rng = np.random.RandomState(SEED + 12)
+    utts = [speech_like(rng, s) for s in STREAM_SECONDS]
+    want = [stream_utterance(streaming_decoder(cpu_model, 'cpu', tokenizer),
+                             w)[:2] for w in utts]
+    dec = streaming_decoder(model, 'cuda', tokenizer)
+    steps = [0]
+    advance = dec._advance_one_chunk
+
+    def counted(chunk):
+        steps[0] += 1
+        return advance(chunk)
+    dec._advance_one_chunk = counted
+    stream_utterance(dec, utts[0])  # warm up
+    steps[0] = 0
+    fa.reset_launches()
+    got = [stream_utterance(dec, w) for w in utts]
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES['relpos_attention_fwd']
+    n_blocks = len(model.encoder.encoders)
+    print(f'  {len(utts)} utterances ({", ".join(f"{s} s" for s in STREAM_SECONDS)}): '
+          f'{steps[0]} chunk steps, {launches} K1 launches')
+    if launches != n_blocks * steps[0] or not steps[0]:
+        raise RuntimeError(f'expected {n_blocks} K1 launches per chunk step')
+    finals = []
+    for i, ((g_part, g_final, times), (w_part, w_final)) in enumerate(
+            zip(got, want)):
+        if len(g_part) != len(w_part):
+            raise RuntimeError(f'utterance {i}: {len(g_part)} partials on '
+                               f'the card, {len(w_part)} on the CPU')
+        worst = max(same_results(g, w, f'utterance {i} partial {j}')
+                    for j, (g, w) in enumerate(zip(g_part, w_part)))
+        worst = max(worst, same_results(g_final, w_final,
+                                        f'utterance {i} final'))
+        print(f'  utterance {i}: {len(g_part)} partials and the final equal '
+              f'to the CPU\'s (sentences identical, scores within '
+              f'{worst:.3g}); final {len(g_final[0][0])} chars, '
+              f'{len(g_final)}-best')
+        finals.append(g_final)
+    return utts, finals, launches
+
+
+def http_check(model, tokenizer, utts, finals):
+    phase('9d HTTP server: two clients, four RIFF files and raw s16le')
+    import threading
+    import urllib.request
+    from wenet_tpu_torch.bin.http_server_main import make_server
+    from wenet_tpu_torch.dataset.audio import write_wav
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_wav_')
+    bodies = []  # (body, index of the utterance it holds)
+    for n, i in enumerate((0, 1, 2, 0)):
+        path = os.path.join(tmp, f'{n}.wav')
+        write_wav(path, utts[i], SR)
+        with open(path, 'rb') as f:
+            bodies.append((f.read(), i))
+    bodies.append((np.round(utts[1] * 32768).astype('<i2').tobytes(), 1))
+    server = make_server(lambda: streaming_decoder(model, 'cuda', tokenizer),
+                         0, '127.0.0.1')
+    serve = threading.Thread(target=server.serve_forever, daemon=True)
+    serve.start()
+    url = f'http://127.0.0.1:{server.server_address[1]}/'
+    answers, walls, errors = {}, {}, []
+
+    def client(name, which):
+        t0 = time.perf_counter()
+        try:
+            for n in which:
+                req = urllib.request.Request(url, data=bodies[n][0],
+                                             method='POST')
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    answers[n] = json.loads(resp.read())
+        except Exception as e:  # reported and raised below
+            errors.append(f'{name}: {e!r}')
+        walls[name] = (time.perf_counter() - t0, which)
+    try:
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(name, which))
+                   for name, which in (('A', (0, 2, 4)), ('B', (1, 3)))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        wall = time.perf_counter() - t0
+        alive = [c for c in clients if c.is_alive()]
+    finally:
+        server.shutdown()
+        server.server_close()
+        serve.join(timeout=30)
+    if errors or alive or sorted(answers) != list(range(len(bodies))):
+        raise RuntimeError(f'HTTP requests failed: {errors}, '
+                           f'{len(alive)} clients hung, answers for '
+                           f'{sorted(answers)}')
+    for n, (_, i) in enumerate(bodies):
+        ans = answers[n]
+        if ans.get('status') != 'ok' or ans.get('type') != 'final_result':
+            raise RuntimeError(f'request {n}: {ans}')
+        same_results([(r['sentence'], r['score']) for r in ans['nbest']],
+                     finals[i], f'HTTP request {n}',
+                     dict(atol=1e-4, rtol=0.0))
+    audio = {name: sum(len(utts[bodies[n][1]]) for n in which) / SR
+             for name, (_, which) in walls.items()}
+    rtf = {name: walls[name][0] / audio[name] for name in walls}
+    print(f'  {len(bodies)} requests answered; every nbest equals 9c\'s '
+          f'final for its audio (sentences identical, scores within 1e-4)')
+    print('  real-time factor, two concurrent clients (each request builds '
+          'its decoder, as the server does): ' + ', '.join(
+        f'{name} {rtf[name]:.4f} ({audio[name]:.1f} s of audio in '
+        f'{walls[name][0]:.3f} s)' for name in sorted(walls)) +
+        f'; both: {wall / sum(audio.values()):.4f}')
+    return rtf
+
+
+def streaming_speed(model, tokenizer, smi):
+    phase('9e streaming speed (informational)')
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from wenet_tpu_torch.models.transformer.streaming import (
+        streaming_att_mask)
+    from wenet_tpu_torch.ops.flash_attention import flash_attention_relpos
+    rng = np.random.RandomState(SEED + 13)
+    cache, chunk, valid = 512, 16, 256
+    n_blocks = len(model.encoder.encoders)
+    xs = torch.from_numpy(rng.randn(1, 67, 80).astype(np.float32)).cuda()
+    mask = streaming_att_mask(1, cache, chunk, valid, chunk, 'cuda')
+    with torch.inference_mode():
+        state = model.encoder.zero_cache(1, cache, device='cuda')
+
+        def step():
+            ys, _, _ = model.forward_encoder_chunk(xs, valid, *state, mask)
+            return torch.topk(model.ctc_activation(ys), 10, dim=-1)
+        # one step a reading: 20 steps' ≈ 8,000 launches would fill the
+        # launch queue while the card sleeps, and the events would time
+        # the host's enqueue
+        step_ms = min(cuda_time_ms(step, reps=1) for _ in range(5))
+        enqueue_ms = host_ms(step)
+        (q1, q2, k, p, v), m = kernel_inputs(rng, 1, 4, chunk, cache + chunk,
+                                             64, 'cache256', torch.float32)
+        k1_ms = cuda_time_ms(lambda: flash_attention_relpos(
+            q1, q2, k, p, v, m, 0.125))
+    share = n_blocks * k1_ms / step_ms
+    print(f'  chunk step (16 frames, 512-slot cache, {n_blocks} blocks, CTC '
+          f'+ top-k): card {step_ms:.4f} ms (CUDA events, best of 5), host '
+          f'enqueue {enqueue_ms:.4f} ms; K1 {k1_ms:.4f} ms x {n_blocks} = '
+          f'{100 * share:.1f}% of the card time ({smi})')
+    dec = streaming_decoder(model, 'cuda', tokenizer)
+    wav = speech_like(rng, 15.0)
+    stream_utterance(dec, wav)  # warm up
+    runs = [stream_utterance(dec, wav)[2] for _ in range(3)]
+    best = min(runs, key=lambda r: r['wall_s'])
+    print(f'  one stream, 15 s fed in 200 ms pieces as fast as it decodes '
+          f'(3 runs): first partial ' + ', '.join(
+              f'{r["first_ms"]:.1f}' for r in runs) + ' ms; final ' +
+          ', '.join(f'{r["final_ms"]:.1f}' for r in runs) + ' ms; real-time '
+          'factor ' + ', '.join(f'{r["wall_s"] / 15.0:.4f}' for r in runs) +
+          f' ({smi})')
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stream_utterance(dec, wav)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in rows) / 1e3
+    k1_rows = [e for e in rows if 'relpos_fwd_' in e.key]
+    k1 = sum(e.self_device_time_total for e in k1_rows) / 1e3
+    steps = sum(e.count for e in k1_rows) // n_blocks
+    print(f'  profiled stream: {total:.2f} ms of kernels in {wall * 1e3:.1f} '
+          f'ms wall ({100 * total / (wall * 1e3):.1f}% device busy); '
+          f'{steps} chunk steps; K1 {k1:.3f} ms ({100 * k1 / max(total, 1e-9):.1f}'
+          f'% of kernel time, {k1 / max(steps, 1):.4f} ms a step)')
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        ms = e.self_device_time_total / 1e3
+        print(f'    {ms:8.3f} ms {100 * ms / max(total, 1e-9):5.1f}% '
+              f'x{e.count:<4d} {e.key[:80]}')
+    # where the host's time goes: the ops by their own host time
+    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU
+            and not getattr(e, 'is_user_annotation', False)]
+    host_total = sum(e.self_cpu_time_total for e in host) / 1e3
+    print(f'  host: {host_total:.1f} ms of ops\' own time in the profiled '
+          f'stream, the largest:')
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
+        ms = e.self_cpu_time_total / 1e3
+        print(f'    {ms:8.3f} ms {100 * ms / max(host_total, 1e-9):5.1f}% '
+              f'x{e.count:<5d} {e.key[:80]}')
+    return dict(chunk_step_ms=step_ms, k1_share_of_chunk_step=share,
+                first_partial_ms=best['first_ms'],
+                final_ms=best['final_ms'], rtf=best['wall_s'] / 15.0,
+                busy=total / (wall * 1e3))
+
+
+def streaming_checks(smi):
+    """Phases 9a-9e on one flagship model (the card's and a CPU copy);
+    -> (K1 launches on 9c's streaming run, 9e's readings)."""
+    model = flagship_model()
+    cpu_model = copy.deepcopy(model).eval()
+    model = model.cuda().eval()
+    tokenizer = flagship_tokenizer()
+    feats = fbank_check(model)
+    chunk_check(model, cpu_model, feats[0])
+    utts, finals, launches = decoder_check(model, cpu_model, tokenizer)
+    rtf = http_check(model, tokenizer, utts, finals)
+    readings = streaming_speed(model, tokenizer, smi)
+    readings['http_rtf'] = rtf
+    return launches, readings
+
+
 def main():
     smi = device()
     build()
@@ -1998,6 +2470,7 @@ def main():
     flash_train_report = flash_train_kernel_check()
     flash_train_launches = whisper_train_check()
     whisper_train_speed(smi)
+    stream_launches, stream_readings = streaming_checks(smi)
     foreign = [m for m in sys.modules
                if m == 'jax' or m.startswith('jax.') or m == 'wenet_tpu'
                or m.startswith('wenet_tpu.')]
@@ -2007,7 +2480,9 @@ def main():
         'name': 'relpos_attention_fwd', 'route': 'cuda',
         'source': 'wenet_tpu_torch/csrc/relpos_attention.cu',
         'replaces': 'wenet_tpu/ops/flash_attention.py:548',
-        'launches': launches, **report}]
+        'launches': launches + stream_launches, **report,
+        'launches_decode': launches, 'launches_streaming': stream_launches,
+        'streaming': stream_readings}]
     for name, (source, replaces) in TRAIN_KERNELS.items():
         kernels.append(dict(name=name, route='cuda', source=source,
                             replaces=replaces,

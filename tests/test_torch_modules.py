@@ -83,8 +83,8 @@ def test_relpos_attention(pair, mask_kind):
         jnp.asarray(x), jnp.asarray(x), jnp.asarray(x), jnp.asarray(mask),
         jnp.asarray(pos.numpy()))
     t = torch.from_numpy(x)
-    tx = tm.encoder.encoders[1].self_attn(t, t, t, torch.from_numpy(mask),
-                                          pos)
+    tx, _ = tm.encoder.encoders[1].self_attn(t, t, t,
+                                             torch.from_numpy(mask), pos)
     _close(tx, jx)
 
 
@@ -93,8 +93,8 @@ def test_conv_module(pair):
     x, pad, _ = _hidden(3)
     jx, _ = jm.encoder.encoders[0].conv_module(jnp.asarray(x),
                                                jnp.asarray(pad))
-    tx = tm.encoder.encoders[0].conv_module(torch.from_numpy(x),
-                                            torch.from_numpy(pad))
+    tx, _ = tm.encoder.encoders[0].conv_module(torch.from_numpy(x),
+                                               torch.from_numpy(pad))
     _close(tx, jx)
 
 
@@ -107,7 +107,7 @@ def test_conformer_layer(pair):
     jx = jm.encoder.encoders[0](jnp.asarray(x), jnp.asarray(chunk),
                                 jnp.asarray(pos.numpy()), jnp.asarray(pad))[0]
     tx = tm.encoder.encoders[0](torch.from_numpy(x), torch.from_numpy(chunk),
-                                pos, torch.from_numpy(pad))
+                                pos, torch.from_numpy(pad))[0]
     _close(tx, jx)
 
 

@@ -139,7 +139,7 @@ def test_every_parameter_gets_a_gradient():
     graphs = []
     for layer in model.encoder.encoders:
         layer.self_attn.register_forward_hook(
-            lambda m, i, o: graphs.append(_graph_names(o.grad_fn)))
+            lambda m, i, o: graphs.append(_graph_names(o[0].grad_fn)))
     opt, schedule = init_optimizer_and_scheduler(
         {'optim': 'adam', 'optim_conf': {'lr': 1e-3}}, model)
     step = make_train_step(model, opt, schedule, grad_clip=5.0)

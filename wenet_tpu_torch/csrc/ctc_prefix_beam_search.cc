@@ -4,9 +4,11 @@
 // (the port imports nothing of the JAX package); built and loaded by
 // wenet_tpu_torch/runtime/native_beam.py.  The card produces CTC
 // posteriors and their per-frame top-k; this host-side search advances
-// the beam.  A plain C interface, loaded with ctypes.  The copy keeps
-// the plain search only: context biasing and n-gram LM fusion are not
-// ported.
+// the beam, one utterance at a time or one streaming chunk at a time
+// (reset, search, ..., finalize).  A plain C interface, loaded with
+// ctypes.  The copy keeps the plain search only: context biasing and
+// n-gram LM fusion are not ported, so finalizing adds no end-of-utterance
+// score and only closes the beam: searching again needs a reset.
 //
 // Prefixes are interned in a trie (node = parent + token) and
 // timestamps in a persistent trail pool, so every beam update is O(1)
@@ -146,6 +148,7 @@ struct Searcher {
   int beam_size;
   int blank_id;
   int abs_time = 0;
+  bool finalized = false;
   std::vector<TrieNode> trie;
   ChildMap child;  // (node<<32|token) -> id
   std::vector<TrailNode> trails;
@@ -187,6 +190,7 @@ struct Searcher {
 
   void Reset() {
     abs_time = 0;
+    finalized = false;
     trie.clear();
     child.Clear();
     trails.clear();
@@ -331,9 +335,17 @@ void* ctc_beam_create(int beam_size, int blank_id) {
 
 void ctc_beam_destroy(void* h) { delete static_cast<Searcher*>(h); }
 
-void ctc_beam_search_topk(void* h, const float* vals, const int* ids,
-                          int num_frames, int k) {
-  static_cast<Searcher*>(h)->SearchTopk(vals, ids, num_frames, k);
+void ctc_beam_reset(void* h) { static_cast<Searcher*>(h)->Reset(); }
+
+void ctc_beam_finalize(void* h) { static_cast<Searcher*>(h)->finalized = true; }
+
+// 0, or -1 (and no search) once the beam is finalized
+int ctc_beam_search_topk(void* h, const float* vals, const int* ids,
+                         int num_frames, int k) {
+  Searcher* s = static_cast<Searcher*>(h);
+  if (s->finalized) return -1;
+  s->SearchTopk(vals, ids, num_frames, k);
+  return 0;
 }
 
 int ctc_beam_num_hyps(void* h) {

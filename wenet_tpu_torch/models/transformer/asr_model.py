@@ -16,6 +16,7 @@ from wenet_tpu_torch.utils.common import (IGNORE_ID, add_sos_eos,
 
 
 class ASRModel(nn.Module):
+    default_decode_method = 'attention_rescoring'
 
     def __init__(self, vocab_size: int, encoder: nn.Module,
                  decoder: nn.Module, ctc: nn.Module,
@@ -109,6 +110,17 @@ class ASRModel(nn.Module):
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.encoder(speech, speech_lengths, decoding_chunk_size,
                             num_decoding_left_chunks)
+
+    def forward_encoder_chunk(self, xs: torch.Tensor, offset: int,
+                              att_cache, cnn_cache,
+                              att_mask: Optional[torch.Tensor] = None):
+        """The streaming chunk step (`ConformerEncoder.forward_chunk`)."""
+        return self.encoder.forward_chunk(xs, offset, att_cache, cnn_cache,
+                                          att_mask)
+
+    def ctc_activation(self, xs: torch.Tensor) -> torch.Tensor:
+        """(B, T, V) CTC log-posteriors of encoder outputs."""
+        return self.ctc.log_softmax(xs)
 
     def ctc_logprobs(self, encoder_out: torch.Tensor,
                      blank_penalty: float = 0.0,

@@ -193,21 +193,33 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor, mask: Optional[torch.Tensor],
                 pos_emb: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """mask: (B, T1|1, T2) bool; pos_emb: (1|B, T2, F).
+                generator: Optional[torch.Generator] = None,
+                cache: Optional[T_CACHE] = None
+                ) -> Tuple[torch.Tensor, Optional[T_CACHE]]:
+        """mask: (B, T1|1, T2) bool; pos_emb: (1|B, T2, F) -> (out, new
+        cache).
 
         In training with attention dropout, each call draws a uint32
         dropout seed from `generator` (a host generator, so no device
-        sync; None takes torch's default CPU generator)."""
+        sync; None takes torch's default CPU generator).
+
+        With `cache`, a streaming chunk step: the cached (k, v), each
+        (B, h, cache_t, d), go in front of this chunk's, so T2 = cache_t
+        + T1 keys, and the new cache is (k, v) with the T2 keys; the
+        caller keeps the window it wants.  Without, the new cache is
+        None."""
         rate = self.dropout.p if self.training else 0.0
         seed = None
         if rate > 0.0:
             seed = int(torch.randint(0, 1 << 32, (), generator=generator))
         q = self.project_q(query)
         k, v = self.project_kv(key, value)
+        if cache is not None:
+            k = torch.cat([cache[0], k], dim=2)
+            v = torch.cat([cache[1], v], dim=2)
         p = self._heads(self.linear_pos(pos_emb))  # (1|B, h, T2, d)
         u = self.pos_bias_u.to(q.dtype)[None, :, None, :]
         w = self.pos_bias_v.to(q.dtype)[None, :, None, :]
         ctx = flash_attention_relpos(q + u, q + w, k, p, v, mask,
                                      1.0 / math.sqrt(self.d_k), rate, seed)
-        return self._finish(ctx)
+        return self._finish(ctx), None if cache is None else (k, v)

@@ -1,7 +1,8 @@
 """Conformer convolution module.  Counterpart of
-wenet_tpu/models/transformer/convolution.py (full-sequence forward)."""
+wenet_tpu/models/transformer/convolution.py, with the causal left-context
+cache of the streaming chunk step."""
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -33,14 +34,26 @@ class ConvolutionModule(nn.Module):
         self.pointwise_conv2 = nn.Conv1d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor,
-                mask_pad: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: (B, T, C); mask_pad: (B, 1, T) bool valid -> (B, T, C)."""
-        x = x.transpose(1, 2)  # (B, C, T)
+                mask_pad: Optional[torch.Tensor] = None,
+                cache: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x: (B, T, C); mask_pad: (B, 1, T) bool valid -> (out (B, T, C),
+        new cache).
+
+        With `cache` (B, lorder, C), a causal streaming chunk step: the
+        cache (the masked inputs before `pointwise_conv1` of the frames
+        before this chunk; zeros before the first) takes the place of the
+        left zero pad, and the new cache is the last lorder frames of
+        [cache | x].  Without, the new cache is None."""
         if mask_pad is not None:
-            x = x.masked_fill(~mask_pad, 0.0)
-        if self.lorder > 0:
-            x = F.pad(x, (self.lorder, 0))
-        x = F.glu(self.pointwise_conv1(x), dim=1)
+            x = x.masked_fill(~mask_pad.transpose(1, 2), 0.0)
+        new_cache = None
+        if cache is not None:
+            x = torch.cat([cache.to(x.dtype), x], dim=1)
+            new_cache = x[:, x.shape[1] - self.lorder:]
+        elif self.lorder > 0:
+            x = F.pad(x, (0, 0, self.lorder, 0))
+        x = F.glu(self.pointwise_conv1(x.transpose(1, 2)), dim=1)
         x = self.depthwise_conv(x)
         if isinstance(self.norm, nn.LayerNorm):
             x = self.norm(x.transpose(1, 2)).transpose(1, 2)
@@ -49,4 +62,4 @@ class ConvolutionModule(nn.Module):
         x = self.pointwise_conv2(F.silu(x))
         if mask_pad is not None:
             x = x.masked_fill(~mask_pad, 0.0)
-        return x.transpose(1, 2)
+        return x.transpose(1, 2), new_cache

@@ -16,9 +16,10 @@ from torch import nn
 def sinusoidal_position_encoding(size: int, d_model: int, device=None,
                                  offset: int = 0) -> torch.Tensor:
     """Interleaved sin/cos encoding of positions [offset, offset + size)
-    -> (1, size, d)."""
-    pos = torch.arange(offset, offset + size, device=device,
-                       dtype=torch.float32)
+    -> (1, size, d); negative positions (a streaming chunk step's empty
+    cache slots) read position 0, as in the JAX package."""
+    pos = torch.arange(offset, offset + size, device=device).clamp(
+        min=0).float()
     div = torch.exp(
         torch.arange(0, d_model, 2, device=device, dtype=torch.float32) *
         (-math.log(10000.0) / d_model))
@@ -46,9 +47,16 @@ class PositionalEncoding(nn.Module):
 class RelPositionalEncoding(PositionalEncoding):
     """Transformer-XL style: scale x, return the PE separately."""
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        pos_emb = sinusoidal_position_encoding(x.shape[1], self.d_model,
-                                               x.device).to(x.dtype)
+    def position_encoding(self, offset: int, size: int,
+                          device=None) -> torch.Tensor:
+        """(1, size, d) encoding of positions [offset, offset + size)."""
+        return sinusoidal_position_encoding(size, self.d_model, device,
+                                            offset)
+
+    def forward(self, x: torch.Tensor, offset: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        pos_emb = self.position_encoding(offset, x.shape[1],
+                                         x.device).to(x.dtype)
         return self.dropout(x * self.xscale), self.dropout(pos_emb)
 
 

@@ -1,10 +1,11 @@
-"""Conformer and transformer encoders, full-sequence forward.
-Counterpart of wenet_tpu/models/transformer/encoder.py `ConformerEncoder`
-and `TransformerEncoder` (the chunked streaming forward is not ported
-yet).  `lora_conf` makes the attention projections LoRA layers, as the
-JAX encoders' field does."""
+"""Conformer and transformer encoders.  Counterpart of
+wenet_tpu/models/transformer/encoder.py `ConformerEncoder` (full-sequence
+forward and the streaming chunk step `forward_chunk` with fixed-size
+caches) and `TransformerEncoder` (full-sequence forward).  `lora_conf`
+makes the attention projections LoRA layers, as the JAX encoders' field
+does."""
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -55,6 +56,14 @@ class ConformerEncoder(nn.Module):
     def output_size(self) -> int:
         return self._output_size
 
+    @property
+    def subsampling_rate(self) -> int:
+        return self.embed.subsampling_rate
+
+    @property
+    def right_context(self) -> int:
+        return self.embed.right_context
+
     def forward(self, xs: torch.Tensor, xs_lens: torch.Tensor,
                 decoding_chunk_size: int = 0,
                 num_decoding_left_chunks: int = -1,
@@ -76,8 +85,75 @@ class ConformerEncoder(nn.Module):
             decoding_chunk_size, num_decoding_left_chunks, generator,
             dynamic_chunk)
         for layer in self.encoders:
-            xs = layer(xs, chunk_masks, pos_emb, masks, generator)
+            xs, _, _ = layer(xs, chunk_masks, pos_emb, masks, generator)
         return self.after_norm(xs), masks
+
+    def forward_chunk(self, xs: torch.Tensor, offset: int,
+                      att_cache: Tuple[torch.Tensor, torch.Tensor],
+                      cnn_cache: Optional[torch.Tensor],
+                      att_mask: Optional[torch.Tensor] = None):
+        """One streaming chunk step with fixed-size, right-aligned caches.
+
+        xs: (B, time, F) features of the chunk, time = (chunk - 1) *
+        subsampling_rate + right_context + 1; offset: the position of the
+        chunk's first output frame; att_cache: (k, v), each (num_blocks,
+        B, h, cache_t1, d_k), whose leading slots `att_mask` marks
+        invalid until the cache fills; cnn_cache: (num_blocks, B, lorder,
+        D) or None; att_mask: (B, 1, cache_t1 + chunk) bool, the valid
+        cache slots followed by the chunk's valid frames (fewer than the
+        chunk in a zero-padded tail).  Every block attends the cache_t1 +
+        chunk keys through K1 on the card.
+
+        Returns (ys (B, chunk, D), new att_cache, new cnn_cache), with the
+        shapes of the caches given: each keeps the last cache_t1 keys."""
+        B = xs.shape[0]
+        ones = torch.ones(B, 1, xs.shape[1], dtype=torch.bool,
+                          device=xs.device)
+        if self.global_cmvn is not None:
+            xs = self.global_cmvn(xs)
+        xs, _, _ = self.embed(xs, ones, offset)
+        k_cache, v_cache = att_cache
+        cache_t1 = k_cache.shape[-2]
+        # the keys' positions run from offset - cache_t1 (negative before
+        # the cache fills: those slots are masked and read position 0)
+        pos_emb = self.embed.position_encoding(
+            offset - cache_t1, cache_t1 + xs.shape[1], xs.device).to(xs.dtype)
+        mask_pad = att_mask[:, :, cache_t1:] if att_mask is not None else None
+        new_k: List[torch.Tensor] = []
+        new_v: List[torch.Tensor] = []
+        new_cnn: List[torch.Tensor] = []
+        for i, layer in enumerate(self.encoders):
+            xs, (k, v), cnn = layer(
+                xs, att_mask, pos_emb, mask_pad,
+                att_cache=(k_cache[i], v_cache[i]),
+                cnn_cache=None if cnn_cache is None else cnn_cache[i])
+            new_k.append(k[:, :, k.shape[2] - cache_t1:])
+            new_v.append(v[:, :, v.shape[2] - cache_t1:])
+            new_cnn.append(cnn)
+        xs = self.after_norm(xs)
+        return (xs, (torch.stack(new_k), torch.stack(new_v)),
+                None if cnn_cache is None else torch.stack(new_cnn))
+
+    def zero_cache(self, batch_size: int, required_cache_size: int,
+                   dtype=torch.float32, device=None):
+        """The caches before the first chunk: ((k, v), cnn), k and v of
+        (num_blocks, B, h, required_cache_size, d_k), all slots invalid,
+        and `zero_cnn_cache`."""
+        attn = self.encoders[0].self_attn
+        k = torch.zeros(len(self.encoders), batch_size, attn.h,
+                        required_cache_size, attn.d_k, dtype=dtype,
+                        device=device)
+        return (k, k), self.zero_cnn_cache(batch_size, dtype, device)
+
+    def zero_cnn_cache(self, batch_size: int, dtype=torch.float32,
+                       device=None) -> Optional[torch.Tensor]:
+        """(num_blocks, B, lorder, D) zeros, or None for a non-causal conv
+        module (it has no left context to carry)."""
+        lorder = self.encoders[0].conv_module.lorder
+        if not lorder:
+            return None
+        return torch.zeros(len(self.encoders), batch_size, lorder,
+                           self._output_size, dtype=dtype, device=device)
 
 
 class TransformerEncoder(nn.Module):

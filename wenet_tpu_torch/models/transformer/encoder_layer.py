@@ -2,14 +2,14 @@
 wenet_tpu/models/transformer/encoder_layer.py `TransformerEncoderLayer`
 and `ConformerEncoderLayer`."""
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 import torch.nn.functional as F
 
 from wenet_tpu_torch.models.transformer.attention import (
-    MultiHeadedAttention, RelPositionMultiHeadedAttention)
+    T_CACHE, MultiHeadedAttention, RelPositionMultiHeadedAttention)
 from wenet_tpu_torch.models.transformer.convolution import ConvolutionModule
 from wenet_tpu_torch.models.transformer.positionwise_feed_forward import (
     PositionwiseFeedForward, get_activation)
@@ -74,16 +74,27 @@ class ConformerEncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 pos_emb: torch.Tensor,
                 mask_pad: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """x: (B, T, D); mask: (B, T|1, T) attention mask; mask_pad:
+                generator: Optional[torch.Generator] = None,
+                att_cache: Optional[T_CACHE] = None,
+                cnn_cache: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[T_CACHE],
+                           Optional[torch.Tensor]]:
+        """x: (B, T, D); mask: (B, T|1, T2) attention mask; mask_pad:
         (B, 1, T) valid frames for the conv module; generator: the host
-        generator for the attention-dropout seeds (training)."""
+        generator for the attention-dropout seeds (training).
+
+        Returns (x, new att cache, new cnn cache).  A streaming chunk step
+        passes `att_cache` (k, v) of (B, h, cache_t, d) and, with a causal
+        conv module, `cnn_cache` (B, lorder, D); it gets back (k, v) with
+        cache_t + T keys and the new cnn cache.  A cache not passed comes
+        back as None."""
         x = self._residual(x, self.norm_ff_macaron,
                            self.feed_forward_macaron, 0.5)
-        x = self._residual(
-            x, self.norm_mha,
-            lambda y: self.self_attn(y, y, y, mask, pos_emb, generator))
-        x = self._residual(x, self.norm_conv,
-                           lambda y: self.conv_module(y, mask_pad))
+        y = self.norm_mha(x)
+        y, new_att = self.self_attn(y, y, y, mask, pos_emb, generator,
+                                    att_cache)
+        x = x + self.dropout(y)
+        y, new_cnn = self.conv_module(self.norm_conv(x), mask_pad, cnn_cache)
+        x = x + self.dropout(y)
         x = self._residual(x, self.norm_ff, self.feed_forward, 0.5)
-        return self.norm_final(x)
+        return self.norm_final(x), new_att, new_cnn

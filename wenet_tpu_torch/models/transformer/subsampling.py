@@ -26,15 +26,21 @@ class Conv2dSubsampling4(nn.Module):
             nn.Linear(odim * (((idim - 1) // 2 - 1) // 2), odim))
         self.pos_enc = pos_enc
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                offset: int = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """x: (B, T, F); x_mask: (B, 1, T) -> (x (B, T', D), pos_emb
-        (1, T', D), mask (B, 1, T'))."""
+        """x: (B, T, F); x_mask: (B, 1, T); offset: the position of the
+        first output frame -> (x (B, T', D), pos_emb (1, T', D), mask
+        (B, 1, T'))."""
         x = self.conv(x.unsqueeze(1))  # (B, C, T', F')
         b, c, t, f = x.shape
         x = self.out(x.transpose(1, 2).reshape(b, t, c * f))
-        x, pos_emb = self.pos_enc(x)
+        x, pos_emb = self.pos_enc(x, offset)
         return x, pos_emb, x_mask[:, :, 2::2][:, :, 2::2]
+
+    def position_encoding(self, offset: int, size: int,
+                          device=None) -> torch.Tensor:
+        return self.pos_enc.position_encoding(offset, size, device)
 
 
 class Conv1dSubsampling2(nn.Module):
