@@ -12,9 +12,11 @@ Phases, each of which raises on failure (non-zero exit):
   3. kernel   K1 (inference) against its plain PyTorch version, fp32 and
               bf16, at the encoder's shapes, ragged edges, a fully masked
               row, a peaked softmax, key tiles closed mid-row, a chunk
-              step (T1 = 16, T2 = 80) and the serving chunk step of 9c
+              step (T1 = 16, T2 = 80), the serving chunk step of 9c
               (one stream, 16 queries, 512 cache slots + 16 keys: 16 and
-              256 valid slots, and a padded tail chunk); each check's
+              256 valid slots, and a padded tail chunk) and 9f's batched
+              one (eight streams, each with its own p and cache fill:
+              16-512 valid slots and a tail); each check's
               share of its bar, both times (CUDA events), and at the main
               and the serving shapes the bound (fp32: 3xTF32; FFMA beside
               it at the main shape), TFLOP/s and the SDPA call's time
@@ -93,6 +95,20 @@ Phases, each of which raises on failure (non-zero exit):
               events) and K1's share of it, first-partial and final
               latency and real-time factor of one stream, the two HTTP
               clients' real-time factors, the device-busy share
+  9f. batched serving: eight AsrDecoders, started 150 ms apart, over one
+              BatchedChunkRunner(max_batch=8); every partial and final
+              equal to the same stream decoded alone (9c's path), 12 K1
+              launches per batched step, the histogram of coalesced batch
+              sizes; then (informational, from that run and one
+              unbatched run, both profiled) per-stream real-time factors
+              batched and unbatched, the device-busy share of each, and
+              the batched chunk step's card time and host enqueue at
+              B = 1, 2, 4, 8
+  9g. model directory: the flagship yaml with a written units.txt and
+              final.pt from the card model; decoder_main --device cuda on
+              9c's utterances writes 9c's finals; http_server_main answers
+              one request on a free port and WenetRecognizer one decode,
+              both equal to 9c's decoder at their default options
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX
 package (wenet_tpu), and checks so at the end.
@@ -131,9 +147,15 @@ KERNEL_SHAPES = [  # B, h, T1, T2, d, mask
     (1, 4, 16, 528, 64, 'cache16'),
     (1, 4, 16, 528, 64, 'cache256'),
     (1, 4, 16, 528, 64, 'tailstep'),
+    # the batched chunk step of 9f: eight streams, each with its own p (its
+    # own offset) and its own cache fill
+    (8, 4, 16, 528, 64, 'batch8'),
 ]
-# mask kind -> (valid cache slots, valid chunk frames)
-SERVING = {'cache16': (16, 16), 'cache256': (256, 16), 'tailstep': (368, 7)}
+# mask kind -> (valid cache slots, valid chunk frames) of each batch row
+SERVING = {'cache16': [(16, 16)], 'cache256': [(256, 16)],
+           'tailstep': [(368, 7)],
+           'batch8': [(16, 16), (256, 16), (512, 16), (368, 7), (64, 16),
+                      (128, 16), (448, 16), (512, 16)]}
 TRAIN_SHAPES = [  # B, h, T1, T2, d, mask, dropout rate
     (16, 4, 299, 299, 64, 'chunk', 0.1),  # the train step's shape, B=16 x 12 s
     (16, 4, 299, 299, 64, 'pad', 0.0),
@@ -220,15 +242,17 @@ def nbytes(*tensors):
 def open_key_nbytes(q1, q2, k, p, v, mask, out):
     """Bytes K1 must move where the mask closes whole key columns, as the
     serving step's cache mask does: q1, q2, the mask and the output whole,
-    and k, p and v only at the key positions some query may attend (p, of
-    one batch row, at those of any row); a closed key is never read."""
+    and k, p and v only at the key positions some query may attend (a p
+    shared by the batch at those of any row); a closed key is never
+    read."""
     B, h, _, d = q1.shape
     if mask.dim() == 4:
         mask = mask[:, 0]
     opened = mask.expand(B, mask.shape[1], mask.shape[2]).any(dim=1)
     per_key = h * d * k.element_size()
+    p_keys = opened.sum() if p.shape[0] > 1 else opened.any(dim=0).sum()
     return (nbytes(q1, q2, mask, out) + 2 * per_key * int(opened.sum())
-            + per_key * int(opened.any(dim=0).sum()))
+            + per_key * int(p_keys))
 
 
 def attended_pairs(mask, B, h, T1, T2):
@@ -279,6 +303,23 @@ def cuda_time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def device_rows(prof):
+    """{name: [count, device ms]} of the kernels, copies and fills a
+    torch.profiler run recorded (GPU user annotations left out), summed
+    from its raw events: `key_averages()` first builds a Python event for
+    every record, which takes the host far longer than the run itself
+    when that holds 10^5 launches."""
+    from torch.autograd import DeviceType
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        row = rows.setdefault(e.name(), [0, 0.0])
+        row[0] += 1
+        row[1] += e.duration_ns() / 1e6
+    return rows
+
+
 def device():
     phase('1 device')
     if not torch.cuda.is_available():
@@ -318,21 +359,26 @@ def build():
 def kernel_inputs(rng, B, h, T1, T2, d, mask_kind, dtype):
     """q1, q2 as the attention module hands them, (B, h, T1, d) views of
     (B, T1, h, d) buffers (scaled by 8 for 'peaked'); k, v (B, h, T2, d);
-    p (1, h, T2, d), shared by the batch; the mask: (B, 1, T2) key
+    p (1, h, T2, d), shared by the batch, or (B, h, T2, d) for a batch of
+    streams ('batch8'); the mask: (B, 1, T2) key
     padding ('pad', 'peaked'; 'tail': the last utterance T2 // 3 long, so
     that whole key blocks lie in its padding), with keys 64..191 closed
     ('gap'), a
     streaming chunk step's ('step': the last T1 keys are the chunk, the
     cache before it holds a random number of frames, none for the first
     utterance; `SERVING`'s kinds: the serving chunk step's right-aligned
-    cache mask from `streaming_att_mask`), or (B, T1, T2) static chunks
+    cache mask from `streaming_att_mask`, a row for each stream), or
+    (B, T1, T2) static chunks
     of 16 over key padding ('chunk', 'masked_row' with row 5 of the first
     utterance closed)."""
     def t(*shape):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
     q1 = t(B, T1, h, d).transpose(1, 2)
     q2 = t(B, T1, h, d).transpose(1, 2)
-    k, p, v = t(B, h, T2, d), t(1, h, T2, d), t(B, h, T2, d)
+    per_row_p = len(SERVING.get(mask_kind, ())) > 1  # a batch of streams
+    k = t(B, h, T2, d)
+    p = t(B if per_row_p else 1, h, T2, d)
+    v = t(B, h, T2, d)
     lens = torch.from_numpy(rng.randint(T2 // 2, T2 + 1, size=B)).cuda()
     lens[0] = T2
     if mask_kind == 'tail':
@@ -353,8 +399,9 @@ def kernel_inputs(rng, B, h, T1, T2, d, mask_kind, dtype):
     elif mask_kind in SERVING:
         from wenet_tpu_torch.models.transformer.streaming import (
             streaming_att_mask)
-        mask = streaming_att_mask(B, T2 - T1, T1, *SERVING[mask_kind],
-                                  device='cuda')
+        mask = torch.cat([streaming_att_mask(1, T2 - T1, T1, *row,
+                                             device='cuda')
+                          for row in SERVING[mask_kind]])
     elif mask_kind is None:
         mask = None
     else:
@@ -1394,7 +1441,6 @@ def whisper_check():
 
 def whisper_speed(smi):
     phase('7c whisper large-v3 decode speed (informational)')
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from wenet_tpu_torch.models.runner import AsrRunner
     from wenet_tpu_torch.utils.init_model import init_model
@@ -1462,21 +1508,18 @@ def whisper_speed(smi):
         # host-bound beam loop further
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _, prof_wall = decode()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and not getattr(e, 'is_user_annotation', False)]
-        total = sum(e.self_device_time_total for e in rows) / 1e3
-        k4 = sum(e.self_device_time_total for e in rows
-                 if 'flash_fwd_' in e.key) / 1e3
+        rows = device_rows(prof)
+        total = sum(ms for _, ms in rows.values())
+        k4 = sum(ms for key, (_, ms) in rows.items() if 'flash_fwd_' in key)
         busy = 100 * total / (prof_wall * 1e3)
         print(f'    kernel time in one profiled decode: {total:.2f} ms of '
               f'{prof_wall * 1e3:.1f} ms wall ({busy:.0f}% device busy); '
               f'K4 {k4:.2f} ms ({100 * k4 / max(total, 1e-9):.1f}% of '
               f'kernel time)', flush=True)
-        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
-            ms = e.self_device_time_total / 1e3
+        for key, (count, ms) in sorted(rows.items(),
+                                       key=lambda r: -r[1][1])[:12]:
             print(f'    {ms:8.3f} ms {100 * ms / max(total, 1e-9):5.1f}% '
-                  f'x{e.count:<5d} {e.key[:80]}')
+                  f'x{count:<5d} {key[:80]}')
         print(f'    profiled and tabled in {time.perf_counter() - t_prof:.1f}'
               f' s', flush=True)
         del runner.model.decoder_forward_step, runner.model.forward_encoder
@@ -2081,6 +2124,10 @@ CHUNK_CPU_TOL = 2e-4  # card against CPU, the torch-import bar
 # beam scores, sums of a few hundred frames' log-probs (about -1e3), card
 # against CPU
 SCORE_TOL = dict(atol=1e-3, rtol=1e-5)
+# a stream batched with others against the same stream alone, on the
+# card both (9f): the tiny-width bar against the JAX package (2e-4,
+# tests/test_torch_runtime.py), about 3 ulp of a float32 score near -1e3
+BATCH_SCORE_TOL = dict(atol=2e-4, rtol=0.0)
 STREAM_SECONDS = (4.0, 6.5, 9.0)  # 9c's three utterances
 
 
@@ -2102,12 +2149,16 @@ def flagship_tokenizer():
     return CharTokenizer(syms)
 
 
-def streaming_decoder(model, device, tokenizer):
+def streaming_decoder(model, device, tokenizer, runner=None, **opts):
+    """9c's decoder (STREAM_OPTS, with `opts` set), over `runner` when
+    one is given."""
     from wenet_tpu_torch.runtime.asr_decoder import AsrDecoder, DecodeOptions
     from wenet_tpu_torch.runtime.feature_pipeline import (
         FeaturePipelineConfig)
-    return AsrDecoder(model, tokenizer, DecodeOptions(**STREAM_OPTS),
-                      FeaturePipelineConfig(num_mel_bins=80), device=device)
+    return AsrDecoder(model, tokenizer, DecodeOptions(**{**STREAM_OPTS,
+                                                         **opts}),
+                      FeaturePipelineConfig(num_mel_bins=80),
+                      batch_runner=runner, device=device)
 
 
 def stream_utterance(dec, wav):
@@ -2436,9 +2487,251 @@ def streaming_speed(model, tokenizer, smi):
                 busy=total / (wall * 1e3))
 
 
+def run_streams(make_decoder, utts, stagger_s):
+    """Decode `utts` concurrently, stream i on a thread of its own that
+    starts i * stagger_s after the first, each through a decoder from
+    `make_decoder` -> ([stream_utterance's result], wall seconds)."""
+    import threading
+    out, errors = [None] * len(utts), []
+
+    def run(i):
+        time.sleep(i * stagger_s)
+        try:
+            out[i] = stream_utterance(make_decoder(), utts[i])
+        except Exception as e:  # reported and raised below
+            errors.append(f'stream {i}: {e!r}')
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(utts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f'streams failed: {errors}')
+    return out, wall
+
+
+def busy_share(fn):
+    """(fn()'s result, kernel time over wall time of `fn()` from
+    torch.profiler, the wall seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = sum(ms for _, ms in device_rows(prof).values()) / 1e3
+    return out, kernels / wall, wall
+
+
+def batched_step_readings(model, smi):
+    """The batched chunk step (16 frames, 512-slot caches with 256 valid,
+    CTC + top-k) at B = 1, 2, 4, 8: card time (CUDA events, best of 5, one
+    step a reading) and host enqueue."""
+    from wenet_tpu_torch.models.transformer.streaming import (
+        streaming_att_mask)
+    rng = np.random.RandomState(SEED + 15)
+    cache, chunk, valid = 512, 16, 256
+    out = {}
+    with torch.inference_mode():
+        for B in (1, 2, 4, 8):
+            xs = torch.from_numpy(rng.randn(B, 67, 80).astype(
+                np.float32)).cuda()
+            offsets = torch.full((B,), valid, device='cuda')
+            state = model.encoder.zero_cache(B, cache, device='cuda')
+            mask = streaming_att_mask(B, cache, chunk, valid, chunk, 'cuda')
+
+            def step():
+                ys, _, _ = model.forward_encoder_chunk(xs, offsets, *state,
+                                                       mask)
+                return torch.topk(model.ctc_activation(ys), 10, dim=-1)
+            card = min(cuda_time_ms(step, reps=1) for _ in range(5))
+            out[B] = dict(card_ms=card, enqueue_ms=host_ms(step))
+            print(f'  batched chunk step B={B}: card {card:.4f} ms '
+                  f'({card / B:.4f} ms a stream), host enqueue '
+                  f'{out[B]["enqueue_ms"]:.4f} ms ({smi})', flush=True)
+    return out
+
+
+def batched_serving_check(model, tokenizer, smi):
+    phase('9f batched serving: 8 streams over one BatchedChunkRunner vs '
+          'each alone')
+    from wenet_tpu_torch.models.transformer.streaming import StreamingConfig
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.runtime.batch_runner import BatchedChunkRunner
+    n_streams, stagger_s = 8, 0.15
+    rng = np.random.RandomState(SEED + 14)
+    seconds = [STREAM_SECONDS[i % len(STREAM_SECONDS)]
+               for i in range(n_streams)]
+    utts = [speech_like(rng, s) for s in seconds]
+    alone = [stream_utterance(streaming_decoder(model, 'cuda', tokenizer),
+                              w)[:2] for w in utts]
+    cfg = StreamingConfig(STREAM_OPTS['chunk_size'],
+                          STREAM_OPTS['num_left_chunks'],
+                          model.encoder.subsampling_rate,
+                          model.encoder.right_context)
+    runner = BatchedChunkRunner(model, cfg, max_batch=n_streams,
+                                beam_size=STREAM_OPTS['beam_size'],
+                                device='cuda')
+    try:
+        print(f'  warm-up ran batch sizes {runner.precompile(80)}')
+        fa.reset_launches()
+        (got, wall), busy, _ = busy_share(lambda: run_streams(
+            lambda: streaming_decoder(model, 'cuda', tokenizer, runner),
+            utts, stagger_s))
+        launches = fa.LAUNCHES['relpos_attention_fwd']
+        hist = dict(sorted(runner.batch_sizes.items()))
+        steps = sum(hist.values())
+        n_blocks = len(model.encoder.encoders)
+        print(f'  {n_streams} streams ({", ".join(f"{s} s" for s in seconds)}'
+              f'; starts {stagger_s} s apart): {steps} batched steps, '
+              f'{launches} K1 launches; coalesced batch sizes {hist}')
+        if launches != n_blocks * steps or not steps:
+            raise RuntimeError(f'{launches} K1 launches over {steps} batched '
+                               f'steps, expected {n_blocks} per step')
+        if max(hist) < 2:
+            raise RuntimeError('no two streams shared a step')
+        worst = 0.0
+        for i, ((g_part, g_final, _), (w_part, w_final)) in enumerate(
+                zip(got, alone)):
+            if len(g_part) != len(w_part):
+                raise RuntimeError(f'stream {i}: {len(g_part)} partials '
+                                   f'batched, {len(w_part)} alone')
+            for j, (g, w) in enumerate(zip(g_part, w_part)):
+                worst = max(worst, same_results(
+                    g, w, f'stream {i} partial {j}', BATCH_SCORE_TOL))
+            worst = max(worst, same_results(g_final, w_final,
+                                            f'stream {i} final',
+                                            BATCH_SCORE_TOL))
+        print(f'  every partial and final of the {n_streams} streams equals '
+              f'the stream decoded alone (sentences identical, scores within '
+              f'{worst:.3g}: {100 * worst / BATCH_SCORE_TOL["atol"]:.0f}% of '
+              f'the bar {BATCH_SCORE_TOL["atol"]})')
+    finally:
+        runner.close()
+    (solo, solo_wall), solo_busy, _ = busy_share(lambda: run_streams(
+        lambda: streaming_decoder(model, 'cuda', tokenizer), utts, stagger_s))
+    audio = sum(seconds)
+    rtf = [r[2]['wall_s'] / s for r, s in zip(got, seconds)]
+    solo_rtf = [r[2]['wall_s'] / s for r, s in zip(solo, seconds)]
+    print(f'  per-stream real-time factor, {n_streams} concurrent streams '
+          f'fed in 200 ms pieces as fast as they decode (profiled runs): '
+          f'batched mean {np.mean(rtf):.4f} (max {max(rtf):.4f}; '
+          f'{audio:.1f} s of audio in {wall:.3f} s), unbatched mean '
+          f'{np.mean(solo_rtf):.4f} (max {max(solo_rtf):.4f}; '
+          f'{solo_wall:.3f} s) ({smi})')
+    print(f'  device busy: batched {100 * busy:.1f}%, unbatched '
+          f'{100 * solo_busy:.1f}%')
+    steps_ms = batched_step_readings(model, smi)
+    return launches, dict(batch_sizes=hist, steps=steps, rtf=rtf,
+                          unbatched_rtf=solo_rtf, wall_s=wall,
+                          unbatched_wall_s=solo_wall, busy=busy,
+                          unbatched_busy=solo_busy, step=steps_ms,
+                          max_score_gap=worst)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def model_dir_check(model, tokenizer, utts, finals):
+    phase('9g model directory: decoder_main, the HTTP main, WenetRecognizer')
+    import threading
+    import urllib.request
+    import yaml
+    from wenet_tpu_torch.bin import decoder_main, http_server_main
+    from wenet_tpu_torch.dataset.audio import write_wav
+    from wenet_tpu_torch.runtime import api
+    d = tempfile.mkdtemp(prefix='chip_smoke_model_')
+    units = os.path.join(d, 'units.txt')
+    with open(units, 'w', encoding='utf-8') as f:
+        for sym, i in sorted(tokenizer.symbol_table.items(),
+                             key=lambda kv: kv[1]):
+            f.write(f'{sym} {i}\n')
+    with open(CONFIG) as f:
+        configs = yaml.safe_load(f)
+    # the yaml's cmvn file is the recipe's and stays absent: the stats
+    # come from final.pt
+    configs['tokenizer_conf']['symbol_table_path'] = units
+    with open(os.path.join(d, 'train.yaml'), 'w') as f:
+        yaml.safe_dump(configs, f)
+    torch.save(model.state_dict(), os.path.join(d, 'final.pt'))
+    scp = os.path.join(d, 'wav.scp')
+    with open(scp, 'w') as f:
+        for i, w in enumerate(utts):
+            write_wav(os.path.join(d, f'{i}.wav'), w, SR)
+            f.write(f'utt{i} {os.path.join(d, f"{i}.wav")}\n')
+    result = os.path.join(d, 'text')
+    t0 = time.perf_counter()
+    decoder_main.main(['--model_dir', d, '--wav_scp', scp, '--result_file',
+                       result, '--chunk_size', '16', '--beam_size', '10',
+                       '--ctc_weight', str(STREAM_OPTS['ctc_weight']),
+                       '--reverse_weight', str(STREAM_OPTS['reverse_weight']),
+                       '--streaming_interval_ms', '200', '--device', 'cuda'])
+    with open(result, encoding='utf-8') as f:
+        lines = f.read().splitlines()
+    want = [f'utt{i} {final[0][0]}' for i, final in enumerate(finals)]
+    if lines != want:
+        raise RuntimeError(f'decoder_main wrote {[x[:30] for x in lines]}, '
+                           f'9c\'s finals are {[x[:30] for x in want]}')
+    print(f'  decoder_main --device cuda ({time.perf_counter() - t0:.1f} s, '
+          f'the model directory\'s load included): {len(lines)} result '
+          f'lines equal to 9c\'s finals')
+    # the HTTP main and the API decode at their defaults (ctc_weight 0.5,
+    # reverse_weight 0): hold them to 9c's decoder at those options
+    default = stream_utterance(streaming_decoder(
+        model, 'cuda', tokenizer, ctc_weight=0.5, reverse_weight=0.0),
+        utts[0])[1]
+    made = []
+    make = http_server_main.make_server
+    http_server_main.make_server = lambda *a, **kw: made.append(
+        make(*a, **kw)) or made[-1]
+    port = free_port()
+    serve = threading.Thread(target=http_server_main.main, args=(
+        ['--model_dir', d, '--port', str(port), '--host', '127.0.0.1',
+         '--device', 'cuda'],), daemon=True)
+    try:
+        serve.start()
+        deadline = time.monotonic() + 300
+        while not made and serve.is_alive() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if not made:
+            raise RuntimeError('http_server_main did not start')
+        with open(os.path.join(d, '0.wav'), 'rb') as f:
+            req = urllib.request.Request(f'http://127.0.0.1:{port}/',
+                                         data=f.read(), method='POST')
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            ans = json.loads(resp.read())
+    finally:
+        http_server_main.make_server = make
+        if made:
+            made[0].shutdown()
+        serve.join(timeout=60)
+    if serve.is_alive():
+        raise RuntimeError('http_server_main did not stop')
+    same_results([(r['sentence'], r['score']) for r in ans['nbest']],
+                 default, 'http_server_main', dict(atol=1e-4, rtol=0.0))
+    rec = api.wenet_init(d, device='cuda')
+    out = json.loads(rec.decode(np.round(utts[0] * 32768).astype(
+        '<i2').tobytes(), 1))
+    if out['type'] != 'final_result' or \
+            out['nbest'][0]['sentence'] != default[0][0]:
+        raise RuntimeError(f'WenetRecognizer: {str(out)[:200]}')
+    print(f'  http_server_main on port {port}: one request answered with '
+          f'the {len(ans["nbest"])}-best of the decoder at its options; '
+          f'WenetRecognizer.decode: the same final ({len(default[0][0])} '
+          'chars)')
+
+
 def streaming_checks(smi):
-    """Phases 9a-9e on one flagship model (the card's and a CPU copy);
-    -> (K1 launches on 9c's streaming run, 9e's readings)."""
+    """Phases 9a-9g on one flagship model (the card's and a CPU copy);
+    -> (K1 launches on 9c's streaming run, 9e's readings, K1 launches on
+    9f's batched run, 9f's readings)."""
     model = flagship_model()
     cpu_model = copy.deepcopy(model).eval()
     model = model.cuda().eval()
@@ -2449,7 +2742,9 @@ def streaming_checks(smi):
     rtf = http_check(model, tokenizer, utts, finals)
     readings = streaming_speed(model, tokenizer, smi)
     readings['http_rtf'] = rtf
-    return launches, readings
+    batched_launches, batched = batched_serving_check(model, tokenizer, smi)
+    model_dir_check(model, tokenizer, utts, finals)
+    return launches, readings, batched_launches, batched
 
 
 def main():
@@ -2470,7 +2765,8 @@ def main():
     flash_train_report = flash_train_kernel_check()
     flash_train_launches = whisper_train_check()
     whisper_train_speed(smi)
-    stream_launches, stream_readings = streaming_checks(smi)
+    (stream_launches, stream_readings, batched_launches,
+     batched_readings) = streaming_checks(smi)
     foreign = [m for m in sys.modules
                if m == 'jax' or m.startswith('jax.') or m == 'wenet_tpu'
                or m.startswith('wenet_tpu.')]
@@ -2480,9 +2776,10 @@ def main():
         'name': 'relpos_attention_fwd', 'route': 'cuda',
         'source': 'wenet_tpu_torch/csrc/relpos_attention.cu',
         'replaces': 'wenet_tpu/ops/flash_attention.py:548',
-        'launches': launches + stream_launches, **report,
+        'launches': launches + stream_launches + batched_launches, **report,
         'launches_decode': launches, 'launches_streaming': stream_launches,
-        'streaming': stream_readings}]
+        'launches_batched_serving': batched_launches,
+        'streaming': stream_readings, 'batched_serving': batched_readings}]
     for name, (source, replaces) in TRAIN_KERNELS.items():
         kernels.append(dict(name=name, route='cuda', source=source,
                             replaces=replaces,

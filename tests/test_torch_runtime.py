@@ -274,8 +274,8 @@ def test_asr_decoder_raises_for_what_is_not_ported(pair):
     from wenet_tpu_torch.runtime.asr_decoder import AsrDecoder
     from wenet_tpu_torch.text.char_tokenizer import CharTokenizer
     _, _, tmodel = pair
-    for kw in ({'tlg_fst': 'TLG.fst'}, {'batch_runner': object()},
-               {'lm': object()}, {'context_graph': object()}):
+    for kw in ({'tlg_fst': 'TLG.fst'}, {'lm': object()},
+               {'context_graph': object()}):
         with pytest.raises(NotImplementedError):
             AsrDecoder(tmodel, CharTokenizer(SYMS), device='cpu', **kw)
 
@@ -331,14 +331,28 @@ def test_http_round_trip(pair, tmp_path):
 
 
 def test_new_modules_import_without_jax():
-    """A fresh interpreter imports every module of the streaming slice and
-    streams one utterance through AsrDecoder on the CPU without jax or any
-    wenet_tpu module."""
+    """A fresh interpreter imports every module of the streaming and
+    serving slices and streams one utterance through AsrDecoder on the CPU
+    without jax or any wenet_tpu module, and without websockets, grpc or
+    protobuf, which the servers import only when they start."""
     code = textwrap.dedent('''
         import sys
         import numpy as np
         import torch
+        import wenet_tpu_torch.bin.decoder_main
+        import wenet_tpu_torch.bin.grpc_server_main
         import wenet_tpu_torch.bin.http_server_main
+        import wenet_tpu_torch.bin.websocket_server_main
+        import wenet_tpu_torch.runtime.api
+        import wenet_tpu_torch.runtime.batch_runner
+        import wenet_tpu_torch.runtime.grpc.server
+        import wenet_tpu_torch.runtime.itn
+        import wenet_tpu_torch.runtime.post_processor
+        import wenet_tpu_torch.runtime.websocket.client
+        import wenet_tpu_torch.runtime.websocket.server
+        import wenet_tpu_torch.utils.checkpoint
+        import wenet_tpu_torch.utils.config
+        import wenet_tpu_torch.utils.init_tokenizer
         import wenet_tpu_torch.dataset.audio
         import wenet_tpu_torch.models.runner
         import wenet_tpu_torch.models.transformer.streaming
@@ -365,8 +379,10 @@ def test_new_modules_import_without_jax():
         dec.decode()
         dec.rescoring()
         assert dec.result
-        foreign = [m for m in sys.modules if m == 'jax' or
-                   m.startswith(('jax.', 'wenet_tpu.')) or m == 'wenet_tpu']
+        foreign = [m for m in sys.modules
+                   if m.split('.')[0] in ('jax', 'wenet_tpu', 'websockets',
+                                          'grpc')
+                   or m.startswith('google.protobuf')]
         assert not foreign, foreign[:5]
         print('ok')
     ''')

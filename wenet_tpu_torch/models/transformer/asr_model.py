@@ -3,7 +3,7 @@ the decode-side methods.  Counterpart of
 wenet_tpu/models/transformer/asr_model.py (`__call__`, `_calc_att_loss`
 and the decode methods :169-250)."""
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -111,16 +111,30 @@ class ASRModel(nn.Module):
         return self.encoder(speech, speech_lengths, decoding_chunk_size,
                             num_decoding_left_chunks)
 
-    def forward_encoder_chunk(self, xs: torch.Tensor, offset: int,
+    def forward_encoder_chunk(self, xs: torch.Tensor,
+                              offset: Union[int, torch.Tensor],
                               att_cache, cnn_cache,
                               att_mask: Optional[torch.Tensor] = None):
-        """The streaming chunk step (`ConformerEncoder.forward_chunk`)."""
+        """The streaming chunk step (`ConformerEncoder.forward_chunk`);
+        `offset` is an int or a (B,) tensor with one per row."""
         return self.encoder.forward_chunk(xs, offset, att_cache, cnn_cache,
                                           att_mask)
 
     def ctc_activation(self, xs: torch.Tensor) -> torch.Tensor:
         """(B, T, V) CTC log-posteriors of encoder outputs."""
         return self.ctc.log_softmax(xs)
+
+    def ctc_host_rows(self, ys: torch.Tensor, k: int,
+                      blank: int) -> torch.Tensor:
+        """(..., T, 2k + 1) on ys's device, what a streaming decoder's
+        host beam and endpoint read of the CTC log-probs of encoder
+        outputs `ys`: the top-k values, their ids (as floats, exact below
+        2**24) and the blank column, packed for one device-to-host
+        copy."""
+        logp = self.ctc_activation(ys).float()
+        vals, ids = torch.topk(logp, k, dim=-1)
+        return torch.cat([vals, ids.float(), logp[..., blank:blank + 1]],
+                         dim=-1)
 
     def ctc_logprobs(self, encoder_out: torch.Tensor,
                      blank_penalty: float = 0.0,

@@ -7,25 +7,32 @@ length; no position table is stored, so their state dict has no `pe`
 entry.  The learnable encoding's table is its `pe` parameter."""
 
 import math
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 from torch import nn
 
 
 def sinusoidal_position_encoding(size: int, d_model: int, device=None,
-                                 offset: int = 0) -> torch.Tensor:
-    """Interleaved sin/cos encoding of positions [offset, offset + size)
-    -> (1, size, d); negative positions (a streaming chunk step's empty
-    cache slots) read position 0, as in the JAX package."""
-    pos = torch.arange(offset, offset + size, device=device).clamp(
-        min=0).float()
+                                 offset: Union[int, torch.Tensor] = 0
+                                 ) -> torch.Tensor:
+    """Interleaved sin/cos encoding of positions [offset, offset + size):
+    an int offset gives (1, size, d), a (B,) integer tensor of offsets
+    (one per stream of a batched chunk step) gives (B, size, d).
+    Negative positions (a streaming chunk step's empty cache slots) read
+    position 0, as in the JAX package."""
+    if isinstance(offset, torch.Tensor):
+        pos = (offset.to(device)[:, None] +
+               torch.arange(size, device=device)[None, :])
+    else:
+        pos = torch.arange(offset, offset + size, device=device)[None, :]
+    pos = pos.clamp(min=0).float()
     div = torch.exp(
         torch.arange(0, d_model, 2, device=device, dtype=torch.float32) *
         (-math.log(10000.0) / d_model))
-    ang = pos[:, None] * div
+    ang = pos[..., None] * div
     return torch.stack([torch.sin(ang), torch.cos(ang)],
-                       dim=-1).reshape(1, size, d_model)
+                       dim=-1).reshape(pos.shape[0], size, d_model)
 
 
 class PositionalEncoding(nn.Module):
@@ -37,7 +44,8 @@ class PositionalEncoding(nn.Module):
         self.xscale = math.sqrt(d_model)
         self.dropout = nn.Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor, offset: int = 0
+    def forward(self, x: torch.Tensor,
+                offset: Union[int, torch.Tensor] = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         pos_emb = sinusoidal_position_encoding(x.shape[1], self.d_model,
                                                x.device, offset).to(x.dtype)
@@ -47,13 +55,15 @@ class PositionalEncoding(nn.Module):
 class RelPositionalEncoding(PositionalEncoding):
     """Transformer-XL style: scale x, return the PE separately."""
 
-    def position_encoding(self, offset: int, size: int,
+    def position_encoding(self, offset: Union[int, torch.Tensor], size: int,
                           device=None) -> torch.Tensor:
-        """(1, size, d) encoding of positions [offset, offset + size)."""
+        """(1, size, d) encoding of positions [offset, offset + size), or
+        (B, size, d) for a (B,) tensor of offsets."""
         return sinusoidal_position_encoding(size, self.d_model, device,
                                             offset)
 
-    def forward(self, x: torch.Tensor, offset: int = 0
+    def forward(self, x: torch.Tensor,
+                offset: Union[int, torch.Tensor] = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         pos_emb = self.position_encoding(offset, x.shape[1],
                                          x.device).to(x.dtype)

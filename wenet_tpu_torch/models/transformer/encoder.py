@@ -5,7 +5,7 @@ caches) and `TransformerEncoder` (full-sequence forward).  `lora_conf`
 makes the attention projections LoRA layers, as the JAX encoders' field
 does."""
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -88,7 +88,8 @@ class ConformerEncoder(nn.Module):
             xs, _, _ = layer(xs, chunk_masks, pos_emb, masks, generator)
         return self.after_norm(xs), masks
 
-    def forward_chunk(self, xs: torch.Tensor, offset: int,
+    def forward_chunk(self, xs: torch.Tensor,
+                      offset: Union[int, torch.Tensor],
                       att_cache: Tuple[torch.Tensor, torch.Tensor],
                       cnn_cache: Optional[torch.Tensor],
                       att_mask: Optional[torch.Tensor] = None):
@@ -96,7 +97,10 @@ class ConformerEncoder(nn.Module):
 
         xs: (B, time, F) features of the chunk, time = (chunk - 1) *
         subsampling_rate + right_context + 1; offset: the position of the
-        chunk's first output frame; att_cache: (k, v), each (num_blocks,
+        chunk's first output frame, an int for every row or a (B,) integer
+        tensor on the device with one per row (a batch of streams, each at
+        its own point: the rel-pos encoding and K1's p are then per row,
+        (B, h, cache_t1 + chunk, d_k)); att_cache: (k, v), each (num_blocks,
         B, h, cache_t1, d_k), whose leading slots `att_mask` marks
         invalid until the cache fills; cnn_cache: (num_blocks, B, lorder,
         D) or None; att_mask: (B, 1, cache_t1 + chunk) bool, the valid

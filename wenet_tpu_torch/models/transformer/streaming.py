@@ -4,7 +4,7 @@ encoder's cache state, the validity mask of the right-aligned cache
 window and the simulate-streaming forward over a whole utterance."""
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,18 +56,26 @@ def init_streaming_state(encoder, batch_size: int, cfg: StreamingConfig,
 
 
 def streaming_att_mask(batch_size: int, cache_size: int, chunk_out: int,
-                       valid_cache: int, valid_chunk: Optional[int] = None,
+                       valid_cache, valid_chunk=None,
                        device=None) -> torch.Tensor:
     """(B, 1, cache_size + chunk_out) bool: the first cache_size -
     valid_cache slots of the right-aligned cache window are off, and with
     `valid_chunk` (< chunk_out in a zero-padded tail chunk) so are the
-    chunk's pad frames.  Built on `device` from host integers, so it costs
-    no transfer."""
+    chunk's pad frames.  `valid_cache` and `valid_chunk` are ints, shared
+    by every row, or (B,) tensors on `device`, one per row (the batch
+    runner's sessions).  Built on `device`, so ints cost no transfer."""
     idx = torch.arange(cache_size + chunk_out, device=device)
-    valid = idx >= cache_size - min(valid_cache, cache_size)
+    if isinstance(valid_cache, torch.Tensor):
+        valid_cache = valid_cache.clamp(max=cache_size)[:, None]
+    else:
+        valid_cache = min(valid_cache, cache_size)
+    valid = idx >= cache_size - valid_cache
     if valid_chunk is not None:
+        if isinstance(valid_chunk, torch.Tensor):
+            valid_chunk = valid_chunk[:, None]
         valid = valid & (idx < cache_size + valid_chunk)
-    return valid.expand(batch_size, 1, cache_size + chunk_out)
+    return valid.reshape(-1, 1, cache_size + chunk_out).expand(
+        batch_size, 1, cache_size + chunk_out)
 
 
 def forward_chunk_by_chunk(model, xs: torch.Tensor, cfg: StreamingConfig

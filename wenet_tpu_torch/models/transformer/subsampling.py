@@ -6,7 +6,7 @@ The convs run NCHW; the (C, F) flatten is channel-major, the order the
 JAX package reproduces from its NHWC layout, so converted weights of the
 following Linear line up."""
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 from torch import nn
@@ -27,18 +27,18 @@ class Conv2dSubsampling4(nn.Module):
         self.pos_enc = pos_enc
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
-                offset: int = 0
+                offset: Union[int, torch.Tensor] = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """x: (B, T, F); x_mask: (B, 1, T); offset: the position of the
-        first output frame -> (x (B, T', D), pos_emb (1, T', D), mask
-        (B, 1, T'))."""
+        first output frame, or a (B,) tensor of them -> (x (B, T', D),
+        pos_emb (1|B, T', D), mask (B, 1, T'))."""
         x = self.conv(x.unsqueeze(1))  # (B, C, T', F')
         b, c, t, f = x.shape
         x = self.out(x.transpose(1, 2).reshape(b, t, c * f))
         x, pos_emb = self.pos_enc(x, offset)
         return x, pos_emb, x_mask[:, :, 2::2][:, :, 2::2]
 
-    def position_encoding(self, offset: int, size: int,
+    def position_encoding(self, offset: Union[int, torch.Tensor], size: int,
                           device=None) -> torch.Tensor:
         return self.pos_enc.position_encoding(offset, size, device)
 

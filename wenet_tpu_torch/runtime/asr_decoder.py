@@ -9,10 +9,16 @@ endpoint rules.  The encoder outputs stay on the device: `rescoring`
 closes the beam and reranks its n-best with the attention decoder over
 them (score + ctc_weight * ctc score).
 
+With `batch_runner` (runtime/batch_runner.py) the chunk step is not run
+here: the decoder submits its chunk and caches to the runner, which
+steps many streams as one batch and hands each its rows, the host rows
+of the same top-k and blank column included, so the rest of the path is
+the same.  `post_processor` (runtime/post_processor.py) rewrites every
+sentence.
+
 Runs on `device` ('cuda' unless the caller asks for the CPU).  Context
-biasing, the n-gram LM, WFST decoding and the cross-stream batch runner
-are not ported: passing one raises NotImplementedError; neither is the
-text post-processor."""
+biasing, the n-gram LM and WFST decoding are not ported: passing one
+raises NotImplementedError."""
 
 import enum
 from dataclasses import dataclass, field
@@ -56,9 +62,18 @@ class DecodeOptions:
     chunk_size: int = 16
     num_left_chunks: int = -1
     ctc_weight: float = 0.5
+    rescoring_weight: float = 1.0  # the attention score's weight: 1 only
     reverse_weight: float = 0.0
     beam_size: int = 10
     blank_id: int = 0
+
+    def __post_init__(self):
+        # the JAX package accepts the option and ignores it; here a
+        # setting that would change nothing raises instead
+        if self.rescoring_weight != 1.0:
+            raise NotImplementedError(
+                f'rescoring_weight {self.rescoring_weight}: the rescoring '
+                f'weighs the attention score by 1, as the JAX package does')
 
 
 class AsrDecoder:
@@ -70,13 +85,13 @@ class AsrDecoder:
                  feature_config: Optional[FeaturePipelineConfig] = None,
                  endpoint_config: Optional[CtcEndpointConfig] = None,
                  context_graph=None, lm=None, tlg_fst=None,
-                 batch_runner=None, device='cuda'):
-        if tlg_fst is not None or batch_runner is not None:
-            raise NotImplementedError('WFST decoding and the batch runner '
-                                      'are not ported')
+                 post_processor=None, batch_runner=None, device='cuda'):
+        if tlg_fst is not None:
+            raise NotImplementedError('WFST decoding is not ported')
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.tokenizer = tokenizer
+        self.post_processor = post_processor
         self.opts = opts or DecodeOptions()
         self.feature_pipeline = FeaturePipeline(feature_config)
         encoder = self.model.encoder
@@ -87,6 +102,16 @@ class AsrDecoder:
             right_context=encoder.right_context)
         self.endpointer = CtcEndpoint(endpoint_config,
                                       10 * encoder.subsampling_rate)
+        if batch_runner is not None:
+            theirs = (batch_runner.cfg, batch_runner.beam_size,
+                      batch_runner.blank_id, batch_runner.device)
+            ours = (self.cfg, self.opts.beam_size,
+                    self.endpointer.config.blank, self.device)
+            if theirs != ours:
+                raise ValueError(f'the batch runner steps {theirs} '
+                                 f'(streaming config, top-k, blank, '
+                                 f'device), this decoder needs {ours}')
+        self.batch_runner = batch_runner
         self.searcher = make_searcher(self.opts.beam_size,
                                       self.opts.blank_id,
                                       context_graph=context_graph, lm=lm)
@@ -159,26 +184,30 @@ class AsrDecoder:
         pad = cfg.decoding_window - chunk.shape[0]
         if pad > 0:
             chunk = np.pad(chunk, ((0, pad), (0, 0)))
-        chunk_out = (cfg.decoding_window - context) // \
-            cfg.subsampling_rate + 1
-        att_mask = streaming_att_mask(1, cfg.required_cache_size, chunk_out,
-                                      self.valid_cache, real_out, self.device)
-        xs = torch.from_numpy(chunk)[None].to(self.device)
-        ys, att_cache, cnn_cache = model.forward_encoder_chunk(
-            xs, self.offset, *self.state, att_mask)
-        self.state = (att_cache, cnn_cache)
+        k = self.opts.beam_size
+        blank = self.endpointer.config.blank
+        if self.batch_runner is not None:
+            ys, host, self.state = self.batch_runner.submit(
+                chunk, self.state, self.offset, self.valid_cache,
+                real_out).result()
+            ys, host = ys[0, :real_out], host[:real_out]
+        else:
+            chunk_out = (cfg.decoding_window - context) // \
+                cfg.subsampling_rate + 1
+            att_mask = streaming_att_mask(1, cfg.required_cache_size,
+                                          chunk_out, self.valid_cache,
+                                          real_out, self.device)
+            xs = torch.from_numpy(chunk)[None].to(self.device)
+            ys, att_cache, cnn_cache = model.forward_encoder_chunk(
+                xs, self.offset, *self.state, att_mask)
+            self.state = (att_cache, cnn_cache)
+            ys = ys[0, :real_out]
+            # the one device-to-host copy of the step
+            host = model.ctc_host_rows(ys, k, blank).cpu().numpy()
         self.offset += real_out
         self.valid_cache = min(self.valid_cache + real_out,
                                cfg.required_cache_size)
-        ys = ys[0, :real_out]
         self.encoder_outs.append(ys)
-        logp = model.ctc_activation(ys).float()
-        vals, ids = torch.topk(logp, self.opts.beam_size, dim=-1)
-        blank = self.endpointer.config.blank
-        # the one device-to-host copy of the step
-        host = torch.cat([vals, ids.float(), logp[:, blank:blank + 1]],
-                         dim=1).cpu().numpy()
-        k = self.opts.beam_size
         self.searcher.search_topk(host[:, :k], host[:, k:2 * k].astype(
             np.int32))
         hyps = self.searcher.hypotheses
@@ -196,6 +225,8 @@ class AsrDecoder:
         for i, hyp in enumerate(hyps):
             r = DecodeResult(score=likelihood[i])
             text, tokens = self.tokenizer.detokenize([int(t) for t in hyp])
+            if self.post_processor is not None:
+                text = self.post_processor.process(text, finish)
             r.sentence = text
             if finish and i < len(times):
                 for w, t in zip(tokens, times[i]):
@@ -225,6 +256,8 @@ class AsrDecoder:
                                    enc_lens, self.opts.ctc_weight,
                                    self.opts.reverse_weight)[0]
         text, tokens = self.tokenizer.detokenize([int(t) for t in best.tokens])
+        if self.post_processor is not None:
+            text = self.post_processor.process(text, True)
         r = DecodeResult(sentence=text, score=best.score)
         if best.times:
             fs = self.endpointer.frame_shift_in_ms

@@ -4,7 +4,12 @@ package.
 `save_checkpoint` / `load_checkpoint` are the counterparts of
 wenet_tpu/utils/checkpoint.py's: the model's `state_dict` (torch.save)
 with a YAML sidecar of infos (step, epoch, cv loss...), loaded back with
-`strict=True`.
+`strict=True`.  `load_checkpoint` also reads the reference layout that
+the JAX package's `save_torch_checkpoint` writes (`final.pt`) and a
+TorchScript `final.zip`; an orbax directory needs JAX and raises.
+`find_checkpoint` and `load_model_dir` read a model directory
+(train.yaml, the tokenizer's files, a final checkpoint), as the JAX
+package's servers and `decoder_main` do.
 
 `state_dict_from_jax` turns the JAX package's variables (nested dicts of
 arrays: 'params', 'cmvn' and, where present, 'batch_stats') into this
@@ -92,7 +97,7 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def _info_path(path: str) -> str:
-    return re.sub(r'\.pt$', '', path) + '.yaml'
+    return re.sub(r'\.(pt|pth|bin|zip)$', '', path) + '.yaml'
 
 
 def save_checkpoint(model: torch.nn.Module, path: str,
@@ -106,11 +111,69 @@ def save_checkpoint(model: torch.nn.Module, path: str,
 
 
 def load_checkpoint(model: torch.nn.Module, path: str) -> dict:
-    """Load a `save_checkpoint` file into `model` (strict) -> its infos."""
-    state = torch.load(path, map_location='cpu', weights_only=True)
+    """Load a checkpoint into `model` (strict) -> the infos beside it.
+
+    `path` is a state dict (.pt, .pth, .bin: `save_checkpoint`'s, or the
+    reference layout, with the JAX package's `module.` prefixes stripped
+    and a `state_dict` key unwrapped, as its `load_checkpoint` does) or a
+    TorchScript archive (.zip), read through its `state_dict()`.  Keys the
+    reference persists that the port has no tensor for (sinusoidal `pe`
+    tables, recomputed here) are dropped, and BatchNorm step counts the
+    JAX package does not write start at 0."""
+    if path.endswith('.zip'):
+        state = torch.jit.load(path, map_location='cpu').state_dict()
+    elif path.endswith(('.pt', '.pth', '.bin')):
+        state = torch.load(path, map_location='cpu', weights_only=True)
+    else:
+        raise NotImplementedError(
+            f'{path} is not a torch checkpoint: an orbax checkpoint needs '
+            'JAX to read; write a final.pt from it with '
+            'wenet_tpu.utils.checkpoint.save_torch_checkpoint')
+    if 'state_dict' in state:
+        state = state['state_dict']
+    state = {k.removeprefix('module.'): v for k, v in state.items()}
+    own = model.state_dict()
+    state = {k: v for k, v in state.items()
+             if k in own or not k.endswith('.pe')}
+    for k in own:
+        if k.endswith('num_batches_tracked') and k not in state:
+            state[k] = torch.zeros_like(own[k])
     model.load_state_dict(state, strict=True)
     info_path = _info_path(path)
     if not os.path.exists(info_path):
         return {}
     with open(info_path) as f:
         return yaml.safe_load(f) or {}
+
+
+def find_checkpoint(model_dir: str) -> str:
+    """The model directory's final checkpoint: `final` (orbax), `final.pt`
+    or `final.zip`, the first that exists."""
+    for cand in ('final', 'final.pt', 'final.zip'):
+        p = os.path.join(model_dir, cand)
+        if os.path.exists(p):
+            return p
+    raise FileNotFoundError(f'no checkpoint (final*) in {model_dir}')
+
+
+def load_model_dir(model_dir: str, device='cuda'):
+    """A model directory -> (model on `device` in eval mode, configs with
+    `input_dim` and `output_dim` set, tokenizer).
+
+    The cmvn stats are the checkpoint's `encoder.global_cmvn` buffers.
+    `cmvn_conf.cmvn_file` is not read: it is relative to the recipe and
+    absent from a model directory, and where the JAX package does find it
+    the checkpoint overwrites what it read, so the stats are the same."""
+    from wenet_tpu_torch.utils.config import load_config
+    from wenet_tpu_torch.utils.init_model import init_model
+    from wenet_tpu_torch.utils.init_tokenizer import init_tokenizer
+    configs = load_config(os.path.join(model_dir, 'train.yaml'))
+    tokenizer = init_tokenizer(configs)
+    configs.setdefault('input_dim', configs.get('dataset_conf', {}).get(
+        'fbank_conf', {}).get('num_mel_bins', 80))
+    configs.setdefault('output_dim', tokenizer.vocab_size())
+    path = find_checkpoint(model_dir)
+    model = init_model(configs, device='meta')
+    model.to_empty(device=device)
+    load_checkpoint(model, path)
+    return model.eval(), configs, tokenizer
