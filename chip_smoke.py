@@ -109,6 +109,26 @@ Phases, each of which raises on failure (non-zero exit):
               9c's utterances writes 9c's finals; http_server_main answers
               one request on a free port and WenetRecognizer one decode,
               both equal to 9c's decoder at their default options
+  10. train entry: the recipe's stages 1, 4 and 5 on written data (48
+              train wavs of 3-12 s, four at 8 kHz, in a raw list; 8 cv
+              wavs in a local tar shard; random char transcripts):
+              bin/compute_cmvn_stats, then bin/train.main with the
+              flagship yaml at full width (the dict and cmvn paths,
+              max_epoch 2 and log_interval 1 overridden; speed perturb,
+              dither, SpecAugment, SpecSub, shuffle, sort, pad 64,
+              dynamic batches of 12000 frames) and a profiler window,
+              then bin/average_model --num 2 --val_best and decoder_main
+              on a model directory of the average, on the card and on
+              the CPU.  Checks: the entry point's first step (its batch,
+              weights, cmvn and seeds; nn.Dropout at 0, K1's hash dropout
+              and the dynamic chunk kept) on the card against the CPU
+              (loss rtol 1e-4, grads 1e-3); finite losses; both epoch
+              checkpoints and the average; 12 launches of K1-train, K2
+              and K3 a step, in the counts and in the trace; K1
+              (inference) in cv; the card's hypotheses equal the CPU's.
+              Prints each step's batch, data wait and step time, each
+              epoch's steps/s and audio-sec/s, cv, save and averaging
+              times, and the card's busy share over the profiled steps
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX
 package (wenet_tpu), and checks so at the end.
@@ -1023,9 +1043,9 @@ def train_check():
         if not torch.equal(a.cpu(), w):
             raise RuntimeError(f'checkpoint: {name} differs after loading')
     opt2, schedule2 = init_optimizer_and_scheduler(configs, fresh)
-    resumed = restore_optimizer_step(TrainState(fresh, opt2), infos['step'])
-    lr_next, lr_resumed = (schedule(state.step // accum),
-                           schedule2(resumed.step // accum))
+    resumed = restore_optimizer_step(TrainState(fresh, opt2), infos['step'],
+                                     accum)
+    lr_next, lr_resumed = schedule(state.updates), schedule2(resumed.updates)
     if lr_next != lr_resumed:
         raise RuntimeError(f'resumed lr {lr_resumed} != {lr_next}')
     print(f'  checkpoint step_5.pt: strict load, weights equal, cv_loss '
@@ -2747,6 +2767,282 @@ def streaming_checks(smi):
     return launches, readings, batched_launches, batched
 
 
+# ---------------------------------------------------------------------------
+# 10. the training entry point: the recipe's stages 1, 4 and 5
+# ---------------------------------------------------------------------------
+RECIPE_UTTS = (48, 8)  # train, cv utterances
+RECIPE_SECONDS = (3.0, 12.0)
+RECIPE_8K = 4  # train utterances written at 8 kHz, so that resample runs
+ENTRY_DECODE = 4  # wavs decoder_main decodes on the card and on the CPU
+RECIPE_TRAIN_SHARDS = 4
+
+
+def write_shards(d, name, entries, n_shards):
+    """`entries` in `n_shards` local tars (wav and txt members per key)
+    and their shard list -> the list's path."""
+    import tarfile
+    tars = []
+    for i in range(n_shards):
+        tars.append(os.path.join(d, f'{name}_{i}.tar'))
+        with tarfile.open(tars[-1], 'w') as tar:
+            for e in entries[i::n_shards]:
+                tar.add(e['wav'], arcname=e['key'] + '.wav')
+                txt = os.path.join(d, 'txt.tmp')
+                with open(txt, 'w', encoding='utf-8') as f:
+                    f.write(e['txt'])
+                tar.add(txt, arcname=e['key'] + '.txt')
+    shard_list = os.path.join(d, f'{name}.list')
+    with open(shard_list, 'w') as f:
+        f.writelines(t + '\n' for t in tars)
+    return shard_list
+
+
+def write_recipe(d, tokenizer):
+    """lang_char.txt, a train and a cv shard list (local tars; the
+    trainer takes one --data_type for both) and the train wav.scp of
+    speech-like wavs with random transcripts of the tokenizer's chars ->
+    (dict, train list, cv list, wav.scp, train wav paths)."""
+    from wenet_tpu_torch.dataset.audio import write_wav
+    rng = np.random.RandomState(SEED + 10)
+    units = os.path.join(d, 'lang_char.txt')
+    with open(units, 'w', encoding='utf-8') as f:
+        for sym, i in sorted(tokenizer.symbol_table.items(),
+                             key=lambda kv: kv[1]):
+            f.write(f'{sym} {i}\n')
+    chars = [s for s, i in tokenizer.symbol_table.items() if i >= 3]
+    entries = []
+    for i in range(sum(RECIPE_UTTS)):
+        seconds = rng.uniform(*RECIPE_SECONDS)
+        wav, rate = speech_like(rng, seconds), SR
+        if i < RECIPE_8K:
+            wav, rate = wav[::2], SR // 2
+        path = os.path.join(d, f'utt{i}.wav')
+        write_wav(path, wav, rate)
+        n = int(3 * seconds) + rng.randint(0, 6)
+        entries.append({'key': f'utt{i}', 'wav': path,
+                        'txt': ''.join(rng.choice(chars, size=n))})
+    train, cv = entries[:RECIPE_UTTS[0]], entries[RECIPE_UTTS[0]:]
+    scp = os.path.join(d, 'wav.scp')
+    with open(scp, 'w') as f:
+        f.writelines(f'{e["key"]} {e["wav"]}\n' for e in train)
+    return (units, write_shards(d, 'train', train, RECIPE_TRAIN_SHARDS),
+            write_shards(d, 'cv', cv, 1), scp, [e['wav'] for e in train])
+
+
+def entry_first_step(args):
+    """The entry point's first step (its first batch, initial weights,
+    cmvn and step seeds) on the card against the CPU, held to 6c's bars.
+    The decoder's and the feed-forward dropouts (nn.Dropout) draw from the
+    device's RNG, whose streams differ between the card and the CPU, so
+    they are set to 0 here; the rel-pos attention dropout (K1-train's
+    hash) and the dynamic chunk (a host draw) stay."""
+    from wenet_tpu_torch.bin import train
+    from wenet_tpu_torch.models.transformer.attention import (
+        RelPositionMultiHeadedAttention)
+    from wenet_tpu_torch.utils.executor import to_device_batch
+    from wenet_tpu_torch.utils.train_utils import (
+        TrainState, init_optimizer_and_scheduler, make_train_step)
+    run = train.build(args)
+    it = iter(run.train_dataset)
+    batch = next(it)
+    it.close()
+    cpu_model = copy.deepcopy(run.model).cpu()
+    configs = run.configs
+    kept = 0
+    for model in (run.model, cpu_model):
+        hash_dropouts = {id(m.dropout) for m in model.modules()
+                         if isinstance(m, RelPositionMultiHeadedAttention)}
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                if id(m) in hash_dropouts:
+                    kept += m.p > 0
+                else:
+                    m.p = 0.0
+    opt, schedule = init_optimizer_and_scheduler(configs, cpu_model)
+    cpu_step = make_train_step(cpu_model, opt, schedule, None,
+                               configs['accum_grad'], configs['grad_clip'])
+    outs = []
+    for step, model, dev, state in (
+            (run.train_step, run.model, 'cuda', run.state),
+            (cpu_step, cpu_model, 'cpu', TrainState(cpu_model, opt))):
+        _, m = step(state, to_device_batch(batch, dev), (args.seed, 0))
+        outs.append(({k: float(v) for k, v in m.items()},
+                     {n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()}))
+    (card, card_grads), (cpu, cpu_grads) = outs
+    B, T = batch['feats'].shape[:2]
+    for k in ('loss', 'loss_att', 'loss_ctc'):
+        print(f'  first step, B={B} x T={T}, K1 dropout on {kept // 2} '
+              f'blocks: {k} card {card[k]:.6f} cpu {cpu[k]:.6f}')
+        if not abs(card[k] - cpu[k]) <= 1e-4 * abs(cpu[k]) + 1e-6:
+            raise RuntimeError(f'entry first step: {k} differs from the '
+                               'CPU beyond rtol 1e-4')
+    worst = max((card_grads[n] - g).abs().max().item()
+                for n, g in cpu_grads.items())
+    if worst > 1e-3 or not all(torch.isfinite(g).all()
+                               for g in card_grads.values()):
+        raise RuntimeError(f'entry first step: grads differ from the CPU '
+                           f'by {worst} (bar 1e-3) or are not finite')
+    print(f'  first step: clipped grads of {len(cpu_grads)} parameters, '
+          f'max |card - cpu| {worst:.3g} (bar 1e-3)')
+    del run, cpu_model
+    torch.cuda.empty_cache()
+
+
+def trace_readings(path):
+    """(kernel launches by K1 / K2 / K3 name, kernel time / the traced
+    span) of a torch.profiler Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    timed = [e for e in events if e.get('ph') == 'X' and 'dur' in e]
+    kernels = [e for e in timed if e.get('cat') == 'kernel']
+    span = (max(e['ts'] + e['dur'] for e in timed) -
+            min(e['ts'] for e in timed))
+    counts = {key: sum(key in e['name'] for e in kernels)
+              for key in ('relpos_fwd_', 'relpos_bwd_dq_',
+                          'relpos_bwd_dkpv_')}
+    return counts, sum(e['dur'] for e in kernels) / span
+
+
+def train_entry_check(smi):
+    phase('10 train entry: compute_cmvn_stats, train, average_model, '
+          'decoder_main')
+    import logging
+    import re
+    import shutil
+    import yaml
+    from wenet_tpu_torch.bin import (average_model, compute_cmvn_stats,
+                                     decoder_main, train)
+    from wenet_tpu_torch.ops import flash_attention as fa
+    d = tempfile.mkdtemp(prefix='chip_smoke_recipe_')
+    units, train_list, cv_list, scp, train_wavs = write_recipe(
+        d, flagship_tokenizer())
+    cmvn = os.path.join(d, 'global_cmvn')
+    t0 = time.perf_counter()
+    stats = compute_cmvn_stats.main(['--train_config', CONFIG, '--in_scp',
+                                     scp, '--out_cmvn', cmvn])
+    print(f'  stage 1: cmvn stats of {stats["frame_num"]} frames in '
+          f'{time.perf_counter() - t0:.2f} s')
+    exp = os.path.join(d, 'exp')
+    argv = ['--config', CONFIG, '--train_data', train_list, '--cv_data',
+            cv_list, '--data_type', 'shard', '--model_dir', exp,
+            '--seed', str(SEED), '--device', 'cuda',
+            '--override_config', f'tokenizer_conf.symbol_table_path {units}',
+            '--override_config', f'cmvn_conf.cmvn_file {cmvn}',
+            '--override_config', 'max_epoch 2',
+            '--override_config', 'log_interval 1',
+            '--profile_dir', os.path.join(d, 'profile'),
+            '--profile_start_step', '1', '--profile_steps', '3']
+    entry_first_step(train.get_parser().parse_args(argv))
+
+    losses = []
+
+    class Losses(logging.Handler):
+        def emit(self, record):
+            m = re.search(r'TRAIN \|.* \| loss (\S+) ', record.getMessage())
+            if m:
+                losses.append(float(m.group(1)))
+
+    handler = Losses()
+    logging.getLogger().addHandler(handler)
+    logging.getLogger().setLevel(logging.INFO)
+    records = []
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        summary = train.main(argv, on_step=records.append)
+    finally:
+        logging.getLogger().removeHandler(handler)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    wall = time.perf_counter() - t0
+    epochs = summary['epochs']
+    print(f'  stage 4: train.main, 2 epochs in {wall:.1f} s (model init, '
+          f'cv and saves included; {smi})')
+    for r, loss in zip(records, losses):
+        print(f'    epoch {r["epoch"]} step {r["step"]}: B={r["batch"]} x '
+              f'T={r["frames"]} ({r["audio_frames"] / 100:.1f} s of audio), '
+              f'loss {loss:.4f}, data wait {1e3 * r["data_wait"]:.1f} ms, '
+              f'step {1e3 * r["step_time"]:.1f} ms')
+    for e in epochs:
+        print(f'    epoch {e["epoch"]}: {e["steps"]} steps in '
+              f'{e["train_seconds"]:.3f} s, '
+              f'{e["steps"] / e["train_seconds"]:.3f} steps/s, '
+              f'{e["audio_seconds"] / e["train_seconds"]:.1f} audio-sec/s; '
+              f'data wait {e["data_wait_seconds"]:.3f} s; profiler start '
+              f'and trace {e["profile_seconds"]:.3f} s (left out); cv '
+              f'{e["cv_seconds"]:.3f} s (loss {e["cv"]["loss"]:.4f}); '
+              f'checkpoint save {e["save_seconds"]:.3f} s ({smi})')
+    firsts = {min(r['step'] for r in records if r['epoch'] == e['epoch'])
+              for e in epochs}
+    later = [r for r in records if r['step'] not in firsts]
+    waits = [r['data_wait'] for r in later]
+    steps = [r['step_time'] for r in later]
+    print(f'    after each epoch\'s first step: data wait '
+          f'{1e3 * np.mean(waits):.1f} ms a step (max '
+          f'{1e3 * max(waits):.1f}) beside a step of '
+          f'{1e3 * np.mean(steps):.1f} ms')
+    if len(losses) != len(records) or not np.isfinite(losses).all():
+        raise RuntimeError(f'train entry: losses {losses}')
+    for e in (0, 1):
+        if not os.path.exists(os.path.join(exp, f'epoch_{e}.pt')):
+            raise RuntimeError(f'train entry: no epoch_{e}.pt')
+    # the window opens after step 1 and closes after step 4, or at the end
+    # of the epoch
+    traced = sum(r['epoch'] == 0 and 1 < r['step'] <= 4 for r in records)
+    counts, busy = trace_readings(summary['profile_trace'])
+    print(f'    profiled steps 2-{traced + 1}: kernel launches {counts}; card '
+          f'busy {100 * busy:.1f}% of the traced span ({smi})')
+    n_blocks = flagship_configs()['encoder_conf']['num_blocks']
+    if not traced or any(n != traced * n_blocks for n in counts.values()):
+        raise RuntimeError(f'trace: {counts} over {traced} steps, expected '
+                           f'{n_blocks} a step each')
+    n_steps = len(records)
+    for name in TRAIN_KERNELS:
+        if launches[name] != n_blocks * n_steps:
+            raise RuntimeError(f'{name}: {launches[name]} launches over '
+                               f'{n_steps} steps, expected {n_blocks} a step')
+    if launches['relpos_attention_fwd'] == 0:
+        raise RuntimeError('cv ran without K1 (inference)')
+    print(f'    launches: {launches} (K1 inference: cv)')
+
+    t0 = time.perf_counter()
+    avg = os.path.join(d, 'avg_2.pt')
+    chosen = average_model.main(['--src_path', exp, '--dst_model', avg,
+                                 '--num', '2', '--val_best'])
+    print(f'  stage 5: average_model --num 2 --val_best of '
+          f'{[os.path.basename(p) for p in chosen]} in '
+          f'{time.perf_counter() - t0:.2f} s')
+    if len(chosen) != 2 or not os.path.exists(avg):
+        raise RuntimeError('average_model did not average two epochs')
+    model_dir = os.path.join(d, 'model')
+    os.makedirs(model_dir)
+    shutil.copy(os.path.join(exp, 'train.yaml'), model_dir)
+    shutil.copy(units, os.path.join(model_dir, 'units.txt'))
+    shutil.copy(avg, os.path.join(model_dir, 'final.pt'))
+    wavs = train_wavs[RECIPE_8K:RECIPE_8K + ENTRY_DECODE]
+    wav_scp = os.path.join(d, 'decode.scp')
+    with open(wav_scp, 'w') as f:
+        f.writelines(f'utt{i} {w}\n' for i, w in enumerate(wavs))
+    texts = {}
+    for dev in ('cuda', 'cpu'):
+        t0 = time.perf_counter()
+        result = os.path.join(d, f'text_{dev}')
+        decoder_main.main(['--model_dir', model_dir, '--wav_scp', wav_scp,
+                           '--result_file', result, '--device', dev])
+        with open(result, encoding='utf-8') as f:
+            texts[dev] = f.read().splitlines()
+        print(f'  decoder_main --device {dev}: {len(texts[dev])} results in '
+              f'{time.perf_counter() - t0:.1f} s (load included)')
+    if texts['cuda'] != texts['cpu'] or len(texts['cuda']) != ENTRY_DECODE:
+        raise RuntimeError(f'decoder_main: card {texts["cuda"]} != cpu '
+                           f'{texts["cpu"]}')
+    print(f'  the averaged model\'s hypotheses on the card equal the CPU\'s '
+          f'({sum(len(t.split(" ", 1)[-1]) for t in texts["cuda"])} chars)')
+    shutil.rmtree(d)
+    return launches
+
+
 def main():
     smi = device()
     build()
@@ -2767,6 +3063,7 @@ def main():
     whisper_train_speed(smi)
     (stream_launches, stream_readings, batched_launches,
      batched_readings) = streaming_checks(smi)
+    entry_launches = train_entry_check(smi)
     foreign = [m for m in sys.modules
                if m == 'jax' or m.startswith('jax.') or m == 'wenet_tpu'
                or m.startswith('wenet_tpu.')]
@@ -2779,11 +3076,13 @@ def main():
         'launches': launches + stream_launches + batched_launches, **report,
         'launches_decode': launches, 'launches_streaming': stream_launches,
         'launches_batched_serving': batched_launches,
+        'launches_train_entry': entry_launches['relpos_attention_fwd'],
         'streaming': stream_readings, 'batched_serving': batched_readings}]
     for name, (source, replaces) in TRAIN_KERNELS.items():
         kernels.append(dict(name=name, route='cuda', source=source,
                             replaces=replaces,
                             launches=train_launches[name],
+                            launches_train_entry=entry_launches[name],
                             **train_report[name]))
     kernels.append(dict(name='flash_attention_fwd', route='cuda',
                         source='wenet_tpu_torch/csrc/flash_attention.cu',

@@ -13,9 +13,9 @@ the CTC score; 0.5 there).
     python -m wenet_tpu_torch.bin.decoder_main --model_dir exp/u2pp \\
         --wav_scp data/test/wav.scp --result_file text --device cuda
 
-The n-gram LM (--lm_path) and WFST decoding (--fst_path) are not ported
-and raise (their --lm_weight and --dict_path come with them); so does
-audio other than RIFF wav (FLAC)."""
+Reads RIFF wav and FLAC.  The n-gram LM (--lm_path) and WFST decoding
+(--fst_path) are not ported and raise (their --lm_weight and --dict_path
+come with them)."""
 
 import argparse
 import logging
@@ -58,12 +58,8 @@ def decoder_args(**kw) -> types.SimpleNamespace:
 
 def decode_utt(decoder, wav_path, simulate_streaming, interval_ms):
     """-> (text, audio seconds, decode seconds)."""
-    from wenet_tpu_torch.dataset.audio import read_wav
-    with open(wav_path, 'rb') as f:
-        if f.read(4) == b'fLaC':
-            raise NotImplementedError(f'{wav_path}: FLAC is not ported '
-                                      '(ROADMAP.md, queue 1 item 4)')
-    pcm, rate = read_wav(wav_path)
+    from wenet_tpu_torch.dataset.audio import read_audio
+    pcm, rate = read_audio(wav_path)
     pcm = pcm[0]  # the first channel
     wave_dur = len(pcm) / rate
     samples_per_chunk = int(rate * interval_ms / 1000)

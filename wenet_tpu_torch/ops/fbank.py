@@ -1,7 +1,7 @@
 """Kaldi fbank and whisper's log-mel.  Counterpart of
 wenet_tpu/ops/fbank.py (`compute_fbank` and whisper's
-`compute_log_mel_spectrogram` on device tensors, `compute_fbank_np` and
-`compute_log_mel_spectrogram_np` on the host); MFCC is not ported.
+`compute_log_mel_spectrogram` and `compute_mfcc` on device tensors,
+their `_np` copies on the host).
 
 Kaldi's pipeline: frames (snip_edges) -> remove DC -> pre-emphasis (x[0]
 duplicated) -> povey window -> zero pad to the next power of two ->
@@ -15,6 +15,7 @@ float32 after: the card's features then follow the host's
 projection.  The JAX package's float32 FFT differs from both by up to
 ≈ 2.5e-4 in the quietest bins of a log-mel feature."""
 
+import math
 from functools import lru_cache
 
 import numpy as np
@@ -128,6 +129,44 @@ def compute_fbank(waveform: torch.Tensor,
 
 
 @lru_cache(maxsize=8)
+def dct_matrix(num_ceps: int, num_mel_bins: int) -> np.ndarray:
+    """Type-II DCT matrix with kaldi's normalization (num_mel, num_ceps)."""
+    m = np.zeros((num_mel_bins, num_ceps), np.float32)
+    m[:, 0] = math.sqrt(1.0 / num_mel_bins)
+    for c in range(1, num_ceps):
+        m[:, c] = (math.sqrt(2.0 / num_mel_bins) *
+                   np.cos(math.pi * c *
+                          (np.arange(num_mel_bins) + 0.5) / num_mel_bins))
+    return m
+
+
+@lru_cache(maxsize=8)
+def lifter_coeffs(num_ceps: int, q: float = 22.0) -> np.ndarray:
+    i = np.arange(num_ceps)
+    return (1.0 + 0.5 * q * np.sin(np.pi * i / q)).astype(np.float32)
+
+
+def compute_mfcc(waveform: torch.Tensor,
+                 num_mel_bins: int = 23,
+                 num_ceps: int = 13,
+                 cepstral_lifter: float = 22.0,
+                 low_freq: float = 20.0,
+                 high_freq: float = 0.0,
+                 **fbank_kwargs) -> torch.Tensor:
+    """Kaldi MFCC: the DCT-II of the log-mel fbank, liftered."""
+    logmel = compute_fbank(waveform, num_mel_bins=num_mel_bins,
+                           low_freq=low_freq, high_freq=high_freq,
+                           **fbank_kwargs)
+    dct = torch.from_numpy(dct_matrix(num_ceps, num_mel_bins)).to(
+        logmel.device, torch.float64)
+    feats = torch.matmul(logmel.double(), dct).float()
+    if cepstral_lifter > 0:
+        feats = feats * torch.from_numpy(
+            lifter_coeffs(num_ceps, cepstral_lifter)).to(feats.device)
+    return feats
+
+
+@lru_cache(maxsize=8)
 def slaney_mel_banks(num_bins: int, n_fft: int,
                      sample_rate: int) -> np.ndarray:
     """librosa's slaney-normalized mel filters, as whisper uses them:
@@ -196,7 +235,7 @@ def compute_log_mel_spectrogram(waveform: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# numpy copies for the host (the streaming feature pipeline)
+# numpy copies for the host (the data pipeline, the streaming front end)
 # ---------------------------------------------------------------------------
 def compute_fbank_np(waveform: np.ndarray,
                      num_mel_bins: int = 80,
@@ -206,11 +245,12 @@ def compute_fbank_np(waveform: np.ndarray,
                      dither: float = 0.0,
                      preemphasis: float = 0.97,
                      remove_dc_offset: bool = True,
-                     rng: np.random.RandomState = None,
+                     rng=None,
                      log_floor: float = 1.1920928955078125e-07,
                      low_freq: float = 20.0,
                      high_freq: float = 0.0) -> np.ndarray:
-    """numpy kaldi fbank; the same pipeline as `compute_fbank`."""
+    """numpy kaldi fbank; the same pipeline as `compute_fbank`.  Dither
+    draws from `rng` (a numpy Generator or RandomState)."""
     waveform = np.asarray(waveform, np.float32)
     frame_length = int(sample_rate * frame_length_ms / 1000)
     frame_shift = int(sample_rate * frame_shift_ms / 1000)
@@ -224,8 +264,8 @@ def compute_fbank_np(waveform: np.ndarray,
            np.arange(frame_length)[None, :])
     frames = waveform[..., idx]
     if dither != 0.0:
-        rng = rng or np.random
-        frames = frames + dither * rng.randn(*frames.shape).astype(
+        rng = np.random if rng is None else rng
+        frames = frames + dither * rng.standard_normal(frames.shape).astype(
             np.float32)
     if remove_dc_offset:
         frames = frames - frames.mean(-1, keepdims=True)
@@ -239,6 +279,20 @@ def compute_fbank_np(waveform: np.ndarray,
                           high_freq)
     energies = power.astype(np.float32) @ mel
     return np.log(np.maximum(energies, log_floor)).astype(np.float32)
+
+
+def compute_mfcc_np(waveform: np.ndarray, num_mel_bins: int = 23,
+                    num_ceps: int = 13, cepstral_lifter: float = 22.0,
+                    low_freq: float = 20.0, high_freq: float = 0.0,
+                    **kwargs) -> np.ndarray:
+    """numpy kaldi MFCC; the same pipeline as `compute_mfcc`."""
+    logmel = compute_fbank_np(waveform, num_mel_bins=num_mel_bins,
+                              low_freq=low_freq, high_freq=high_freq,
+                              **kwargs)
+    feats = logmel @ dct_matrix(num_ceps, num_mel_bins)
+    if cepstral_lifter > 0:
+        feats = feats * lifter_coeffs(num_ceps, cepstral_lifter)
+    return feats.astype(np.float32)
 
 
 def compute_log_mel_spectrogram_np(waveform: np.ndarray,

@@ -7,24 +7,19 @@ the n-gram LM are not ported: `make_searcher` raises for them, and
 without them finalizing adds no score and only closes the beam.
 
 The library is compiled with g++ at first use into
-`wenet_tpu_torch/build/`, keyed by the hash of the source, and `build()`
-raises when the compiler fails: there is no pure-Python fallback."""
+`wenet_tpu_torch/build/`, keyed by the hash of the source
+(`utils/native.py`), and `build()` raises when the compiler fails: there
+is no pure-Python fallback."""
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / 'csrc' / 'ctc_prefix_beam_search.cc'
-BUILD_DIR = _PKG / 'build'
+from wenet_tpu_torch.utils.native import load_library
+
 _lib: Optional[ctypes.CDLL] = None
 _build_lock = threading.Lock()
 
@@ -51,34 +46,13 @@ def _declare(lib: ctypes.CDLL) -> None:
 def build() -> ctypes.CDLL:
     """Compile (once per hash of the source) and load the library; safe
     to call from several threads."""
-    with _build_lock:
-        return _build()
-
-
-def _build() -> ctypes.CDLL:
     global _lib
-    if _lib is not None:
+    with _build_lock:
+        if _lib is None:
+            lib = load_library('ctc_prefix_beam_search.cc', 'ctc_beam')
+            _declare(lib)
+            _lib = lib
         return _lib
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f'libctc_beam_{tag}.so'
-    if not so.exists():
-        cxx = shutil.which(os.environ.get('CXX', 'g++'))
-        if cxx is None:
-            raise RuntimeError('no C++ compiler (g++) to build the CTC '
-                               'prefix beam searcher')
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
-        proc = subprocess.run(
-            [cxx, '-O2', '-std=c++17', '-shared', '-fPIC', '-o', str(tmp),
-             str(SOURCE)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f'g++ failed to build the CTC prefix beam '
-                               f'searcher:\n{proc.stderr[-4000:]}')
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    _declare(lib)
-    _lib = lib
-    return lib
 
 
 class NativeCtcPrefixBeamSearch:

@@ -4,9 +4,11 @@ package.
 `save_checkpoint` / `load_checkpoint` are the counterparts of
 wenet_tpu/utils/checkpoint.py's: the model's `state_dict` (torch.save)
 with a YAML sidecar of infos (step, epoch, cv loss...), loaded back with
-`strict=True`.  `load_checkpoint` also reads the reference layout that
-the JAX package's `save_torch_checkpoint` writes (`final.pt`) and a
-TorchScript `final.zip`; an orbax directory needs JAX and raises.
+`strict=True`.  `link_final` points a model directory's `final.pt` and
+`final.yaml` at its newest epoch, as the JAX trainer's `final` link.
+`load_checkpoint` also reads the reference layout that the JAX package's
+`save_torch_checkpoint` writes (`final.pt`) and a TorchScript
+`final.zip`; an orbax directory needs JAX and raises.
 `find_checkpoint` and `load_model_dir` read a model directory
 (train.yaml, the tokenizer's files, a final checkpoint), as the JAX
 package's servers and `decoder_main` do.
@@ -100,14 +102,24 @@ def _info_path(path: str) -> str:
     return re.sub(r'\.(pt|pth|bin|zip)$', '', path) + '.yaml'
 
 
-def save_checkpoint(model: torch.nn.Module, path: str,
-                    infos: Optional[dict] = None) -> None:
-    """Write `model.state_dict()` to `path` (e.g. step_1000.pt) and
-    `infos` beside it (step_1000.yaml)."""
+def save_checkpoint(model, path: str, infos: Optional[dict] = None) -> None:
+    """Write `model.state_dict()` (or `model`, a state dict) to `path`
+    (e.g. step_1000.pt) and `infos` beside it (step_1000.yaml)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save(model.state_dict(), path)
+    torch.save(model.state_dict() if isinstance(model, torch.nn.Module)
+               else model, path)
     with open(_info_path(path), 'w') as f:
         yaml.safe_dump(dict(infos or {}), f)
+
+
+def link_final(model_dir: str, name: str) -> None:
+    """Make `final.pt` / `final.yaml` in `model_dir` symlinks to
+    `name.pt` / `name.yaml`, replacing earlier links."""
+    for ext in ('.pt', '.yaml'):
+        final = os.path.join(model_dir, 'final' + ext)
+        tmp = f'{final}.{os.getpid()}.tmp'
+        os.symlink(name + ext, tmp)
+        os.replace(tmp, final)
 
 
 def load_checkpoint(model: torch.nn.Module, path: str) -> dict:

@@ -17,13 +17,19 @@ from wenet_tpu_torch.utils.scheduler import build_schedule
 
 
 class TrainState:
-    """The training state: `step` counts micro-steps; `acc_grads` holds
-    the running mean of the gradients of the accumulation window in
-    progress (None between updates)."""
+    """The training state: `step` counts micro-steps, `updates` the
+    optimizer updates (the schedule's position) and `micro` the position
+    in the accumulation window in progress, whose gradients' running mean
+    `acc_grads` holds (None between updates).  As optax's MultiSteps
+    keeps `gradient_step` and `mini_step`, the two counters are state of
+    their own: after a resume they are not `step // accum_grad` and
+    `step % accum_grad`."""
 
     def __init__(self, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer, step: int = 0):
         self.step = step
+        self.updates = 0
+        self.micro = 0
         self.model = model
         self.optimizer = optimizer
         self.acc_grads: Optional[List[torch.Tensor]] = None
@@ -58,11 +64,16 @@ def init_optimizer_and_scheduler(configs: dict, model: torch.nn.Module
     return opt, schedule
 
 
-def restore_optimizer_step(state: TrainState, step: int) -> TrainState:
-    """Resume at `step` micro-steps: the lr resumes mid-schedule (it is
-    read from the step count), and the accumulation window restarts.  As
-    in the JAX package, the optimizer's moments start afresh."""
+def restore_optimizer_step(state: TrainState, step: int,
+                           accum_grad: int = 1) -> TrainState:
+    """Resume at `step` micro-steps, as the JAX package's
+    `restore_optimizer_step` does: the update counter, which the lr
+    reads, is set to `step // accum_grad` once and then moves by one per
+    update; the accumulation window restarts at `step` (micro 0).  The
+    optimizer's moments start afresh."""
     state.step = step
+    state.updates = step // max(accum_grad, 1)
+    state.micro = 0
     state.acc_grads = None
     return state
 
@@ -83,15 +94,15 @@ def apply_gradients(state: TrainState, schedule: Callable[[int], float],
     """One micro-step of the update from each parameter's `.grad` (None
     counts as zero).  Every `accum_grad`-th call clips the mean gradient
     of the window to global norm `grad_clip` (no epsilon, as optax),
-    sets the lr to schedule(update index) and steps the optimizer.
+    sets the lr to schedule(`state.updates`) and steps the optimizer.
     -> (global norm of this micro-step's gradients, lr)."""
     opt = state.optimizer
     params = [p for group in opt.param_groups for p in group['params']]
     grads = [torch.zeros_like(p) if p.grad is None else p.grad
              for p in params]
     grad_norm = global_norm(grads)
-    lr = schedule(state.step // accum_grad)
-    micro = state.step % accum_grad
+    lr = schedule(state.updates)
+    micro = state.micro
     state.step += 1
     if accum_grad > 1:
         if micro == 0:
@@ -99,8 +110,11 @@ def apply_gradients(state: TrainState, schedule: Callable[[int], float],
         for acc, g in zip(state.acc_grads, grads):
             acc.add_((g - acc) / (micro + 1))  # running mean, as MultiSteps
         if micro < accum_grad - 1:
+            state.micro = micro + 1
             return grad_norm, lr
         grads, state.acc_grads = state.acc_grads, None
+    state.micro = 0
+    state.updates += 1
     if grad_clip > 0:
         norm = grad_norm if accum_grad == 1 else global_norm(grads)
         scale = torch.where(norm < grad_clip, 1.0, grad_clip / norm)
