@@ -129,6 +129,31 @@ Phases, each of which raises on failure (non-zero exit):
               Prints each step's batch, data wait and step time, each
               epoch's steps/s and audio-sec/s, cv, save and averaging
               times, and the card's busy share over the profiled steps
+  11. recognize: the recipe's decode stage (bin/recognize.py) on the
+              flagship at full width (random weights from the seed, saved
+              as the port's final.pt with train.yaml and units.txt) over
+              64 written wavs of 3-12 s in a raw list, batch 16, beam 10,
+              ctc_weight 0.3, reverse_weight 0.5: each of the four modes
+              alone and all four together.  Checks: each mode's text alone
+              == beside the other three; card == CPU on the first 16
+              utterances (4 in the attention mode); at least half the
+              hypotheses non-empty; 12 K1 launches per batch;
+              --context_list_path with three phrases of the best
+              hypotheses (list A) and with three chars of the n-best lists
+              that the fewest best hypotheses hold (list B): for each, the
+              C++ search on the card's top-k equals
+              ctc_prefix_beam_search_with_context (up to float32 near-ties
+              at the beam's edge), the recognize text is its best, and B's
+              chars appear in more hypotheses than without the list; the
+              C++ search with the LM fused on the card's top-k equals the
+              plain version with the same LM; --lm_path with a written
+              bigram ARPA equals a plain n-best rescoring; AsrDecoder with
+              the context and the LM card == CPU partial by partial;
+              bin/alignment card == CPU, each alignment collapsing to its
+              label.  Prints audio-sec/s per mode (recognize.main, and the
+              runner's loop over the Dataset; load excluded), the Dataset's
+              own rate, the card's busy share and kernel time a batch, and
+              the WER of each mode (tools/compute_wer.py: a reading)
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX
 package (wenet_tpu), and checks so at the end.
@@ -3043,6 +3068,448 @@ def train_entry_check(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 11. the recipe's decode stage: bin/recognize.py
+# ---------------------------------------------------------------------------
+RECOGNIZE_UTTS = 64
+RECOGNIZE_SECONDS = (3.0, 12.0)
+RECOGNIZE_ARGS = ['--batch_size', '16', '--beam_size', '10', '--ctc_weight',
+                  '0.3', '--reverse_weight', '0.5']
+RECOGNIZE_MODES = ['ctc_greedy_search', 'ctc_prefix_beam_search',
+                   'attention_rescoring', 'attention']
+RECOGNIZE_CPU = 16  # utterances decoded on the CPU too: the first batch
+# the attention beam on the CPU: on random weights it runs every step
+RECOGNIZE_CPU_ATTENTION = 4
+CONTEXT_CHECK_UTTS = 8  # utterances of the Python plain context search
+LM_WEIGHT = 0.5
+
+
+def write_decode_recipe(d, tokenizer, model):
+    """A model directory's files (train.yaml, units.txt, final.pt), 64
+    speech-like wavs of 3-12 s with random transcripts of the vocabulary,
+    data lists of all of them and of the first 16 and 4, and the reference
+    text -> {name: path}, the entries, the audio seconds."""
+    import yaml
+    from wenet_tpu_torch.dataset.audio import write_wav
+    rng = np.random.RandomState(SEED + 20)
+    paths = {n: os.path.join(d, n) for n in (
+        'units.txt', 'train.yaml', 'final.pt', 'all.list', 'cpu.list',
+        'att.list', 'ref.txt')}
+    with open(paths['units.txt'], 'w', encoding='utf-8') as f:
+        for sym, i in sorted(tokenizer.symbol_table.items(),
+                             key=lambda kv: kv[1]):
+            f.write(f'{sym} {i}\n')
+    with open(CONFIG) as f:
+        configs = yaml.safe_load(f)
+    configs['tokenizer_conf']['symbol_table_path'] = paths['units.txt']
+    with open(paths['train.yaml'], 'w') as f:
+        yaml.safe_dump(configs, f)
+    torch.save(model.state_dict(), paths['final.pt'])
+    chars = [s for s, i in tokenizer.symbol_table.items() if i >= 3]
+    entries, seconds = [], 0.0
+    for i in range(RECOGNIZE_UTTS):
+        s = rng.uniform(*RECOGNIZE_SECONDS)
+        seconds += s
+        wav = os.path.join(d, f'utt{i:02d}.wav')
+        write_wav(wav, speech_like(rng, s), SR)
+        entries.append({'key': f'utt{i:02d}', 'wav': wav, 'txt': ''.join(
+            rng.choice(chars, size=int(3 * s) + rng.randint(0, 6)))})
+    for name, n in (('all.list', RECOGNIZE_UTTS), ('cpu.list', RECOGNIZE_CPU),
+                    ('att.list', RECOGNIZE_CPU_ATTENTION)):
+        with open(paths[name], 'w', encoding='utf-8') as f:
+            f.writelines(json.dumps(e, ensure_ascii=False) + '\n'
+                         for e in entries[:n])
+    with open(paths['ref.txt'], 'w', encoding='utf-8') as f:
+        f.writelines(f'{e["key"]} {e["txt"]}\n' for e in entries)
+    return paths, entries, seconds
+
+
+def recognize_main(paths, modes, out, data='all.list', device='cuda',
+                   extra=()):
+    """bin/recognize.main -> ({mode: {key: text}}, its summary: decode
+    seconds through the Dataset, load excluded, and audio seconds)."""
+    from wenet_tpu_torch.bin import recognize
+    summary = recognize.main([
+        '--config', paths['train.yaml'], '--test_data', paths[data],
+        '--checkpoint', paths['final.pt'], *RECOGNIZE_ARGS, '--modes',
+        *modes, '--result_dir', out, '--device', device, *extra])
+    texts = {}
+    for mode in modes:
+        with open(os.path.join(out, mode, 'text'), encoding='utf-8') as f:
+            texts[mode] = dict((line.split(' ', 1) + [''])[:2]
+                               for line in f.read().splitlines())
+    return texts, summary
+
+
+def same_text(got, want, what):
+    if got != want:
+        diff = [k for k in want if got.get(k) != want[k]]
+        raise RuntimeError(f'{what}: {len(diff)} of {len(want)} texts '
+                           f'differ (first {diff[:3]}: '
+                           f'{[got.get(k, "")[:12] for k in diff[:3]]} vs '
+                           f'{[want[k][:12] for k in diff[:3]]})')
+
+
+def same_nbest(got, want, what, logp):
+    """Raise unless the C++ beam's (hyps, times, scores) equal the Python
+    plain version's DecodeResult up to float32 near-ties: the C++ beam sums
+    in float32, the plain version in float64, so two hypotheses whose
+    scores lie within the bar, 1e-5 + 1e-6 of their size, may swap, and
+    two alignments of one hypothesis whose Viterbi scores tie may put its
+    timestamps on other frames.  Every hypothesis in both lists has a
+    score within the bar; one in only one list ties the other list's last
+    within the bar (the beam's edge); the two bests differ only where they
+    tie.  -> the largest score difference, the number of swaps at the
+    edge, the number of hypotheses whose times moved, and the largest gap
+    between a moved token's log-probs (`logp`, (T, V)) at its two
+    frames."""
+    hyps, times, scores = got
+    theirs = {tuple(h): (t, s) for h, t, s in zip(
+        want.nbest, want.nbest_times, want.nbest_scores)}
+    ours = {tuple(h): (t, s) for h, t, s in zip(hyps, times, scores)}
+
+    def tie(a, b):
+        return abs(a - b) <= 1e-5 + 1e-6 * abs(b)
+
+    worst, swaps, moved, gap = 0.0, 0, 0, 0.0
+    for h, (t, sc) in ours.items():
+        if h in theirs:
+            if not tie(sc, theirs[h][1]):
+                raise RuntimeError(f'{what}: a hypothesis differs in score '
+                                   f'({sc} vs {theirs[h][1]})')
+            worst = max(worst, abs(sc - theirs[h][1]))
+            if list(t) != list(theirs[h][0]):
+                moved += 1
+                gap = max([gap] + [abs(float(logp[a, u] - logp[b, u]))
+                                   for u, a, b in zip(h, t, theirs[h][0])
+                                   if a != b])
+        elif not tie(sc, want.nbest_scores[-1]):
+            raise RuntimeError(f'{what}: the C++ beam keeps a hypothesis '
+                               f'the plain version does not ({sc})')
+        else:
+            swaps += 1
+    for h, (_, sc) in theirs.items():
+        if h not in ours and not tie(sc, scores[-1]):
+            raise RuntimeError(f'{what}: the plain version keeps a '
+                               f'hypothesis the C++ beam does not ({sc})')
+    if hyps[0] != want.nbest[0] and not tie(scores[0], want.nbest_scores[0]):
+        raise RuntimeError(f'{what}: the best hypotheses differ')
+    return worst, swaps, moved, gap
+
+
+def plain_search_check(what, cpp, plain, dense, keys, texts, tokenizer):
+    """Hold the C++ searches `cpp` to the plain version's results `plain`
+    on the log-probs `dense` (same_nbest) and, where `texts` ({key:
+    recognize's text}) is given, each recognize text to the checked
+    search's best.  On a mismatch, print both n-bests with their scores
+    before raising, to show whether the searches parted at a float32
+    near-tie.  -> a line of what held."""
+    worst, swaps, moved, gap = 0.0, 0, 0, 0.0
+    for b, (got, p) in enumerate(zip(cpp, plain)):
+        try:
+            w, n_swaps, n_moved, g = same_nbest(got, p,
+                                                f'{what}, utterance {b}',
+                                                dense[b])
+        except RuntimeError:
+            ours = [(len(h), float(s)) for h, s in zip(got[0], got[2])]
+            theirs = [(len(h), float(s))
+                      for h, s in zip(p.nbest, p.nbest_scores)]
+            print(f'  {what}, utterance {b}: (length, score) of the C++ '
+                  f'n-best {ours}; of the plain n-best {theirs}')
+            raise
+        worst, swaps = max(worst, w), swaps + n_swaps
+        moved, gap = moved + n_moved, max(gap, g)
+        if texts is not None and \
+                tokenizer.detokenize(got[0][0])[0] != texts[keys[b]]:
+            raise RuntimeError(f'{what}: the recognize text of {keys[b]} is '
+                               'not the checked search\'s best')
+    return (f'scores within {worst:.2g}, {swaps} near-tie swaps at the '
+            f'beam\'s edge, {moved} of {len(cpp) * len(cpp[0][0])} '
+            f'hypotheses with times on other frames of tied alignments '
+            f'(the moved tokens\' log-probs at their two frames {gap:.2g} '
+            'apart)')
+
+
+def recognize_check(smi):
+    phase('11 recognize: bin/recognize.py at full width, each mode alone and '
+          'all four, context, LM, alignment')
+    import shutil
+    from wenet_tpu_torch.bin import alignment, recognize
+    from wenet_tpu_torch.lm.arpa import read_arpa
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.runtime import native_beam
+    from wenet_tpu_torch.utils.context_graph import (
+        ContextGraph, ctc_prefix_beam_search_with_context)
+    from wenet_tpu_torch.utils.ctc_utils import remove_duplicates_and_blank
+    import logging
+    # recognize logs every hypothesis at INFO: a handler now, so that its
+    # basicConfig leaves the level alone
+    logging.basicConfig()
+    logging.getLogger().setLevel(logging.WARNING)
+    d = tempfile.mkdtemp(prefix='chip_smoke_recognize_')
+    tokenizer = flagship_tokenizer()
+    cpu_model = flagship_model().eval()
+    paths, entries, audio_s = write_decode_recipe(d, tokenizer, cpu_model)
+    n_blocks = flagship_configs()['encoder_conf']['num_blocks']
+    n_batches = -(-RECOGNIZE_UTTS // 16)
+    print(f'  {RECOGNIZE_UTTS} wavs, {audio_s:.1f} s of audio, '
+          f'{n_batches} batches of 16')
+
+    # a first run (the card's and the libraries' set-up) outside the timing
+    recognize_main(paths, ['ctc_greedy_search'], os.path.join(d, 'warm'),
+                   'att.list')
+    alone, launches, rates = {}, 0, {}
+    for mode in RECOGNIZE_MODES:
+        fa.reset_launches()
+        texts, summary = recognize_main(paths, [mode],
+                                        os.path.join(d, 'alone'))
+        rates[mode] = {'recognize': summary['audio_seconds'] /
+                       summary['seconds']}
+        n = fa.LAUNCHES['relpos_attention_fwd']
+        if n != n_blocks * n_batches:
+            raise RuntimeError(f'recognize {mode}: {n} K1 launches, expected '
+                               f'{n_blocks} x {n_batches} batches')
+        launches += n
+        alone[mode] = texts[mode]
+        print(f'  recognize --modes {mode}: '
+              f'{rates[mode]["recognize"]:.1f} audio-sec/s '
+              f'({summary["audio_seconds"]:.1f} s of valid frames in '
+              f'{summary["seconds"]:.3f} s, load excluded); K1 {n} launches '
+              f'({smi})')
+    together, summary = recognize_main(paths, RECOGNIZE_MODES,
+                                       os.path.join(d, 'all'))
+    print(f'  recognize with the four modes in one run: '
+          f'{summary["seconds"]:.3f} s, '
+          f'{summary["audio_seconds"] / summary["seconds"]:.1f} audio-sec/s')
+    for mode in RECOGNIZE_MODES:
+        same_text(alone[mode], together[mode],
+                  f'{mode} alone vs beside the other three')
+    nonempty = sum(bool(t) for m in together.values() for t in m.values())
+    total = len(RECOGNIZE_MODES) * RECOGNIZE_UTTS
+    print(f'  each mode alone == beside the other three; {nonempty} of '
+          f'{total} hypotheses non-empty')
+    if 2 * nonempty < total:
+        raise RuntimeError(f'only {nonempty} of {total} hypotheses are '
+                           'non-empty')
+
+    # the Dataset alone, then each mode's loop over it on one runner
+    # without recognize's writing (load left out); the card's busy share
+    # and kernel time a batch of the rescoring
+    args = recognize.get_parser().parse_args([
+        '--config', paths['train.yaml'], '--test_data', paths['all.list'],
+        '--checkpoint', paths['final.pt'], *RECOGNIZE_ARGS, '--result_dir',
+        d, '--device', 'cuda'])
+    _, _, blank_id, dataset, runner = recognize.build(args)
+    kw = dict(beam_size=10, ctc_weight=0.3, reverse_weight=0.5,
+              blank_id=blank_id)
+    t0 = time.perf_counter()
+    frames = sum(int(b['feats_lengths'].sum()) for b in dataset)
+    print(f'  the Dataset alone (wav reading, fbank, padding; one prefetch '
+          f'thread): {frames / 100 / (time.perf_counter() - t0):.1f} '
+          'audio-sec/s')
+    nbest = {}
+
+    def loop(mode):
+        for batch in dataset:
+            res = runner.decode([mode], batch['feats'],
+                                batch['feats_lengths'], **kw)[mode]
+            if mode == 'ctc_prefix_beam_search':
+                nbest.update(zip(batch['keys'], res))
+        torch.cuda.synchronize()
+
+    for mode in RECOGNIZE_MODES:
+        t0 = time.perf_counter()
+        loop(mode)
+        rates[mode]['runner'] = frames / 100 / (time.perf_counter() - t0)
+    print('  the runner\'s loop over the Dataset, audio-sec/s: ' +
+          ', '.join(f'{m} {r["runner"]:.1f}' for m, r in rates.items()) +
+          f' ({smi})')
+    _, busy, wall = busy_share(lambda: loop('attention_rescoring'))
+    print(f'  attention_rescoring, profiled: card busy {100 * busy:.1f}% of '
+          f'{wall:.2f} s, {1e3 * busy * wall / n_batches:.1f} ms of kernels '
+          f'in a batch of {1e3 * wall / n_batches:.1f} ms ({smi})')
+
+    # card against the CPU: the first batch, the attention beam on four
+    cpu, _ = recognize_main(paths, RECOGNIZE_MODES[:3],
+                            os.path.join(d, 'cpu'), 'cpu.list', 'cpu')
+    cpu_att, _ = recognize_main(paths, ['attention'],
+                                os.path.join(d, 'cpu_att'), 'att.list', 'cpu')
+    card_att, _ = recognize_main(paths, ['attention'],
+                                 os.path.join(d, 'card_att'), 'att.list')
+    for mode in RECOGNIZE_MODES[:3]:
+        same_text(cpu[mode], {k: together[mode][k] for k in cpu[mode]},
+                  f'{mode} card vs cpu')
+    same_text(cpu_att['attention'], card_att['attention'],
+              'attention card vs cpu')
+    print(f'  card == CPU: {RECOGNIZE_CPU} utterances in three modes, '
+          f'{RECOGNIZE_CPU_ATTENTION} in attention')
+
+    # the C++ searches on the first batch's top-k from the card, each held
+    # to the Python plain version on the same top-k
+    batch = next(iter(dataset))
+    with torch.inference_mode():
+        feats = torch.as_tensor(batch['feats'], device='cuda')
+        lens = torch.as_tensor(batch['feats_lengths'], device='cuda')
+        eo, mask = runner.model.forward_encoder(feats, lens)
+        vals, ids = runner.model.ctc_topk(eo, 10)
+    n = CONTEXT_CHECK_UTTS
+    vals, ids = vals[:n].float().cpu().numpy(), ids[:n].int().cpu().numpy()
+    enc_lens = mask[:n, 0].sum(-1).cpu().numpy()
+    dense = np.full(vals.shape[:2] + (4233,), -np.inf, np.float32)
+    np.put_along_axis(dense, ids.astype(np.int64), vals, axis=-1)
+    keys = batch['keys'][:n]
+
+    # context biasing.  List A, three phrases of the best hypotheses (their
+    # commonest two-char pieces, then chars).  List B, the three chars of
+    # the n-best lists that the fewest best hypotheses hold: the boost
+    # (random weights emit few distinct chars, so A's phrases are in most
+    # hypotheses already)
+    hyps = list(alone['ctc_prefix_beam_search'].values())
+    pieces = {}
+    for h in hyps:
+        for i in range(len(h) - 1):
+            pieces[h[i:i + 2]] = pieces.get(h[i:i + 2], 0) + 1
+    phrases = {'A': (sorted(pieces, key=lambda p: (-pieces[p], p)) +
+                     sorted({c for h in hyps for c in h}))[:3]}
+    alternatives = {}
+    for r in nbest.values():
+        for h in r.nbest[1:]:
+            for ch in set(tokenizer.detokenize(h)[0]):
+                alternatives[ch] = alternatives.get(ch, 0) + 1
+    held = {ch: sum(ch in h for h in hyps) for ch in alternatives}
+    phrases['B'] = sorted(held, key=lambda ch: (held[ch], -alternatives[ch],
+                                                ch))[:3]
+    for name, listed in phrases.items():
+        path = os.path.join(d, f'context_{name}.txt')
+        with open(path, 'w', encoding='utf-8') as f:
+            f.writelines(p + '\n' for p in listed)
+        texts = recognize_main(
+            paths, ['ctc_prefix_beam_search'], os.path.join(d, f'ctx_{name}'),
+            extra=['--context_list_path', path])[0]['ctc_prefix_beam_search']
+        graph = ContextGraph(path, tokenizer.symbol_table, context_score=6.0)
+        t0 = time.perf_counter()
+        cpp = native_beam.batch_search_topk(vals, ids, enc_lens, 10,
+                                            blank_id, context_graph=graph)
+        t_cpp = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = ctc_prefix_beam_search_with_context(dense, enc_lens, 10,
+                                                    graph, blank_id)
+        t_plain = time.perf_counter() - t0
+        held_up = plain_search_check(f'context {name}', cpp, plain, dense,
+                                     keys, texts, tokenizer)
+        boosted = [sum(p in t for t in texts.values()) for p in listed]
+        unboosted = [sum(p in h for h in hyps) for p in listed]
+        print(f'  context {name} {listed}: the C++ beam on the card\'s top-k '
+              f'== the plain version on {n} utterances ({held_up}; C++ '
+              f'{1e3 * t_cpp:.0f} ms, Python {t_plain:.1f} s), the recognize '
+              f'text its best; hypotheses with each phrase {boosted} with '
+              f'the list, {unboosted} without')
+        if name == 'B' and not any(b > u for b, u in zip(boosted,
+                                                          unboosted)):
+            raise RuntimeError('the context list boosted no phrase')
+    graph_a = ContextGraph(os.path.join(d, 'context_A.txt'),
+                           tokenizer.symbol_table, context_score=6.0)
+
+    # the LM: a bigram ARPA of the hypotheses' chars, fused into the C++
+    # search (as AsrDecoder does) and in recognize's n-best rescoring
+    words = sorted({c for t in hyps for c in t})
+    bigrams = sorted({t[i:i + 2] for t in hyps
+                      for i in range(len(t) - 1)})[:200]
+    rng = np.random.RandomState(SEED + 21)
+    lines = ['\\data\\', f'ngram 1={len(words) + 3}',
+             f'ngram 2={len(bigrams)}', '', '\\1-grams:', '-99\t<s>\t-0.5',
+             '-1.5\t</s>', '-4.0\t<unk>']
+    lines += [f'{-rng.uniform(1, 4):.3f}\t{w}\t{-rng.uniform(0, 1):.3f}'
+              for w in words]
+    lines += ['', '\\2-grams:'] + [
+        f'{-rng.uniform(0, 1):.3f}\t{b[0]} {b[1]}' for b in bigrams]
+    lines += ['', '\\end\\', '']
+    with open(os.path.join(d, 'lm.arpa'), 'w', encoding='utf-8') as f:
+        f.write('\n'.join(lines))
+    lm = read_arpa(os.path.join(d, 'lm.arpa'))
+    id2sym = {v: k for k, v in tokenizer.symbol_table.items()}
+    cpp = native_beam.batch_search_topk(vals, ids, enc_lens, 10, blank_id,
+                                        lm=lm, lm_weight=LM_WEIGHT,
+                                        symbol_table=id2sym)
+    plain = ctc_prefix_beam_search_with_context(
+        dense, enc_lens, 10, None, blank_id, lm=lm, lm_weight=LM_WEIGHT,
+        symbol_table=id2sym)
+    held_up = plain_search_check('LM fusion', cpp, plain, dense, keys, None,
+                                 tokenizer)
+    fused_moved = sum(got[0][0] != nbest[k].nbest[0]
+                      for got, k in zip(cpp, keys))
+    print(f'  LM fused into the C++ beam on the card\'s top-k == the plain '
+          f'version on {n} utterances ({held_up}); it changed {fused_moved} '
+          f'of {n} bests')
+    lm_text, _ = recognize_main(paths, ['ctc_prefix_beam_search'],
+                                os.path.join(d, 'lm'), extra=[
+                                    '--lm_path', os.path.join(d, 'lm.arpa'),
+                                    '--lm_weight', str(LM_WEIGHT)])
+    want, moved = {}, 0
+    for key, r in nbest.items():
+        fused = [s + LM_WEIGHT * lm.score_sequence([id2sym[t] for t in h])
+                 for h, s in zip(r.nbest, r.nbest_scores)]
+        best = r.nbest[int(np.argmax(fused))]
+        want[key] = tokenizer.detokenize(best)[0]
+        moved += best != r.nbest[0]
+    same_text(lm_text['ctc_prefix_beam_search'], want,
+              'recognize --lm_path vs plain n-best rescoring')
+    print(f'  --lm_path (a bigram ARPA of {len(words)} chars): equal to a '
+          f'plain n-best rescoring; it changed {moved} of '
+          f'{len(nbest)} winners')
+
+    # one stream through AsrDecoder with the context and the LM
+    wav = speech_like(np.random.RandomState(SEED + 22), 6.5)
+    streams = []
+    for model, dev in ((copy.deepcopy(cpu_model).cuda().eval(), 'cuda'),
+                       (cpu_model, 'cpu')):
+        from wenet_tpu_torch.runtime.asr_decoder import (AsrDecoder,
+                                                         DecodeOptions)
+        from wenet_tpu_torch.runtime.feature_pipeline import (
+            FeaturePipelineConfig)
+        dec = AsrDecoder(model, tokenizer, DecodeOptions(**STREAM_OPTS),
+                         FeaturePipelineConfig(num_mel_bins=80),
+                         context_graph=graph_a, lm=lm, lm_weight=LM_WEIGHT,
+                         device=dev)
+        streams.append(stream_utterance(dec, wav))
+    (card_p, card_f, _), (cpu_p, cpu_f, _) = streams
+    for i, (g, w) in enumerate(zip(card_p, cpu_p)):
+        same_results(g, w, f'AsrDecoder with context and LM, partial {i}')
+    same_results(card_f, cpu_f, 'AsrDecoder with context and LM, final')
+    print(f'  AsrDecoder with the context and the LM: {len(card_p)} partials '
+          f'and the final card == CPU ({card_f[0][0][:12]!r}...)')
+
+    # forced alignment of four utterances
+    alis = [alignment.main(['--config', paths['train.yaml'], '--input_file',
+                            paths['att.list'], '--checkpoint',
+                            paths['final.pt'], '--result_file',
+                            os.path.join(d, f'ali_{dev}.txt'), '--device',
+                            dev]) for dev in ('cuda', 'cpu')]
+    if alis[0] != alis[1]:
+        raise RuntimeError('alignment: card and CPU differ')
+    for e in entries[:RECOGNIZE_CPU_ATTENTION]:
+        if remove_duplicates_and_blank(alis[0][e['key']]) != \
+                tokenizer.tokenize(e['txt'])[1]:
+            raise RuntimeError(f'alignment of {e["key"]} is not its label')
+    print(f'  alignment: {len(alis[0])} utterances card == CPU, each '
+          'collapsing to its label')
+
+    wer = {}
+    for mode in RECOGNIZE_MODES:
+        hyp = os.path.join(d, 'all', mode, 'text')
+        out = subprocess.run(
+            [sys.executable, os.path.join(REPO, 'tools/compute_wer.py'),
+             '--char=1', '--v=1', paths['ref.txt'], hyp],
+            capture_output=True, text=True, check=True).stdout
+        wer[mode] = [line for line in out.splitlines()
+                     if line.startswith('Overall')][0]
+        print(f'  compute_wer {mode}: {wer[mode]} (random weights: a '
+              'reading, not a gate)')
+    readings = {'rates': rates, 'busy': busy}
+    shutil.rmtree(d)
+    return launches, readings
+
+
 def main():
     smi = device()
     build()
@@ -3064,6 +3531,7 @@ def main():
     (stream_launches, stream_readings, batched_launches,
      batched_readings) = streaming_checks(smi)
     entry_launches = train_entry_check(smi)
+    recognize_launches, recognize_readings = recognize_check(smi)
     foreign = [m for m in sys.modules
                if m == 'jax' or m.startswith('jax.') or m == 'wenet_tpu'
                or m.startswith('wenet_tpu.')]
@@ -3073,11 +3541,14 @@ def main():
         'name': 'relpos_attention_fwd', 'route': 'cuda',
         'source': 'wenet_tpu_torch/csrc/relpos_attention.cu',
         'replaces': 'wenet_tpu/ops/flash_attention.py:548',
-        'launches': launches + stream_launches + batched_launches, **report,
+        'launches': launches + stream_launches + batched_launches +
+        recognize_launches, **report,
         'launches_decode': launches, 'launches_streaming': stream_launches,
         'launches_batched_serving': batched_launches,
         'launches_train_entry': entry_launches['relpos_attention_fwd'],
-        'streaming': stream_readings, 'batched_serving': batched_readings}]
+        'launches_recognize': recognize_launches,
+        'streaming': stream_readings, 'batched_serving': batched_readings,
+        'recognize': recognize_readings}]
     for name, (source, replaces) in TRAIN_KERNELS.items():
         kernels.append(dict(name=name, route='cuda', source=source,
                             replaces=replaces,

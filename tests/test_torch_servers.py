@@ -192,9 +192,11 @@ def test_decoder_main_matches_jax(model_dir, tmp_path):
 
 
 def test_decoder_main_raises_for_what_is_not_ported(model_dir, tmp_path):
+    """WFST decoding (--fst_path, with its --dict_path) still raises;
+    --lm_path is ported (tests/test_torch_recognize.py holds it)."""
     from wenet_tpu_torch.bin import decoder_main
     scp = _wav_scp(tmp_path, ((3, 0.5),))
-    for extra in (['--lm_path', 'lm.arpa'], ['--fst_path', 'TLG.fst']):
+    for extra in (['--fst_path', 'TLG.fst'], ['--dict_path', 'words.txt']):
         with pytest.raises(NotImplementedError):
             decoder_main.main(['--model_dir', model_dir, '--wav_scp', scp,
                                '--device', 'cpu', *extra])
@@ -309,7 +311,8 @@ def test_wenet_recognizer_matches_jax(model_dir, monkeypatch,
         monkeypatch.setattr(mod.CtcEndpoint, '__init__', init)
     pcm = np.round(np.concatenate([_wave(6, 2.5), np.zeros(16000),
                                    _wave(7, 1.5)]) * 32768).astype('<i2')
-    want = _recognizer_run(jax_api.wenet_init(model_dir), pcm)
+    jrec = jax_api.wenet_init(model_dir)
+    want = _recognizer_run(jrec, pcm)
     rec = api.wenet_init(model_dir, device='cpu')
     got = _recognizer_run(rec, pcm)
     assert got == want
@@ -319,10 +322,13 @@ def test_wenet_recognizer_matches_jax(model_dir, monkeypatch,
     assert final['type'] == 'final_result'
     assert final['nbest'][0]['sentence']
     assert final['nbest'][0]['word_pieces']
-    api.wenet_reset(rec)
-    api.wenet_add_context(rec, 'ab')
-    with pytest.raises(NotImplementedError):
-        api.wenet_decode(rec, pcm[:1600].tobytes())
+    # a context phrase (which raised before biasing was ported) biases
+    # the decoder the next reset builds, as in the JAX package
+    for r, mod in ((rec, api), (jrec, jax_api)):
+        mod.wenet_add_context(r, 'ab')
+        mod.wenet_reset(r)
+    assert api.wenet_decode(rec, pcm[:16000].tobytes()) == \
+        jax_api.wenet_decode(jrec, pcm[:16000].tobytes())
 
 
 def _jax_factory(model_dir):

@@ -13,9 +13,9 @@ the CTC score; 0.5 there).
     python -m wenet_tpu_torch.bin.decoder_main --model_dir exp/u2pp \\
         --wav_scp data/test/wav.scp --result_file text --device cuda
 
-Reads RIFF wav and FLAC.  The n-gram LM (--lm_path) and WFST decoding
-(--fst_path) are not ported and raise (their --lm_weight and --dict_path
-come with them)."""
+Reads RIFF wav and FLAC.  --lm_path takes an ARPA n-gram, fused into the
+prefix beam with --lm_weight.  WFST decoding (--fst_path, with its
+--dict_path) is not ported and raises (ROADMAP.md, queue 1 item 5)."""
 
 import argparse
 import logging
@@ -34,9 +34,13 @@ def build_decoder(args):
     from wenet_tpu_torch.runtime.post_processor import (PostProcessOptions,
                                                         PostProcessor)
     from wenet_tpu_torch.utils.checkpoint import load_model_dir
-    if args.lm_path or args.fst_path:
-        raise NotImplementedError('the n-gram LM and WFST decoding are not '
-                                  'ported (ROADMAP.md, queue 1 item 5)')
+    if args.fst_path or args.dict_path:
+        raise NotImplementedError('WFST decoding is not ported (ROADMAP.md, '
+                                  'queue 1 item 5)')
+    lm = None
+    if args.lm_path:
+        from wenet_tpu_torch.lm.arpa import read_arpa
+        lm = read_arpa(args.lm_path)
     model, configs, tokenizer = load_model_dir(args.model_dir, args.device)
     opts = DecodeOptions(chunk_size=args.chunk_size,
                          num_left_chunks=args.num_left_chunks,
@@ -45,8 +49,9 @@ def build_decoder(args):
                          reverse_weight=args.reverse_weight)
     pp = PostProcessor(PostProcessOptions(lowercase=not args.no_lowercase))
     return AsrDecoder(model, tokenizer, opts,
-                      FeaturePipelineConfig.from_configs(configs),
-                      post_processor=pp, device=args.device)
+                      FeaturePipelineConfig.from_configs(configs), lm=lm,
+                      lm_weight=args.lm_weight, post_processor=pp,
+                      device=args.device)
 
 
 def decoder_args(**kw) -> types.SimpleNamespace:
@@ -96,7 +101,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument('--simulate_streaming', action='store_true')
     p.add_argument('--streaming_interval_ms', type=int, default=500)
     p.add_argument('--lm_path', default='')
+    p.add_argument('--lm_weight', type=float, default=0.5)
     p.add_argument('--fst_path', default='')
+    p.add_argument('--dict_path', default='')
     p.add_argument('--no_lowercase', action='store_true')
     p.add_argument('--device', default='cuda')
     return p

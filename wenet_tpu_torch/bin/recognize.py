@@ -1,0 +1,219 @@
+"""Batch decode of a data list: the recipe's decode stage.  Counterpart of
+wenet_tpu/bin/recognize.py, on --device (default cuda):
+
+    python -m wenet_tpu_torch.bin.recognize --config exp/u2pp/train.yaml \\
+        --test_data data/test/data.list --checkpoint exp/u2pp/avg_5.pt \\
+        --result_dir exp/u2pp/test --batch_size 16 --beam_size 10 \\
+        --ctc_weight 0.3 --reverse_weight 0.5 \\
+        --modes ctc_greedy_search ctc_prefix_beam_search \\
+        attention_rescoring attention
+
+writes `<result_dir>/<mode>/text` (`key text` lines) for each mode.  The
+test set goes through the port's `Dataset` without augmentation,
+filters, shuffles or sorting, in static batches, each decoded by
+`AsrRunner.decode` in every mode asked for (the JAX package's pipelined
+branch for one mode is not ported: on an H100 it was no faster than this
+loop, whose pace the Dataset's host work sets; PERF.md).
+--context_list_path biases the prefix beam (the C++ searcher);
+--lm_path re-ranks each n-best with an ARPA LM (score + lm_weight * LM).
+The checkpoint is the port's `.pt` (as bin/average_model writes it).
+
+Not ported, and raising NotImplementedError: the hlg_* modes (ROADMAP.md
+queue 1 item 11), the paraformer_* modes (item 9), the rnnt_* modes
+(item 10), and whisper-family configs, which need the whisper tokenizer
+(item 4), and with them --timestamps.  The hlg modes' own options
+(--hlg, --word, --lm_scale, --decoder_scale, --r_decoder_scale) are not
+accepted."""
+
+import argparse
+import dataclasses
+import logging
+import os
+import time
+
+from wenet_tpu_torch.dataset.dataset import Dataset
+from wenet_tpu_torch.models.runner import MODES, AsrRunner
+from wenet_tpu_torch.utils.checkpoint import load_model
+from wenet_tpu_torch.utils.config import load_config
+from wenet_tpu_torch.utils.ctc_utils import get_blank_id
+from wenet_tpu_torch.utils.init_tokenizer import init_tokenizer
+
+# mode prefix -> the ROADMAP.md queue 1 item that ports it
+_NOT_PORTED = {'hlg_': 11, 'paraformer_': 9, 'rnnt_': 10}
+
+
+def get_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description='recognize with model')
+    parser.add_argument('--config', required=True)
+    parser.add_argument('--test_data', required=True)
+    parser.add_argument('--data_type', default='raw',
+                        choices=['raw', 'shard'])
+    parser.add_argument('--checkpoint', required=True)
+    parser.add_argument('--beam_size', type=int, default=10)
+    parser.add_argument('--length_penalty', type=float, default=0.0)
+    parser.add_argument('--blank_penalty', type=float, default=0.0)
+    parser.add_argument('--result_dir', required=True)
+    parser.add_argument('--batch_size', type=int, default=16)
+    parser.add_argument('--modes', dest='modes', nargs='+',
+                        default=['attention_rescoring'],
+                        help='decoding modes')
+    parser.add_argument('--ctc_weight', type=float, default=0.0)
+    parser.add_argument('--reverse_weight', type=float, default=0.0)
+    parser.add_argument('--decoding_chunk_size', type=int, default=-1)
+    parser.add_argument('--num_decoding_left_chunks', type=int,
+                        default=-1)
+    parser.add_argument('--simulate_streaming', action='store_true')
+    parser.add_argument('--timestamps', action='store_true',
+                        help='whisper-family timestamps (not ported)')
+    parser.add_argument('--override_config', action='append', default=[])
+    parser.add_argument('--context_list_path', default=None)
+    parser.add_argument('--context_graph_score', type=float, default=6.0)
+    parser.add_argument('--lm_path', default=None,
+                        help='ARPA n-gram for n-best rescoring')
+    parser.add_argument('--lm_weight', type=float, default=0.5)
+    parser.add_argument('--device', default='cuda')
+    return parser
+
+
+def _check_ported(args, configs) -> None:
+    for mode in args.modes:
+        for prefix, item in _NOT_PORTED.items():
+            if mode.startswith(prefix):
+                raise NotImplementedError(
+                    f'mode {mode} is not ported (ROADMAP.md, queue 1 item '
+                    f'{item})')
+        if mode not in MODES:
+            raise ValueError(f'unknown mode {mode}')
+    if configs.get('model') == 'whisper' or \
+            configs.get('tokenizer') == 'whisper' or args.timestamps:
+        raise NotImplementedError(
+            'whisper-family recognize (and --timestamps) needs the whisper '
+            'tokenizer, which is not ported (ROADMAP.md, queue 1 item 4)')
+    if args.simulate_streaming and args.decoding_chunk_size > 0 and \
+            args.batch_size != 1:
+        raise ValueError('--simulate_streaming decodes one utterance at a '
+                         'time: --batch_size 1')
+
+
+def decode_dataset_conf(configs: dict, batch_size: int) -> dict:
+    """The train.yaml's dataset_conf for decoding: no filters,
+    augmentation, shuffles or sort, one pass, dither 0, static batches."""
+    conf = dict(configs['dataset_conf'])
+    conf['filter_conf'] = {
+        'max_length': 102400, 'min_length': 0,
+        'token_max_length': 102400, 'token_min_length': 0,
+        'max_output_input_ratio': 102400,
+        'min_output_input_ratio': 0,
+    }
+    conf.update(speed_perturb=False, spec_aug=False, spec_sub=False,
+                spec_trim=False, shuffle=False, list_shuffle=False,
+                sort=False, cycle=1)
+    if 'fbank_conf' in conf:
+        conf['fbank_conf'] = dict(conf['fbank_conf'], dither=0.0)
+    conf['batch_conf'] = {'batch_type': 'static', 'batch_size': batch_size}
+    return conf
+
+
+def _lm_rescore(result, lm, lm_weight, id2sym):
+    """Re-rank an n-best by score + lm_weight * the LM's sentence score."""
+    best, best_score, best_idx = None, -float('inf'), 0
+    for idx, (toks, ac) in enumerate(zip(result.nbest,
+                                         result.nbest_scores)):
+        words = [id2sym.get(int(t), str(int(t))) for t in toks]
+        score = ac + lm_weight * lm.score_sequence(words)
+        if score > best_score:
+            best, best_score, best_idx = toks, score, idx
+    times = (result.nbest_times[best_idx]
+             if result.nbest_times else result.times)
+    return dataclasses.replace(result, tokens=list(best),
+                               score=best_score, times=times)
+
+
+def build(args):
+    """-> (configs, tokenizer, blank id, test Dataset, AsrRunner over the
+    checkpoint's model on args.device)."""
+    configs = load_config(args.config, args.override_config)
+    _check_ported(args, configs)
+    test_conf = decode_dataset_conf(configs, args.batch_size)
+    tokenizer = init_tokenizer(configs)
+    configs['input_dim'] = test_conf.get(
+        'fbank_conf', test_conf.get('mfcc_conf', test_conf.get(
+            'log_mel_spectrogram_conf', {}))).get('num_mel_bins', 80)
+    configs['output_dim'] = tokenizer.vocab_size()
+    configs, blank_id = get_blank_id(configs, tokenizer.symbol_table)
+    dataset = Dataset(args.data_type, args.test_data, tokenizer, test_conf,
+                      partition=False)
+    model = load_model(configs, args.checkpoint, args.device)
+    return configs, tokenizer, blank_id, dataset, AsrRunner(model,
+                                                            args.device)
+
+
+def main(argv=None):
+    """Decode and write the text files -> {'lines': {mode: lines written},
+    'seconds': the decode's wall time through the Dataset (the model's
+    load excluded), 'audio_seconds': the valid frames' duration}."""
+    args = get_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format='%(asctime)s %(levelname)s %(message)s')
+    configs, tokenizer, blank_id, dataset, runner = build(args)
+    t0 = time.perf_counter()
+
+    lm = id2sym = None
+    if args.lm_path:
+        from wenet_tpu_torch.lm.arpa import read_arpa
+        lm = read_arpa(args.lm_path)
+        id2sym = {v: k for k, v in tokenizer.symbol_table.items()}
+    context_graph = None
+    if args.context_list_path:
+        from wenet_tpu_torch.utils.context_graph import ContextGraph
+        context_graph = ContextGraph(args.context_list_path,
+                                     tokenizer.symbol_table,
+                                     context_score=args.context_graph_score)
+
+    files = {}
+    for mode in args.modes:
+        d = os.path.join(args.result_dir, mode)
+        os.makedirs(d, exist_ok=True)
+        files[mode] = open(os.path.join(d, 'text'), 'w', encoding='utf8')
+    counts = dict.fromkeys(args.modes, 0)
+
+    def write_results(keys, mode, hyps):
+        for key, hyp in zip(keys, hyps):
+            if lm is not None and hyp.nbest:
+                hyp = _lm_rescore(hyp, lm, args.lm_weight, id2sym)
+            line = '{} {}'.format(
+                key, tokenizer.detokenize([int(t) for t in hyp.tokens])[0])
+            logging.info('%s %s', mode, line)
+            files[mode].write(line + '\n')
+            counts[mode] += 1
+
+    frames = 0
+    try:
+        for batch in dataset:
+            frames += int(batch['feats_lengths'].sum())
+            results = runner.decode(
+                args.modes, batch['feats'], batch['feats_lengths'],
+                beam_size=args.beam_size,
+                decoding_chunk_size=args.decoding_chunk_size,
+                num_decoding_left_chunks=args.num_decoding_left_chunks,
+                ctc_weight=args.ctc_weight,
+                simulate_streaming=args.simulate_streaming,
+                reverse_weight=args.reverse_weight, blank_id=blank_id,
+                blank_penalty=args.blank_penalty,
+                length_penalty=args.length_penalty,
+                infos={'tasks': batch['tasks'], 'langs': batch['langs'],
+                       'no_timestamp': True},
+                context_graph=context_graph)
+            for mode, hyps in results.items():
+                write_results(batch['keys'], mode, hyps)
+    finally:
+        for f in files.values():
+            f.close()
+    shift_ms = configs['dataset_conf'].get('fbank_conf', {}).get(
+        'frame_shift', 10)
+    return {'lines': counts, 'seconds': time.perf_counter() - t0,
+            'audio_seconds': frames * shift_ms / 1000}
+
+
+if __name__ == '__main__':
+    main()

@@ -7,8 +7,8 @@ wenet_tpu/bin/websocket_server_main.py, on --device (default cuda).
 With --batch_serving the connections' chunk steps go through one
 `BatchedChunkRunner`, which steps up to --max_batch streams as one batch;
 before serving it runs one step at every batch size (skipped with
---no_precompile).  Context biasing (--context_path) is not ported and
-raises."""
+--no_precompile).  --context_path names a file of phrases, one a line,
+that bias every connection's prefix beam by --context_score a token."""
 
 import argparse
 import logging
@@ -52,11 +52,14 @@ def build_factory(args):
     from wenet_tpu_torch.runtime.feature_pipeline import (
         FeaturePipelineConfig)
     from wenet_tpu_torch.utils.checkpoint import load_model_dir
-    if args.context_path:
-        raise NotImplementedError('context biasing is not ported '
-                                  '(ROADMAP.md, queue 1 item 5)')
     t0 = time.monotonic()
     model, configs, tokenizer = load_model_dir(args.model_dir, args.device)
+    context_graph = None
+    if args.context_path:
+        from wenet_tpu_torch.utils.context_graph import ContextGraph
+        context_graph = ContextGraph(args.context_path,
+                                     tokenizer.symbol_table,
+                                     context_score=args.context_score)
     logging.info('server: model loaded (%.1fs)', time.monotonic() - t0)
     opts = DecodeOptions(chunk_size=args.chunk_size,
                          num_left_chunks=args.num_left_chunks,
@@ -88,6 +91,7 @@ def build_factory(args):
 
     def decoder_factory():
         return AsrDecoder(model, tokenizer, opts, feat_cfg, ep,
+                          context_graph=context_graph,
                           batch_runner=batch_runner, device=args.device)
 
     return decoder_factory, batch_runner

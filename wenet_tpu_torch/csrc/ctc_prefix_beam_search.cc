@@ -6,9 +6,15 @@
 // posteriors and their per-frame top-k; this host-side search advances
 // the beam, one utterance at a time or one streaming chunk at a time
 // (reset, search, ..., finalize).  A plain C interface, loaded with
-// ctypes.  The copy keeps the plain search only: context biasing and
-// n-gram LM fusion are not ported, so finalizing adds no end-of-utterance
-// score and only closes the beam: searching again needs a reset.
+// ctypes.
+//
+// Context biasing (an Aho-Corasick graph flattened from
+// utils/context_graph.py) and shallow fusion of an ARPA n-gram LM
+// (flattened from lm/arpa.py, shared read-only between searchers) run in
+// the search loop: prefixes are pruned by score + bias + weight * LM.
+// Finalizing adds the LM's </s>, re-sorts, and replaces each hypothesis'
+// bias with the back-off of its unfinished match; searching again needs
+// a reset.
 //
 // Prefixes are interned in a trie (node = parent + token) and
 // timestamps in a persistent trail pool, so every beam update is O(1)
@@ -24,7 +30,9 @@
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <limits>
+#include <numeric>
 #include <vector>
 
 namespace {
@@ -144,15 +152,137 @@ class ChildMap {
   size_t size_ = 0;
 };
 
+// Aho-Corasick biasing graph, flattened from the python ContextGraph
+// (wenet_tpu/utils/context_graph.py; ref wenet/utils/context_graph.py
+// + runtime/core/decoder/context_graph.{h,cc}).  States/scores are
+// deterministic functions of the prefix, so they live on trie nodes.
+struct CtxGraph {
+  bool active = false;
+  std::vector<int32_t> fail;
+  std::vector<float> node_score, output_score, token_score;
+  ChildMap trans;  // (node<<32|token) -> child
+
+  // python ContextGraph.forward_one_step (context_graph.py:117-131)
+  std::pair<float, int32_t> Forward(int32_t state, int32_t tok) const {
+    const int64_t key =
+        (static_cast<int64_t>(state) << 32) | static_cast<uint32_t>(tok);
+    if (const int32_t* v = const_cast<ChildMap&>(trans).Find(key)) {
+      return {token_score[*v] + output_score[*v], *v};
+    }
+    int32_t node = fail[state];
+    for (;;) {
+      const int64_t k2 = (static_cast<int64_t>(node) << 32) |
+                         static_cast<uint32_t>(tok);
+      if (const int32_t* v = const_cast<ChildMap&>(trans).Find(k2)) {
+        node = *v;
+        break;
+      }
+      if (node == 0) break;  // root (python: node.token == -1)
+      node = fail[node];
+    }
+    return {node_score[node] - node_score[state] + output_score[node],
+            node};
+  }
+};
+
+// Katz-backoff ARPA n-gram LM over word ids (flattened from
+// wenet_tpu/lm/arpa.py NgramLM; natural-log scores).
+struct NgramLm {
+  bool active = false;
+  int order = 0;
+  float weight = 0.0f;
+  int32_t bos = -1, eos = -1;
+  std::vector<int32_t> tok2word;  // token id -> lm word id (-1 = miss)
+
+  struct Table {  // (id tuple) -> (logp, backoff), open addressing
+    int n = 0;
+    std::vector<int32_t> pool;  // entry keys, n ids each
+    std::vector<float> logp, backoff;
+    std::vector<int32_t> slots;  // hash slot -> entry idx (-1 empty)
+    uint64_t mask = 0;
+
+    static uint64_t Hash(const int32_t* ids, int n) {
+      uint64_t h = 1469598103934665603ull;
+      for (int i = 0; i < n; ++i) {
+        h ^= static_cast<uint32_t>(ids[i]);
+        h *= 1099511628211ull;
+      }
+      return h;
+    }
+
+    void Build(int n_, int count, const int32_t* ids, const float* lp,
+               const float* bo) {
+      n = n_;
+      pool.assign(ids, ids + static_cast<int64_t>(count) * n);
+      logp.assign(lp, lp + count);
+      backoff.assign(bo, bo + count);
+      size_t want = 64;
+      while (want < static_cast<size_t>(count) * 2) want <<= 1;
+      slots.assign(want, -1);
+      mask = want - 1;
+      for (int e = 0; e < count; ++e) {
+        uint64_t h = Hash(&pool[static_cast<int64_t>(e) * n], n);
+        while (slots[h & mask] >= 0) ++h;
+        slots[h & mask] = e;
+      }
+    }
+
+    int32_t Find(const int32_t* key) const {
+      if (slots.empty()) return -1;
+      uint64_t h = Hash(key, n);
+      for (;;) {
+        const int32_t e = slots[h & mask];
+        if (e < 0) return -1;
+        if (std::memcmp(&pool[static_cast<int64_t>(e) * n], key,
+                        n * sizeof(int32_t)) == 0) {
+          return e;
+        }
+        ++h;
+      }
+    }
+  };
+  std::vector<Table> tables;  // tables[k]: (k+1)-grams
+
+  // python NgramLM.score_word/_score_backed (arpa.py:30-53); `ctx`
+  // holds the last (order-1) word ids, earliest first.
+  float ScoreWord(const int32_t* ctx, int ctx_len, int32_t word) const {
+    if (word < 0) return -20.0f;  // not in LM vocab, no <unk>
+    float total = 0.0f;
+    int start = 0, len = ctx_len;
+    std::vector<int32_t> key(len + 1);
+    for (;;) {
+      for (int i = 0; i < len; ++i) key[i] = ctx[start + i];
+      key[len] = word;
+      const int32_t e = tables[len].Find(key.data());
+      if (e >= 0) return total + tables[len].logp[e];
+      if (len == 0) return total - 20.0f;
+      const int32_t b = tables[len - 1].Find(&key[0]);  // ctx alone
+      if (b >= 0) total += tables[len - 1].backoff[b];
+      ++start;
+      --len;
+      key.resize(len + 1);
+    }
+  }
+};
+
 struct Searcher {
   int beam_size;
   int blank_id;
   int abs_time = 0;
-  bool finalized = false;
   std::vector<TrieNode> trie;
   ChildMap child;  // (node<<32|token) -> id
   std::vector<TrailNode> trails;
   std::vector<Hyp> cur;
+  // per-trie-node prefix-deterministic fusion state
+  CtxGraph ctx;
+  std::vector<int32_t> ctx_state;  // graph node per trie node
+  std::vector<float> ctx_cum;      // accumulated bias score
+  const NgramLm* lm_ptr = nullptr;  // shared across searchers
+  float lm_weight = 0.0f;
+  std::vector<float> lm_cum;       // accumulated natural-log LM score
+  bool LmActive() const { return lm_ptr && lm_ptr->active; }
+  bool finalized = false;
+  std::vector<float> fin_extra;    // per-cur-hyp finalize adjustment
   // per-frame accumulator: open-addressing table over trie ids with
   // generation stamps (no clear per frame, no rehash, ~3x faster than
   // unordered_map at beam*k scale)
@@ -190,12 +320,16 @@ struct Searcher {
 
   void Reset() {
     abs_time = 0;
-    finalized = false;
     trie.clear();
     child.Clear();
     trails.clear();
     cur.clear();
+    finalized = false;
+    fin_extra.clear();
     trie.push_back(TrieNode{-1, -1, 0});  // root = empty prefix
+    ctx_state.assign(1, 0);
+    ctx_cum.assign(1, 0.0f);
+    lm_cum.assign(1, 0.0f);
     Hyp root;
     root.node = 0;
     root.sc.s = 0.0f;
@@ -211,7 +345,45 @@ struct Searcher {
     int32_t id = static_cast<int32_t>(trie.size());
     trie.push_back(TrieNode{node, token, trie[node].depth + 1});
     child.Insert(key, id);
+    // prefix-deterministic fusion bookkeeping, computed once per prefix
+    if (ctx.active) {
+      auto [delta, state] = ctx.Forward(ctx_state[node], token);
+      ctx_state.push_back(state);
+      ctx_cum.push_back(ctx_cum[node] + delta);
+    } else {
+      ctx_state.push_back(0);
+      ctx_cum.push_back(0.0f);
+    }
+    if (LmActive()) {
+      const NgramLm& lm = *lm_ptr;
+      // context = [<s>] + prefix words, last (order-1), earliest first
+      int32_t ctx_ids[16];
+      int len = 0;
+      const int cap = lm.order - 1;
+      int32_t p = node;
+      while (p > 0 && len < cap) {
+        ctx_ids[len++] = lm.tok2word[trie[p].token];
+        p = trie[p].parent;
+      }
+      if (p == 0 && len < cap) ctx_ids[len++] = lm.bos;
+      std::reverse(ctx_ids, ctx_ids + len);
+      const float delta =
+          lm.ScoreWord(ctx_ids, len, lm.tok2word[token]);
+      lm_cum.push_back(lm_cum[node] + delta);
+    } else {
+      lm_cum.push_back(0.0f);
+    }
     return id;
+  }
+
+  // pruning/reporting total: base + bias + weighted LM, mirroring the
+  // python CtcPrefixBeamSearch sort key (ctc_prefix_beam_search.py:
+  // 123-127) / _PrefixScore.total_score (context_graph.py:177-178)
+  float FusedTotal(const Hyp& h) const {
+    float t = h.sc.Total();
+    if (ctx.active) t += ctx_cum[h.node];
+    if (LmActive()) t += lm_weight * lm_cum[h.node];
+    return t;
   }
 
   // freeze a Times() pair into a trail id (times of the new prefix's
@@ -276,15 +448,74 @@ struct Searcher {
         }
       }
     }
-    // second prune: keep top beam_size by total score
+    // second prune: keep top beam_size by (bias+LM-fused) total score
     const int keep =
         std::min<int>(beam_size, static_cast<int>(next.size()));
     std::partial_sort(next.begin(), next.begin() + keep, next.end(),
-                      [](const Hyp& a, const Hyp& b) {
-                        return a.sc.Total() > b.sc.Total();
+                      [this](const Hyp& a, const Hyp& b) {
+                        return FusedTotal(a) > FusedTotal(b);
                       });
     next.resize(keep);
     std::swap(cur, next);
+  }
+
+  // python CtcPrefixBeamSearch.finalize_search
+  // (runtime/ctc_prefix_beam_search.py:130-152): add the LM </s> cost
+  // and re-sort, then replace each hyp's bias score with the
+  // partial-match backoff -node_score (assignment, not +=, exactly as
+  // the reference does — search.py:229-234)
+  void Finalize() {
+    if (finalized) return;
+    finalized = true;
+    std::vector<float> lm_final(cur.size(), 0.0f);
+    if (LmActive()) {
+      const NgramLm& lm = *lm_ptr;
+      for (size_t i = 0; i < cur.size(); ++i) {
+        int32_t ctx_ids[16];
+        int len = 0;
+        const int cap = lm.order - 1;
+        int32_t p = cur[i].node;
+        while (p > 0 && len < cap) {
+          ctx_ids[len++] = lm.tok2word[trie[p].token];
+          p = trie[p].parent;
+        }
+        if (p == 0 && len < cap) ctx_ids[len++] = lm.bos;
+        std::reverse(ctx_ids, ctx_ids + len);
+        lm_final[i] = lm.ScoreWord(ctx_ids, len, lm.eos);
+      }
+      std::vector<int> idx(cur.size());
+      std::iota(idx.begin(), idx.end(), 0);
+      std::stable_sort(idx.begin(), idx.end(), [&](int a, int b) {
+        return FusedTotal(cur[a]) + lm_weight * lm_final[a] >
+               FusedTotal(cur[b]) + lm_weight * lm_final[b];
+      });
+      std::vector<Hyp> reord;
+      std::vector<float> lf;
+      reord.reserve(cur.size());
+      for (int i : idx) {
+        reord.push_back(cur[i]);
+        lf.push_back(lm_final[i]);
+      }
+      cur = std::move(reord);
+      lm_final = std::move(lf);
+    }
+    fin_extra.assign(cur.size(), 0.0f);
+    for (size_t i = 0; i < cur.size(); ++i) {
+      if (LmActive()) fin_extra[i] += lm_weight * lm_final[i];
+      if (ctx.active) {
+        // replace accumulated bias with finalize()'s -node_score
+        fin_extra[i] += -ctx.node_score[ctx_state[cur[i].node]] -
+                        ctx_cum[cur[i].node];
+      }
+    }
+  }
+
+  float HypScore(int i) const {
+    float s = FusedTotal(cur[i]);
+    if (finalized && i < static_cast<int>(fin_extra.size())) {
+      s += fin_extra[i];
+    }
+    return s;
   }
 
   // Candidates pre-selected on the card (torch.topk per frame), so no
@@ -337,8 +568,6 @@ void ctc_beam_destroy(void* h) { delete static_cast<Searcher*>(h); }
 
 void ctc_beam_reset(void* h) { static_cast<Searcher*>(h)->Reset(); }
 
-void ctc_beam_finalize(void* h) { static_cast<Searcher*>(h)->finalized = true; }
-
 // 0, or -1 (and no search) once the beam is finalized
 int ctc_beam_search_topk(void* h, const float* vals, const int* ids,
                          int num_frames, int k) {
@@ -362,7 +591,66 @@ void ctc_beam_hyp(void* h, int i, int* out_tokens, int* out_times,
   Searcher* s = static_cast<Searcher*>(h);
   s->Tokens(i, out_tokens);
   s->Times(i, out_times);
-  *out_score = s->cur[i].sc.Total();
+  *out_score = s->HypScore(i);
 }
+
+// ---- context biasing + LM fusion configuration ----
+
+void ctc_beam_set_context(void* h, int n_nodes, const int* fail,
+                          const float* node_score,
+                          const float* output_score,
+                          const float* token_score, int n_trans,
+                          const int* trans_from, const int* trans_tok,
+                          const int* trans_to) {
+  Searcher* s = static_cast<Searcher*>(h);
+  CtxGraph& c = s->ctx;
+  c.active = n_nodes > 0;
+  c.fail.assign(fail, fail + n_nodes);
+  c.node_score.assign(node_score, node_score + n_nodes);
+  c.output_score.assign(output_score, output_score + n_nodes);
+  c.token_score.assign(token_score, token_score + n_nodes);
+  c.trans.Clear();
+  for (int i = 0; i < n_trans; ++i) {
+    c.trans.Insert((static_cast<int64_t>(trans_from[i]) << 32) |
+                       static_cast<uint32_t>(trans_tok[i]),
+                   trans_to[i]);
+  }
+  s->Reset();
+}
+
+// LM is a SHARED object: flatten+upload the ARPA tables once, attach
+// to any number of (possibly concurrent) searchers — scoring is
+// read-only.
+void* ctc_lm_create(int order, int n_tok, const int* tok2word, int bos,
+                    int eos) {
+  NgramLm* lm = new NgramLm();
+  lm->active = order > 0;
+  lm->order = std::min(order, 15);
+  lm->bos = bos;
+  lm->eos = eos;
+  lm->tok2word.assign(tok2word, tok2word + n_tok);
+  lm->tables.assign(lm->order, NgramLm::Table());
+  return lm;
+}
+
+// one call per n-gram order: `ids` is count*(n) word ids row-major
+// (context..., word); natural-log logp/backoff
+void ctc_lm_add_table(void* lm_h, int n, int count, const int* ids,
+                      const float* logp, const float* backoff) {
+  NgramLm* lm = static_cast<NgramLm*>(lm_h);
+  if (n < 1 || n > lm->order) return;
+  lm->tables[n - 1].Build(n, count, ids, logp, backoff);
+}
+
+void ctc_lm_destroy(void* lm_h) { delete static_cast<NgramLm*>(lm_h); }
+
+void ctc_beam_attach_lm(void* h, void* lm_h, float weight) {
+  Searcher* s = static_cast<Searcher*>(h);
+  s->lm_ptr = static_cast<const NgramLm*>(lm_h);
+  s->lm_weight = weight;
+  s->Reset();
+}
+
+void ctc_beam_finalize(void* h) { static_cast<Searcher*>(h)->Finalize(); }
 
 }  // extern "C"

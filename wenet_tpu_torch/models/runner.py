@@ -1,8 +1,8 @@
 """AsrRunner: offline batch decode on one device.  Counterpart of
 wenet_tpu/models/runner.py `AsrRunner.decode` for the CTC greedy, CTC
-prefix beam, attention-rescoring and attention (beam search) modes, with
-its simulated streaming (`simulate_streaming`), and of `decode_wav`
-(the fbank on the device) and `transcribe`.
+prefix beam (with context biasing), attention-rescoring and attention
+(beam search) modes, with its simulated streaming (`simulate_streaming`),
+and of `decode_wav` (the fbank on the device) and `transcribe`.
 
 CTC prefix beam search runs in the port's C++ trie searcher
 (wenet_tpu_torch/runtime/native_beam.py, built with g++ at first use),
@@ -26,13 +26,16 @@ MODES = ('ctc_greedy_search', 'ctc_prefix_beam_search',
 
 def ctc_prefix_beam_search(ctc_probs: torch.Tensor,
                            encoder_lens: torch.Tensor, beam_size: int,
-                           blank_id: int = 0) -> List[DecodeResult]:
-    """Per-frame top-k on the device, then the C++ prefix beam on host.
-    Raises when the native library cannot be built or loaded."""
+                           blank_id: int = 0,
+                           context_graph=None) -> List[DecodeResult]:
+    """Per-frame top-k on the device, then the C++ prefix beam on host,
+    biased by `context_graph` when given.  Raises when the native library
+    cannot be built or loaded."""
     vals, ids = torch.topk(ctc_probs, beam_size, dim=-1)
     outs = native_beam.batch_search_topk(
         vals.float().cpu().numpy(), ids.int().cpu().numpy(),
-        encoder_lens.cpu().numpy(), beam_size, blank_id)
+        encoder_lens.cpu().numpy(), beam_size, blank_id,
+        context_graph=context_graph)
     return [DecodeResult(tokens=hyps[0], score=scores[0], times=times[0],
                          nbest=hyps, nbest_scores=scores, nbest_times=times)
             for hyps, times, scores in outs]
@@ -59,15 +62,17 @@ class AsrRunner:
                simulate_streaming: bool = False,
                reverse_weight: float = 0.0, blank_id: int = 0,
                blank_penalty: float = 0.0, length_penalty: float = 0.0,
-               infos: Optional[Dict[str, List[str]]] = None
-               ) -> Dict[str, List[DecodeResult]]:
+               infos: Optional[Dict[str, List[str]]] = None,
+               context_graph=None) -> Dict[str, List[DecodeResult]]:
         """feats: (B, T, F) array or tensor; feats_lengths: (B,).
         `simulate_streaming` with decoding_chunk_size > 0 runs the encoder
         chunk by chunk with its caches (`forward_chunk_by_chunk`; one
         utterance, B = 1); otherwise the encoder sees the whole input under
-        the chunk mask.  `length_penalty` and `infos` (whisper's prompt:
-        'tasks', 'langs', 'no_timestamp') are for the `attention` mode.
-        Returns {mode: one DecodeResult per utterance}."""
+        the chunk mask.  `length_penalty` is for the `attention` mode,
+        `infos` (whisper's prompt: 'tasks', 'langs', 'no_timestamp') for
+        it and the rescoring, `context_graph` (utils/context_graph.py)
+        biases the prefix beam.  Returns {mode: one DecodeResult per
+        utterance}."""
         unknown = [m for m in methods if m not in MODES]
         if unknown:
             raise NotImplementedError(f'decode modes not ported: {unknown}')
@@ -106,13 +111,14 @@ class AsrRunner:
         if ('ctc_prefix_beam_search' in methods or
                 'attention_rescoring' in methods):
             prefix = ctc_prefix_beam_search(ctc_probs, encoder_lens,
-                                            beam_size, blank_id)
+                                            beam_size, blank_id,
+                                            context_graph)
             if 'ctc_prefix_beam_search' in methods:
                 results['ctc_prefix_beam_search'] = prefix
             if 'attention_rescoring' in methods:
                 results['attention_rescoring'] = attention_rescoring(
                     model, prefix, encoder_out, encoder_lens, ctc_weight,
-                    reverse_weight)
+                    reverse_weight, infos)
         return results
 
     def decode_wav(self, methods: List[str], wav, wav_lengths,

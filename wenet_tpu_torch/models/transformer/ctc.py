@@ -1,5 +1,7 @@
-"""CTC head and loss.  Counterpart of wenet_tpu/models/transformer/ctc.py
-(the T-chunked decode heads are not ported yet)."""
+"""CTC head and loss.  Counterpart of wenet_tpu/models/transformer/ctc.py.
+The decode heads project the whole (B, T, V) posterior: the JAX package's
+T-chunked heads bound a TPU's VMEM, and on an H100 the dense head was the
+faster one at every batch measured (PERF.md)."""
 
 from typing import Optional, Tuple
 

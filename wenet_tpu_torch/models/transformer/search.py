@@ -1,7 +1,7 @@
 """Decode algorithms: CTC greedy, attention beam search (with whisper's
-prompt and timestamp grammar) and attention rescoring.  Counterpart of
-wenet_tpu/models/transformer/search.py; CTC prefix beam search runs in
-the port's C++ searcher, see models/runner.py."""
+prompt and timestamp grammar) and attention rescoring (behind the same
+prompt).  Counterpart of wenet_tpu/models/transformer/search.py; CTC
+prefix beam search runs in the port's C++ searcher, see models/runner.py."""
 
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from wenet_tpu_torch.models.whisper.tokens import build_whisper_prefix
+from wenet_tpu_torch.utils.ctc_utils import remove_duplicates_and_blank
 from wenet_tpu_torch.utils.mask import (make_pad_mask, mask_finished_preds,
                                         mask_finished_scores)
 
@@ -29,18 +30,6 @@ class DecodeResult:
     text: str = ''
 
 
-def remove_duplicates_and_blank(hyp: List[int],
-                                blank_id: int = 0) -> List[int]:
-    """Collapse repeats, then drop blanks."""
-    out: List[int] = []
-    prev = None
-    for t in hyp:
-        if t != prev and t != blank_id:
-            out.append(int(t))
-        prev = t
-    return out
-
-
 def ctc_greedy_search(ctc_probs: torch.Tensor, ctc_lens: torch.Tensor,
                       blank_id: int = 0) -> List[DecodeResult]:
     """ctc_probs: (B, T, V) log-posteriors; ctc_lens: (B,) frames."""
@@ -54,44 +43,51 @@ def attention_rescoring(model, ctc_prefix_results: List[DecodeResult],
                         encoder_outs: torch.Tensor,
                         encoder_lens: torch.Tensor,
                         ctc_weight: float = 0.0,
-                        reverse_weight: float = 0.0) -> List[DecodeResult]:
+                        reverse_weight: float = 0.0,
+                        infos: Optional[Dict[str, List[str]]] = None
+                        ) -> List[DecodeResult]:
     """Rescore each utterance's CTC nbest with the attention decoder(s),
-    the whole (B, N) grid in one batched decoder pass, and keep the best
-    of score + ctc_weight * ctc_score per utterance."""
+    the whole (B, N) grid in one batched decoder pass behind the decode
+    prompt ([sos], or whisper's from `infos`), and keep the best of
+    score + ctc_weight * ctc_score per utterance."""
     device = encoder_outs.device
     B, T = encoder_outs.shape[:2]
     N = max(len(r.nbest) for r in ctc_prefix_results)
     max_len = max((len(h) for r in ctc_prefix_results for h in r.nbest),
                   default=0)
+    prefix = _decode_prefix(model, B, 1, infos)[0]  # (B, P)
+    P = prefix.shape[1]
     # the JAX package's padded width, so both decode identical tensors
     L = max(8, -(-max_len // 8) * 8)
-    hyps_pad = np.full((B, N, L + 1), model.eos, np.int64)
-    hyps_pad[:, :, 0] = model.sos
+    hyps_pad = np.full((B, N, L + P), model.eos, np.int64)
+    hyps_pad[:, :, :P] = prefix[:, None, :]
     hyps_lens = np.zeros((B, N), np.int64)
     ctc_scores = np.full((B, N), NEG_INF, np.float32)  # empty slots lose
     for b, r in enumerate(ctc_prefix_results):
         for i, h in enumerate(r.nbest):
-            hyps_pad[b, i, 1:1 + len(h)] = h
+            hyps_pad[b, i, P:P + len(h)] = h
             hyps_lens[b, i] = len(h)
             ctc_scores[b, i] = r.nbest_scores[i]
 
-    flat_hyps = torch.from_numpy(hyps_pad.reshape(B * N, L + 1)).to(device)
+    flat_hyps = torch.from_numpy(hyps_pad.reshape(B * N, L + P)).to(device)
     flat_lens = torch.from_numpy(hyps_lens.reshape(B * N)).to(device)
     enc = encoder_outs.repeat_interleave(N, dim=0)
     enc_mask = (~make_pad_mask(encoder_lens.repeat_interleave(N, dim=0),
                                T))[:, None, :]
     decoder_out, r_decoder_out = model.forward_attention_decoder(
-        flat_hyps, flat_lens + 1, enc, reverse_weight, enc_mask)
+        flat_hyps, flat_lens + P, enc, reverse_weight, enc_mask)
 
-    tok = flat_hyps[:, 1:]
+    tok = flat_hyps[:, P:]
     pos = torch.arange(L, device=device)[None, :]
     tok_mask = pos < flat_lens[:, None]
     rows = torch.arange(B * N, device=device)
 
     def token_and_eos_scores(out, tokens):
-        logp = torch.gather(out[:, :L], 2, tokens[..., None])[..., 0]
+        # position P - 1 + j predicts token j; P - 1 + len predicts eos
+        logp = torch.gather(out[:, P - 1:P - 1 + L], 2,
+                            tokens[..., None])[..., 0]
         logp = logp.masked_fill(~tok_mask, 0.0)
-        return logp, logp.sum(-1) + out[rows, flat_lens, model.eos]
+        return logp, logp.sum(-1) + out[rows, flat_lens + P - 1, model.eos]
 
     logp_tok, score = token_and_eos_scores(decoder_out, tok)
     tc = torch.exp(logp_tok)

@@ -6,8 +6,8 @@ Counterpart of wenet_tpu/runtime/api.py; the Python object is the handle.
     rec = wenet_init('exp/u2pp')            # on the card
     json_text = wenet_decode(rec, pcm_bytes, last=1)
 
-Context biasing is not ported: `add_context` is accepted, and the next
-decode raises NotImplementedError."""
+`add_context` phrases (scored by `set_context_score`) bias the decoder
+the next `reset` builds, in the C++ prefix beam."""
 
 import json
 
@@ -57,9 +57,17 @@ class WenetRecognizer:
                                                          DecodeOptions)
         from wenet_tpu_torch.runtime.feature_pipeline import (
             FeaturePipelineConfig)
+        graph = None
+        if self.context:
+            from wenet_tpu_torch.utils.context_graph import ContextGraph
+            graph = ContextGraph(
+                '', self.tokenizer.symbol_table,
+                context_list=[self.tokenizer.tokenize(w)[1]
+                              for w in self.context],
+                context_score=self.context_score)
         return AsrDecoder(self.model, self.tokenizer, DecodeOptions(),
                           FeaturePipelineConfig.from_configs(self.configs),
-                          device=self.device)
+                          context_graph=graph, device=self.device)
 
     def reset(self):
         self._decoder = self._make_decoder()
@@ -69,9 +77,6 @@ class WenetRecognizer:
         decoding, an endpoint before the last piece closes the segment
         (rescoring, a final result) and the next segment starts."""
         from wenet_tpu_torch.runtime.asr_decoder import DecodeState
-        if self.context:
-            raise NotImplementedError('context biasing is not ported '
-                                      '(ROADMAP.md, queue 1 item 5)')
         if self._decoder is None:
             self.reset()
         self._decoder.accept_waveform(np.frombuffer(pcm, '<i2'))

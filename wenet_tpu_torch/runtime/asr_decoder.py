@@ -16,9 +16,13 @@ of the same top-k and blank column included, so the rest of the path is
 the same.  `post_processor` (runtime/post_processor.py) rewrites every
 sentence.
 
-Runs on `device` ('cuda' unless the caller asks for the CPU).  Context
-biasing, the n-gram LM and WFST decoding are not ported: passing one
-raises NotImplementedError."""
+`context_graph` (utils/context_graph.py) biases the prefix beam and
+`lm` (an ARPA NgramLM, lm/arpa.py) is fused into it with `lm_weight`,
+both in the C++ searcher; its words are the tokenizer's symbols.
+
+Runs on `device` ('cuda' unless the caller asks for the CPU).  WFST
+decoding (`tlg_fst`) is not ported and raises NotImplementedError
+(ROADMAP.md, queue 1 item 5)."""
 
 import enum
 from dataclasses import dataclass, field
@@ -84,10 +88,12 @@ class AsrDecoder:
     def __init__(self, model, tokenizer, opts: Optional[DecodeOptions] = None,
                  feature_config: Optional[FeaturePipelineConfig] = None,
                  endpoint_config: Optional[CtcEndpointConfig] = None,
-                 context_graph=None, lm=None, tlg_fst=None,
-                 post_processor=None, batch_runner=None, device='cuda'):
+                 context_graph=None, lm=None, lm_weight: float = 0.5,
+                 tlg_fst=None, post_processor=None, batch_runner=None,
+                 device='cuda'):
         if tlg_fst is not None:
-            raise NotImplementedError('WFST decoding is not ported')
+            raise NotImplementedError('WFST decoding is not ported '
+                                      '(ROADMAP.md, queue 1 item 5)')
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.tokenizer = tokenizer
@@ -112,9 +118,11 @@ class AsrDecoder:
                                  f'(streaming config, top-k, blank, '
                                  f'device), this decoder needs {ours}')
         self.batch_runner = batch_runner
-        self.searcher = make_searcher(self.opts.beam_size,
-                                      self.opts.blank_id,
-                                      context_graph=context_graph, lm=lm)
+        self.searcher = make_searcher(
+            self.opts.beam_size, self.opts.blank_id,
+            context_graph=context_graph, lm=lm, lm_weight=lm_weight,
+            symbol_table=({v: k for k, v in tokenizer.symbol_table.items()}
+                          if lm is not None else None))
         self.reset()
 
     # -- lifecycle -------------------------------------------------------

@@ -168,6 +168,16 @@ def find_checkpoint(model_dir: str) -> str:
     raise FileNotFoundError(f'no checkpoint (final*) in {model_dir}')
 
 
+def load_model(configs: dict, path: str, device='cuda'):
+    """The model of `configs` (with `input_dim` and `output_dim` set) on
+    `device`, in eval mode, with the checkpoint at `path` loaded."""
+    from wenet_tpu_torch.utils.init_model import init_model
+    model = init_model(configs, device='meta')
+    model.to_empty(device=device)
+    load_checkpoint(model, path)
+    return model.eval()
+
+
 def load_model_dir(model_dir: str, device='cuda'):
     """A model directory -> (model on `device` in eval mode, configs with
     `input_dim` and `output_dim` set, tokenizer).
@@ -177,15 +187,11 @@ def load_model_dir(model_dir: str, device='cuda'):
     absent from a model directory, and where the JAX package does find it
     the checkpoint overwrites what it read, so the stats are the same."""
     from wenet_tpu_torch.utils.config import load_config
-    from wenet_tpu_torch.utils.init_model import init_model
     from wenet_tpu_torch.utils.init_tokenizer import init_tokenizer
     configs = load_config(os.path.join(model_dir, 'train.yaml'))
     tokenizer = init_tokenizer(configs)
     configs.setdefault('input_dim', configs.get('dataset_conf', {}).get(
         'fbank_conf', {}).get('num_mel_bins', 80))
     configs.setdefault('output_dim', tokenizer.vocab_size())
-    path = find_checkpoint(model_dir)
-    model = init_model(configs, device='meta')
-    model.to_empty(device=device)
-    load_checkpoint(model, path)
-    return model.eval(), configs, tokenizer
+    return (load_model(configs, find_checkpoint(model_dir), device),
+            configs, tokenizer)
