@@ -14,9 +14,12 @@ Phases, each of which raises on failure (non-zero exit):
               row, a peaked softmax, key tiles closed mid-row, a chunk
               step (T1 = 16, T2 = 80), the serving chunk step of 9c
               (one stream, 16 queries, 512 cache slots + 16 keys: 16 and
-              256 valid slots, and a padded tail chunk) and 9f's batched
+              256 valid slots, and a padded tail chunk), 9f's batched
               one (eight streams, each with its own p and cache fill:
-              16-512 valid slots and a tail); each check's
+              16-512 valid slots and a tail) and the encoder zoo's
+              decodes (12a: the efficient conformer's 8 heads of d = 32
+              after its stride, (16,8,187,187,32), and the openasr
+              conformer-large's (16,8,249,249,64)); each check's
               share of its bar, both times (CUDA events), and at the main
               and the serving shapes the bound (fp32: 3xTF32; FFMA beside
               it at the main shape), TFLOP/s and the SDPA call's time
@@ -32,7 +35,9 @@ Phases, each of which raises on failure (non-zero exit):
               chained as the Function chains them (delta from the
               Function's own output, K1's), fp32 and bf16, at the
               train step's shapes, a peaked softmax, key tiles closed
-              mid-row and key blocks wholly in the padding; each output's
+              mid-row, key blocks wholly in the padding and the efficient
+              conformer's train step (16,8,150,150,32) with a chunk mask
+              and dropout 0.1, and without either; each output's
               share of its bar, kernel and plain times, and at the main
               shape the bounds (fp32: 3xTF32 beside FFMA) and TFLOP/s;
               K2 + K3 against SDPA's backward at the pad shape
@@ -46,8 +51,9 @@ Phases, each of which raises on failure (non-zero exit):
               device-busy share and the profiler table, fp32 and bf16
   7a. K4      masked flash attention against its plain version, fp32 and
               bf16, at whisper's encoder shapes, ragged edges, mask + bias,
-              a fully masked row, d=128, a peaked softmax and key tiles
-              closed mid-row; kernel, plain, SDPA and bound (fp32: 3xTF32
+              a fully masked row, d=128, a peaked softmax, key tiles
+              closed mid-row and the conv2d transformer's (64,4,374,374,64)
+              (12a); kernel, plain, SDPA and bound (fp32: 3xTF32
               beside FFMA) in both types; K4 and the ordinary path above
               and below the gate
   7b. whisper large-v3 at full width (4 + 4 layers) through
@@ -154,6 +160,31 @@ Phases, each of which raises on failure (non-zero exit):
               runner's loop over the Dataset; load excluded), the Dataset's
               own rate, the card's busy share and kernel time a batch, and
               the WER of each mode (tools/compute_wer.py: a reading)
+  12. encoder zoo: six example yamls at their published widths and
+              depths, random weights from the seed (examples/{aishell,
+              timit}/s0 train_transformer.yaml: conv2d abs-pos
+              transformer; openasr2021 train_conformer_large_10h.yaml:
+              conv2d6, 24 x 512; aishell train_ebranchformer.yaml,
+              train_squeezeformer.yaml, train_u2pp_efficonformer.yaml).
+              12a: AsrRunner.decode of B=16 x 15 s in CTC greedy, CTC
+              prefix beam and attention rescoring on the card against the
+              CPU (encoder output and log-probs within 1e-3, identical
+              hypotheses), the conv2d transformer also at B=64 x 15 s;
+              12b: launches per decode: K1 16 (E-Branchformer), 24
+              (openasr), 8 (efficient conformer), 0 (transformers,
+              Squeezeformer); K4 12 at B=64 and 0 at B=16.  12c: one train
+              step per yaml, B=4 x 8 s, card against CPU at dropout 0
+              (loss rtol 1e-4, grads 1e-3).  12d: five steps through
+              Executor.train with the yamls' dropouts: E-Branchformer and
+              the efficient conformer at B=16 x 12 s (K1-train, K2, K3
+              once per rel-pos layer and step), the conv2d transformer at
+              B=64 x 15 s (K4-train, K5, K6 12 each a step).  12e: the
+              efficient conformer through bin/compute_cmvn_stats,
+              bin/train.py (2 epochs on 10's written recipe) and
+              bin/recognize.py (card == CPU, 8 K1 launches a batch), and
+              AsrDecoder over the trained model on the card against the
+              CPU, partial by partial.  Prints each yaml's audio-sec/s of
+              the rescoring decode
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX
 package (wenet_tpu), and checks so at the end.
@@ -195,7 +226,13 @@ KERNEL_SHAPES = [  # B, h, T1, T2, d, mask
     # the batched chunk step of 9f: eight streams, each with its own p (its
     # own offset) and its own cache fill
     (8, 4, 16, 528, 64, 'batch8'),
+    # the encoder zoo's decodes at B=16 x 15 s (12a): the efficient
+    # conformer's rel-pos layers after its stride (8 heads, d = 32) and
+    # the openasr conformer-large (conv2d6, 8 heads of 64)
+    (16, 8, 187, 187, 32, 'pad'),
+    (16, 8, 249, 249, 64, 'pad'),
 ]
+ZOO_KERNEL_SHAPES = {(16, 8, 187, 187, 32), (16, 8, 249, 249, 64)}
 # mask kind -> (valid cache slots, valid chunk frames) of each batch row
 SERVING = {'cache16': [(16, 16)], 'cache256': [(256, 16)],
            'tailstep': [(368, 7)],
@@ -210,7 +247,13 @@ TRAIN_SHAPES = [  # B, h, T1, T2, d, mask, dropout rate
     (2, 4, 300, 300, 64, 'peaked', 0.1),   # q1, q2 scaled by 8
     (2, 4, 200, 448, 64, 'gap', 0.1),      # key tiles closed mid-row
     (2, 4, 130, 300, 64, 'tail', 0.0),     # key blocks wholly in the padding
+    # the efficient conformer's train step after its stride, B=16 x 12 s
+    # (8 heads, d = 32, a dynamic chunk, dropout 0.1), and without dropout
+    # for SDPA
+    (16, 8, 150, 150, 32, 'chunk', 0.1),
+    (16, 8, 150, 150, 32, 'pad', 0.0),
 ]
+ZOO_TRAIN_SHAPE = (16, 8, 150, 150, 32)
 TRAIN_OUTPUTS = {  # the outputs each training kernel is held to, in order
     'relpos_attention_fwd_train': ('out', 'lse'),
     'relpos_attention_bwd_dq': ('dq1', 'dq2'),
@@ -243,7 +286,9 @@ FLASH_SHAPES = [  # B, h, T1, T2, d, mask, bias
     (2, 4, 600, 600, 128, 'pad', False),     # d = 128
     (2, 4, 300, 300, 64, 'peaked', False),   # q scaled by 8
     (2, 4, 200, 448, 64, 'gap', False),      # key tiles closed mid-row
+    (64, 4, 374, 374, 64, 'pad', False),     # conv2d transformer, 64 x 15 s
 ]
+ZOO_FLASH_SHAPE = (64, 4, 374, 374, 64)
 # K1's and K4's bars.  The reference runs in fp32 on the same (rounded)
 # inputs: in bf16 the kernel is held to the rounding of its output, about
 # 2 bf16 ulps
@@ -472,6 +517,7 @@ def kernel_check():
     rng = np.random.RandomState(SEED)
     report = None
     serving = {}  # mask kind -> readings at the serving chunk step
+    zoo = {}  # shape -> readings at the encoder zoo's shapes
     max_err_fp32 = 0.0
     for i, (B, h, T1, T2, d, mask_kind) in enumerate(KERNEL_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -515,6 +561,22 @@ def kernel_check():
                       f'{moved} bytes over the open keys, bound '
                       f'{b_ms:.4g} ms ({b_by}), SDPA {lib_ms:.4f} ms, '
                       f'{flops / ms / 1e9:.2f} TFLOP/s', flush=True)
+            if (B, h, T1, T2, d) in ZOO_KERNEL_SHAPES:
+                n_pairs = attended_pairs(mask, B, h, T1, T2)
+                flops = 6 * d * n_pairs
+                b_ms, b_by = bound(flops, nbytes(q1, q2, k, p, v, mask, got),
+                                   dtype, tf32_split=True)
+                lib_ms = relpos_sdpa(q1, q2, k, p, v, mask, scale, got)
+                key = '' if dtype == torch.float32 else '_bf16'
+                zoo.setdefault(f'({B},{h},{T1},{T2},{d})', {}).update({
+                    'ms' + key: ms, 'plain_ms' + key: plain_ms,
+                    'bound_ms' + key: b_ms, 'bound_by' + key: b_by,
+                    'library_ms' + key: lib_ms, 'max_abs_err' + key: err,
+                    'share_of_bar' + key: of_bar,
+                    'tflops' + key: flops / ms / 1e9})
+                print(f'    zoo shape: bound {b_ms:.4f} ms ({b_by}), SDPA '
+                      f'{lib_ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s',
+                      flush=True)
             if i == 0:  # the first shape is the main path's
                 # 3 products of 2*d FLOPs per attended pair; fp32 runs as
                 # 3xTF32 (FFMA printed beside it)
@@ -548,6 +610,7 @@ def kernel_check():
                       f'mask given per row {rows_ms:.4f} ms', flush=True)
     report['max_abs_err'] = max_err_fp32
     report['serving'] = serving
+    report['zoo'] = zoo
     return report
 
 
@@ -730,6 +793,7 @@ def train_kernel_check():
     errs = {name: 0.0 for name in TRAIN_KERNELS}
     main = {}  # dtype -> (times, bounds, TFLOP/s) at the main shape
     pad = {}  # dtype -> (times, SDPA forward / backward) at the pad shape
+    zoo_main, zoo_pad = {}, {}  # the same at the zoo's d = 32 train shape
     for i, (B, h, T1, T2, d, mask_kind, rate) in enumerate(TRAIN_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             x, mask = kernel_inputs(rng, B, h, T1, T2, d, mask_kind, dtype)
@@ -826,7 +890,8 @@ def train_kernel_check():
                     cuda_time_ms(lambda: fa.relpos_bwd_dkpv_reference(
                         *x, *args))),
             }
-            if i == 0:  # the first shape is the main path's
+            if i == 0 or (B, h, T1, T2, d) == ZOO_TRAIN_SHAPE:
+                # the main path's shape, and the zoo's at its dropout
                 n_pairs = attended_pairs(mask, B, h, T1, T2)
                 common = nbytes(*x, mask, do, want_lse, delta)
                 # 3, 5 and 6 products of 2*d FLOPs per attended pair; fp32
@@ -843,7 +908,10 @@ def train_kernel_check():
                           for n, w in work.items()}
                 tflops = {n: w[0] / t[n][0] / 1e9 for n, w in work.items()}
                 ffma = {n: bound(*w)[0] for n, w in work.items()}
-                main[dtype] = t, bounds, tflops, ffma
+                if i == 0:
+                    main[dtype] = t, bounds, tflops, ffma
+                elif rate > 0.0:
+                    zoo_main[dtype] = t, bounds, tflops
                 print('    bounds: ' + ', '.join(
                     f'{n[17:]} {b[0]:.4f} ms ({b[1]}'
                     + (f'; FFMA {ffma[n]:.4f}' if dtype == torch.float32
@@ -852,8 +920,12 @@ def train_kernel_check():
                     + ', '.join(f'{n[17:]} {f:.1f}'
                                 for n, f in tflops.items()), flush=True)
             if rate == 0.0 and mask_kind == 'pad':
-                pad[dtype] = t, relpos_sdpa_train(x, mask, do, scale, out,
-                                                  grads)
+                readings = t, relpos_sdpa_train(x, mask, do, scale, out,
+                                                grads)
+                if (B, h, T1, T2, d) == ZOO_TRAIN_SHAPE:
+                    zoo_pad[dtype] = readings
+                else:
+                    pad[dtype] = readings
             print(f'  ({B},{h},{T1},{T2},{d}) mask={mask_kind} '
                   f'dropout={rate} {str(dtype)[6:]}: max_abs_err '
                   + ', '.join(line), flush=True)
@@ -888,6 +960,22 @@ def train_kernel_check():
         if name != 'relpos_attention_fwd_train':
             entry['library_of'] = (f'K2 + K3: SDPA backward (dq, dk, dv) at '
                                    f'{PAD_SHAPE}, no dropout')
+        zoo = {}
+        for dtype, key in ((torch.float32, ''), (torch.bfloat16, '_bf16')):
+            times, bounds, tflops = zoo_main[dtype]
+            pad_times, (sdpa_fwd, sdpa_bwd) = zoo_pad[dtype]
+            zoo.update({'ms' + key: times[name][0],
+                        'plain_ms' + key: times[name][1],
+                        'bound_ms' + key: bounds[name][0],
+                        'bound_by' + key: bounds[name][1],
+                        'tflops' + key: tflops[name],
+                        'ms_nodropout' + key: pad_times[name][0],
+                        'library_ms' + key: (
+                            sdpa_fwd if name == 'relpos_attention_fwd_train'
+                            else sdpa_bwd)})
+        entry['zoo'] = {'shape': '(16,8,150,150,32) chunk, dropout 0.1; SDPA '
+                        'and ms_nodropout at the pad mask, no dropout',
+                        **zoo}
         report[name] = entry
     return report
 
@@ -1251,7 +1339,7 @@ def flash_kernel_check():
     from wenet_tpu_torch.models.transformer import attention as A
     from wenet_tpu_torch.ops import flash_attention as fa
     rng = np.random.RandomState(SEED + 6)
-    report, max_err = None, 0.0
+    report, max_err, zoo = None, 0.0, {}
     for i, (B, h, T1, T2, d, mask_kind, use_bias) in enumerate(FLASH_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, mask, bias = flash_inputs(rng, B, h, T1, T2, d,
@@ -1297,6 +1385,14 @@ def flash_kernel_check():
                 report.update(ms_bf16=ms, bound_ms_bf16=b_ms,
                               library_ms_bf16=lib_ms,
                               tflops_bf16=flops / ms / 1e9)
+            if (B, h, T1, T2, d) == ZOO_FLASH_SHAPE:
+                key = '' if dtype == torch.float32 else '_bf16'
+                zoo.update({'ms' + key: ms, 'plain_ms' + key: plain_ms,
+                            'bound_ms' + key: b_ms, 'bound_by' + key: b_by,
+                            'library_ms' + key: lib_ms,
+                            'max_abs_err' + key: err,
+                            'share_of_bar' + key: of_bar,
+                            'tflops' + key: flops / ms / 1e9})
 
     # the gate: K4 against attention_core's ordinary path above and below
     for B, h, T1, T2, d in (FLASH_SHAPES[0][:5], GATE_BELOW):
@@ -1324,6 +1420,8 @@ def flash_kernel_check():
               f'{"above" if above else "below"} it: K4 {ms:.4f} ms, '
               f'ordinary path {plain_ms:.4f} ms', flush=True)
     report['max_abs_err'] = max_err
+    report['zoo'] = {'shape': str(ZOO_FLASH_SHAPE).replace(' ', '') + ' pad',
+                     **zoo}
     return report
 
 
@@ -3510,6 +3608,531 @@ def recognize_check(smi):
     return launches, readings
 
 
+# ---------------------------------------------------------------------------
+# 12. the encoder zoo
+# ---------------------------------------------------------------------------
+ZOO = {  # name: (yaml, output_dim, K1 launches per decode)
+    'transformer': ('examples/aishell/s0/conf/train_transformer.yaml',
+                    4233, 0),
+    'transformer_timit': ('examples/timit/s0/conf/train_transformer.yaml',
+                          62, 0),
+    'conformer_conv2d6': ('examples/openasr2021/s0/conf/'
+                          'train_conformer_large_10h.yaml', 5002, 24),
+    'e_branchformer': ('examples/aishell/s0/conf/train_ebranchformer.yaml',
+                       4233, 16),
+    'squeezeformer': ('examples/aishell/s0/conf/train_squeezeformer.yaml',
+                      4233, 0),
+    'efficient_conformer': ('examples/aishell/s0/conf/'
+                            'train_u2pp_efficonformer.yaml', 4233, 8),
+}
+ZOO_DECODE = (16, 15.0)  # B x seconds of 12a's decodes
+ZOO_K4_DECODE = (64, 15.0)  # the conv2d transformer above K4's gate
+ZOO_TRAIN_STEP = (4, 8.0)  # 12c's card-against-CPU step
+ZOO_GRAD_RTOL = 2e-4  # 12c's gradient bar beside 6c's 1e-3 (zoo_step_check)
+ZOO_EXECUTOR = {  # 12d: name -> (B, seconds, the kernels counted a step)
+    'e_branchformer': (16, 12.0, tuple(TRAIN_KERNELS)),
+    'efficient_conformer': (16, 12.0, tuple(TRAIN_KERNELS)),
+    'transformer': (64, 15.0, tuple(FLASH_TRAIN_KERNELS)),
+}
+ZOO_ENTRY = 'efficient_conformer'  # 12e: bin/train.py, recognize, streaming
+ZOO_RECOGNIZE_UTTS = 16
+
+
+def zoo_configs(name, dropout=True):
+    """The zoo yaml's configs with its fbank's input_dim; dropout=False
+    sets every dropout rate of the encoder and decoder to 0."""
+    import yaml
+    path, output_dim, _ = ZOO[name]
+    with open(os.path.join(REPO, path)) as f:
+        configs = yaml.safe_load(f)
+    configs['input_dim'] = configs['dataset_conf']['fbank_conf'][
+        'num_mel_bins']
+    configs['output_dim'] = output_dim
+    if not dropout:
+        for conf in (configs['encoder_conf'], configs['decoder_conf']):
+            for key in list(conf):
+                if key.endswith('dropout_rate'):
+                    conf[key] = 0.0
+        if configs['encoder'] == 'squeezeformer':
+            configs['encoder_conf']['dropout'] = 0.0
+    return configs
+
+
+def zoo_model(configs):
+    """The configs' model on the CPU, weights and cmvn drawn from SEED."""
+    from wenet_tpu_torch.utils.init_model import init_model
+    model = init_model(configs, torch.Generator().manual_seed(SEED),
+                       device='cpu')
+    rng = np.random.RandomState(SEED)
+    idim = configs['input_dim']
+    cmvn = model.encoder.global_cmvn
+    cmvn.mean.copy_(torch.from_numpy(rng.randn(idim).astype(np.float32)))
+    cmvn.istd.copy_(torch.from_numpy(
+        (0.5 + rng.rand(idim)).astype(np.float32)))
+    return model
+
+
+def zoo_features(rng, B, seconds, idim):
+    """B rows of `seconds` of fbank-shaped features, the first full, the
+    others from 2/3 of it."""
+    T = int(seconds * 100)
+    feats = rng.randn(B, T, idim).astype(np.float32)
+    lens = rng.randint(2 * T // 3, T + 1, size=B).astype(np.int64)
+    lens[0] = T
+    return feats, lens
+
+
+def zoo_train_batch(rng, B, seconds, idim, vocab):
+    feats, lens = zoo_features(rng, B, seconds, idim)
+    tl = rng.randint(10, 49, size=B)
+    tgt = np.full((B, 48), -1, np.int64)
+    for i, n in enumerate(tl):
+        tgt[i, :n] = rng.randint(3, vocab - 3, size=n)
+    return dict(feats=feats, feats_lengths=lens, target=tgt,
+                target_lengths=tl.astype(np.int64))
+
+
+def gate_open(B, h, T1, T2):
+    """attention_core's flash gate at (B, h, T1, T2): `flash_eligible` of
+    broadcast views of one element on the card (they hold no memory)."""
+    from wenet_tpu_torch.models.transformer.attention import flash_eligible
+    one = torch.empty(1, 1, 1, 1, device='cuda')
+    return flash_eligible(one.expand(B, h, T1, 64), one.expand(B, h, T2, 64))
+
+
+def rescoring_k4(configs, results, T, reverse_weight):
+    """K4 launches of attention_rescoring's one decoder pass over the
+    prefix beam's n-best `results` and T encoder frames: the (B·N, L + 1)
+    hypothesis grid (L the longest hypothesis, padded to a multiple of 8)
+    through each decoder layer's self-attention and cross-attention,
+    where the gate admits them; the right decoder's layers too with a
+    reverse weight."""
+    n = max(len(r.nbest) for r in results)
+    longest = max((len(h) for r in results for h in r.nbest), default=0)
+    L = max(8, -(-longest // 8) * 8) + 1
+    conf = configs['decoder_conf']
+    layers = conf['num_blocks']
+    if configs['decoder'] == 'bitransformer' and reverse_weight > 0.0:
+        layers += conf['r_num_blocks']
+    rows, h = len(results) * n, conf['attention_heads']
+    return layers * (gate_open(rows, h, L, L) + gate_open(rows, h, L, T)), L
+
+
+DECODER_TOKEN_TIE = 1e-4  # 12a: a decoder log-prob's card-CPU tie, a token
+SEARCH_FLOAT_TIE = 1e-5  # a float32 search score's error, relative
+
+
+def ctc_score(logp, tokens, n):
+    """log P(tokens | the first n frames of logp (T, V)): the CTC forward
+    sum over every alignment (blank 0), in float64."""
+    import torch.nn.functional as F
+    loss = F.ctc_loss(logp[:n, None].double(),
+                      torch.tensor([tokens], dtype=torch.long),
+                      torch.tensor([n]), torch.tensor([len(tokens)]),
+                      reduction='none')
+    return -float(loss[0])
+
+
+def zoo_same_hypotheses(name, got, want, logp, clogp, lens):
+    """Raise unless the card's hypotheses (`got`, from the card's CTC
+    log-probs `logp`) equal the CPU's (`want`, `clogp`) in each mode, up
+    to ties that the two sets of log-probs explain.  Random weights give
+    near-flat posteriors, whose paths tie to float32's resolution, so a
+    log-prob moved by 1e-5 may flip a choice; a path's score moves by at
+    most bound = the sum over the utterance's frames of the largest
+    |card - cpu| log-prob.  Greedy: a frame's argmax may differ only
+    where the CPU's top two lie within twice that frame's largest
+    difference.  Prefix beam: a tie at the beam's edge mid-search may
+    send the two pruned searches to other hypotheses with other scores,
+    so each best must hold under the other side's log-probs: its CTC
+    forward score there (every alignment; the pruned search sums fewer)
+    is at least the score its own search gave it, less the bound and
+    SEARCH_FLOAT_TIE.  Rescoring:
+    the best may differ only beside a prefix-beam n-best that differs,
+    or where the fused scores lie within the bound plus
+    DECODER_TOKEN_TIE a token.  -> {mode: utterances that differ}."""
+    logp, lens = logp.cpu(), lens.cpu()
+    diff = (logp - clogp).abs().amax(-1)  # (B, T)
+    valid = torch.arange(diff.shape[1])[None, :] < lens[:, None]
+    bound = (diff * valid).sum(-1)
+    flips = {}
+    for mode in MODES:
+        flips[mode] = 0
+        for b, (g, w) in enumerate(zip(got[mode], want[mode])):
+            if g.tokens == w.tokens:
+                continue
+            n = int(lens[b])
+            if mode == 'ctc_greedy_search':
+                top = clogp[b].topk(2, dim=-1).values
+                frames = (logp[b].argmax(-1) != clogp[b].argmax(-1)) \
+                    & valid[b]
+                ok = bool(frames.any()) and bool(
+                    (top[frames, 0] - top[frames, 1] <=
+                     2 * diff[b][frames]).all())
+            elif mode == 'ctc_prefix_beam_search':
+                ok = all(
+                    ctc_score(other, r.nbest[0], n) >= r.nbest_scores[0] -
+                    bound[b] - SEARCH_FLOAT_TIE * abs(r.nbest_scores[0])
+                    for r, other in ((g, clogp[b]), (w, logp[b])))
+            else:
+                prefix = (got['ctc_prefix_beam_search'][b].nbest !=
+                          want['ctc_prefix_beam_search'][b].nbest)
+                ok = prefix or abs(g.score - w.score) <= bound[b] + \
+                    DECODER_TOKEN_TIE * (len(g.tokens) + 1)
+            if not ok:
+                raise RuntimeError(
+                    f'{name}: {mode} utterance {b} differs from the CPU '
+                    f'beyond a tie (scores {g.score} / {w.score}, bound '
+                    f'{float(bound[b]):.3g}): {g.tokens[:8]}... vs '
+                    f'{w.tokens[:8]}...')
+            flips[mode] += 1
+    return flips
+
+
+def zoo_decode_check(name, B, seconds, k1, k4, smi):
+    """12a/b: AsrRunner.decode in MODES on the card against the CPU.  The
+    encoder must launch K1 `k1` times and K4 `k4` times; the decode, those
+    and the K4 launches the gate admits in the rescoring decoder (long
+    hypotheses of random weights put its attention above the gate).
+    -> (launches, audio-sec/s of the card's rescoring decode)."""
+    from wenet_tpu_torch.models.runner import AsrRunner
+    from wenet_tpu_torch.ops import flash_attention as fa
+    configs = zoo_configs(name)
+    model = zoo_model(configs)
+    cpu_model = copy.deepcopy(model)
+    runner = AsrRunner(model, 'cuda')
+    feats, lens = zoo_features(np.random.RandomState(SEED + 30), B, seconds,
+                               configs['input_dim'])
+    # a right decoder's weight where the yaml has one (the reference reads
+    # no right-to-left scores from a unidirectional decoder)
+    kw = dict(beam_size=10, ctc_weight=0.3, reverse_weight=0.3 if configs[
+        'decoder'] == 'bitransformer' else 0.0)
+    fa.reset_launches()
+    got = runner.decode(MODES, feats, lens, **kw)
+    torch.cuda.synchronize()
+    counted = {'K1': fa.LAUNCHES['relpos_attention_fwd'],
+               'K4': fa.LAUNCHES['flash_attention_fwd']}
+    want = AsrRunner(cpu_model, 'cpu').decode(MODES, feats, lens, **kw)
+    with torch.inference_mode():
+        x, n = torch.from_numpy(feats), torch.from_numpy(lens)
+        fa.reset_launches()
+        eo, em = runner.model.forward_encoder(x.cuda(), n.cuda())
+        torch.cuda.synchronize()
+        encoder = {'K1': fa.LAUNCHES['relpos_attention_fwd'],
+                   'K4': fa.LAUNCHES['flash_attention_fwd']}
+        logp = runner.model.ctc_logprobs(eo)
+        ceo, cem = cpu_model.forward_encoder(x, n)
+        clogp = cpu_model.ctc_logprobs(ceo)
+    dec_k4, L = rescoring_k4(configs, got['ctc_prefix_beam_search'],
+                             eo.shape[1], kw['reverse_weight'])
+    if encoder != {'K1': k1, 'K4': k4} or counted != {'K1': k1,
+                                                      'K4': k4 + dec_k4}:
+        raise RuntimeError(
+            f'{name} B={B}: launches {encoder} in the encoder, {counted} in '
+            f'one decode; expected K1 {k1}, K4 {k4} in the encoder and '
+            f'{dec_k4} more K4 in the rescoring decoder (hypotheses of '
+            f'{L - 1} slots)')
+    errs = []
+    for what, a, b in (('encoder_out', eo, ceo), ('ctc log-probs', logp,
+                                                   clogp)):
+        if not torch.isfinite(a).all():
+            raise RuntimeError(f'{name}: {what} on the card is not finite')
+        errs.append((a.cpu() - b).abs().max().item())
+        torch.testing.assert_close(a.cpu(), b, atol=1e-3, rtol=0,
+                                   msg=f'{name}: {what}')
+    if not torch.equal(em.cpu(), cem):
+        raise RuntimeError(f'{name}: encoder masks differ')
+    flips = zoo_same_hypotheses(name, got, want, logp, clogp,
+                                cem[:, 0].sum(-1))
+    # the rescoring decode's speed, after the checked run
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.decode(['attention_rescoring'], feats, lens, **kw)
+    torch.cuda.synchronize()
+    rate = lens.sum() / 100 / (time.perf_counter() - t0)
+    chars = sum(len(r.tokens) for r in got['attention_rescoring'])
+    print(f'  {name} ({ZOO[name][0].split("/")[1]}; '
+          f'{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, '
+          f'{len(model.encoder.encoders)} blocks) B={B} x {seconds:.0f} s: '
+          f'encoder_out {tuple(eo.shape)}, max |card - cpu| '
+          f'{errs[0]:.3g} / log-probs {errs[1]:.3g} (bar 1e-3); '
+          f'hypotheses equal the CPU\'s but at ties: '
+          + ', '.join(f'{m} {flips[m]}/{B}' for m in MODES)
+          + f' ({chars} tokens of rescoring text); launches K1 '
+          f'{counted["K1"]}, K4 {counted["K4"]} '
+          f'({encoder["K4"]} in the encoder, {dec_k4} in the rescoring '
+          f'decoder at {L - 1} hypothesis slots); '
+          f'rescoring decode {rate:.1f} audio-sec/s ({smi})', flush=True)
+    del runner, model, cpu_model
+    torch.cuda.empty_cache()
+    return counted, float(rate), flips
+
+
+def zoo_step_check(name):
+    """12c: one forward + backward, card against CPU, every dropout 0."""
+    from wenet_tpu_torch.utils.executor import to_device_batch
+    configs = zoo_configs(name, dropout=False)
+    model = zoo_model(configs)
+    cpu_model = copy.deepcopy(model)
+    model.cuda()
+    B, seconds = ZOO_TRAIN_STEP
+    b = zoo_train_batch(np.random.RandomState(SEED + 31), B, seconds,
+                        configs['input_dim'], configs['output_dim'])
+    outs = []
+    for m, dev in ((model, 'cuda'), (cpu_model, 'cpu')):
+        m.train()
+        tb = to_device_batch(b, dev)
+        out = m(tb['feats'], tb['feats_lengths'], tb['target'],
+                tb['target_lengths'],
+                generator=torch.Generator().manual_seed(SEED))
+        out['loss'].backward()
+        outs.append(out)
+    for k in ('loss', 'loss_att', 'loss_ctc'):
+        a, w = outs[0][k].item(), outs[1][k].item()
+        if not abs(a - w) <= 1e-4 * abs(w) + 1e-6:
+            raise RuntimeError(f'{name}: {k} card {a} cpu {w} beyond rtol '
+                               '1e-4')
+    # 6c's bar, 1e-3, plus 2e-4 of the tensor's largest gradient: at full
+    # depth and B=4 x 8 s the largest gradients (printed below) sum float32
+    # terms that cancel over 3200 frames, so 1e-3 is below float32's
+    # resolution of their sums
+    worst, worst_of_bar, largest = 0.0, 0.0, (0.0, '')
+    cpu_params = dict(cpu_model.named_parameters())
+    for pname, p in model.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise RuntimeError(f'{name}: {pname} has no finite gradient')
+        want = cpu_params[pname].grad
+        err = (p.grad.cpu() - want).abs().max().item()
+        bar = 1e-3 + ZOO_GRAD_RTOL * want.abs().max().item()
+        if err > bar:
+            raise RuntimeError(f'{name}: {pname} grad differs from the CPU '
+                               f'by {err} (bar {bar:.3g})')
+        worst, worst_of_bar = max(worst, err), max(worst_of_bar, err / bar)
+        largest = max(largest, (want.abs().max().item(), pname))
+    print(f'  {name} train step B={B} x {seconds:.0f} s, dropout 0: loss '
+          f'card {outs[0]["loss"].item():.6f} cpu {outs[1]["loss"].item():.6f}'
+          f' (rtol 1e-4); {len(cpu_params)} grads, max |card - cpu| '
+          f'{worst:.3g}, at most {100 * worst_of_bar:.0f}% of the bar '
+          f'(1e-3 + {ZOO_GRAD_RTOL:g} x the largest |grad| of the tensor); '
+          f'the largest |grad| {largest[0]:.3g} ({largest[1]})', flush=True)
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+
+def zoo_executor_check(name, smi):
+    """12d: five steps through Executor.train with the yaml's dropouts
+    (and dynamic chunk); each step must launch each of the counted
+    kernels once per attention layer that runs it.  -> launches."""
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.utils.executor import Executor
+    from wenet_tpu_torch.utils.train_utils import (
+        TrainState, init_optimizer_and_scheduler, make_cv_step,
+        make_train_step)
+    B, seconds, kernels = ZOO_EXECUTOR[name]
+    configs = zoo_configs(name)
+    model = zoo_model(configs).cuda()
+    layers = sum(type(m).__name__ in ('RelPositionMultiHeadedAttention',
+                                      'MultiHeadedAttention')
+                 for m in model.encoder.modules())
+    opt, schedule = init_optimizer_and_scheduler(configs, model)
+    step_fn = make_train_step(model, opt, schedule, None,
+                              configs.get('accum_grad', 1),
+                              configs['grad_clip'])
+    per_step = []
+
+    def counted(state, batch, rng_seed):
+        before = dict(fa.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch, rng_seed)
+        torch.cuda.synchronize()
+        per_step.append(({k: fa.LAUNCHES[k] - before[k] for k in before},
+                         float(metrics['loss']), time.perf_counter() - t0))
+        return state, metrics
+
+    rng = np.random.RandomState(SEED + 32)
+    batches = [zoo_train_batch(rng, B, seconds, configs['input_dim'],
+                               configs['output_dim']) for _ in range(5)]
+    run_conf = dict(configs, log_interval=1, save_interval=10 ** 6, epoch=0,
+                    seed=SEED)
+    fa.reset_launches()
+    cv = [zoo_train_batch(rng, 4, seconds, configs['input_dim'],
+                          configs['output_dim'])]
+    state = Executor(device='cuda').train(
+        counted, TrainState(model, opt), batches, cv, make_cv_step(model),
+        None, run_conf, model_dir=tempfile.mkdtemp(prefix='chip_smoke_zoo_'))
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    for i, (n, loss, dt) in enumerate(per_step):
+        got = {k: n[k] for k in kernels}
+        if any(v != layers for v in got.values()) or not np.isfinite(loss):
+            raise RuntimeError(f'{name} step {i + 1}: launches {got}, '
+                               f'expected {layers} each; loss {loss}')
+    times = [dt for _, _, dt in per_step[1:]]
+    print(f'  {name} Executor.train, 5 steps of B={B} x {seconds:.0f} s '
+          f'(yaml dropouts): losses '
+          f'{", ".join(f"{l:.3f}" for _, l, _ in per_step)}; each step '
+          f'{layers} launches of ' + ', '.join(k for k in kernels)
+          + f'; {1e3 * np.mean(times):.0f} ms a step after the first '
+          f'({B * seconds / np.mean(times):.0f} audio-sec/s; {smi})',
+          flush=True)
+    if state.step != 5:
+        raise RuntimeError(f'{name}: Executor.train ran {state.step} steps')
+    del model, state, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def zoo_entry_check(smi):
+    """12e: the efficient conformer through bin/train.py (2 epochs on the
+    written recipe), bin/recognize.py card against CPU, and AsrDecoder
+    card against CPU partial by partial.  -> launches of the training
+    and of recognize."""
+    import shutil
+    from wenet_tpu_torch.bin import compute_cmvn_stats, train
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.utils.checkpoint import load_model_dir
+    config = os.path.join(REPO, ZOO[ZOO_ENTRY][0])
+    tokenizer = flagship_tokenizer()
+    d = tempfile.mkdtemp(prefix='chip_smoke_zoo_recipe_')
+    units, train_list, cv_list, scp, train_wavs = write_recipe(d, tokenizer)
+    cmvn = os.path.join(d, 'global_cmvn')
+    compute_cmvn_stats.main(['--train_config', config, '--in_scp', scp,
+                             '--out_cmvn', cmvn])
+    exp = os.path.join(d, 'exp')
+    argv = ['--config', config, '--train_data', train_list, '--cv_data',
+            cv_list, '--data_type', 'shard', '--model_dir', exp,
+            '--seed', str(SEED), '--device', 'cuda',
+            '--override_config', f'tokenizer_conf.symbol_table_path {units}',
+            '--override_config', f'cmvn_conf.cmvn_file {cmvn}',
+            '--override_config', 'max_epoch 2',
+            '--override_config', 'log_interval 1']
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    summary = train.main(argv)
+    torch.cuda.synchronize()
+    train_launches = dict(fa.LAUNCHES)
+    steps = sum(e['steps'] for e in summary['epochs'])
+    print(f'  bin/train.py {os.path.basename(config)}: 2 epochs, {steps} '
+          f'steps in {time.perf_counter() - t0:.1f} s; cv losses '
+          + ', '.join(f'{e["cv"]["loss"]:.4f}' for e in summary['epochs'])
+          + f'; launches {train_launches} ({smi})', flush=True)
+    n_relpos = ZOO[ZOO_ENTRY][2]
+    for k in TRAIN_KERNELS:
+        if train_launches[k] != n_relpos * steps:
+            raise RuntimeError(f'bin/train.py: {k} {train_launches[k]} '
+                               f'launches over {steps} steps, expected '
+                               f'{n_relpos} a step')
+    if not all(np.isfinite(e['cv']['loss']) for e in summary['epochs']):
+        raise RuntimeError('bin/train.py: cv loss not finite')
+
+    # bin/recognize.py on the second epoch's checkpoint, card and CPU
+    paths = {'train.yaml': os.path.join(exp, 'train.yaml'),
+             'final.pt': os.path.join(exp, 'epoch_1.pt'),
+             'zoo.list': os.path.join(d, 'zoo.list')}
+    with open(paths['zoo.list'], 'w', encoding='utf-8') as f:
+        for i, w in enumerate(train_wavs[RECIPE_8K:RECIPE_8K +
+                                         ZOO_RECOGNIZE_UTTS]):
+            f.write(json.dumps({'key': f'z{i:02d}', 'wav': w, 'txt': ''})
+                    + '\n')
+    texts = {}
+    for dev in ('cuda', 'cpu'):
+        fa.reset_launches()
+        texts[dev], rsum = recognize_main(
+            paths, MODES, os.path.join(d, f'rec_{dev}'), 'zoo.list', dev)
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+            recognize_launches = fa.LAUNCHES['relpos_attention_fwd']
+            if recognize_launches != n_relpos:  # one batch of 16
+                raise RuntimeError(f'bin/recognize.py: {recognize_launches} '
+                                   f'K1 launches, expected {n_relpos}')
+            print(f'  bin/recognize.py --device cuda: {ZOO_RECOGNIZE_UTTS} '
+                  f'utterances in {MODES}, {rsum["audio_seconds"]:.1f} s of '
+                  f'audio in {rsum["seconds"]:.2f} s; K1 '
+                  f'{recognize_launches} launches ({smi})', flush=True)
+    for mode in MODES:
+        same_text(texts['cuda'][mode], texts['cpu'][mode],
+                  f'zoo recognize {mode}')
+    rescored = texts['cuda']['attention_rescoring'].values()
+    print(f'  recognize: card == CPU in {len(MODES)} modes '
+          f'({sum(len(t) for t in rescored)} chars of rescoring text)',
+          flush=True)
+
+    # streaming: AsrDecoder over the trained model, card against CPU
+    model_dir = os.path.join(d, 'model')
+    os.makedirs(model_dir)
+    shutil.copy(paths['train.yaml'], model_dir)
+    shutil.copy(units, os.path.join(model_dir, 'units.txt'))
+    shutil.copy(paths['final.pt'], os.path.join(model_dir, 'final.pt'))
+    model, _, tok = load_model_dir(model_dir, 'cuda')
+    cpu_model, _, _ = load_model_dir(model_dir, 'cpu')
+    rng = np.random.RandomState(SEED + 33)
+    fa.reset_launches()
+    for seconds in (4.3, 6.1):
+        wav = speech_like(rng, seconds)
+        got = stream_utterance(streaming_decoder(model, 'cuda', tok), wav)
+        want = stream_utterance(streaming_decoder(cpu_model, 'cpu', tok),
+                                wav)
+        if len(got[0]) != len(want[0]):
+            raise RuntimeError('zoo AsrDecoder: partial counts differ')
+        for i, (g, w) in enumerate(zip(got[0], want[0])):
+            same_results(g, w, f'zoo AsrDecoder partial {i}')
+        same_results(got[1], want[1], 'zoo AsrDecoder final')
+        print(f'  AsrDecoder {seconds} s, chunk 16 (8 output frames a '
+              f'chunk): {len(got[0])} partials and the final equal the '
+              f'CPU\'s ({got[1][0][0][:12]!r}...); first partial '
+              f'{got[2]["first_ms"]:.1f} ms, final {got[2]["final_ms"]:.1f}'
+              f' ms ({smi})', flush=True)
+    torch.cuda.synchronize()
+    stream_launches = fa.LAUNCHES['relpos_attention_fwd']
+    if stream_launches % n_relpos or not stream_launches:
+        raise RuntimeError(f'zoo AsrDecoder: {stream_launches} K1 launches,'
+                           f' not {n_relpos} a chunk step')
+    shutil.rmtree(d)
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return train_launches, recognize_launches + stream_launches
+
+
+def zoo_check(smi):
+    """Phase 12 -> ({kernel name: launches in the zoo's runs}, readings)."""
+    phase('12 encoder zoo: six yamls at full width, decode, train, '
+          'recognize, stream')
+    t0 = time.perf_counter()
+    launches = {name: 0 for name in ('relpos_attention_fwd',
+                                     'flash_attention_fwd',
+                                     *TRAIN_KERNELS, *FLASH_TRAIN_KERNELS)}
+    rates, ties = {}, {}
+    phase('12a-b decode, card vs CPU, launches')
+    for name, (_, _, k1) in ZOO.items():
+        counted, rates[name], ties[name] = zoo_decode_check(
+            name, *ZOO_DECODE, k1, 0, smi)
+        launches['relpos_attention_fwd'] += counted['K1']
+        launches['flash_attention_fwd'] += counted['K4']
+    counted, rates['transformer_B64'], ties['transformer_B64'] = \
+        zoo_decode_check(
+        'transformer', *ZOO_K4_DECODE, 0,
+        zoo_configs('transformer')['encoder_conf']['num_blocks'], smi)
+    launches['flash_attention_fwd'] += counted['K4']
+    phase('12c one train step per yaml, card vs CPU')
+    for name in ZOO:
+        zoo_step_check(name)
+    phase('12d five steps through Executor.train')
+    for name in ZOO_EXECUTOR:
+        got = zoo_executor_check(name, smi)
+        for k in ZOO_EXECUTOR[name][2]:
+            launches[k] += got[k]
+    phase('12e the efficient conformer through bin/train.py, '
+          'bin/recognize.py and AsrDecoder')
+    train_launches, k1 = zoo_entry_check(smi)
+    for k in TRAIN_KERNELS:
+        launches[k] += train_launches[k]
+    launches['relpos_attention_fwd'] += k1
+    print(f'  phase 12 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return launches, {'audio_sec_per_s_rescoring': rates,
+                      'hypotheses_at_ties': ties}
+
+
 def main():
     smi = device()
     build()
@@ -3532,6 +4155,7 @@ def main():
      batched_readings) = streaming_checks(smi)
     entry_launches = train_entry_check(smi)
     recognize_launches, recognize_readings = recognize_check(smi)
+    zoo_launches, zoo_readings = zoo_check(smi)
     foreign = [m for m in sys.modules
                if m == 'jax' or m.startswith('jax.') or m == 'wenet_tpu'
                or m.startswith('wenet_tpu.')]
@@ -3542,7 +4166,9 @@ def main():
         'source': 'wenet_tpu_torch/csrc/relpos_attention.cu',
         'replaces': 'wenet_tpu/ops/flash_attention.py:548',
         'launches': launches + stream_launches + batched_launches +
-        recognize_launches, **report,
+        recognize_launches + zoo_launches['relpos_attention_fwd'], **report,
+        'launches_zoo': zoo_launches['relpos_attention_fwd'],
+        'zoo_decode': zoo_readings,
         'launches_decode': launches, 'launches_streaming': stream_launches,
         'launches_batched_serving': batched_launches,
         'launches_train_entry': entry_launches['relpos_attention_fwd'],
@@ -3552,17 +4178,24 @@ def main():
     for name, (source, replaces) in TRAIN_KERNELS.items():
         kernels.append(dict(name=name, route='cuda', source=source,
                             replaces=replaces,
-                            launches=train_launches[name],
+                            launches=train_launches[name] +
+                            zoo_launches[name],
                             launches_train_entry=entry_launches[name],
+                            launches_zoo=zoo_launches[name],
                             **train_report[name]))
     kernels.append(dict(name='flash_attention_fwd', route='cuda',
                         source='wenet_tpu_torch/csrc/flash_attention.cu',
                         replaces='wenet_tpu/ops/flash_attention.py:68',
-                        launches=flash_launches, **flash_report))
+                        launches=flash_launches +
+                        zoo_launches['flash_attention_fwd'],
+                        launches_zoo=zoo_launches['flash_attention_fwd'],
+                        **flash_report))
     for name, (source, replaces) in FLASH_TRAIN_KERNELS.items():
         kernels.append(dict(name=name, route='cuda', source=source,
                             replaces=replaces,
-                            launches=flash_train_launches[name],
+                            launches=flash_train_launches[name] +
+                            zoo_launches[name],
+                            launches_zoo=zoo_launches[name],
                             **flash_train_report[name]))
     print(f'== done (at {time.perf_counter() - _T0:.0f} s)')
     print(json.dumps({'kernels': kernels}))

@@ -169,7 +169,7 @@ def test_cross_attention_beam_expansion(pair):
     ('encoder_conf', 'normalize_before', False),
     ('encoder_conf', 'cnn_module_norm', 'rms_norm'),
     ('encoder_conf', 'n_kv_head', 1),
-    ('decoder_conf', 'activation_type', 'selu'),
+    ('decoder_conf', 'src_attention', False),
 ])
 def test_init_model_rejects_unported_options(section, key, value):
     from wenet_tpu_torch.utils.init_model import init_model

@@ -135,3 +135,65 @@ def fill_allocator_with_nan():
     blocks.append(torch.full((1 << 26,), float('nan'), device='cuda'))
     torch.cuda.synchronize()
     del blocks
+
+
+# --- the encoder zoo at tiny width: each family's options as its example
+# yaml sets them (tests/test_torch_encoder_zoo.py, test_torch_zoo_streaming.py)
+_NO_DROP = dict(dropout_rate=0.0, positional_dropout_rate=0.0,
+                attention_dropout_rate=0.0)
+_BRANCH = dict(output_size=64, attention_heads=2, num_blocks=2,
+               cgmlp_linear_units=128, cgmlp_conv_kernel=7, **_NO_DROP)
+ZOO_ENCODERS = {
+    # examples/{aishell,timit}/s0/conf/train_transformer.yaml
+    'transformer': ('transformer', dict(
+        output_size=64, attention_heads=2, linear_units=128, num_blocks=2,
+        input_layer='conv2d', normalize_before=True, **_NO_DROP)),
+    # examples/openasr2021/s0/conf/train_conformer_large_10h.yaml
+    'conformer_conv2d6': ('conformer', dict(
+        output_size=64, attention_heads=2, linear_units=128, num_blocks=2,
+        input_layer='conv2d6', cnn_module_kernel=7, causal=False,
+        use_dynamic_chunk=False, **_NO_DROP)),
+    # examples/aishell/s0/conf/train_ebranchformer.yaml
+    'e_branchformer': ('e_branchformer', dict(
+        _BRANCH, linear_units=128, merge_conv_kernel=5,
+        use_linear_after_conv=False, gate_activation='identity',
+        input_layer='conv2d', causal=False)),
+    'branchformer_concat': ('branchformer', dict(_BRANCH,
+                                                 merge_method='concat')),
+    'branchformer_learned_ave': ('branchformer', dict(
+        _BRANCH, merge_method='learned_ave')),
+    'branchformer_fixed_ave': ('branchformer', dict(
+        _BRANCH, merge_method='fixed_ave', cgmlp_weight=0.3)),
+    # examples/aishell/s0/conf/train_squeezeformer.yaml
+    'squeezeformer': ('squeezeformer', dict(
+        encoder_dim=64, output_size=64, attention_heads=2, num_blocks=3,
+        reduce_idx=1, recover_idx=2, feed_forward_expansion_factor=2,
+        input_dropout_rate=0.0, feed_forward_dropout_rate=0.0,
+        attention_dropout_rate=0.0, dropout=0.0, cnn_module_kernel=7,
+        cnn_norm_type='layer_norm', adaptive_scale=True,
+        normalize_before=False)),
+    # examples/aishell/s0/conf/train_u2pp_efficonformer.yaml: grouped
+    # layers 0-1, the stride at layer 1, a plain rel-pos layer after it
+    'efficient_conformer': ('efficientConformer', dict(
+        output_size=64, attention_heads=2, linear_units=128, num_blocks=3,
+        input_layer='conv2d', cnn_module_kernel=7, causal=True,
+        use_dynamic_chunk=True, cnn_module_norm='layer_norm',
+        normalize_before=True, pos_enc_layer_type='rel_pos',
+        efficient_conf=dict(stride_layer_idx=[1], stride=[2],
+                            group_layer_idx=[0, 1], group_size=3),
+        **_NO_DROP)),
+}
+
+
+def zoo_config(name, **encoder_overrides):
+    """TINY_CONFIG with the zoo encoder `name` and no dropout anywhere
+    (decoder 1 + 1 blocks)."""
+    encoder, conf = ZOO_ENCODERS[name]
+    cfg = copy.deepcopy(TINY_CONFIG)
+    cfg['encoder'] = encoder
+    cfg['encoder_conf'] = dict(copy.deepcopy(conf), **encoder_overrides)
+    cfg['decoder_conf'].update(num_blocks=1, r_num_blocks=1)
+    for k in ('dropout_rate', 'positional_dropout_rate',
+              'self_attention_dropout_rate', 'src_attention_dropout_rate'):
+        cfg['decoder_conf'][k] = 0.0
+    return cfg

@@ -115,7 +115,7 @@ class ASRModel(nn.Module):
                               offset: Union[int, torch.Tensor],
                               att_cache, cnn_cache,
                               att_mask: Optional[torch.Tensor] = None):
-        """The streaming chunk step (`ConformerEncoder.forward_chunk`);
+        """The streaming chunk step (the encoder's `forward_chunk`);
         `offset` is an int or a (B,) tensor with one per row."""
         return self.encoder.forward_chunk(xs, offset, att_cache, cnn_cache,
                                           att_mask)

@@ -128,6 +128,27 @@ class MultiHeadedAttention(nn.Module):
                              self.dropout)
         return self._finish(ctx)
 
+    def forward_self(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                     pos_emb: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None,
+                     cache: Optional[T_CACHE] = None
+                     ) -> Tuple[torch.Tensor, Optional[T_CACHE]]:
+        """An encoder layer's self-attention over x (B, T, F), the call
+        every `ATTENTION_CLASSES` entry shares: mask (B, T|1, T2) bool;
+        `pos_emb` and `generator` are not read here (absolute positions
+        are in x; attention dropout is `nn.Dropout`).  With `cache`, the
+        cached (k, v) of (B, h, cache_t, d) go in front of this chunk's
+        and come back with them; without, the new cache is None."""
+        q = self.project_q(x)
+        k, v = self.project_kv(x, x)
+        if cache is not None:
+            k = torch.cat([cache[0], k], dim=2)
+            v = torch.cat([cache[1], v], dim=2)
+        m = None if mask is None else mask.unsqueeze(1)
+        ctx = attention_core(q, k, v, m, 1.0 / math.sqrt(self.d_k),
+                             self.dropout)
+        return self._finish(ctx), None if cache is None else (k, v)
+
     def decode_step(self, x_q: torch.Tensor, cache: T_CACHE,
                     step: int) -> torch.Tensor:
         """One decoder step.  x_q: (B, 1, F); cache: (k, v) buffers of
@@ -223,3 +244,35 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         ctx = flash_attention_relpos(q + u, q + w, k, p, v, mask,
                                      1.0 / math.sqrt(self.d_k), rate, seed)
         return self._finish(ctx), None if cache is None else (k, v)
+
+    def forward_self(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                     pos_emb: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None,
+                     cache: Optional[T_CACHE] = None
+                     ) -> Tuple[torch.Tensor, Optional[T_CACHE]]:
+        return self(x, x, x, mask, pos_emb, generator, cache)
+
+
+# the encoder self-attentions a config may name
+# (`selfattention_layer_type`); Shaw's and RoPE's are not ported
+# (ROADMAP.md, queue 1 item 8)
+ATTENTION_CLASSES = {'selfattn': MultiHeadedAttention,
+                     'rel_selfattn': RelPositionMultiHeadedAttention}
+
+
+def make_self_attention(kind: str, n_head: int, n_feat: int,
+                        dropout_rate: float = 0.0,
+                        lora_conf: Optional[dict] = None, **bias) -> nn.Module:
+    """`ATTENTION_CLASSES[kind]`; `bias` (query_bias, key_bias,
+    value_bias) goes to plain MHA only."""
+    if kind not in ATTENTION_CLASSES:
+        raise NotImplementedError(f'selfattention_layer_type={kind!r} is '
+                                  'not ported (ROADMAP.md, queue 1 item 8)')
+    if kind == 'selfattn':
+        return MultiHeadedAttention(n_head, n_feat, dropout_rate,
+                                    lora_conf=lora_conf, **bias)
+    if not all(bias.values()):
+        raise NotImplementedError('rel_selfattn without a q/k/v bias is not '
+                                  'ported')
+    return RelPositionMultiHeadedAttention(n_head, n_feat, dropout_rate,
+                                           lora_conf)

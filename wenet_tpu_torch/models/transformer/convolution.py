@@ -8,6 +8,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from wenet_tpu_torch.models.transformer.norm import channel_norm, get_norm
+
 
 class ConvolutionModule(nn.Module):
     """pointwise conv -> GLU -> depthwise conv -> norm -> swish -> pointwise.
@@ -25,12 +27,7 @@ class ConvolutionModule(nn.Module):
         self.depthwise_conv = nn.Conv1d(
             channels, channels, kernel_size, groups=channels,
             padding=0 if causal else kernel_size // 2)
-        if norm == 'batch_norm':
-            self.norm = nn.BatchNorm1d(channels, eps=norm_eps)
-        elif norm == 'layer_norm':
-            self.norm = nn.LayerNorm(channels, eps=norm_eps)
-        else:
-            raise NotImplementedError(f'conv norm {norm!r} is not ported')
+        self.norm = get_norm(norm, channels, norm_eps)
         self.pointwise_conv2 = nn.Conv1d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor,
@@ -54,11 +51,7 @@ class ConvolutionModule(nn.Module):
         elif self.lorder > 0:
             x = F.pad(x, (0, 0, self.lorder, 0))
         x = F.glu(self.pointwise_conv1(x.transpose(1, 2)), dim=1)
-        x = self.depthwise_conv(x)
-        if isinstance(self.norm, nn.LayerNorm):
-            x = self.norm(x.transpose(1, 2)).transpose(1, 2)
-        else:
-            x = self.norm(x)
+        x = channel_norm(self.norm, self.depthwise_conv(x))
         x = self.pointwise_conv2(F.silu(x))
         if mask_pad is not None:
             x = x.masked_fill(~mask_pad, 0.0)

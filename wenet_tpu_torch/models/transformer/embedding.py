@@ -1,6 +1,7 @@
 """Positional encodings.  Counterpart of
 wenet_tpu/models/transformer/embedding.py (absolute, rel-pos, whisper's
-[sin | cos] and the learnable table of whisper's decoder).
+[sin | cos] and the learnable table of whisper's decoder) and of
+`make_pos_enc` (wenet_tpu/models/transformer/encoder.py).
 
 The sinusoidal encodings are computed for each call from the sequence
 length; no position table is stored, so their state dict has no `pe`
@@ -36,7 +37,7 @@ def sinusoidal_position_encoding(size: int, d_model: int, device=None,
 
 
 class PositionalEncoding(nn.Module):
-    """x * sqrt(d) + PE.  Returns (x, pos_emb)."""
+    """x * sqrt(d) + PE (`abs_pos`).  Returns (x, pos_emb)."""
 
     def __init__(self, d_model: int, dropout_rate: float = 0.0):
         super().__init__()
@@ -44,23 +45,24 @@ class PositionalEncoding(nn.Module):
         self.xscale = math.sqrt(d_model)
         self.dropout = nn.Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor,
-                offset: Union[int, torch.Tensor] = 0
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        pos_emb = sinusoidal_position_encoding(x.shape[1], self.d_model,
-                                               x.device, offset).to(x.dtype)
-        return self.dropout(x * self.xscale + pos_emb), self.dropout(pos_emb)
-
-
-class RelPositionalEncoding(PositionalEncoding):
-    """Transformer-XL style: scale x, return the PE separately."""
-
     def position_encoding(self, offset: Union[int, torch.Tensor], size: int,
                           device=None) -> torch.Tensor:
         """(1, size, d) encoding of positions [offset, offset + size), or
         (B, size, d) for a (B,) tensor of offsets."""
         return sinusoidal_position_encoding(size, self.d_model, device,
                                             offset)
+
+    def forward(self, x: torch.Tensor,
+                offset: Union[int, torch.Tensor] = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        pos_emb = self.position_encoding(offset, x.shape[1],
+                                         x.device).to(x.dtype)
+        return self.dropout(x * self.xscale + pos_emb), self.dropout(pos_emb)
+
+
+class RelPositionalEncoding(PositionalEncoding):
+    """Transformer-XL style (`rel_pos`): scale x, return the PE
+    separately."""
 
     def forward(self, x: torch.Tensor,
                 offset: Union[int, torch.Tensor] = 0
@@ -88,6 +90,23 @@ class WhisperPositionalEncoding(PositionalEncoding):
         pos_emb = whisper_position_encoding(x.shape[1], self.d_model,
                                             x.device).to(x.dtype)
         return self.dropout(x + pos_emb), self.dropout(pos_emb)
+
+
+def make_pos_enc(pos_enc_layer_type: str, output_size: int,
+                 positional_dropout_rate: float) -> nn.Module:
+    """The encoder's position encoding by config name.  Counterpart of
+    wenet_tpu/models/transformer/encoder.py `make_pos_enc`."""
+    if pos_enc_layer_type == 'abs_pos':
+        return PositionalEncoding(output_size, positional_dropout_rate)
+    if pos_enc_layer_type == 'rel_pos':
+        return RelPositionalEncoding(output_size, positional_dropout_rate)
+    if pos_enc_layer_type == 'abs_pos_whisper':
+        return WhisperPositionalEncoding(output_size, positional_dropout_rate)
+    if pos_enc_layer_type in ('rope_pos', 'no_pos'):
+        raise NotImplementedError(f'pos_enc_layer_type='
+                                  f'{pos_enc_layer_type!r} is not ported '
+                                  '(ROADMAP.md, queue 1 item 8)')
+    raise ValueError(pos_enc_layer_type)
 
 
 class LearnablePositionalEncoding(nn.Module):

@@ -9,36 +9,51 @@ from torch import nn
 import torch.nn.functional as F
 
 from wenet_tpu_torch.models.transformer.attention import (
-    T_CACHE, MultiHeadedAttention, RelPositionMultiHeadedAttention)
+    T_CACHE, RelPositionMultiHeadedAttention, make_self_attention)
 from wenet_tpu_torch.models.transformer.convolution import ConvolutionModule
 from wenet_tpu_torch.models.transformer.positionwise_feed_forward import (
-    PositionwiseFeedForward, get_activation)
+    PositionwiseFeedForward, make_mlp)
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Pre-norm MHSA + FFN, each a residual block (whisper's encoder
-    block)."""
+    """Pre-norm self-attention + FFN, each a residual block (whisper's
+    encoder block, and the conv2d transformer's)."""
 
     def __init__(self, size: int, attention_heads: int, linear_units: int,
                  dropout_rate: float = 0.1,
                  attention_dropout_rate: float = 0.0, norm_eps: float = 1e-5,
                  activation_type: str = 'relu', query_bias: bool = True,
                  key_bias: bool = True, value_bias: bool = True,
-                 lora_conf: Optional[dict] = None):
+                 lora_conf: Optional[dict] = None,
+                 selfattention_layer_type: str = 'selfattn',
+                 mlp_type: str = 'position_wise_feed_forward'):
         super().__init__()
-        self.self_attn = MultiHeadedAttention(
-            attention_heads, size, attention_dropout_rate, query_bias,
-            key_bias, value_bias, lora_conf)
-        self.feed_forward = PositionwiseFeedForward(
-            size, linear_units, dropout_rate, get_activation(activation_type))
+        self.self_attn = make_self_attention(
+            selfattention_layer_type, attention_heads, size,
+            attention_dropout_rate, lora_conf, query_bias=query_bias,
+            key_bias=key_bias, value_bias=value_bias)
+        self.feed_forward = make_mlp(mlp_type, size, linear_units,
+                                     dropout_rate, activation_type)
         self.norm1 = nn.LayerNorm(size, eps=norm_eps)
         self.norm2 = nn.LayerNorm(size, eps=norm_eps)
         self.dropout = nn.Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """x: (B, T, D); mask: (B, T|1, T) attention mask."""
-        x = x + self.dropout(self.self_attn(*(self.norm1(x),) * 3, mask))
-        return x + self.dropout(self.feed_forward(self.norm2(x)))
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                pos_emb: Optional[torch.Tensor] = None,
+                mask_pad: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                att_cache: Optional[T_CACHE] = None,
+                cnn_cache: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[T_CACHE], None]:
+        """x: (B, T, D); mask: (B, T|1, T2) attention mask -> (x, new att
+        cache, None), the call of every encoder layer (see
+        `ConformerEncoderLayer`); there is no conv, so no cnn cache."""
+        y, new_att = self.self_attn.forward_self(self.norm1(x), mask,
+                                                 pos_emb, generator,
+                                                 att_cache)
+        x = x + self.dropout(y)
+        return x + self.dropout(self.feed_forward(self.norm2(x))), \
+            new_att, None
 
 
 class ConformerEncoderLayer(nn.Module):

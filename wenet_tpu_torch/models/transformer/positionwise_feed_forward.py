@@ -1,6 +1,7 @@
 """Positionwise FFN.  Counterpart of
 wenet_tpu/models/transformer/positionwise_feed_forward.py
-`PositionwiseFeedForward`."""
+`PositionwiseFeedForward` and its `MLP_CLASSES` (the MoE and gated FFNs
+are not ported: ROADMAP.md, queue 1 item 8)."""
 
 from typing import Callable
 
@@ -8,15 +9,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-
-# the activations the ported configs name (gelu is the exact erf form)
-ACTIVATIONS = {'relu': F.relu, 'gelu': F.gelu, 'swish': F.silu}
-
-
-def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
-    if name not in ACTIVATIONS:
-        raise NotImplementedError(f'activation_type={name!r} is not ported')
-    return ACTIVATIONS[name]
+from wenet_tpu_torch.models.transformer.activations import (  # noqa: F401
+    get_activation)
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -33,3 +27,15 @@ class PositionwiseFeedForward(nn.Module):
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:
         return self.w_2(self.dropout(self.activation(self.w_1(xs))))
+
+
+MLP_CLASSES = {'position_wise_feed_forward': PositionwiseFeedForward}
+
+
+def make_mlp(mlp_type: str, idim: int, hidden_units: int,
+             dropout_rate: float, activation_type: str) -> nn.Module:
+    if mlp_type not in MLP_CLASSES:
+        raise NotImplementedError(f'mlp_type={mlp_type!r} is not ported '
+                                  '(ROADMAP.md, queue 1 item 8)')
+    return MLP_CLASSES[mlp_type](idim, hidden_units, dropout_rate,
+                                 get_activation(activation_type))

@@ -86,28 +86,35 @@ def forward_chunk_by_chunk(model, xs: torch.Tensor, cfg: StreamingConfig
     Chunks of `decoding_window` frames every `stride` frames, each through
     `model.forward_encoder_chunk` with the caches of the chunks before it;
     the tail chunk is zero padded to the window and its pad masked.  No
-    subsampling cache: the windows overlap, as in the reference."""
+    subsampling cache: the windows overlap, as in the reference.  An
+    encoder that downsamples inside its trunk (the efficient conformer's
+    `output_downsampling_factor` f) emits ceil(base / f) frames of each
+    chunk's base frames: its caches and masks stay at the base
+    resolution, and `offset` counts the frames it emitted."""
     enc = model.encoder
     cache_size = cfg.required_cache_size
     B, num_frames = xs.shape[0], xs.shape[1]
     state = init_streaming_state(enc, B, cfg, xs.dtype, xs.device)
     context = cfg.right_context + 1
     chunk_out = (cfg.decoding_window - context) // cfg.subsampling_rate + 1
+    factor = enc.output_downsampling_factor
     outputs = []
     for cur in range(0, num_frames - context + 1, cfg.stride):
         chunk_xs = xs[:, cur:cur + cfg.decoding_window]
-        real_out = (chunk_xs.shape[1] - context) // cfg.subsampling_rate + 1
+        real_base = (chunk_xs.shape[1] - context) // cfg.subsampling_rate + 1
+        real_out = -(-real_base // factor)
         pad = cfg.decoding_window - chunk_xs.shape[1]
         if pad > 0:
             chunk_xs = F.pad(chunk_xs, (0, 0, 0, pad))
         att_mask = streaming_att_mask(B, cache_size, chunk_out,
-                                      state.valid_cache, real_out, xs.device)
+                                      state.valid_cache, real_base,
+                                      xs.device)
         ys, state.att_cache, state.cnn_cache = model.forward_encoder_chunk(
             chunk_xs, state.offset, state.att_cache, state.cnn_cache,
             att_mask)
         outputs.append(ys[:, :real_out])
         state.offset += real_out
-        state.valid_cache = min(state.valid_cache + real_out, cache_size)
+        state.valid_cache = min(state.valid_cache + real_base, cache_size)
     ys = torch.cat(outputs, dim=1)
     return ys, torch.ones(1, 1, ys.shape[1], dtype=torch.bool,
                           device=ys.device)

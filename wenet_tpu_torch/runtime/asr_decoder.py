@@ -3,11 +3,13 @@ Counterpart of wenet_tpu/runtime/asr_decoder.py.
 
 Per chunk: the feature pipeline (host fbank) -> the model's chunk step on
 the device (`forward_encoder_chunk` with fixed-size caches, K1 in every
-block) -> CTC log-softmax and its top-k on the device -> one copy to the
-host (the top-k and the blank column) -> the C++ prefix beam -> the
-endpoint rules.  The encoder outputs stay on the device: `rescoring`
-closes the beam and reranks its n-best with the attention decoder over
-them (score + ctc_weight * ctc score).
+rel-pos block; an efficient conformer emits a frame per
+`output_downsampling_factor` base frames) -> CTC log-softmax and its
+top-k on the device -> one copy to the host (the top-k and the blank
+column) -> the C++ prefix beam -> the endpoint rules.  The encoder
+outputs stay on the device: `rescoring` closes the beam and reranks its
+n-best with the attention decoder over them (score + ctc_weight * ctc
+score).
 
 With `batch_runner` (runtime/batch_runner.py) the chunk step is not run
 here: the decoder submits its chunk and caches to the runner, which
@@ -106,8 +108,11 @@ class AsrDecoder:
             num_decoding_left_chunks=self.opts.num_left_chunks,
             subsampling_rate=encoder.subsampling_rate,
             right_context=encoder.right_context)
-        self.endpointer = CtcEndpoint(endpoint_config,
-                                      10 * encoder.subsampling_rate)
+        # an encoder that downsamples inside its trunk (the efficient
+        # conformer) emits one frame per `factor` base frames of a chunk
+        self.factor = encoder.output_downsampling_factor
+        self.endpointer = CtcEndpoint(
+            endpoint_config, 10 * encoder.subsampling_rate * self.factor)
         if batch_runner is not None:
             theirs = (batch_runner.cfg, batch_runner.beam_size,
                       batch_runner.blank_id, batch_runner.device)
@@ -187,8 +192,9 @@ class AsrDecoder:
             self.state = model.encoder.zero_cache(
                 1, cfg.required_cache_size, device=self.device)
         context = cfg.right_context + 1
-        real_out = max((chunk.shape[0] - context) //
-                       cfg.subsampling_rate + 1, 0)
+        real_base = max((chunk.shape[0] - context) //
+                        cfg.subsampling_rate + 1, 0)
+        real_out = -(-real_base // self.factor)
         pad = cfg.decoding_window - chunk.shape[0]
         if pad > 0:
             chunk = np.pad(chunk, ((0, pad), (0, 0)))
@@ -204,7 +210,7 @@ class AsrDecoder:
                 cfg.subsampling_rate + 1
             att_mask = streaming_att_mask(1, cfg.required_cache_size,
                                           chunk_out, self.valid_cache,
-                                          real_out, self.device)
+                                          real_base, self.device)
             xs = torch.from_numpy(chunk)[None].to(self.device)
             ys, att_cache, cnn_cache = model.forward_encoder_chunk(
                 xs, self.offset, *self.state, att_mask)
@@ -213,7 +219,7 @@ class AsrDecoder:
             # the one device-to-host copy of the step
             host = model.ctc_host_rows(ys, k, blank).cpu().numpy()
         self.offset += real_out
-        self.valid_cache = min(self.valid_cache + real_out,
+        self.valid_cache = min(self.valid_cache + real_base,
                                cfg.required_cache_size)
         self.encoder_outs.append(ys)
         self.searcher.search_topk(host[:, :k], host[:, k:2 * k].astype(

@@ -25,7 +25,9 @@ library handles) and returns the sizes it ran.
 
 Runs on `device` ('cuda' unless the caller asks for the CPU), under its
 own `torch.inference_mode()`, which is per thread.  One card: `mesh=`
-(data-parallel serving over several) raises NotImplementedError."""
+(data-parallel serving over several) raises NotImplementedError, and so
+does a model whose encoder is not the conformer (the rest of the zoo is
+served one stream per `AsrDecoder`)."""
 
 import collections
 import queue
@@ -38,6 +40,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from wenet_tpu_torch.models.transformer.encoder import ConformerEncoder
 from wenet_tpu_torch.models.transformer.streaming import (StreamingConfig,
                                                           streaming_att_mask)
 
@@ -64,6 +67,11 @@ class BatchedChunkRunner:
         if mesh is not None:
             raise NotImplementedError('data-parallel serving over a mesh is '
                                       'not ported (one card)')
+        if type(model.encoder) is not ConformerEncoder:
+            raise NotImplementedError(
+                f'batched serving of {type(model.encoder).__name__} is not '
+                'ported (ROADMAP.md, queue 1 item 8): the batched chunk '
+                'step is the conformer\'s')
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg

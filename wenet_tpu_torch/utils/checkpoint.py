@@ -30,6 +30,10 @@ import yaml
 
 _LIST_SEG = re.compile(r'^(encoders|decoders)_(\d+)$')
 _CONV_SEG = re.compile(r'^conv_(\d+)$')
+# Dense kernels that are pointwise Conv1d in the reference: the conv
+# modules' pointwise convs and Squeezeformer's time reduction
+_POINTWISE_CONV1D = re.compile(
+    r'pointwise_conv|time_reduction_layer\.pw_conv')
 _LEAF = {'kernel': 'weight', 'scale': 'weight', 'embedding': 'weight',
          'mean': 'running_mean', 'var': 'running_var'}
 
@@ -56,6 +60,10 @@ def torch_key(path: Tuple[str, ...]) -> str:
             out += ['conv', str(2 * int(seg.split('_')[1]))]
         elif seg == 'out' and out[-1:] == ['embed']:
             out += ['out', '0']
+        elif seg in ('input_proj', 'channel_proj1'):
+            # Sequential(Linear, act) in the reference (Squeezeformer's
+            # front end, cgMLP)
+            out += [seg, '0']
         elif seg == 'embed' and i > 0 and segs[i - 1] in (
                 'decoder', 'left_decoder', 'right_decoder'):
             out += ['embed', '0']  # nn.Embedding inside the Sequential
@@ -75,7 +83,7 @@ def _torch_layout(a: np.ndarray, leaf: str, key: str) -> np.ndarray:
         return a
     if a.ndim == 2:
         a = a.T  # Dense (in, out) -> Linear (out, in)
-        if 'pointwise_conv' in key:
+        if _POINTWISE_CONV1D.search(key):
             a = a[:, :, None]  # -> Conv1d (out, in, 1)
     elif a.ndim == 3:
         a = a.transpose(2, 1, 0)  # (K, in, out) -> Conv1d (out, in, K)
@@ -130,8 +138,10 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> dict:
     and a `state_dict` key unwrapped, as its `load_checkpoint` does) or a
     TorchScript archive (.zip), read through its `state_dict()`.  Keys the
     reference persists that the port has no tensor for (sinusoidal `pe`
-    tables, recomputed here) are dropped, and BatchNorm step counts the
-    JAX package does not write start at 0."""
+    tables, recomputed here) are dropped, BatchNorm step counts the
+    JAX package does not write start at 0, and an (out, in) weight
+    where the model has a pointwise Conv1d's (out, in, 1) gets its
+    kernel axis."""
     if path.endswith('.zip'):
         state = torch.jit.load(path, map_location='cpu').state_dict()
     elif path.endswith(('.pt', '.pth', '.bin')):
@@ -150,6 +160,12 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> dict:
     for k in own:
         if k.endswith('num_batches_tracked') and k not in state:
             state[k] = torch.zeros_like(own[k])
+        elif k in state and state[k].dim() == 2 and own[k].dim() == 3 \
+                and tuple(state[k].shape) + (1,) == tuple(own[k].shape):
+            # the JAX package's export keeps Squeezeformer's time
+            # reduction pw_conv as its (out, in) Dense: the reference's
+            # Conv1d has (out, in, 1)
+            state[k] = state[k][:, :, None]
     model.load_state_dict(state, strict=True)
     info_path = _info_path(path)
     if not os.path.exists(info_path):

@@ -1,9 +1,12 @@
 """Config-driven model construction.  Counterpart of the `asr_model` and
-`whisper` entries of wenet_tpu/utils/init_model.py: a conformer or
-whisper-style transformer encoder, a (bi)transformer decoder and a CTC
-head, from the same train.yaml schema, with LoRA attention projections
-when `lora_conf.use_lora` is set (the encoder's always, the decoder's
-with `lora_decoder`).
+`whisper` entries of wenet_tpu/utils/init_model.py: an encoder of the
+zoo (conformer, transformer, branchformer, E-Branchformer, Squeezeformer,
+efficient conformer), a (bi)transformer decoder and a CTC head, from the
+same train.yaml schema (the efficient conformer's `efficient_conf`
+section merged into its encoder_conf, as the JAX package does), with
+LoRA attention projections when `lora_conf.use_lora` is set (the
+conformer's and transformer's encoder always, the decoder's with
+`lora_decoder`).
 
 `gradient_checkpointing` (activation recomputation, which trades memory
 and changes no result) and `use_sdpa` are accepted and ignored.  Options
@@ -20,8 +23,6 @@ from torch import nn
 
 from wenet_tpu_torch.models.finetune.lora import LoRALinear
 from wenet_tpu_torch.models.transformer.asr_model import ASRModel
-from wenet_tpu_torch.models.transformer.attention import (
-    RelPositionMultiHeadedAttention)
 from wenet_tpu_torch.models.transformer.cmvn import GlobalCMVN
 from wenet_tpu_torch.models.transformer.ctc import CTC
 from wenet_tpu_torch.models.transformer.decoder import (BiTransformerDecoder,
@@ -29,31 +30,64 @@ from wenet_tpu_torch.models.transformer.decoder import (BiTransformerDecoder,
                                                         _OutputBias)
 from wenet_tpu_torch.models.transformer.embedding import (
     LearnablePositionalEncoding)
+from wenet_tpu_torch.models.branchformer.encoder import BranchformerEncoder
+from wenet_tpu_torch.models.e_branchformer.encoder import EBranchformerEncoder
+from wenet_tpu_torch.models.efficient_conformer.encoder import (
+    EfficientConformerEncoder)
+from wenet_tpu_torch.models.squeezeformer.encoder import SqueezeformerEncoder
 from wenet_tpu_torch.models.transformer.encoder import (ConformerEncoder,
                                                         TransformerEncoder)
 from wenet_tpu_torch.models.whisper.convert import default_special_tokens
 from wenet_tpu_torch.models.whisper.whisper import Whisper
 
-ENCODER_CLASSES = {'conformer': ConformerEncoder,
-                   'transformer': TransformerEncoder}
+ENCODER_CLASSES = {
+    'conformer': ConformerEncoder,
+    'transformer': TransformerEncoder,
+    'branchformer': BranchformerEncoder,
+    'e_branchformer': EBranchformerEncoder,
+    'squeezeformer': SqueezeformerEncoder,
+    'efficientConformer': EfficientConformerEncoder,
+    # the reference's aliases (ctl_model's encoders, built here as the
+    # plain ones for an asr_model)
+    'dual_transformer': TransformerEncoder,
+    'dual_conformer': ConformerEncoder,
+}
+ENCODER_TYPE_OF = {'dual_transformer': 'transformer',
+                   'dual_conformer': 'conformer'}
 DECODER_CLASSES = {'transformer': TransformerDecoder,
                    'bitransformer': BiTransformerDecoder}
 MODEL_CLASSES = {'asr_model': ASRModel, 'whisper': Whisper}
+# the ROADMAP.md queue 1 item of each model family not ported (item 8,
+# the rest of the encoder zoo, for any other name)
+UNPORTED_ITEM = {'paraformer': 9, 'sanm_encoder': 9,
+                 'sanm_encoder_with_tp': 9, 'sensevoice_small': 9,
+                 'firered': 9, 'firered_conformer': 9, 'transducer': 10,
+                 'k2_model': 11, 'bestrq_model': 11, 'w2vbert_model': 11,
+                 'wav2vec2_model': 11}
 # accepted and ignored (remat is not ported; it changes no result)
 _IGNORED = {'gradient_checkpointing', 'use_sdpa'}
-_ENCODER_FIXED = {'input_layer': 'conv2d', 'pos_enc_layer_type': 'rel_pos',
-                  'selfattention_layer_type': 'rel_selfattn',
-                  'activation_type': 'swish', 'normalize_before': True,
-                  'macaron_style': True, 'use_cnn_module': True,
-                  'final_norm': True, 'static_chunk_size': 0,
-                  'cmvn_norm_var': True}
+# options each encoder implements at one value only (the value every
+# example config uses): another value raises
+_FIXED_ALL = {'cmvn_norm_var': True, 'static_chunk_size': 0,
+              'layer_norm_type': 'layer_norm', 'final_norm': True,
+              'normalize_before': True, 'query_bias': True,
+              'key_bias': True, 'value_bias': True, 'mlp_bias': True,
+              'mlp_type': 'position_wise_feed_forward'}
+_CONFORMER_FIXED = {'pos_enc_layer_type': 'rel_pos',
+                    'selfattention_layer_type': 'rel_selfattn',
+                    'activation_type': 'swish', 'macaron_style': True,
+                    'use_cnn_module': True, 'conv_bias': True,
+                    'conv_inner_factor': 2}
 _ENCODER_FIXED_BY_TYPE = {
-    'conformer': _ENCODER_FIXED,
-    'transformer': {'input_layer': 'conv1d2',
-                    'pos_enc_layer_type': 'abs_pos_whisper',
-                    'selfattention_layer_type': 'selfattn',
-                    'normalize_before': True, 'final_norm': True,
-                    'cmvn_norm_var': True},
+    'conformer': _CONFORMER_FIXED,
+    'transformer': {},
+    'branchformer': {},
+    'e_branchformer': {'stochastic_depth_rate': 0.0},
+    'efficientConformer': {'pos_enc_layer_type': 'rel_pos',
+                           'use_cnn_module': True},
+    'squeezeformer': {'pos_enc_layer_type': 'rel_pos',
+                      'time_reduction_layer_type': 'conv1d',
+                      'concat_after': False},
 }
 _DECODER_FIXED = {'normalize_before': True, 'use_output_layer': True,
                   'src_attention': True}
@@ -76,7 +110,8 @@ def _conf(conf: dict, accepted: set, what: str, fixed=None) -> dict:
             out[key] = value
         elif not (key in _IGNORED or key in fixed and fixed[key] == value):
             raise NotImplementedError(f'{what} option {key}={value!r} is '
-                                      'not ported')
+                                      'not ported (ROADMAP.md, queue 1 '
+                                      'item 8)')
     return out
 
 
@@ -105,11 +140,13 @@ def init_model(configs: dict, generator: Optional[torch.Generator] = None,
     cmvn buffers (`encoder.global_cmvn.mean` / `istd`) from the stats."""
     encoder_type = configs.get('encoder', 'conformer')
     model_type = configs.get('model', 'asr_model')
-    for key, value, ported in (('encoder', encoder_type, ENCODER_CLASSES),
-                               ('ctc', configs.get('ctc', 'ctc'), ('ctc',)),
-                               ('model', model_type, MODEL_CLASSES)):
+    for key, value, ported in (('model', model_type, MODEL_CLASSES),
+                               ('encoder', encoder_type, ENCODER_CLASSES),
+                               ('ctc', configs.get('ctc', 'ctc'), ('ctc',))):
         if value not in ported:
-            raise NotImplementedError(f'{key}={value!r} is not ported')
+            item = UNPORTED_ITEM.get(value, 8)
+            raise NotImplementedError(f'{key}={value!r} is not ported '
+                                      f'(ROADMAP.md, queue 1 item {item})')
     lora_conf = lora_conf_of(configs)
     dec_lora = (lora_conf if (configs.get('lora_conf') or {}).get(
         'lora_decoder', False) else None)
@@ -129,13 +166,20 @@ def init_model(configs: dict, generator: Optional[torch.Generator] = None,
     if special_tokens is None and model_type == 'whisper':
         special_tokens = default_special_tokens(vocab_size)
 
+    enc_conf = dict(configs['encoder_conf'])
+    enc_conf.update(enc_conf.pop('efficient_conf', None) or {})
+    enc_params = inspect.signature(enc_cls.__init__).parameters
+    enc_kw = {'lora_conf': lora_conf} if 'lora_conf' in enc_params else {}
+    if lora_conf is not None and not enc_kw:
+        raise NotImplementedError(f'LoRA on the {encoder_type} encoder is '
+                                  'not ported')
+    fixed = dict(_FIXED_ALL, **_ENCODER_FIXED_BY_TYPE[
+        ENCODER_TYPE_OF.get(encoder_type, encoder_type)])
     with torch.device('meta'):
         encoder = enc_cls(
             configs['input_dim'],
-            use_cmvn=configs.get('cmvn') == 'global_cmvn',
-            lora_conf=lora_conf,
-            **_conf(configs['encoder_conf'], _params(enc_cls.__init__),
-                    'encoder', _ENCODER_FIXED_BY_TYPE[encoder_type]))
+            use_cmvn=configs.get('cmvn') == 'global_cmvn', **enc_kw,
+            **_conf(enc_conf, _params(enc_cls.__init__), 'encoder', fixed))
         decoder = dec_cls(vocab_size, encoder.output_size(),
                           lora_conf=dec_lora, **dec_conf)
         ctc = CTC(vocab_size, encoder.output_size(),
@@ -194,10 +238,14 @@ def init_weights(model: nn.Module,
             fill(m.pe, lambda t: t.normal_(0.0, 0.02, generator=generator))
         elif isinstance(m, _OutputBias):
             fill(m.bias, nn.init.zeros_)
-        elif isinstance(m, RelPositionMultiHeadedAttention):
+        if isinstance(getattr(m, 'pos_bias_u', None), nn.Parameter):
+            # the rel-pos attentions' (h, d) biases, (h, d·g) grouped
             h, d = m.pos_bias_u.shape
             for t in (m.pos_bias_u, m.pos_bias_v):
                 fill(t, uniform(math.sqrt(6.0 / (h + d))))
+        if isinstance(getattr(m, 'ada_scale', None), nn.Parameter):
+            fill(m.ada_scale, nn.init.ones_)  # Squeezeformer's
+            fill(m.ada_bias, nn.init.zeros_)
     missed = [n for n, t in list(model.named_parameters()) +
               list(model.named_buffers()) if id(t) not in done]
     if missed:
