@@ -7,8 +7,8 @@ Phases, each of which raises on failure (non-zero exit):
   2. build    compiles the attention kernels (K1 forward, K2 and K3
               backward, K4 masked forward, K5 and K6 its backward; nvcc,
               sm_90a, one process per source, all started together) and
-              the port's C++ CTC prefix-beam searcher (g++) from the
-              checkout's sources
+              the port's C++ CTC prefix-beam searcher and lattice WFST
+              decoder (g++) from the checkout's sources
   3. kernel   K1 (inference) against its plain PyTorch version, fp32 and
               bf16, at the encoder's shapes, ragged edges, a fully masked
               row, a peaked softmax, key tiles closed mid-row, a chunk
@@ -185,6 +185,32 @@ Phases, each of which raises on failure (non-zero exit):
               AsrDecoder over the trained model on the card against the
               CPU, partial by partial.  Prints each yaml's audio-sec/s of
               the rescoring decode
+  13. the recipe's stages 6 and 7 on the flagship at full width (random
+              weights from the seed; the CTC head scaled and the blank
+              raised so that posteriors are peaked and mostly blank, as a
+              trained head's are).  13a: a lexicon of 5000 words (every
+              char, and words of 2-4 chars) and a 3-gram ARPA from counts
+              over 1500 seeded sentences, every word a unigram, through
+              the port's pure-Python build_tlg (states, arcs, build
+              seconds).  13b:
+              decoder_main --fst_path TLG.txt --dict_path words.txt over
+              eight wavs of 4-15 s on the card and on the CPU: words equal
+              up to what the two devices' log-prob rows explain (best
+              likelihoods within the summed row differences), 12 K1
+              launches a chunk step, and on the card's rows (each frame's
+              top-10 and blank) the C++ lattice decoder's one-best equal
+              to the plain Python searcher's, as many utterances as 60 s
+              of the Python searcher allow; RTF and the search's share.
+              13c: bin/export_model (chunk 16, beam 10, max_hyp_len 64)
+              on the card, loaded in the same process: 12 K1 operator
+              nodes in the chunk program and 12 launches an exported
+              step; three exported steps against the eager ones (bar
+              1e-5); encoder_full at (2, 1010) and (4, 410) frames and
+              decoder_rescore against the eager model (2e-4);
+              ExportedAsrDecoder on 9c's utterances equal to AsrDecoder
+              partial by partial; the exported and the eager chunk step's
+              card time and enqueue, the eager one also with K1 called
+              directly (no op), and K1's wrapper host time both ways
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX
 package (wenet_tpu), and checks so at the end.
@@ -443,6 +469,11 @@ def build():
     t0 = time.perf_counter()
     native_beam.build()
     print(f'C++ prefix-beam searcher built in '
+          f'{time.perf_counter() - t0:.1f} s')
+    from wenet_tpu_torch.runtime import native_wfst
+    t0 = time.perf_counter()
+    native_wfst.build()
+    print(f'C++ lattice WFST decoder built in '
           f'{time.perf_counter() - t0:.1f} s')
 
 
@@ -4133,6 +4164,605 @@ def zoo_check(smi):
                       'hypotheses_at_ties': ties}
 
 
+# ---------------------------------------------------------------------------
+# 13. the recipe's stages 6 and 7: export and TLG decoding
+# ---------------------------------------------------------------------------
+TLG_WORDS, TLG_SENTENCES = 5000, 1500  # 13a's lexicon and LM text
+TLG_UTTS = (8, 4.0, 15.0)  # 13b: wavs, shortest and longest seconds
+PLAIN_SEARCH_BUDGET_S = 60.0  # 13b: the Python searcher's time budget
+EXPORT_ARGS = ['--chunk_size', '16', '--beam', '10', '--max_hyp_len', '64',
+               '--reverse_weight', str(STREAM_OPTS['reverse_weight'])]
+# 13c gate 1: the exported chunk step against the eager one.  Both run K1
+# through the same operator on the same inputs, so bit equality is
+# expected; the graph's other ops may be decomposed otherwise (cuBLAS picks
+# by call), which this bar, a few float32 ulps of the outputs, admits
+EXPORT_EAGER_TOL = 1e-5
+
+
+# 13's CTC head: the seed's random head gives posteriors near flat over
+# 4233 units, on which every arc of the TLG stays inside the WFST beam
+# (the C++ search then runs slower than real time on the card), and with a
+# plain scale and blank raise the blank takes every path (no word is
+# decoded; PERF.md, stages 6 and 7).  So the head is scaled and
+# the blank's bias raised as a trained head's posteriors look: the blank
+# leads every unit by BLANK_LEAD on half of a seeded utterance's frames,
+# and the top unit leads the blank by UNIT_LEAD (enough to pay a word's
+# LM cost) on UNIT_FRAMES of them
+BLANK_LEAD, UNIT_LEAD, UNIT_FRAMES = 4.0, 16.0, 0.2
+
+
+def shape_ctc_head(model):
+    """Scale the CTC head and raise the blank's bias as above -> (scale,
+    the shares of frames where the blank leads by BLANK_LEAD and where a
+    unit leads it by UNIT_LEAD)."""
+    from wenet_tpu_torch.runtime.feature_pipeline import (
+        FeaturePipeline, FeaturePipelineConfig)
+    lo = model.ctc.ctc_lo
+    pipe = FeaturePipeline(FeaturePipelineConfig(num_mel_bins=80))
+    feats = pipe.accept_waveform(speech_like(np.random.RandomState(
+        SEED + 33), 10.0))
+    x = torch.from_numpy(feats)[None].to(lo.weight.device)
+    with torch.no_grad():
+        out, _ = model.forward_encoder(x, torch.tensor([x.shape[1]],
+                                                       device=x.device))
+
+        def lead():  # the top unit's logit above the blank's, per frame
+            logits = lo(out[0]).float()
+            return logits[:, 1:].amax(-1) - logits[:, 0]
+        gap = lead()
+        q50, q80 = (float(torch.quantile(gap, q))
+                    for q in (0.5, 1.0 - UNIT_FRAMES))
+        scale = (UNIT_LEAD + BLANK_LEAD) / (q80 - q50)
+        lo.weight.mul_(scale)
+        lo.bias.mul_(scale)
+        lo.bias[0] += scale * q50 + BLANK_LEAD
+        gap = lead()
+    return (scale, float((gap <= -BLANK_LEAD).float().mean()),
+            float((gap >= UNIT_LEAD).float().mean()))
+
+
+def write_arpa(path, sentences, vocab=(), order=3, discount=0.5):
+    """A back-off ARPA n-gram from counts over `sentences` (lists of
+    words), every word of `vocab` counted once more as a unigram (so that
+    each can be decoded): absolute discounting, the discounted mass as
+    each context's back-off weight."""
+    import math
+    counts = [dict() for _ in range(order)]
+    for w in vocab:
+        counts[0][(w,)] = 1
+    for words in sentences:
+        seq = ['<s>'] + list(words) + ['</s>']
+        for n in range(1, order + 1):
+            for i in range(len(seq) - n + 1):
+                gram = tuple(seq[i:i + n])
+                counts[n - 1][gram] = counts[n - 1].get(gram, 0) + 1
+    total = sum(c for g, c in counts[0].items() if g != ('<s>',))
+    ctx_total, ctx_types = {}, {}
+    for n in range(1, order):
+        for gram, c in counts[n].items():
+            ctx_total[gram[:-1]] = ctx_total.get(gram[:-1], 0) + c
+            ctx_types[gram[:-1]] = ctx_types.get(gram[:-1], 0) + 1
+    lines = ['\\data\\'] + [f'ngram {n + 1}={len(counts[n])}'
+                            for n in range(order)]
+    for n in range(order):
+        lines += ['', f'\\{n + 1}-grams:']
+        for gram, c in sorted(counts[n].items()):
+            if n == 0:
+                p = -99.0 if gram == ('<s>',) else math.log10(c / total)
+            else:
+                p = math.log10((c - discount) / ctx_total[gram[:-1]])
+            row = f'{p:.6f}\t{" ".join(gram)}'
+            if n < order - 1 and gram in ctx_total:
+                bo = discount * ctx_types[gram] / ctx_total[gram]
+                row += f'\t{math.log10(bo):.6f}'
+            lines.append(row)
+    lines += ['', '\\end\\', '']
+    with open(path, 'w', encoding='utf-8') as f:
+        f.write('\n'.join(lines))
+
+
+def write_units(path, tokenizer):
+    with open(path, 'w', encoding='utf-8') as f:
+        for sym, i in sorted(tokenizer.symbol_table.items(),
+                             key=lambda kv: kv[1]):
+            f.write(f'{sym} {i}\n')
+
+
+def tlg_build(d, tokenizer):
+    phase('13a TLG: lexicon and 3-gram from a seed, build_tlg')
+    from wenet_tpu_torch.lm.build_graph import build_tlg
+    rng = np.random.RandomState(SEED + 30)
+    write_units(os.path.join(d, 'units.txt'), tokenizer)
+    chars = [s for s, i in tokenizer.symbol_table.items() if i >= 3]
+    # every char a word, so that any unit the head emits can be decoded
+    words = set(chars)
+    while len(words) < TLG_WORDS:
+        words.add(''.join(rng.choice(chars, rng.randint(2, 5))))
+    words = sorted(words)
+    with open(os.path.join(d, 'lexicon.txt'), 'w', encoding='utf-8') as f:
+        f.writelines(f'{w} {" ".join(w)}\n' for w in words)
+    # Zipf-like word frequencies, as text has
+    p = 1.0 / np.arange(1, len(words) + 1)
+    p /= p.sum()
+    write_arpa(os.path.join(d, 'lm.arpa'),
+               [[words[i] for i in rng.choice(len(words),
+                                              rng.randint(1, 12), p=p)]
+                for _ in range(TLG_SENTENCES)], vocab=words)
+    t0 = time.perf_counter()
+    fst = build_tlg(os.path.join(d, 'units.txt'),
+                    os.path.join(d, 'lexicon.txt'),
+                    os.path.join(d, 'lm.arpa'), os.path.join(d, 'lang'))
+    seconds = time.perf_counter() - t0
+    states = len(fst.arcs.keys() | fst.finals.keys())
+    arcs = sum(len(a) for a in fst.arcs.values())
+    mb = os.path.getsize(os.path.join(d, 'lang', 'TLG.txt')) / 2 ** 20
+    print(f'  {len(words)} words (the {len(chars)} chars, the rest of 2-4 of '
+          f'them), a 3-gram '
+          f'over {TLG_SENTENCES} seeded sentences (each word a unigram); '
+          f'TLG {states} states, '
+          f'{arcs} arcs ({mb:.1f} MiB of text), built in {seconds:.1f} s '
+          f'(pure Python, the host)')
+    return dict(words=len(words), states=states, arcs=arcs,
+                build_s=seconds)
+
+
+def write_model_dir(d, model, tokenizer, configs=None):
+    """A model directory of `model`: train.yaml (the flagship yaml, or
+    `configs`, with input and output dims), units.txt, final.pt."""
+    import yaml
+    os.makedirs(d, exist_ok=True)
+    write_units(os.path.join(d, 'units.txt'), tokenizer)
+    configs = copy.deepcopy(configs or flagship_configs())
+    configs['tokenizer_conf']['symbol_table_path'] = os.path.join(
+        d, 'units.txt')
+    with open(os.path.join(d, 'train.yaml'), 'w') as f:
+        yaml.safe_dump(configs, f)
+    torch.save(model.state_dict(), os.path.join(d, 'final.pt'))
+
+
+class SearchRecorder:
+    """Records each chunk step's host rows under the run's `label` (a
+    list per utterance: `AsrDecoder.reset` starts one) and the time in the
+    searcher, while it is on (`with`)."""
+
+    def __init__(self):
+        from wenet_tpu_torch.runtime.asr_decoder import AsrDecoder
+        self.cls = AsrDecoder
+        self.rows = {'card': [], 'cpu': []}
+        self.search_s = {'card': 0.0, 'cpu': 0.0}
+        self.label = 'card'
+
+    def __enter__(self):
+        cls, rec = self.cls, self
+        self.reset, self.search = cls.reset, cls._search
+
+        def reset(dec):
+            rec.reset(dec)
+            rec.rows[rec.label].append([])
+
+        def search(dec, host):
+            rec.rows[rec.label][-1].append(host)
+            t0 = time.perf_counter()
+            out = rec.search(dec, host)
+            rec.search_s[rec.label] += time.perf_counter() - t0
+            return out
+        cls.reset, cls._search = reset, search
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.reset, self.cls._search = self.reset, self.search
+
+    def utterances(self, label):
+        return [u for u in self.rows[label] if u]
+
+
+def wfst_replay(path, words, utt_rows, python=False, top_k=None,
+                skip=0.98):
+    """Search an utterance's recorded rows step by step -> (text,
+    likelihood, seconds, word ids): the C++ decoder, or the Python one,
+    with blank frames skipped above `skip` and the rows cut to the Python
+    searcher's candidates with `top_k`."""
+    from wenet_tpu_torch.lm.fst import TextFst
+    from wenet_tpu_torch.runtime.native_wfst import NativeCtcWfstBeamSearch
+    from wenet_tpu_torch.runtime.wfst_beam_search import CtcWfstBeamSearch
+    if python:
+        fst = path if isinstance(path, TextFst) else TextFst.read(path)
+        s = CtcWfstBeamSearch(fst, beam_size=10, blank_skip_thresh=skip)
+    else:
+        s = NativeCtcWfstBeamSearch(path, beam_size=10,
+                                    blank_skip_thresh=skip)
+    t0 = time.perf_counter()
+    for host in utt_rows:
+        if top_k is not None:
+            host = top_k_rows(host, top_k)
+        s.search(host)
+    s.finalize_search()
+    dt = time.perf_counter() - t0
+    hyps = s.hypotheses
+    best = hyps[0] if hyps else []
+    text = ''.join(words.get(w, str(w)) for w in best)
+    return text, (s.likelihood[0] if hyps else float('-inf')), dt, best
+
+
+def top_k_rows(logp, k=10):
+    """Each frame's top-k and the blank kept, the rest at -1e4: the
+    candidates the Python searcher advances (its `top_k`), which the C++
+    decoder, with no top-k of its own, then drops by its beam."""
+    out = np.full_like(logp, -1e4)
+    idx = np.argpartition(-logp, k - 1, axis=1)[:, :k]
+    np.put_along_axis(out, idx, np.take_along_axis(logp, idx, 1), 1)
+    out[:, 0] = logp[:, 0]
+    return out
+
+
+def tlg_decode_check(d, model, tokenizer, smi):
+    phase('13b TLG decode: decoder_main --fst_path --dict_path, card vs '
+          'CPU, the C++ searcher vs the Python one')
+    from wenet_tpu_torch.bin import decoder_main
+    from wenet_tpu_torch.dataset.audio import write_wav
+    from wenet_tpu_torch.lm.fst import TextFst, read_symbol_table
+    from wenet_tpu_torch.ops import flash_attention as fa
+    rng = np.random.RandomState(SEED + 31)
+    n, lo, hi = TLG_UTTS
+    seconds = np.linspace(lo, hi, n)
+    mdir = os.path.join(d, 'model')
+    write_model_dir(mdir, model, tokenizer)
+    scp = os.path.join(d, 'wav.scp')
+    with open(scp, 'w') as f:
+        for i, s in enumerate(seconds):
+            write_wav(os.path.join(d, f'{i}.wav'), speech_like(rng, s), SR)
+            f.write(f'utt{i} {os.path.join(d, f"{i}.wav")}\n')
+    lang = os.path.join(d, 'lang')
+    tlg, words_txt = (os.path.join(lang, 'TLG.txt'),
+                      os.path.join(lang, 'words.txt'))
+    args = ['--model_dir', mdir, '--wav_scp', scp, '--chunk_size', '16',
+            '--beam_size', '10', '--fst_path', tlg, '--dict_path', words_txt]
+    timed = []
+    decode_utt = decoder_main.decode_utt
+
+    def timed_utt(*a):
+        out = decode_utt(*a)
+        timed.append(out[1:])
+        return out
+    decoder_main.decode_utt = timed_utt
+    texts = {}
+    try:
+        with SearchRecorder() as rec:
+            for label, dev in (('cpu', 'cpu'), ('card', 'cuda')):
+                rec.label = label
+                timed.clear()
+                result = os.path.join(d, f'text.{label}')
+                if label == 'card':
+                    torch.cuda.synchronize()
+                    fa.reset_launches()
+                decoder_main.main(args + ['--device', dev, '--result_file',
+                                          result])
+                if label == 'card':
+                    torch.cuda.synchronize()
+                    launches = fa.LAUNCHES['relpos_attention_fwd']
+                    audio = sum(t[0] for t in timed)
+                    wall = sum(t[1] for t in timed)
+                with open(result, encoding='utf-8') as f:
+                    texts[label] = [line.split(maxsplit=1)[1:] or ['']
+                                    for line in f.read().splitlines()]
+    finally:
+        decoder_main.decode_utt = decode_utt
+    card, cpu = rec.utterances('card'), rec.utterances('cpu')
+    steps = sum(len(u) for u in card)
+    n_blocks = len(model.encoder.encoders)
+    if len(card) != n or len(cpu) != n or launches != n_blocks * steps:
+        raise RuntimeError(f'{len(card)} / {len(cpu)} utterances recorded, '
+                           f'{launches} K1 launches for {steps} chunk steps')
+    words = read_symbol_table(words_txt)
+    decoded = explained = n_words = 0
+    worst = 0.0
+    for i, (c_rows, p_rows) in enumerate(zip(card, cpu)):
+        g, w = texts['card'][i][0], texts['cpu'][i][0]
+        g_text, g_lik, _, g_words = wfst_replay(tlg, words, c_rows)
+        w_text, w_lik, _, _ = wfst_replay(tlg, words, p_rows)
+        if (g_text.lower(), w_text.lower()) != (g, w):
+            raise RuntimeError(f'utterance {i}: the replayed search gives '
+                               f'{g_text[:20]!r} / {w_text[:20]!r}, '
+                               f'decoder_main {g[:20]!r} / {w[:20]!r}')
+        # each path's cost moves by at most the summed row differences
+        # between the two devices, and the float32 sums of the search by
+        # SEARCH_FLOAT_TIE of it: a swap within that is a tie
+        slack = (float(sum(np.abs(a - b).max()
+                           for a, b in zip(c_rows, p_rows)))
+                 + SEARCH_FLOAT_TIE * abs(w_lik))
+        worst = max(worst, abs(g_lik - w_lik) / max(slack, 1e-30))
+        if abs(g_lik - w_lik) > slack:
+            raise RuntimeError(f'utterance {i}: best likelihoods {g_lik:.4f} '
+                               f'on the card, {w_lik:.4f} on the CPU, more '
+                               f'than the rows explain ({slack:.3g})')
+        if g != w:
+            explained += 1
+        decoded += bool(g)
+        n_words += len(g_words)
+    rtf = wall / audio
+    share = rec.search_s['card'] / wall
+    print(f'  {n} wavs of {lo}-{hi} s: the card\'s words equal the CPU\'s in '
+          f'{n - explained} (the rest within the rows\' differences), '
+          f'{decoded} with words ({n_words} in all); best likelihoods '
+          f'within {worst:.1%} of '
+          f'what the two devices\' rows explain; {steps} chunk steps, '
+          f'{launches} K1 launches ({n_blocks} a step); RTF {rtf:.4f} on the '
+          f'card ({audio:.1f} s of audio in {wall:.2f} s), the WFST search '
+          f'{share:.1%} of it ({smi})')
+    # gate 2: the C++ one-best against the plain Python searcher on the
+    # card's rows, cut to the Python searcher's candidates, as far as its
+    # time budget goes.  No blank skipping: there the two differ by design
+    # (the C++ decoder re-inserts a blank between frames it skips, as the
+    # reference's decoder does, so a repeat across them is a new token; the
+    # Python searcher, as the JAX package's, merges it)
+    fst = TextFst.read(tlg)
+    compared, py_s, cc_s = 0, 0.0, 0.0
+    for i, rows in enumerate(card):
+        py = wfst_replay(fst, words, rows, python=True, top_k=10, skip=1.0)
+        cc = wfst_replay(tlg, words, rows, top_k=10, skip=1.0)
+        if py[0] != cc[0] or abs(py[1] - cc[1]) > 1e-3 * max(1.0,
+                                                              abs(py[1])):
+            raise RuntimeError(f'utterance {i}: the C++ searcher gives '
+                               f'{cc[0][:20]!r} ({cc[1]:.4f}), the Python '
+                               f'one {py[0][:20]!r} ({py[1]:.4f})')
+        compared += 1
+        py_s += py[2]
+        cc_s += cc[2]
+        if py_s > PLAIN_SEARCH_BUDGET_S:
+            break
+    print(f'  the C++ one-best equals the Python searcher\'s on {compared} '
+          f'of {n} utterances (the card\'s rows, each frame\'s top-10 and '
+          f'blank, no blank skipping; likelihoods within 1e-3 relative): '
+          f'C++ {cc_s:.3f} s, Python {py_s:.2f} s for them')
+    return launches, dict(rtf=rtf, search_share=share, steps=steps,
+                          plain_compared=compared)
+
+
+def export_check(d, model, tokenizer, smi):
+    phase('13c export: export_model, the exported chunk step, full encoder '
+          'and decoder vs eager, ExportedAsrDecoder vs AsrDecoder')
+    import cProfile
+    import pstats
+    import yaml
+    from torch.profiler import ProfilerActivity, profile
+    from wenet_tpu_torch.bin import export_model
+    from wenet_tpu_torch.models.transformer.streaming import (
+        streaming_att_mask)
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.runtime.exported_model import (ExportedAsrDecoder,
+                                                        ExportedAsrModel)
+    from wenet_tpu_torch.runtime.asr_decoder import DecodeOptions
+    from wenet_tpu_torch.runtime.feature_pipeline import (
+        FeaturePipelineConfig)
+    mdir = os.path.join(d, 'model')
+    out = os.path.join(d, 'export')
+    with open(os.path.join(mdir, 'config.yaml'), 'w') as f:
+        yaml.safe_dump(flagship_configs(), f)
+    t0 = time.perf_counter()
+    export_model.main(['--config', os.path.join(mdir, 'config.yaml'),
+                       '--checkpoint', os.path.join(mdir, 'final.pt'),
+                       '--output_dir', out, '--device', 'cuda', *EXPORT_ARGS])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    em = ExportedAsrModel(out, device='cuda')
+    load_s = time.perf_counter() - t0
+    sizes = {f: os.path.getsize(os.path.join(out, f)) / 2 ** 20
+             for f in sorted(os.listdir(out))}
+    print(f'  export_model: {export_s:.1f} s, load {load_s:.1f} s; ' +
+          ', '.join(f'{k} {v:.1f} MiB' for k, v in sizes.items()))
+    op = 'wenet_tpu_torch.relpos_attention_fwd'
+    nodes = sum(1 for nd in em.chunk_program.graph.nodes
+                if nd.op == 'call_function' and op in str(nd.target))
+    n_blocks = len(model.encoder.encoders)
+    if nodes != n_blocks:
+        raise RuntimeError(f'{nodes} K1 nodes in the chunk program')
+    # gates 1 and 2: three chained steps from zero caches, the exported
+    # program against the eager step on the same inputs
+    rng = np.random.RandomState(SEED + 32)
+    cache, chunk = 512, 16
+    worst, equal = 0.0, True
+    exp_cache = em.zero_cache()
+    eager = model.encoder.zero_cache(1, cache, device='cuda')
+    with torch.inference_mode():
+        for step, valid in enumerate((0, 16, 32)):
+            xs = torch.from_numpy(rng.randn(1, 67, 80).astype(
+                np.float32)).cuda()
+            mask = streaming_att_mask(1, cache, chunk, valid, chunk, 'cuda')
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            ys, logp, exp_cache = em.forward_chunk(xs, valid, exp_cache,
+                                                   mask)
+            torch.cuda.synchronize()
+            launched = fa.LAUNCHES['relpos_attention_fwd']
+            if launched != n_blocks:
+                raise RuntimeError(f'an exported step launched K1 '
+                                   f'{launched} times')
+            e_ys, e_att, e_cnn = model.forward_encoder_chunk(
+                xs, valid, *eager, mask)
+            e_logp = model.ctc_activation(e_ys)
+            eager = (e_att, e_cnn)
+            for a, b in zip((ys, logp) + exp_cache,
+                            (e_ys, e_logp) + e_att + (e_cnn,)):
+                equal &= torch.equal(a, b)
+                worst = max(worst, (a - b).abs().max().item())
+    if worst > EXPORT_EAGER_TOL:
+        raise RuntimeError(f'exported chunk step off the eager one by '
+                           f'{worst:.3g}')
+    print(f'  chunk program: {nodes} K1 nodes, {n_blocks} launches a step; '
+          f'three steps {"bit-equal to" if equal else "within"} the eager '
+          f'ones (max |diff| {worst:.3g}, bar {EXPORT_EAGER_TOL})')
+    # gate 3: the full encoder at two (B, T) on the time constraint
+    sub, base = 4, 10
+    with torch.inference_mode():
+        for B, t in ((2, 250), (4, 100)):
+            T = sub * t + base
+            feats, lens = features(rng, B, T, T // 2)
+            feats = torch.from_numpy(feats).cuda()
+            lens = torch.from_numpy(lens).cuda()
+            fa.reset_launches()
+            o, m, lp = em.forward_full(feats, lens)
+            launched = fa.LAUNCHES['relpos_attention_fwd']
+            e_o, e_m = model.forward_encoder(feats, lens)
+            e_lp = model.ctc_activation(e_o)
+            valid = e_m[:, 0, :, None]
+            err = max((o - e_o).mul(valid).abs().max().item(),
+                      (lp - e_lp).mul(valid).abs().max().item())
+            if not torch.equal(m, e_m) or err > CHUNK_CPU_TOL or \
+                    launched != n_blocks:
+                raise RuntimeError(f'encoder_full at B={B}, T={T}: {err:.3g} '
+                                   f'off eager, {launched} K1 launches')
+            print(f'  encoder_full B={B} T={T} ({T / 100:.2f} s): within '
+                  f'{err:.3g} of the eager encoder + CTC (bar '
+                  f'{CHUNK_CPU_TOL}), {launched} K1 launches')
+            if B == 2:
+                enc_out = e_o[:1]
+    # gate 4: the rescoring decoder, 10 x 64 hypotheses of random lengths
+    beam, max_len = 10, 64
+    hyps = torch.from_numpy(rng.randint(3, 4233, (beam, max_len))).cuda()
+    hyps[:, 0] = model.sos
+    lens = torch.from_numpy(rng.randint(1, max_len + 1, beam)).cuda()
+    with torch.inference_mode():
+        dec, r_dec = em.rescore(hyps, lens, enc_out)
+        e_dec, e_r = model.forward_attention_decoder(
+            hyps, lens, enc_out, STREAM_OPTS['reverse_weight'])
+    err = max((dec - e_dec).abs().max().item(),
+              (r_dec - e_r).abs().max().item())
+    if err > CHUNK_CPU_TOL:
+        raise RuntimeError(f'decoder_rescore off eager by {err:.3g}')
+    print(f'  decoder_rescore ({beam} x {max_len}, {enc_out.shape[1]} '
+          f'encoder frames): within {err:.3g} of the eager decoders')
+    # gate 5: ExportedAsrDecoder against AsrDecoder on 9c's utterances
+    urng = np.random.RandomState(SEED + 12)
+    utts = [speech_like(urng, s) for s in STREAM_SECONDS]
+    exp_dec = ExportedAsrDecoder(out, tokenizer, DecodeOptions(**STREAM_OPTS),
+                                 FeaturePipelineConfig(num_mel_bins=80),
+                                 device='cuda')
+    want = [stream_utterance(streaming_decoder(model, 'cuda', tokenizer), w)
+            for w in utts]
+    stream_utterance(exp_dec, utts[0])  # warm up
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    got = [stream_utterance(exp_dec, w) for w in utts]
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES['relpos_attention_fwd']
+    worst = 0.0
+    for i, ((g_part, g_final, _), (w_part, w_final, _)) in enumerate(
+            zip(got, want)):
+        if len(g_part) != len(w_part):
+            raise RuntimeError(f'utterance {i}: {len(g_part)} partials '
+                               f'exported, {len(w_part)} eager')
+        for j, (g, w) in enumerate(zip(g_part, w_part)):
+            worst = max(worst, same_results(g, w, f'utterance {i} partial '
+                                            f'{j} (exported)'))
+        worst = max(worst, same_results(g_final, w_final,
+                                        f'utterance {i} final (exported)'))
+    print(f'  ExportedAsrDecoder on 9c\'s {len(utts)} utterances: every '
+          f'partial and final equal to AsrDecoder\'s (scores within '
+          f'{worst:.3g}); {launches} K1 launches')
+    # the exported chunk step's card time and enqueue beside the eager
+    # step's (9e's reading), and the op's dispatch beside the direct
+    # ctypes call it wraps (the path before the op) at the chunk shape
+    xs = torch.from_numpy(rng.randn(1, 67, 80).astype(np.float32)).cuda()
+    mask = streaming_att_mask(1, cache, chunk, 256, chunk, 'cuda')
+    with torch.inference_mode():
+        zero = em.zero_cache()
+        state = model.encoder.zero_cache(1, cache, device='cuda')
+
+        def exp_step():
+            return em.forward_chunk(xs, 256, zero, mask)
+
+        def eager_step():
+            ys, _, _ = model.forward_encoder_chunk(xs, 256, *state, mask)
+            return model.ctc_activation(ys)
+        route = fa.relpos_attention_op
+
+        def direct(q1, q2, k, p, v, m, s):  # K1's ctypes call, no op
+            return fa.relpos_fwd(q1, q2, k, p, v, m, s)[0]
+        steps = (('exported', exp_step, route), ('eager', eager_step, route),
+                 ('eager_direct', eager_step, direct))
+        runs = {name: [] for name, _, _ in steps}
+        retries = torch.cuda.memory_stats().get('num_alloc_retries', 0)
+        for _ in range(3):  # interleaved, so that the host's drift is shared
+            for name, fn, k1 in steps:
+                fa.relpos_attention_op = k1
+                try:
+                    runs[name].append((cuda_time_ms(fn, reps=1),
+                                       host_ms(fn)))
+                finally:
+                    fa.relpos_attention_op = route
+        readings = {name: dict(card_ms=min(c for c, _ in r),
+                               enqueue_ms=min(h for _, h in r))
+                    for name, r in runs.items()}
+        retries = torch.cuda.memory_stats().get('num_alloc_retries',
+                                                0) - retries
+        # where one exported step's host time goes, by Python function
+        prof_py = cProfile.Profile()
+        prof_py.enable()
+        exp_step()
+        prof_py.disable()
+        top = sorted(pstats.Stats(prof_py).stats.items(),
+                     key=lambda kv: -kv[1][2])[:6]
+        for name, fn, _ in steps[:2]:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                fn()
+            ops = [e for e in prof.key_averages() if e.key.startswith('aten::')
+                   or e.key.startswith('wenet_tpu_torch::')]
+            readings[name]['host_ops'] = sum(e.count for e in ops)
+        (q1, q2, k, p, v), m = kernel_inputs(rng, 1, 4, chunk, cache + chunk,
+                                             64, 'cache256', torch.float32)
+        op_ms = min(host_ms(lambda: fa.flash_attention_relpos(
+            q1, q2, k, p, v, m, 0.125), reps=50) for _ in range(3))
+        direct_ms = min(host_ms(lambda: fa.relpos_fwd(
+            q1, q2, k, p, v, m, 0.125), reps=50) for _ in range(3))
+        # the exported graph calls every aten op through its OpOverload
+        # object; the eager model mostly through torch's functions
+        a = torch.ones(4, device='cuda')
+        add = torch.ops.aten.add.Tensor
+        overload_us = 1e3 * min(host_ms(lambda: add(a, a), reps=2000)
+                                for _ in range(3))
+        function_us = 1e3 * min(host_ms(lambda: torch.add(a, a), reps=2000)
+                                for _ in range(3))
+    for name, r in readings.items():
+        ops = (f', {r["host_ops"]} aten and K1 ops a step' if 'host_ops' in r
+               else '')
+        print(f'  {name} chunk step: card {r["card_ms"]:.4f} ms (CUDA '
+              f'events), host enqueue {r["enqueue_ms"]:.4f} ms, best of 3 '
+              f'interleaved{ops} ({smi})')
+    print(f'  K1 wrapper host time at (1,4,16,528,64): through the op '
+          f'{op_ms:.4f} ms, the direct ctypes call {direct_ms:.4f} ms '
+          f'({smi})')
+    print(f'  one small add enqueued through torch.ops.aten.add.Tensor '
+          f'{overload_us:.2f} us, through torch.add {function_us:.2f} us '
+          f'(host, {smi}); {retries} allocator retries (cache flushes) '
+          f'over the timed steps; one exported step\'s host time by '
+          f'function (own time):')
+    for (path, line, fn), (_, calls, own, _, _) in top:
+        print(f'    {1e3 * own:9.3f} ms x{calls:<5d} '
+              f'{os.path.basename(path)}:{line}({fn})')
+    readings['wrapper_host_ms'] = dict(op=op_ms, direct=direct_ms)
+    readings['add_host_us'] = dict(overload=overload_us,
+                                   function=function_us)
+    return launches, readings
+
+
+def export_wfst_check(smi):
+    """Phase 13 on one flagship model -> ({'wfst': K1 launches of 13b's
+    card decode, 'export': of 13c's exported stream}, readings)."""
+    phase('13 the recipe\'s stages 6 and 7: TLG decoding and export')
+    model = flagship_model().cuda().eval()
+    scale, blank, unit = shape_ctc_head(model)
+    print(f'  the CTC head scaled by {scale:.2f} and the blank raised: on a '
+          f'seeded utterance the blank leads by {BLANK_LEAD} on {blank:.0%} '
+          f'of the frames, a unit leads it by {UNIT_LEAD} on {unit:.0%}')
+    tokenizer = flagship_tokenizer()
+    d = tempfile.mkdtemp(prefix='chip_smoke_stage67_')
+    tlg = tlg_build(d, tokenizer)
+    wfst_launches, wfst = tlg_decode_check(d, model, tokenizer, smi)
+    export_launches, export = export_check(d, model, tokenizer, smi)
+    return (dict(wfst=wfst_launches, export=export_launches),
+            dict(tlg=tlg, wfst=wfst, export=export))
+
+
 def main():
     smi = device()
     build()
@@ -4156,6 +4786,7 @@ def main():
     entry_launches = train_entry_check(smi)
     recognize_launches, recognize_readings = recognize_check(smi)
     zoo_launches, zoo_readings = zoo_check(smi)
+    stage67_launches, stage67_readings = export_wfst_check(smi)
     foreign = [m for m in sys.modules
                if m == 'jax' or m.startswith('jax.') or m == 'wenet_tpu'
                or m.startswith('wenet_tpu.')]
@@ -4166,7 +4797,8 @@ def main():
         'source': 'wenet_tpu_torch/csrc/relpos_attention.cu',
         'replaces': 'wenet_tpu/ops/flash_attention.py:548',
         'launches': launches + stream_launches + batched_launches +
-        recognize_launches + zoo_launches['relpos_attention_fwd'], **report,
+        recognize_launches + zoo_launches['relpos_attention_fwd'] +
+        stage67_launches['wfst'] + stage67_launches['export'], **report,
         'launches_zoo': zoo_launches['relpos_attention_fwd'],
         'zoo_decode': zoo_readings,
         'launches_decode': launches, 'launches_streaming': stream_launches,
@@ -4174,7 +4806,10 @@ def main():
         'launches_train_entry': entry_launches['relpos_attention_fwd'],
         'launches_recognize': recognize_launches,
         'streaming': stream_readings, 'batched_serving': batched_readings,
-        'recognize': recognize_readings}]
+        'recognize': recognize_readings,
+        'launches_wfst': stage67_launches['wfst'],
+        'launches_export': stage67_launches['export'],
+        'stage67': stage67_readings}]
     for name, (source, replaces) in TRAIN_KERNELS.items():
         kernels.append(dict(name=name, route='cuda', source=source,
                             replaces=replaces,

@@ -307,14 +307,15 @@ def test_asr_decoder_endpoint_matches_jax(pair):
 
 
 def test_asr_decoder_raises_for_what_is_not_ported(pair):
-    """WFST decoding (tlg_fst) still raises; the LM and the context graph
-    are ported (tests/test_torch_recognize.py holds them)."""
+    """WFST decoding over a batch runner still raises (ROADMAP.md queue 1
+    item 13); WFST decoding itself (tests/test_torch_wfst.py), the LM and
+    the context graph (tests/test_torch_recognize.py) are ported."""
     from wenet_tpu_torch.runtime.asr_decoder import AsrDecoder
     from wenet_tpu_torch.text.char_tokenizer import CharTokenizer
     _, _, tmodel = pair
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match='item 13'):
         AsrDecoder(tmodel, CharTokenizer(SYMS), device='cpu',
-                   tlg_fst='TLG.fst')
+                   tlg_fst='TLG.fst', batch_runner=object())
 
 
 def test_http_round_trip(pair, tmp_path):

@@ -192,12 +192,15 @@ def test_decoder_main_matches_jax(model_dir, tmp_path):
 
 
 def test_decoder_main_raises_for_what_is_not_ported(model_dir, tmp_path):
-    """WFST decoding (--fst_path, with its --dict_path) still raises;
-    --lm_path is ported (tests/test_torch_recognize.py holds it)."""
+    """--dict_path without --fst_path raises, and so does a TLG that is not
+    there; WFST decoding (tests/test_torch_wfst.py) and --lm_path
+    (tests/test_torch_recognize.py) are ported."""
     from wenet_tpu_torch.bin import decoder_main
     scp = _wav_scp(tmp_path, ((3, 0.5),))
-    for extra in (['--fst_path', 'TLG.fst'], ['--dict_path', 'words.txt']):
-        with pytest.raises(NotImplementedError):
+    for extra, error in ((['--dict_path', 'words.txt'], ValueError),
+                         (['--fst_path', str(tmp_path / 'TLG.txt')],
+                          RuntimeError)):
+        with pytest.raises(error):
             decoder_main.main(['--model_dir', model_dir, '--wav_scp', scp,
                                '--device', 'cpu', *extra])
     # FLAC is read since the port has its decoder: a malformed stream

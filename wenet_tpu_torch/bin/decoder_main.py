@@ -14,8 +14,14 @@ the CTC score; 0.5 there).
         --wav_scp data/test/wav.scp --result_file text --device cuda
 
 Reads RIFF wav and FLAC.  --lm_path takes an ARPA n-gram, fused into the
-prefix beam with --lm_weight.  WFST decoding (--fst_path, with its
---dict_path) is not ported and raises (ROADMAP.md, queue 1 item 5)."""
+prefix beam with --lm_weight.  --fst_path takes a TLG in text form
+(lm/build_graph.py `build_tlg`), decoded by the C++ lattice WFST decoder
+(runtime/native_wfst.py) in place of the prefix beam, and --dict_path its
+words.txt, whose words the results then hold:
+
+    python -m wenet_tpu_torch.bin.decoder_main --model_dir exp/u2pp \\
+        --wav_scp data/test/wav.scp --fst_path lang_test/TLG.txt \\
+        --dict_path lang_test/words.txt --result_file text --device cuda"""
 
 import argparse
 import logging
@@ -34,13 +40,16 @@ def build_decoder(args):
     from wenet_tpu_torch.runtime.post_processor import (PostProcessOptions,
                                                         PostProcessor)
     from wenet_tpu_torch.utils.checkpoint import load_model_dir
-    if args.fst_path or args.dict_path:
-        raise NotImplementedError('WFST decoding is not ported (ROADMAP.md, '
-                                  'queue 1 item 5)')
-    lm = None
+    if args.dict_path and not args.fst_path:
+        raise ValueError('--dict_path is the words of a TLG: it needs '
+                         '--fst_path')
+    lm = words = None
     if args.lm_path:
         from wenet_tpu_torch.lm.arpa import read_arpa
         lm = read_arpa(args.lm_path)
+    if args.dict_path:
+        from wenet_tpu_torch.lm.fst import read_symbol_table
+        words = read_symbol_table(args.dict_path)
     model, configs, tokenizer = load_model_dir(args.model_dir, args.device)
     opts = DecodeOptions(chunk_size=args.chunk_size,
                          num_left_chunks=args.num_left_chunks,
@@ -50,7 +59,8 @@ def build_decoder(args):
     pp = PostProcessor(PostProcessOptions(lowercase=not args.no_lowercase))
     return AsrDecoder(model, tokenizer, opts,
                       FeaturePipelineConfig.from_configs(configs), lm=lm,
-                      lm_weight=args.lm_weight, post_processor=pp,
+                      lm_weight=args.lm_weight, tlg_fst=args.fst_path or None,
+                      word_table=words, post_processor=pp,
                       device=args.device)
 
 

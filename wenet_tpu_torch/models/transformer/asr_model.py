@@ -13,6 +13,7 @@ from wenet_tpu_torch.models.transformer.label_smoothing_loss import (
     label_smoothing_loss)
 from wenet_tpu_torch.utils.common import (IGNORE_ID, add_sos_eos,
                                           reverse_pad_list, th_accuracy)
+from wenet_tpu_torch.utils.ctc_utils import topk_host_rows
 
 
 class ASRModel(nn.Module):
@@ -131,10 +132,7 @@ class ASRModel(nn.Module):
         outputs `ys`: the top-k values, their ids (as floats, exact below
         2**24) and the blank column, packed for one device-to-host
         copy."""
-        logp = self.ctc_activation(ys).float()
-        vals, ids = torch.topk(logp, k, dim=-1)
-        return torch.cat([vals, ids.float(), logp[..., blank:blank + 1]],
-                         dim=-1)
+        return topk_host_rows(self.ctc_activation(ys), k, blank)
 
     def ctc_logprobs(self, encoder_out: torch.Tensor,
                      blank_penalty: float = 0.0,

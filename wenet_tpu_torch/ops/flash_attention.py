@@ -41,6 +41,12 @@ plain versions (`relpos_fwd_reference`, `relpos_bwd_dq_reference`,
 `flash_bwd_dq_reference`, `flash_bwd_dkv_reference`); CUDA tensors always
 launch the kernels and raise on what they do not take.  `LAUNCHES` counts
 the kernel launches.
+
+K1's inference forward is also a registered operator,
+`torch.ops.wenet_tpu_torch.relpos_attention_fwd` (`relpos_attention_op`,
+with a fake for tracing), so that `torch.export` keeps it as one node of
+an exported program (bin/export_model.py) and a loaded program launches
+it; the eager inference path calls the same operator.
 """
 
 import ctypes
@@ -496,6 +502,31 @@ def relpos_fwd(q1, q2, k, p, v, mask=None, scale=1.0, want_lse=False,
                      dropout_rate, seed)
 
 
+@torch.library.custom_op('wenet_tpu_torch::relpos_attention_fwd',
+                         mutates_args=())
+def relpos_attention_op(q1: torch.Tensor, q2: torch.Tensor, k: torch.Tensor,
+                        p: torch.Tensor, v: torch.Tensor,
+                        mask: Optional[torch.Tensor],
+                        scale: float) -> torch.Tensor:
+    """K1's inference forward as an operator PyTorch can trace, so that
+    `torch.export` keeps it as one node of an exported program: K1 on CUDA
+    tensors (counted in `LAUNCHES`, also when a loaded program calls it),
+    its plain version on CPU tensors.  Arguments as `relpos_fwd`, no
+    dropout and no lse.  The output is laid out as (B, T1, h, d) on both
+    devices (`_like_heads`), the layout the kernel writes and the fake
+    reports."""
+    if _device_kind(q1) == 'cpu':
+        out, _ = relpos_fwd_reference(q1, q2, k, p, v, mask, scale)
+        return _like_heads(q1, v.dtype).copy_(out)
+    return _fwd_cuda(q1, q2, k, p, v, _mask4(mask), scale, False, 0.0,
+                     None)[0]
+
+
+@relpos_attention_op.register_fake
+def _relpos_attention_fake(q1, q2, k, p, v, mask, scale):
+    return _like_heads(q1, v.dtype)
+
+
 def relpos_bwd_dq(q1, q2, k, p, v, mask, do, lse, delta, scale=1.0,
                   dropout_rate=0.0, seed=None):
     """K2 on CUDA tensors, its plain version on CPU tensors."""
@@ -563,7 +594,9 @@ def flash_attention_relpos(q1, q2, k, p, v,
 
     When autograd records (grad enabled and an input requires grad) the
     call goes through `RelPosAttention`, so gradients reach q1, q2, k, p
-    and v on either device; otherwise it runs the forward alone.  CPU
+    and v on either device; otherwise it runs the forward alone, without
+    dropout through the registered op `relpos_attention_op` (the path
+    `torch.export` records).  CPU
     tensors take the plain versions; CUDA tensors launch the kernels
     (float32 or bfloat16; d in 32/64/128 for inference, 32/64 for
     training; K1-K3 need 16-byte aligned bases and strides) and raise on
@@ -574,8 +607,10 @@ def flash_attention_relpos(q1, q2, k, p, v,
             t.requires_grad for t in (q1, q2, k, p, v)):
         return RelPosAttention.apply(q1, q2, k, p, v, _mask4(mask), scale,
                                      dropout_rate, dropout_seed)
-    return relpos_fwd(q1, q2, k, p, v, mask, scale, False, dropout_rate,
-                      dropout_seed)[0]
+    if dropout_rate > 0.0:
+        return relpos_fwd(q1, q2, k, p, v, mask, scale, False, dropout_rate,
+                          dropout_seed)[0]
+    return relpos_attention_op(q1, q2, k, p, v, mask, float(scale))
 
 
 # ---------------------------------------------------------------------------

@@ -22,9 +22,16 @@ sentence.
 `lm` (an ARPA NgramLM, lm/arpa.py) is fused into it with `lm_weight`,
 both in the C++ searcher; its words are the tokenizer's symbols.
 
-Runs on `device` ('cuda' unless the caller asks for the CPU).  WFST
-decoding (`tlg_fst`) is not ported and raises NotImplementedError
-(ROADMAP.md, queue 1 item 5)."""
+With `tlg_fst` (a TLG.txt path or an `lm.fst.TextFst`, lm/build_graph.py)
+the C++ lattice WFST decoder (runtime/native_wfst.py) takes the prefix
+beam's place: the step then copies the whole CTC log-prob rows to the
+host (chunk x vocabulary float32), results are words of `word_table`
+({id: word}, words.txt) with their times, and `rescoring` closes the
+search without attention rescoring, as in the JAX package.  WFST
+decoding over a `batch_runner` is not ported and raises
+NotImplementedError (ROADMAP.md, queue 1 item 13).
+
+Runs on `device` ('cuda' unless the caller asks for the CPU)."""
 
 import enum
 from dataclasses import dataclass, field
@@ -41,6 +48,7 @@ from wenet_tpu_torch.runtime.endpoint import CtcEndpoint, CtcEndpointConfig
 from wenet_tpu_torch.runtime.feature_pipeline import (FeaturePipeline,
                                                       FeaturePipelineConfig)
 from wenet_tpu_torch.runtime.native_beam import make_searcher
+from wenet_tpu_torch.utils.ctc_utils import topk_host_rows
 
 
 class DecodeState(enum.Enum):
@@ -91,28 +99,23 @@ class AsrDecoder:
                  feature_config: Optional[FeaturePipelineConfig] = None,
                  endpoint_config: Optional[CtcEndpointConfig] = None,
                  context_graph=None, lm=None, lm_weight: float = 0.5,
-                 tlg_fst=None, post_processor=None, batch_runner=None,
-                 device='cuda'):
-        if tlg_fst is not None:
-            raise NotImplementedError('WFST decoding is not ported '
-                                      '(ROADMAP.md, queue 1 item 5)')
+                 tlg_fst=None, word_table=None, post_processor=None,
+                 batch_runner=None, device='cuda'):
+        if tlg_fst is not None and batch_runner is not None:
+            raise NotImplementedError(
+                'WFST decoding over a batch runner is not ported '
+                '(ROADMAP.md, queue 1 item 13)')
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
-        self.tokenizer = tokenizer
-        self.post_processor = post_processor
-        self.opts = opts or DecodeOptions()
-        self.feature_pipeline = FeaturePipeline(feature_config)
+        opts = opts or DecodeOptions()
         encoder = self.model.encoder
-        self.cfg = StreamingConfig(
-            decoding_chunk_size=self.opts.chunk_size,
-            num_decoding_left_chunks=self.opts.num_left_chunks,
-            subsampling_rate=encoder.subsampling_rate,
-            right_context=encoder.right_context)
-        # an encoder that downsamples inside its trunk (the efficient
-        # conformer) emits one frame per `factor` base frames of a chunk
-        self.factor = encoder.output_downsampling_factor
-        self.endpointer = CtcEndpoint(
-            endpoint_config, 10 * encoder.subsampling_rate * self.factor)
+        self._setup(tokenizer, opts, feature_config, endpoint_config,
+                    StreamingConfig(
+                        decoding_chunk_size=opts.chunk_size,
+                        num_decoding_left_chunks=opts.num_left_chunks,
+                        subsampling_rate=encoder.subsampling_rate,
+                        right_context=encoder.right_context),
+                    encoder.output_downsampling_factor, post_processor)
         if batch_runner is not None:
             theirs = (batch_runner.cfg, batch_runner.beam_size,
                       batch_runner.blank_id, batch_runner.device)
@@ -123,12 +126,44 @@ class AsrDecoder:
                                  f'(streaming config, top-k, blank, '
                                  f'device), this decoder needs {ours}')
         self.batch_runner = batch_runner
-        self.searcher = make_searcher(
-            self.opts.beam_size, self.opts.blank_id,
-            context_graph=context_graph, lm=lm, lm_weight=lm_weight,
-            symbol_table=({v: k for k, v in tokenizer.symbol_table.items()}
-                          if lm is not None else None))
+        self._make_searcher(context_graph, lm, lm_weight, tlg_fst,
+                            word_table)
         self.reset()
+
+    def _setup(self, tokenizer, opts, feature_config, endpoint_config, cfg,
+               factor, post_processor):
+        """What every decoder holds beside its model: the options, the
+        feature pipeline, the chunk geometry `cfg` and the endpointer."""
+        self.tokenizer = tokenizer
+        self.opts = opts
+        self.post_processor = post_processor
+        self.feature_pipeline = FeaturePipeline(feature_config)
+        self.cfg = cfg
+        # an encoder that downsamples inside its trunk (the efficient
+        # conformer) emits one frame per `factor` base frames of a chunk
+        self.factor = factor
+        self.endpointer = CtcEndpoint(
+            endpoint_config, 10 * cfg.subsampling_rate * factor)
+
+    def _make_searcher(self, context_graph=None, lm=None, lm_weight=0.5,
+                       tlg_fst=None, word_table=None):
+        self.is_wfst = tlg_fst is not None
+        self.word_table = word_table or {}
+        if self.is_wfst:
+            from wenet_tpu_torch.runtime.native_wfst import (
+                make_wfst_searcher)
+            fst_obj, fst_path = ((None, tlg_fst) if isinstance(tlg_fst, str)
+                                 else (tlg_fst, None))
+            self.searcher = make_wfst_searcher(
+                fst_obj, fst_path=fst_path, beam_size=self.opts.beam_size,
+                blank_id=self.opts.blank_id)
+        else:
+            self.searcher = make_searcher(
+                self.opts.beam_size, self.opts.blank_id,
+                context_graph=context_graph, lm=lm, lm_weight=lm_weight,
+                symbol_table=(
+                    {v: k for k, v in self.tokenizer.symbol_table.items()}
+                    if lm is not None else None))
 
     # -- lifecycle -------------------------------------------------------
     def reset(self):
@@ -187,10 +222,6 @@ class AsrDecoder:
     def _advance_one_chunk(self, chunk: np.ndarray) -> bool:
         """One chunk step; True at an endpoint."""
         cfg = self.cfg
-        model = self.model
-        if self.state is None:
-            self.state = model.encoder.zero_cache(
-                1, cfg.required_cache_size, device=self.device)
         context = cfg.right_context + 1
         real_base = max((chunk.shape[0] - context) //
                         cfg.subsampling_rate + 1, 0)
@@ -198,36 +229,63 @@ class AsrDecoder:
         pad = cfg.decoding_window - chunk.shape[0]
         if pad > 0:
             chunk = np.pad(chunk, ((0, pad), (0, 0)))
-        k = self.opts.beam_size
-        blank = self.endpointer.config.blank
+        if self.state is None:
+            self.state = self._zero_cache()
         if self.batch_runner is not None:
             ys, host, self.state = self.batch_runner.submit(
                 chunk, self.state, self.offset, self.valid_cache,
                 real_out).result()
             ys, host = ys[0, :real_out], host[:real_out]
         else:
-            chunk_out = (cfg.decoding_window - context) // \
-                cfg.subsampling_rate + 1
-            att_mask = streaming_att_mask(1, cfg.required_cache_size,
-                                          chunk_out, self.valid_cache,
-                                          real_base, self.device)
-            xs = torch.from_numpy(chunk)[None].to(self.device)
-            ys, att_cache, cnn_cache = model.forward_encoder_chunk(
-                xs, self.offset, *self.state, att_mask)
-            self.state = (att_cache, cnn_cache)
-            ys = ys[0, :real_out]
-            # the one device-to-host copy of the step
-            host = model.ctc_host_rows(ys, k, blank).cpu().numpy()
+            ys, logp = self._chunk_step(chunk, real_base, real_out)
+            # the one device-to-host copy of the step: the whole rows for
+            # the WFST search, the top-k and the blank column for the beam
+            host = (logp.float() if self.is_wfst else topk_host_rows(
+                logp, self.opts.beam_size, self.endpointer.config.blank)
+                    ).cpu().numpy()
         self.offset += real_out
         self.valid_cache = min(self.valid_cache + real_base,
                                cfg.required_cache_size)
         self.encoder_outs.append(ys)
-        self.searcher.search_topk(host[:, :k], host[:, k:2 * k].astype(
-            np.int32))
+        return self._search(host)
+
+    def _zero_cache(self):
+        """The caches before a stream's first chunk."""
+        return self.model.encoder.zero_cache(
+            1, self.cfg.required_cache_size, device=self.device)
+
+    def _chunk_step(self, chunk: np.ndarray, real_base: int, real_out: int):
+        """The model's chunk step on the padded `chunk` with this stream's
+        caches -> (encoder rows (real_out, D), CTC log-probs (real_out, V)),
+        on the device."""
+        cfg = self.cfg
+        model = self.model
+        chunk_out = (cfg.decoding_window - cfg.right_context - 1) // \
+            cfg.subsampling_rate + 1
+        att_mask = streaming_att_mask(1, cfg.required_cache_size, chunk_out,
+                                      self.valid_cache, real_base,
+                                      self.device)
+        xs = torch.from_numpy(chunk)[None].to(self.device)
+        ys, att_cache, cnn_cache = model.forward_encoder_chunk(
+            xs, self.offset, *self.state, att_mask)
+        self.state = (att_cache, cnn_cache)
+        ys = ys[0, :real_out]
+        return ys, model.ctc_activation(ys)
+
+    def _search(self, host: np.ndarray) -> bool:
+        """Advance the searcher over one step's host rows; True at an
+        endpoint."""
+        if self.is_wfst:
+            self.searcher.search(host)
+            blank = host[:, self.endpointer.config.blank]
+        else:
+            k = self.opts.beam_size
+            self.searcher.search_topk(host[:, :k],
+                                      host[:, k:2 * k].astype(np.int32))
+            blank = host[:, 2 * k]
         hyps = self.searcher.hypotheses
         decoded_sth = bool(hyps) and len(hyps[0]) > 0
-        return self.endpointer.is_endpoint_blank(host[:, 2 * k],
-                                                 decoded_sth)
+        return self.endpointer.is_endpoint_blank(blank, decoded_sth)
 
     # -- results ---------------------------------------------------------
     def _update_result(self, finish: bool = False):
@@ -238,7 +296,12 @@ class AsrDecoder:
         results = []
         for i, hyp in enumerate(hyps):
             r = DecodeResult(score=likelihood[i])
-            text, tokens = self.tokenizer.detokenize([int(t) for t in hyp])
+            if self.is_wfst:
+                tokens = [self.word_table.get(int(w), str(w)) for w in hyp]
+                text = ''.join(tokens)
+            else:
+                text, tokens = self.tokenizer.detokenize(
+                    [int(t) for t in hyp])
             if self.post_processor is not None:
                 text = self.post_processor.process(text, finish)
             r.sentence = text
@@ -252,15 +315,36 @@ class AsrDecoder:
 
     @torch.inference_mode()
     def rescoring(self):
-        """Close the beam and rerank its n-best with the attention decoder
-        over the encoder outputs so far; `result[0]` becomes the final."""
+        """Close the search; with the prefix beam, also rerank its n-best
+        with the attention decoder over the encoder outputs so far
+        (`result[0]` becomes the final).  WFST hypotheses are words: they
+        are not rescored."""
         self.searcher.finalize_search()
         self._update_result(finish=True)
-        if not self.encoder_outs or self.model.decoder is None:
+        if self.is_wfst or not self.encoder_outs:
             return
         hyps = self.searcher.hypotheses
         if not hyps or all(len(h) == 0 for h in hyps):
             return
+        best = self._rescore(hyps)
+        if best is None:
+            return
+        tokens, score, times = best
+        text, pieces = self.tokenizer.detokenize([int(t) for t in tokens])
+        if self.post_processor is not None:
+            text = self.post_processor.process(text, True)
+        r = DecodeResult(sentence=text, score=score)
+        if times:
+            fs = self.endpointer.frame_shift_in_ms
+            for w, t in zip(pieces, times):
+                r.word_pieces.append(WordPiece(w, t * fs, (t + 1) * fs))
+        self.result = [r] + self.result[1:]
+
+    def _rescore(self, hyps):
+        """The best of the n-best `hyps` by attention rescoring -> (tokens,
+        score, times), or None without a decoder."""
+        if self.model.decoder is None:
+            return None
         encoder_out = torch.cat(self.encoder_outs)[None]
         ctc_results = [SearchResult(tokens=hyps[0], nbest=hyps,
                                     nbest_scores=self.searcher.likelihood,
@@ -269,12 +353,4 @@ class AsrDecoder:
         best = attention_rescoring(self.model, ctc_results, encoder_out,
                                    enc_lens, self.opts.ctc_weight,
                                    self.opts.reverse_weight)[0]
-        text, tokens = self.tokenizer.detokenize([int(t) for t in best.tokens])
-        if self.post_processor is not None:
-            text = self.post_processor.process(text, True)
-        r = DecodeResult(sentence=text, score=best.score)
-        if best.times:
-            fs = self.endpointer.frame_shift_in_ms
-            for w, t in zip(tokens, best.times):
-                r.word_pieces.append(WordPiece(w, t * fs, (t + 1) * fs))
-        self.result = [r] + self.result[1:]
+        return best.tokens, best.score, best.times

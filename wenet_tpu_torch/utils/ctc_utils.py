@@ -15,6 +15,16 @@ import torch.nn.functional as F
 NEG_INF = -1.0e30
 
 
+def topk_host_rows(logp: torch.Tensor, k: int, blank: int) -> torch.Tensor:
+    """(..., T, 2k + 1) on logp's device from CTC log-probs (..., T, V):
+    the top-k values, their ids (as floats, exact below 2**24) and the
+    blank column, packed for one device-to-host copy (what a streaming
+    decoder's prefix beam and endpoint read)."""
+    logp = logp.float()
+    vals, ids = torch.topk(logp, k, dim=-1)
+    return torch.cat([vals, ids.float(), logp[..., blank:blank + 1]], dim=-1)
+
+
 def remove_duplicates_and_blank(hyp: List[int],
                                 blank_id: int = 0) -> List[int]:
     """Collapse repeats, then drop blanks."""
