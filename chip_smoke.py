@@ -211,6 +211,36 @@ Phases, each of which raises on failure (non-zero exit):
               partial by partial; the exported and the eager chunk step's
               card time and enqueue, the eager one also with K1 called
               directly (no op), and K1's wrapper host time both ways
+  14. the transducer at the full width of examples/aishell/rnnt/conf/
+              train_u2pp_transducer.yaml (12 rel-pos blocks, LSTM
+              predictor 2 x 256, join_dim 512, 4233 chars; random
+              weights from the seed), fp32 with TF32 off.  14a:
+              AsrRunner.decode at B=16 x 10-15 s of speech-like fbank in
+              the CTC modes, rnnt_greedy_search, rnnt_beam_search (beam
+              10) and attention rescoring on the card against the CPU,
+              the joint's output scaled and its blank raised
+              (`shape_joint_blank`) and rnnt_n_steps 1 (random weights
+              emit on every step otherwise): hypotheses equal up to the
+              ties the two devices' joint and CTC log-probs explain
+              (`rnnt_compare`), beam scores within the summed per-frame
+              log-prob differences + 1e-5 of the score + 2e-4, 12 K1
+              launches a decode; emitted lengths, audio-sec/s per mode, each
+              search's launches a frame.  14b: the RNN-T loss at B=4, T
+              300-213, U 40-0, V 4233: loss within rtol 1e-5 and the
+              gradient with respect to the logits within 1e-4 of the
+              largest, card against CPU against float64; forward and
+              backward card time (CUDA events), launches.  14c: one train
+              step at B=4 x 12 s, dynamic chunk, dropouts 0, card against
+              CPU (loss rtol 1e-4, grads 1e-3 + 2e-4 of the largest, 12c's
+              bar), 12 launches of K1-train, K2 and K3; the loss's share
+              of the step's kernel time (profiled); a bf16 autocast step
+              within 1e-2 of the fp32 loss.  14d: compute_cmvn_stats,
+              bin/train.py (2 epochs on 10's written recipe, a profiler
+              window; 12 launches of each training kernel a step),
+              average_model --num 2 --val_best, bin/recognize.py in
+              rnnt_greedy_search, rnnt_beam_search and
+              attention_rescoring (audio-sec/s a mode over 16 wavs; card
+              == CPU on 8 by 14a's tie rule, each text the runner's)
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX
 package (wenet_tpu), and checks so at the end.
@@ -3928,6 +3958,10 @@ def zoo_step_check(name):
     # terms that cancel over 3200 frames, so 1e-3 is below float32's
     # resolution of their sums
     worst, worst_of_bar, largest = 0.0, 0.0, (0.0, '')
+    # the tensors past a flat 1e-3, each with its share of its largest
+    # (a share over all tensors would be led by the key biases, whose
+    # gradients are 0 but for rounding: softmax ignores a shift)
+    above = []
     cpu_params = dict(cpu_model.named_parameters())
     for pname, p in model.named_parameters():
         if p.grad is None or not torch.isfinite(p.grad).all():
@@ -4763,6 +4797,685 @@ def export_wfst_check(smi):
             dict(tlg=tlg, wfst=wfst, export=export))
 
 
+# ---------------------------------------------------------------------------
+# 14. the transducer: examples/aishell/rnnt/conf/train_u2pp_transducer.yaml
+# ---------------------------------------------------------------------------
+RNNT_CONFIG = os.path.join(REPO, 'examples/aishell/rnnt/conf/'
+                           'train_u2pp_transducer.yaml')
+RNNT_DECODE = (16, 10.0, 15.0)  # 14a: B, shortest and longest seconds
+RNNT_BEAM = 10
+RNNT_MODES = ['rnnt_greedy_search', 'rnnt_beam_search',
+              'attention_rescoring']
+# 14a: random weights emit on almost every step, with logits that vary
+# little from frame to frame.  The joint's output is scaled and its blank
+# raised (`shape_joint_blank`) so that a unit leads on as many frames as
+# read Mandarin has chars (4 a second, of 25 frames).  A random
+# predictor's state after a unit does not favour blank as a trained one's
+# does, so a frame that emits once emits up to the greedy budget: 14a
+# decodes with rnnt_n_steps=1, one unit a frame at most (the setting
+# tools/parity_decode.py pins for random weights)
+RNNT_GAP_SPREAD = 4.0
+RNNT_UNITS_PER_S = 4.0
+RNNT_N_STEPS = 1
+# beam scores card against CPU: this (the torch bar) on top of what the
+# devices' log-probs explain (`rnnt_compare`)
+RNNT_SCORE_TOL = 2e-4
+RNNT_LOSS_SHAPE = ([300, 277, 251, 213], [40, 33, 19, 0])  # 14b T, U
+RNNT_LOSS_RTOL = 1e-5
+RNNT_GRAD_SHARE = 1e-4  # of the largest gradient
+RNNT_STEP = (4, 12.0)  # 14c: B x seconds
+RNNT_BF16_RTOL = 1e-2  # 14c: the bf16 autocast loss against fp32
+RNNT_RECOGNIZE = (16, 8)  # 14d: wavs decoded on the card, and on the CPU
+
+
+def rnnt_configs(dropout=True):
+    """The rnnt yaml's configs (80-d fbank, the flagship's 4233 chars);
+    dropout=False sets every dropout of the encoder, decoder, predictor
+    and joint to 0."""
+    import yaml
+    with open(RNNT_CONFIG) as f:
+        configs = yaml.safe_load(f)
+    configs['input_dim'], configs['output_dim'] = 80, 4233
+    if not dropout:
+        for conf in (configs['encoder_conf'], configs['decoder_conf']):
+            for key in conf:
+                if key.endswith('dropout_rate'):
+                    conf[key] = 0.0
+        configs['predictor_conf'].update(embed_dropout=0.0, dropout=0.0)
+        configs['joint_conf']['dropout_rate'] = 0.0
+    return configs
+
+
+def speech_features(rng, B, shortest, longest):
+    """B speech-like utterances (the first `longest` seconds, the others
+    from `shortest`) as 80-d fbank -> (feats (B, T, 80), lens)."""
+    from wenet_tpu_torch.runtime.feature_pipeline import (
+        FeaturePipeline, FeaturePipelineConfig)
+    rows = []
+    for b in range(B):
+        seconds = longest if b == 0 else rng.uniform(shortest, longest)
+        pipe = FeaturePipeline(FeaturePipelineConfig(num_mel_bins=80))
+        rows.append(pipe.accept_waveform(speech_like(rng, seconds)))
+    lens = np.asarray([len(r) for r in rows], np.int64)
+    feats = np.zeros((B, lens.max(), 80), np.float32)
+    for b, r in enumerate(rows):
+        feats[b, :len(r)] = r
+    return feats, lens
+
+
+def shape_joint_blank(model):
+    """Scale the joint's output layer until the top unit's lead over
+    blank spreads over RNNT_GAP_SPREAD between the 10th and 90th
+    percentiles of a seeded 10 s utterance's frames (at the predictor's
+    first state), then raise the blank's bias so that a unit leads on
+    RNNT_UNITS_PER_S / 25 of them; in eval mode, which it leaves the model
+    in -> (the scale, the blank's shift)."""
+    feats, lens = speech_features(np.random.RandomState(SEED + 40), 1, 10.0,
+                                  10.0)
+    model.eval()
+    out = model.joint.ffn_out
+    with torch.no_grad():
+        eo, _ = model.forward_encoder(torch.from_numpy(feats),
+                                      torch.from_numpy(lens))
+        pred, _, _ = model._init_predictor(1, eo)
+
+        def lead():
+            logits = model.joint(eo, pred)[0, :, 0]
+            return logits[:, 1:].amax(-1) - logits[:, 0]
+        gap = lead()
+        scale = RNNT_GAP_SPREAD / float(gap.quantile(0.9) - gap.quantile(0.1))
+        out.weight.mul_(scale)
+        out.bias.mul_(scale)
+        shift = float(lead().quantile(1 - RNNT_UNITS_PER_S / 25))
+        out.bias[0] += shift
+    return scale, shift
+
+
+def greedy_margins(model, enc, n, n_steps=64):
+    """The greedy search of one utterance (enc (1, T, D), n frames)
+    replayed step by step on the CPU -> [(emitted unit or None, top-1
+    minus top-2 logit)] for each step."""
+    T = enc.shape[1]
+    joint = model.joint
+    steps = []
+    with torch.no_grad():
+        encp = joint.project_enc(enc)
+        out, state, padding = model._init_predictor(1, enc)
+        pred = joint.project_pred(out)
+        t = noblk = 0
+        for _ in range(2 * T):
+            if t >= n:
+                break
+            logits = joint(encp[:, t:t + 1], pred, pre_project=False)[
+                0, 0, 0]
+            top = logits.topk(2).values
+            best = int(logits.argmax())
+            emit = best != model.blank and noblk < n_steps
+            steps.append((best if emit else None, float(top[0] - top[1])))
+            if emit:
+                out, state = model.predictor.forward_step(
+                    torch.tensor([[best]]), padding, state)
+                pred = joint.project_pred(out)
+                noblk += 1
+            else:
+                t, noblk = t + 1, 0
+    return steps
+
+
+def greedy_tie(steps, got, want, bar):
+    """Whether the CPU's greedy path (`steps`, giving `want`) and the
+    card's tokens `got` part at a decision the two devices may take
+    otherwise: between the CPU's emissions of the last common token and
+    the first differing one, some step's top two logits lie within
+    `bar`."""
+    j = next((i for i, (g, w) in enumerate(zip(got, want)) if g != w),
+             min(len(got), len(want)))
+    emitted = [i for i, (u, _) in enumerate(steps) if u is not None]
+    lo = emitted[j - 1] + 1 if j > 0 else 0
+    hi = emitted[j] + 1 if j < len(emitted) else len(steps)
+    return any(m <= bar for _, m in steps[lo:hi])
+
+
+def same_beam(got, want, bound):
+    """Raise unless two rnnt beam results agree up to what the two
+    devices' log-probs explain: a hypothesis in both n-bests within
+    `bound` (the summed per-frame log-prob differences and float32's
+    resolution of the sum); one in only one of them within `bound` of the
+    other's last (a pruning at the beam's edge); the bests equal unless
+    their scores lie within `bound`.  -> (largest gap of a common
+    hypothesis, hypotheses in one n-best only)."""
+    theirs = dict(zip(map(tuple, want.nbest), want.nbest_scores))
+    ours = dict(zip(map(tuple, got.nbest), got.nbest_scores))
+    worst, edge = 0.0, 0
+    for mine, other, last in ((ours, theirs, want.nbest_scores[-1]),
+                              (theirs, ours, got.nbest_scores[-1])):
+        for h, sc in mine.items():
+            if h in other:
+                worst = max(worst, abs(sc - other[h]))
+                if abs(sc - other[h]) > bound:
+                    raise RuntimeError(f'rnnt beam: a hypothesis scores '
+                                       f'{sc} against {other[h]} (bound '
+                                       f'{bound:.3g})')
+            elif sc > last + bound:
+                raise RuntimeError(f'rnnt beam: a hypothesis of one device '
+                                   f'only scores {sc}, above the other\'s '
+                                   f'last {last} + {bound:.3g}')
+            else:
+                edge += 1
+    if got.tokens != want.tokens and abs(got.score - want.score) > bound:
+        raise RuntimeError('rnnt beam: the best hypotheses differ')
+    return worst, edge
+
+
+RNNT_CHECK_MODES = MODES + ['rnnt_greedy_search', 'rnnt_beam_search']
+
+
+def rnnt_compare(what, model, cpu_model, feats, lens, kw):
+    """Decode the batch in RNNT_CHECK_MODES through AsrRunner.decode on
+    the card (`model`) and raise unless it agrees with the CPU up to the
+    ties the devices' log-probs explain.  The CTC modes and attention
+    rescoring: against the CPU's own decode, by zoo_same_hypotheses.  The
+    rnnt searches: against the CPU's searches over the card's encoder
+    output (copied), whose card - CPU difference the encoder's checks
+    bound (12a's 1e-3; a scaled joint multiplies it past any search bar,
+    PERF.md): greedy identical but where the replayed CPU
+    path has a near-tie at the parting decision (within twice the largest
+    |card - CPU| joint log-prob at the predictor's first state, + 1e-5);
+    the beam by `same_beam` with a bound of the utterance's summed
+    per-frame largest joint or CTC log-prob difference (the fusion moves
+    by no more) + SEARCH_FLOAT_TIE of the best score + RNNT_SCORE_TOL.
+    -> (card results, K1 launches of the card's decode, {mode: utterances
+    that part at ties}, readings: the largest joint log-prob difference,
+    the largest beam score gap and its share of the bound, and the rnnt
+    hypotheses equal to the CPU's own decode's (informational))."""
+    from wenet_tpu_torch.models.runner import AsrRunner, rnnt_decode
+    from wenet_tpu_torch.ops import flash_attention as fa
+    fa.reset_launches()
+    got = AsrRunner(model, 'cuda').decode(RNNT_CHECK_MODES, feats, lens,
+                                          **kw)
+    torch.cuda.synchronize()
+    k1 = fa.LAUNCHES['relpos_attention_fwd']
+    want = AsrRunner(cpu_model, 'cpu').decode(RNNT_CHECK_MODES, feats, lens,
+                                              **kw)
+    x, n = torch.from_numpy(feats), torch.from_numpy(lens)
+    with torch.inference_mode():
+        eo, em = model.forward_encoder(x.cuda(), n.cuda())
+        ceo, cem = cpu_model.forward_encoder(x, n)
+        logp, clogp = model.ctc_logprobs(eo), cpu_model.ctc_logprobs(ceo)
+        heo = eo.cpu()  # the card's encoder output, for the CPU searches
+        first = [m._init_predictor(len(lens), e)[0]
+                 for m, e in ((model, eo), (cpu_model, heo))]
+        jl = model.joint(eo, first[0])[:, :, 0].float().log_softmax(-1)
+        cjl = cpu_model.joint(heo, first[1])[:, :, 0].log_softmax(-1)
+        hlogp = cpu_model.ctc_logprobs(heo)
+    elens = cem[:, 0].sum(-1)
+    if not torch.equal(em[:, 0].sum(-1).cpu(), elens):
+        raise RuntimeError(f'{what}: encoder lengths differ')
+    enc_err = float((heo - ceo).abs().max())
+    if not enc_err <= 1e-3:
+        raise RuntimeError(f'{what}: encoder_out card - CPU {enc_err}')
+    flips = zoo_same_hypotheses(what, got, want, logp, clogp, elens)
+    with torch.inference_mode():
+        rnnt = rnnt_decode(cpu_model, heo, elens,
+                           ['rnnt_greedy_search', 'rnnt_beam_search'],
+                           kw['beam_size'], kw.get('rnnt_n_steps', 64))
+    own = {m: sum(g.tokens == w.tokens for g, w in zip(got[m], want[m]))
+           for m in rnnt}
+    jdiff = (jl.cpu() - cjl).abs().amax(-1)  # (B, T)
+    valid = torch.arange(jdiff.shape[1])[None] < elens[:, None]
+    joint_err = float((jdiff * valid).max())
+    fused = torch.maximum(jdiff, (logp.cpu() - hlogp).abs().amax(-1))
+    beam_gap, beam_share = 0.0, 0.0
+    flips.update(rnnt_greedy_search=0, rnnt_beam_search=0)
+    for b in range(len(lens)):
+        g = got['rnnt_greedy_search'][b].tokens
+        w = rnnt['rnnt_greedy_search'][b].tokens
+        if g != w:
+            steps = greedy_margins(cpu_model, heo[b:b + 1], int(elens[b]),
+                                   kw.get('rnnt_n_steps', 64))
+            if not greedy_tie(steps, g, w, 2 * joint_err + 1e-5):
+                raise RuntimeError(f'{what}: rnnt greedy utterance {b} '
+                                   'differs from the CPU beyond a tie')
+            flips['rnnt_greedy_search'] += 1
+        best = rnnt['rnnt_beam_search'][b]
+        bound = (float((fused[b] * valid[b]).sum()) + RNNT_SCORE_TOL +
+                 SEARCH_FLOAT_TIE * abs(best.score))
+        gap, edge = same_beam(got['rnnt_beam_search'][b], best, bound)
+        beam_gap, beam_share = max(beam_gap, gap), max(beam_share,
+                                                       gap / bound)
+        flips['rnnt_beam_search'] += edge > 0
+    return got, k1, flips, {'enc_err': enc_err, 'joint_err': joint_err,
+                            'beam_gap': beam_gap, 'beam_share': beam_share,
+                            'equal_to_cpu_decode': own}
+
+
+def search_launches(fn):
+    """(kernel launches, their device ms, the wall ms) of one call of
+    `fn`, traced by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    return (sum(c for c, _ in rows.values()),
+            sum(ms for _, ms in rows.values()), 1e3 * wall)
+
+
+def rnnt_decode_check(smi):
+    """14a: the rnnt yaml at full width, random weights from the seed and
+    the joint's blank raised, decoded on the card against the CPU at B =
+    16 x 10-15 s of speech-like fbank -> (K1 launches, readings)."""
+    from wenet_tpu_torch.models.runner import AsrRunner
+    configs = rnnt_configs()
+    model = zoo_model(configs)
+    scale, shift = shape_joint_blank(model)
+    cpu_model = copy.deepcopy(model)
+    model.cuda()
+    B, lo, hi = RNNT_DECODE
+    feats, lens = speech_features(np.random.RandomState(SEED + 41), B, lo, hi)
+    kw = dict(beam_size=RNNT_BEAM, ctc_weight=0.3, reverse_weight=0.3,
+              rnnt_n_steps=RNNT_N_STEPS)
+    got, k1, flips, errs = rnnt_compare('14a', model, cpu_model, feats,
+                                        lens, kw)
+    n_blocks = configs['encoder_conf']['num_blocks']
+    if k1 != n_blocks:
+        raise RuntimeError(f'14a: {k1} K1 launches in one decode, expected '
+                           f'{n_blocks} (one encoder pass)')
+    greedy = [len(r.tokens) for r in got['rnnt_greedy_search']]
+    beam = [len(r.tokens) for r in got['rnnt_beam_search']]
+    audio = float(lens.sum()) / 100
+    params = sum(p.numel() for p in model.parameters()) / 1e6
+    print(f'  rnnt yaml ({params:.1f}M params) B={B} x {lo:.0f}-{hi:.0f} s ({audio:.1f} s of audio), '
+          f'joint output x {scale:.1f}, blank bias + {shift:.3f}, '
+          f'rnnt_n_steps {RNNT_N_STEPS}: emitted units greedy '
+          f'{min(greedy)}-{max(greedy)} (mean {np.mean(greedy):.1f}), beam '
+          f'best {min(beam)}-{max(beam)}; card == CPU but at ties: '
+          + ', '.join(f'{m} {f}/{B}' for m, f in flips.items())
+          + f'; the rnnt searches on the card\'s encoder output (encoder '
+          f'card - CPU {errs["enc_err"]:.3g}, bar 1e-3): joint log-probs '
+          f'within {errs["joint_err"]:.3g}, beam scores within '
+          f'{errs["beam_gap"]:.3g}, {100 * errs["beam_share"]:.0f}% of '
+          f'their bound; rnnt hypotheses equal to the CPU\'s own decode\'s '
+          f'{errs["equal_to_cpu_decode"]} of {B}; K1 {k1} launches a '
+          f'decode ({smi})', flush=True)
+    runner = AsrRunner(model, 'cuda')
+    rates = {}
+    for mode in RNNT_MODES:
+        runner.decode([mode], feats, lens, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.decode([mode], feats, lens, **kw)
+        torch.cuda.synchronize()
+        rates[mode] = audio / (time.perf_counter() - t0)
+    print('  decode audio-sec/s: ' + ', '.join(
+        f'{m} {r:.1f}' for m, r in rates.items()) + f' ({smi})', flush=True)
+    per_frame = {}
+    with torch.inference_mode():
+        eo, em = model.forward_encoder(torch.from_numpy(feats).cuda(),
+                                       torch.from_numpy(lens).cuda())
+        el = em[:, 0].sum(-1)
+        T = eo.shape[1]
+        for name, fn in (
+                ('rnnt_greedy_search',
+                 lambda: model.greedy_search(eo, el, RNNT_N_STEPS)),
+                ('rnnt_beam_search',
+                 lambda: model.beam_search(eo, el, RNNT_BEAM))):
+            n, dev_ms, wall_ms = search_launches(fn)
+            per_frame[name] = n / T
+            print(f'    {name} over T={T} frames: {n} launches '
+                  f'({n / T:.1f} a frame), {dev_ms:.1f} ms of kernel time '
+                  f'in {wall_ms:.1f} ms (profiled; {smi})', flush=True)
+    del runner, model, cpu_model
+    torch.cuda.empty_cache()
+    return k1, {'audio_sec_per_s': rates, 'launches_per_frame': per_frame,
+                'ties': flips}
+
+
+def rnnt_loss_check(smi):
+    """14b: the RNN-T loss at B=4, T up to 300, U up to 40 and the full
+    vocabulary, ragged, one utterance without labels: card against the
+    CPU and a float64 CPU run -> readings."""
+    import torch.nn.functional as F
+    from wenet_tpu_torch.ops.rnnt_loss import rnnt_loss, rnnt_loss_logits
+    Ts, Us = RNNT_LOSS_SHAPE
+    B, T, U, V = len(Ts), max(Ts), max(Us), 4233
+    g = torch.Generator().manual_seed(SEED + 42)
+    logits = 2 * torch.randn(B, T, U + 1, V, generator=g)
+    labels = torch.randint(1, V, (B, U), generator=g)
+    tl, ul = torch.tensor(Ts), torch.tensor(Us)
+
+    def run(dev, double=False):
+        x = logits.to(dev, torch.float64 if double else torch.float32,
+                      copy=True).requires_grad_()
+        args = (labels.to(dev), tl.to(dev), ul.to(dev))
+        if double:
+            per = rnnt_loss(F.log_softmax(x, -1), *args, reduction='none')
+        else:
+            per = rnnt_loss_logits(x, *args, reduction='none')
+        per.mean().backward()
+        return per.detach().cpu().double(), x.grad.cpu().double()
+
+    card, cpu, f64 = run('cuda'), run('cpu'), run('cpu', double=True)
+    worst = {}
+    for name, (a, b) in (('card-cpu', (card, cpu)), ('card-f64', (card, f64)),
+                         ('cpu-f64', (cpu, f64))):
+        rel = float(((a[0] - b[0]).abs() / b[0].abs()).max())
+        gshare = float((a[1] - b[1]).abs().max() / b[1].abs().max())
+        worst[name] = (rel, gshare)
+        if not (rel <= RNNT_LOSS_RTOL and gshare <= RNNT_GRAD_SHARE):
+            raise RuntimeError(f'14b {name}: loss rtol {rel:.3g} (bar '
+                               f'{RNNT_LOSS_RTOL}), grad {gshare:.3g} of the '
+                               f'largest (bar {RNNT_GRAD_SHARE})')
+    x = logits.to('cuda', copy=True).requires_grad_()
+    args = (labels.cuda(), tl.cuda(), ul.cuda())
+    fwd, bwd = [], []
+    for _ in range(4):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        e[0].record()
+        loss = rnnt_loss_logits(x, *args)
+        e[1].record()
+        loss.backward()
+        e[2].record()
+        torch.cuda.synchronize()
+        fwd.append(e[0].elapsed_time(e[1]))
+        bwd.append(e[1].elapsed_time(e[2]))
+    n, dev_ms, wall_ms = search_launches(
+        lambda: rnnt_loss_logits(x, *args).backward())
+    torch.cuda.reset_peak_memory_stats()
+    rnnt_loss_logits(x, *args).backward()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'  RNN-T loss B={B}, T {Ts}, U {Us}, V={V} ((B, T, U+1, V) '
+          f'{logits.numel() * 4 / 2 ** 30:.2f} GiB fp32): per-utterance '
+          f'losses {[round(float(v), 3) for v in card[0]]}; '
+          + '; '.join(f'{k}: loss rtol {r:.2e}, grad {s:.2e} of the largest'
+                      for k, (r, s) in worst.items())
+          + f' (bars {RNNT_LOSS_RTOL:g}, {RNNT_GRAD_SHARE:g}); forward '
+          f'{min(fwd):.2f} ms, backward {min(bwd):.2f} ms (CUDA events, '
+          f'best of 4); {n} launches a forward + backward, {dev_ms:.2f} ms '
+          f'of kernel time in {wall_ms:.1f} ms (profiled); peak '
+          f'{peak:.2f} GiB ({smi})', flush=True)
+    del x, logits
+    torch.cuda.empty_cache()
+    return {'forward_ms': min(fwd), 'backward_ms': min(bwd),
+            'launches': n, 'kernel_ms': dev_ms}
+
+
+def rnnt_step_check(smi):
+    """14c: one train step of the rnnt yaml at B=4 x 12 s, dynamic chunk,
+    dropouts 0: card against CPU (loss rtol 1e-4; grads 1e-3 + 2e-4 of
+    the tensor's largest, 12c's bar at full depth), 12 launches of
+    K1-train, K2 and K3; the RNN-T loss's share of the step's kernel time
+    (profiled); a bf16 autocast step against fp32 -> launches."""
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.ops.rnnt_loss import rnnt_loss_logits
+    from wenet_tpu_torch.utils.common import add_blank
+    from wenet_tpu_torch.utils.executor import to_device_batch
+    configs = rnnt_configs(dropout=False)
+    model = zoo_model(configs)
+    cpu_model = copy.deepcopy(model)
+    model.cuda()
+    B, seconds = RNNT_STEP
+    b = zoo_train_batch(np.random.RandomState(SEED + 43), B, seconds, 80,
+                        configs['output_dim'])
+    n_blocks = configs['encoder_conf']['num_blocks']
+    outs, launches = [], {}
+
+    def step(m, dev, dtype=None):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        tb = to_device_batch(b, dev)
+        with torch.autocast(dev, dtype=dtype, enabled=dtype is not None):
+            out = m(tb['feats'], tb['feats_lengths'], tb['target'],
+                    tb['target_lengths'],
+                    generator=torch.Generator().manual_seed(SEED))
+        out['loss'].backward()
+        return out
+
+    for m, dev in ((model, 'cuda'), (cpu_model, 'cpu')):
+        fa.reset_launches()
+        outs.append(step(m, dev))
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+            launches = {k: fa.LAUNCHES[k] for k in TRAIN_KERNELS}
+    if any(v != n_blocks for v in launches.values()):
+        raise RuntimeError(f'14c: launches {launches} in one step, expected '
+                           f'{n_blocks} each')
+    for k in ('loss', 'loss_rnnt', 'loss_att', 'loss_ctc', 'th_accuracy'):
+        a, w = outs[0][k].item(), outs[1][k].item()
+        if not abs(a - w) <= 1e-4 * abs(w) + 1e-6:
+            raise RuntimeError(f'14c: {k} card {a} cpu {w} beyond rtol 1e-4')
+    worst, worst_of_bar, largest = 0.0, 0.0, (0.0, '')
+    # the tensors past a flat 1e-3, each with its share of its largest
+    # (a share over all tensors would be led by the key biases, whose
+    # gradients are 0 but for rounding: softmax ignores a shift)
+    above = []
+    cpu_params = dict(cpu_model.named_parameters())
+    for name, p in model.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise RuntimeError(f'14c: {name} has no finite gradient')
+        want = cpu_params[name].grad
+        err = (p.grad.cpu() - want).abs().max().item()
+        bar = 1e-3 + ZOO_GRAD_RTOL * want.abs().max().item()
+        if err > bar:
+            raise RuntimeError(f'14c: {name} grad differs from the CPU by '
+                               f'{err} (bar {bar:.3g})')
+        worst, worst_of_bar = max(worst, err), max(worst_of_bar, err / bar)
+        largest = max(largest, (want.abs().max().item(), name))
+        if err > 1e-3:
+            top = want.abs().max().item()
+            above.append(f'{name} {err:.3g} ({err / top:.2e} of its largest '
+                         f'{top:.3g})')
+    print(f'  rnnt train step B={B} x {seconds:.0f} s, dynamic chunk, '
+          f'dropout 0: loss card {outs[0]["loss"].item():.6f} cpu '
+          f'{outs[1]["loss"].item():.6f}, loss_rnnt card '
+          f'{outs[0]["loss_rnnt"].item():.6f} cpu '
+          f'{outs[1]["loss_rnnt"].item():.6f} (rtol 1e-4); '
+          f'{len(cpu_params)} grads, max |card - cpu| {worst:.3g} '
+          f'({"within" if worst <= 1e-3 else "above"} 6c\'s 1e-3), at most '
+          f'{100 * worst_of_bar:.0f}% of 12c\'s bar; the largest |grad| '
+          f'{largest[0]:.3g} ({largest[1]}); above 1e-3: '
+          f'{"; ".join(above) or "none"}; launches {launches}',
+          flush=True)
+    # the loss's share of the step's kernel time, both profiled
+    tb = to_device_batch(b, 'cuda')
+    _, step_ms, step_wall = search_launches(lambda: step(model, 'cuda'))
+    with torch.no_grad():
+        eo, em = model.encoder(tb['feats'], tb['feats_lengths'])
+        ys = add_blank(tb['target'], model.blank, model.ignore_id)
+        logits = model.joint(eo, model.predictor(ys))
+    labels = tb['target'].masked_fill(tb['target'] < 0, model.blank)
+    logits.requires_grad_()
+    n, loss_ms, loss_wall = search_launches(
+        lambda: rnnt_loss_logits(logits, labels, em[:, 0].sum(-1),
+                                 tb['target_lengths']).backward())
+    print(f'    the RNN-T loss alone at the step\'s lattice '
+          f'{tuple(logits.shape)}: {loss_ms:.2f} ms of kernel time '
+          f'({n} launches) in {loss_wall:.1f} ms, of the step\'s '
+          f'{step_ms:.2f} ms of kernel time in {step_wall:.1f} ms: '
+          f'{100 * loss_ms / step_ms:.1f}% of the kernel time, '
+          f'{100 * loss_wall / step_wall:.1f}% of the wall time '
+          f'(profiled; {smi})', flush=True)
+    del logits
+    bf16 = step(model, 'cuda', torch.bfloat16)
+    rel = abs(bf16['loss'].item() - outs[0]['loss'].item()) / abs(
+        outs[0]['loss'].item())
+    if not np.isfinite(bf16['loss'].item()) or rel > RNNT_BF16_RTOL:
+        raise RuntimeError(f'14c: bf16 loss {bf16["loss"].item()} against '
+                           f'fp32 {outs[0]["loss"].item()} (bar '
+                           f'{RNNT_BF16_RTOL})')
+    print(f'    bf16 autocast step: loss {bf16["loss"].item():.6f}, '
+          f'{rel:.2e} from fp32 (bar {RNNT_BF16_RTOL:g}), loss_rnnt '
+          f'{bf16["loss_rnnt"].item():.6f}', flush=True)
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return launches, {'loss_kernel_share': loss_ms / step_ms,
+                      'loss_wall_share': loss_wall / step_wall,
+                      'bf16_loss_rtol': rel}
+
+
+def rnnt_recipe_check(smi):
+    """14d: compute_cmvn_stats, bin/train.py (2 epochs on 10's written
+    recipe, a profiler window), average_model, then bin/recognize.py in
+    RNNT_MODES on the average: card == CPU by rnnt_compare's tie rule ->
+    ({kernel: launches}, readings)."""
+    from wenet_tpu_torch.bin import (average_model, compute_cmvn_stats,
+                                     recognize, train)
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.utils.checkpoint import load_model
+    tokenizer = flagship_tokenizer()
+    d = tempfile.mkdtemp(prefix='chip_smoke_rnnt_')
+    units, train_list, cv_list, scp, train_wavs = write_recipe(d, tokenizer)
+    cmvn = os.path.join(d, 'global_cmvn')
+    compute_cmvn_stats.main(['--train_config', RNNT_CONFIG, '--in_scp', scp,
+                             '--out_cmvn', cmvn])
+    exp = os.path.join(d, 'exp')
+    argv = ['--config', RNNT_CONFIG, '--train_data', train_list,
+            '--cv_data', cv_list, '--data_type', 'shard', '--model_dir', exp,
+            '--seed', str(SEED), '--device', 'cuda',
+            '--override_config', f'tokenizer_conf.symbol_table_path {units}',
+            '--override_config', f'cmvn_conf.cmvn_file {cmvn}',
+            '--override_config', 'max_epoch 2',
+            '--override_config', 'log_interval 1',
+            '--profile_dir', os.path.join(d, 'profile'),
+            '--profile_start_step', '1', '--profile_steps', '3']
+    records = []
+    fa.reset_launches()
+    summary = train.main(argv, on_step=records.append)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    n_blocks = rnnt_configs()['encoder_conf']['num_blocks']
+    for name in TRAIN_KERNELS:
+        if launches[name] != n_blocks * len(records):
+            raise RuntimeError(f'14d: {name} {launches[name]} launches over '
+                               f'{len(records)} steps, expected {n_blocks} '
+                               'a step')
+    epochs = summary['epochs']
+    if not all(np.isfinite(e['cv']['loss_rnnt']) for e in epochs):
+        raise RuntimeError('14d: cv loss_rnnt not finite')
+    counts, busy = trace_readings(summary['profile_trace'])
+    train_rate = (sum(e['audio_seconds'] for e in epochs) /
+                  sum(e['train_seconds'] for e in epochs))
+    for e in epochs:
+        print(f'  bin/train.py epoch {e["epoch"]}: {e["steps"]} steps in '
+              f'{e["train_seconds"]:.2f} s, '
+              f'{e["audio_seconds"] / e["train_seconds"]:.1f} audio-sec/s; '
+              f'cv loss {e["cv"]["loss"]:.4f}, loss_rnnt '
+              f'{e["cv"]["loss_rnnt"]:.4f} ({smi})', flush=True)
+    print(f'    steps B x T: '
+          + ', '.join(f'{r["batch"]}x{r["frames"]}' for r in records)
+          + f'; profiled steps 2-4: launches {counts}, card busy '
+          f'{100 * busy:.1f}% of the traced span; {launches}', flush=True)
+    avg = os.path.join(d, 'avg_2.pt')
+    chosen = average_model.main(['--src_path', exp, '--dst_model', avg,
+                                 '--num', '2', '--val_best'])
+    if len(chosen) != 2:
+        raise RuntimeError('14d: average_model did not average two epochs')
+    paths = {'train.yaml': os.path.join(exp, 'train.yaml'), 'final.pt': avg}
+    n_all, n_cpu = RNNT_RECOGNIZE
+    for name, n in (('rnnt.list', n_all), ('rnnt_cpu.list', n_cpu)):
+        paths[name] = os.path.join(d, name)
+        with open(paths[name], 'w', encoding='utf-8') as f:
+            for i, w in enumerate(train_wavs[RECIPE_8K:RECIPE_8K + n]):
+                f.write(json.dumps({'key': f'r{i:02d}', 'wav': w,
+                                    'txt': ''}) + '\n')
+    rates = {}
+    for mode in RNNT_MODES:
+        fa.reset_launches()
+        _, rsum = recognize_main(paths, [mode], os.path.join(d, mode),
+                                 'rnnt.list', 'cuda')
+        torch.cuda.synchronize()
+        if fa.LAUNCHES['relpos_attention_fwd'] != n_blocks:
+            raise RuntimeError(f'14d recognize {mode}: '
+                               f'{fa.LAUNCHES["relpos_attention_fwd"]} K1 '
+                               f'launches for one batch')
+        launches['relpos_attention_fwd'] += n_blocks
+        rates[mode] = rsum['audio_seconds'] / rsum['seconds']
+    print(f'  bin/recognize.py --device cuda, {n_all} wavs a mode: '
+          + ', '.join(f'{m} {r:.1f} audio-sec/s' for m, r in rates.items())
+          + f' ({smi})', flush=True)
+    texts = {}
+    for dev in ('cuda', 'cpu'):
+        fa.reset_launches()
+        texts[dev] = recognize_main(paths, RNNT_MODES,
+                                    os.path.join(d, f'all_{dev}'),
+                                    'rnnt_cpu.list', dev)[0]
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+            k1 = fa.LAUNCHES['relpos_attention_fwd']
+            if k1 != n_blocks:
+                raise RuntimeError(f'14d recognize {RNNT_MODES}: {k1} K1 '
+                                   'launches for one batch')
+            launches['relpos_attention_fwd'] += k1
+    args = recognize.get_parser().parse_args([
+        '--config', paths['train.yaml'], '--test_data',
+        paths['rnnt_cpu.list'], '--checkpoint', avg, *RECOGNIZE_ARGS,
+        '--result_dir', d, '--device', 'cpu'])
+    configs, tok, _, dataset, cpu_runner = recognize.build(args)
+    (batch,) = list(dataset)
+    card_model = load_model(configs, avg, 'cuda')
+    got, _, flips, errs = rnnt_compare(
+        '14d', card_model, cpu_runner.model, batch['feats'],
+        batch['feats_lengths'].astype(np.int64),
+        dict(beam_size=10, ctc_weight=0.3, reverse_weight=0.5))
+    same = {}
+    for mode in RNNT_MODES:
+        entry = {k: tok.detokenize(r.tokens)[0]
+                 for k, r in zip(batch['keys'], got[mode])}
+        if entry != texts['cuda'][mode]:
+            raise RuntimeError(f'14d: recognize {mode} on the card wrote '
+                               'other text than its runner decodes')
+        same[mode] = sum(texts['cuda'][mode][k] == texts['cpu'][mode][k]
+                         for k in entry)
+    # rescoring: card against the CPU's own decode, at the zoo's ties; the
+    # rnnt searches are held to the CPU on the card's encoder output
+    if n_cpu - same['attention_rescoring'] > flips['attention_rescoring']:
+        raise RuntimeError('14d: recognize attention_rescoring differs from '
+                           'the CPU beyond the ties')
+    chars = {m: sum(len(t) for t in texts['cuda'][m].values())
+             for m in RNNT_MODES}
+    print(f'  recognize on {n_cpu} wavs: each text the card runner\'s; '
+          f'equal to the CPU\'s recognize '
+          + ', '.join(f'{m} {same[m]}/{n_cpu}' for m in RNNT_MODES)
+          + f'; ties {flips}; the rnnt searches = the CPU\'s on the card\'s '
+          f'encoder output (encoder card - CPU {errs["enc_err"]:.3g}, beam '
+          f'scores within {errs["beam_gap"]:.3g}); chars {chars}',
+          flush=True)
+    import shutil
+    shutil.rmtree(d)
+    return launches, {'train_audio_sec_per_s': train_rate,
+                      'train_busy': busy, 'recognize_audio_sec_per_s': rates}
+
+
+def transducer_check(smi):
+    """Phase 14 -> ({kernel name: launches}, readings)."""
+    phase('14 transducer (rnnt yaml, full width): decode, loss, train step, '
+          'recipe')
+    t0 = time.perf_counter()
+    launches = {name: 0 for name in ('relpos_attention_fwd',
+                                     *TRAIN_KERNELS)}
+    phase('14a decode, card vs CPU')
+    k1, decode = rnnt_decode_check(smi)
+    launches['relpos_attention_fwd'] += k1
+    phase('14b RNN-T loss, card vs CPU vs float64')
+    loss = rnnt_loss_check(smi)
+    phase('14c one train step, card vs CPU; bf16')
+    step_launches, step = rnnt_step_check(smi)
+    for k, v in step_launches.items():
+        launches[k] += v
+    phase('14d the recipe: cmvn, train, average, recognize')
+    recipe_launches, recipe = rnnt_recipe_check(smi)
+    for k in launches:
+        launches[k] += recipe_launches[k]
+    print(f'  phase 14 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return launches, {'decode': decode, 'loss': loss, 'step': step,
+                      'recipe': recipe}
+
+
 def main():
     smi = device()
     build()
@@ -4787,6 +5500,7 @@ def main():
     recognize_launches, recognize_readings = recognize_check(smi)
     zoo_launches, zoo_readings = zoo_check(smi)
     stage67_launches, stage67_readings = export_wfst_check(smi)
+    rnnt_launches, rnnt_readings = transducer_check(smi)
     foreign = [m for m in sys.modules
                if m == 'jax' or m.startswith('jax.') or m == 'wenet_tpu'
                or m.startswith('wenet_tpu.')]
@@ -4798,7 +5512,8 @@ def main():
         'replaces': 'wenet_tpu/ops/flash_attention.py:548',
         'launches': launches + stream_launches + batched_launches +
         recognize_launches + zoo_launches['relpos_attention_fwd'] +
-        stage67_launches['wfst'] + stage67_launches['export'], **report,
+        stage67_launches['wfst'] + stage67_launches['export'] +
+        rnnt_launches['relpos_attention_fwd'], **report,
         'launches_zoo': zoo_launches['relpos_attention_fwd'],
         'zoo_decode': zoo_readings,
         'launches_decode': launches, 'launches_streaming': stream_launches,
@@ -4809,14 +5524,17 @@ def main():
         'recognize': recognize_readings,
         'launches_wfst': stage67_launches['wfst'],
         'launches_export': stage67_launches['export'],
-        'stage67': stage67_readings}]
+        'stage67': stage67_readings,
+        'launches_transducer': rnnt_launches['relpos_attention_fwd'],
+        'transducer': rnnt_readings}]
     for name, (source, replaces) in TRAIN_KERNELS.items():
         kernels.append(dict(name=name, route='cuda', source=source,
                             replaces=replaces,
                             launches=train_launches[name] +
-                            zoo_launches[name],
+                            zoo_launches[name] + rnnt_launches[name],
                             launches_train_entry=entry_launches[name],
                             launches_zoo=zoo_launches[name],
+                            launches_transducer=rnnt_launches[name],
                             **train_report[name]))
     kernels.append(dict(name='flash_attention_fwd', route='cuda',
                         source='wenet_tpu_torch/csrc/flash_attention.cu',

@@ -2,9 +2,10 @@
 builds with `init_model(..., device='meta')` (shapes only, no weights
 drawn), but for the model families the port does not have yet, which
 raise NotImplementedError naming their ROADMAP.md queue 1 item.  For the
-encoder zoo's yamls, shrunk as tests/test_example_configs.py shrinks
-them, the port's state dict has the keys and shapes of the JAX package's
-variables carried across by `state_dict_from_jax`."""
+encoder zoo's and the transducers' yamls, shrunk as
+tests/test_example_configs.py shrinks them, the port's state dict has the
+keys and shapes of the JAX package's variables carried across by
+`state_dict_from_jax`."""
 
 import copy
 import glob
@@ -21,8 +22,6 @@ CONFIGS = sorted(os.path.relpath(p, REPO) for p in glob.glob(
     os.path.join(REPO, 'examples/**/conf/*.yaml'), recursive=True))
 UNPORTED = {  # yaml -> its ROADMAP.md queue 1 item
     'examples/aishell/paraformer/conf/train_paraformer.yaml': 9,
-    'examples/aishell/rnnt/conf/train_u2pp_transducer.yaml': 10,
-    'examples/librispeech/rnnt/conf/conformer_rnnt.yaml': 10,
     'examples/librispeech/ssl/conf/train_bestrq.yaml': 11,
 }
 ZOO = ['examples/aishell/s0/conf/train_transformer.yaml',
@@ -31,6 +30,8 @@ ZOO = ['examples/aishell/s0/conf/train_transformer.yaml',
        'examples/aishell/s0/conf/train_ebranchformer.yaml',
        'examples/aishell/s0/conf/train_squeezeformer.yaml',
        'examples/aishell/s0/conf/train_u2pp_efficonformer.yaml']
+TRANSDUCERS = ['examples/aishell/rnnt/conf/train_u2pp_transducer.yaml',
+               'examples/librispeech/rnnt/conf/conformer_rnnt.yaml']
 _SHRINK = {'num_blocks': 2, 'r_num_blocks': 1, 'linear_units': 64,
            'cgmlp_linear_units': 64, 'reduce_idx': 0, 'recover_idx': 1}
 
@@ -49,7 +50,8 @@ def _configs(path, shrink=False):
 
 def test_sweep_counts():
     assert len(CONFIGS) == 23
-    assert set(UNPORTED) | set(ZOO) <= set(CONFIGS)
+    assert set(UNPORTED) | set(ZOO) | set(TRANSDUCERS) <= set(CONFIGS)
+    assert len(CONFIGS) - len(UNPORTED) == 21
 
 
 @pytest.mark.parametrize('path', CONFIGS)
@@ -66,10 +68,11 @@ def test_config_builds_or_names_its_item(path):
         configs['encoder_conf']['output_size']
 
 
-@pytest.mark.parametrize('path', ZOO)
+@pytest.mark.parametrize('path', ZOO + TRANSDUCERS)
 def test_zoo_state_dict_matches_jax(path):
     """Keys and shapes of the port's state dict == the JAX package's
-    variables (abstract, `jax.eval_shape`) carried across."""
+    variables (abstract, `jax.eval_shape`) carried across (a transducer's
+    predictor and joint too)."""
     import jax
     import jax.numpy as jnp
     from wenet_tpu.utils.init_model import init_model as jax_init_model

@@ -308,10 +308,12 @@ def test_recognize_raises_for_what_is_not_ported(recipe, tmp_path):
             str(recipe / 'final.pt'), '--result_dir', str(tmp_path),
             '--device', 'cpu']
     for modes, item in ((['hlg_onebest'], 'item 11'),
-                        (['paraformer_greedy_search'], 'item 9'),
-                        (['rnnt_beam_search'], 'item 10')):
+                        (['paraformer_greedy_search'], 'item 9')):
         with pytest.raises(NotImplementedError, match=item):
             recognize.main(base + ['--modes', *modes])
+    # the rnnt modes are ported, and need a transducer
+    with pytest.raises(ValueError, match='need a transducer'):
+        recognize.main(base + ['--modes', 'rnnt_beam_search'])
     with pytest.raises(NotImplementedError, match='item 4'):
         recognize.main(base + ['--timestamps'])
     # the hlg modes' own options are not accepted

@@ -8,20 +8,25 @@ wenet_tpu/bin/recognize.py, on --device (default cuda):
         --modes ctc_greedy_search ctc_prefix_beam_search \\
         attention_rescoring attention
 
+(a transducer's train.yaml also takes rnnt_greedy_search and
+rnnt_beam_search, whose beam is --beam_size)
+
 writes `<result_dir>/<mode>/text` (`key text` lines) for each mode.  The
 test set goes through the port's `Dataset` without augmentation,
 filters, shuffles or sorting, in static batches, each decoded by
-`AsrRunner.decode` in every mode asked for (the JAX package's pipelined
-branch for one mode is not ported: on an H100 it was no faster than this
-loop, whose pace the Dataset's host work sets; PERF.md).
+`AsrRunner.decode` in every mode asked for.  The JAX package's pipelined
+branches for one mode are not ported: on an H100 the CTC and rescoring
+ones were no faster than this loop, whose pace the Dataset's host work
+sets (PERF.md), and its transducer greedy branch
+(`decode_rnnt_greedy_batches`) is left out for the same reason.
 --context_list_path biases the prefix beam (the C++ searcher);
 --lm_path re-ranks each n-best with an ARPA LM (score + lm_weight * LM).
 The checkpoint is the port's `.pt` (as bin/average_model writes it).
 
 Not ported, and raising NotImplementedError: the hlg_* modes (ROADMAP.md
-queue 1 item 11), the paraformer_* modes (item 9), the rnnt_* modes
-(item 10), and whisper-family configs, which need the whisper tokenizer
-(item 4), and with them --timestamps.  The hlg modes' own options
+queue 1 item 11), the paraformer_* modes (item 9), and whisper-family
+configs, which need the whisper tokenizer (item 4), and with them
+--timestamps.  The hlg modes' own options
 (--hlg, --word, --lm_scale, --decoder_scale, --r_decoder_scale) are not
 accepted."""
 
@@ -39,7 +44,7 @@ from wenet_tpu_torch.utils.ctc_utils import get_blank_id
 from wenet_tpu_torch.utils.init_tokenizer import init_tokenizer
 
 # mode prefix -> the ROADMAP.md queue 1 item that ports it
-_NOT_PORTED = {'hlg_': 11, 'paraformer_': 9, 'rnnt_': 10}
+_NOT_PORTED = {'hlg_': 11, 'paraformer_': 9}
 
 
 def get_parser() -> argparse.ArgumentParser:

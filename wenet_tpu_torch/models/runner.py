@@ -1,8 +1,9 @@
 """AsrRunner: offline batch decode on one device.  Counterpart of
 wenet_tpu/models/runner.py `AsrRunner.decode` for the CTC greedy, CTC
 prefix beam (with context biasing), attention-rescoring and attention
-(beam search) modes, with its simulated streaming (`simulate_streaming`),
-and of `decode_wav` (the fbank on the device) and `transcribe`.
+(beam search) modes and a transducer's greedy and beam searches, with
+its simulated streaming (`simulate_streaming`), and of `decode_wav` (the
+fbank on the device) and `transcribe`.
 
 CTC prefix beam search runs in the port's C++ trie searcher
 (wenet_tpu_torch/runtime/native_beam.py, built with g++ at first use),
@@ -21,7 +22,8 @@ from wenet_tpu_torch.ops.fbank import compute_fbank
 from wenet_tpu_torch.runtime import native_beam
 
 MODES = ('ctc_greedy_search', 'ctc_prefix_beam_search',
-         'attention_rescoring', 'attention')
+         'attention_rescoring', 'attention', 'rnnt_greedy_search',
+         'rnnt_beam_search')
 
 
 def ctc_prefix_beam_search(ctc_probs: torch.Tensor,
@@ -39,6 +41,35 @@ def ctc_prefix_beam_search(ctc_probs: torch.Tensor,
     return [DecodeResult(tokens=hyps[0], score=scores[0], times=times[0],
                          nbest=hyps, nbest_scores=scores, nbest_times=times)
             for hyps, times, scores in outs]
+
+
+def rnnt_decode(model, encoder_out: torch.Tensor,
+                encoder_lens: torch.Tensor, methods: List[str],
+                beam_size: int, rnnt_n_steps: int = 64
+                ) -> Dict[str, List[DecodeResult]]:
+    """{mode: one DecodeResult per utterance} of the transducer searches in
+    `methods` over encoder outputs (B, T, D) with lengths (B,):
+    `rnnt_greedy_search` (its tokens without blanks) with a budget of
+    `rnnt_n_steps` units a frame, `rnnt_beam_search` (the best hypothesis,
+    its score and the n-best) with `beam_size` hypotheses."""
+    results: Dict[str, List[DecodeResult]] = {}
+    if 'rnnt_greedy_search' in methods:
+        tokens, n_emit = model.greedy_search(encoder_out, encoder_lens,
+                                             rnnt_n_steps)
+        tokens, n_emit = tokens.cpu().tolist(), n_emit.cpu().tolist()
+        results['rnnt_greedy_search'] = [
+            DecodeResult(tokens=[t for t in row[:n] if t != model.blank])
+            for row, n in zip(tokens, n_emit)]
+    if 'rnnt_beam_search' in methods:
+        tokens, lens, scores = (x.cpu().tolist() for x in
+                                model.beam_search(encoder_out, encoder_lens,
+                                                  beam_size))
+        results['rnnt_beam_search'] = [
+            DecodeResult(tokens=row[0][:n[0]], score=sc[0],
+                         nbest=[h[:k] for h, k in zip(row, n)],
+                         nbest_scores=sc)
+            for row, n, sc in zip(tokens, lens, scores)]
+    return results
 
 
 class AsrRunner:
@@ -63,7 +94,8 @@ class AsrRunner:
                reverse_weight: float = 0.0, blank_id: int = 0,
                blank_penalty: float = 0.0, length_penalty: float = 0.0,
                infos: Optional[Dict[str, List[str]]] = None,
-               context_graph=None) -> Dict[str, List[DecodeResult]]:
+               context_graph=None, rnnt_n_steps: int = 64
+               ) -> Dict[str, List[DecodeResult]]:
         """feats: (B, T, F) array or tensor; feats_lengths: (B,).
         `simulate_streaming` with decoding_chunk_size > 0 runs the encoder
         chunk by chunk with its caches (`forward_chunk_by_chunk`; one
@@ -71,11 +103,19 @@ class AsrRunner:
         the chunk mask.  `length_penalty` is for the `attention` mode,
         `infos` (whisper's prompt: 'tasks', 'langs', 'no_timestamp') for
         it and the rescoring, `context_graph` (utils/context_graph.py)
-        biases the prefix beam.  Returns {mode: one DecodeResult per
+        biases the prefix beam.  The rnnt modes need a transducer:
+        `rnnt_greedy_search` with a budget of `rnnt_n_steps` units a frame
+        (and 2T steps in all, the JAX package's formulation),
+        `rnnt_beam_search` with `beam_size` hypotheses and the model's CTC
+        fusion defaults.  Returns {mode: one DecodeResult per
         utterance}."""
         unknown = [m for m in methods if m not in MODES]
         if unknown:
             raise NotImplementedError(f'decode modes not ported: {unknown}')
+        if any(m.startswith('rnnt_') for m in methods) and not hasattr(
+                self.model, 'greedy_search'):
+            raise ValueError(f'{[m for m in methods if "rnnt_" in m]} '
+                             'need a transducer model')
         feats = torch.as_tensor(feats, device=self.device)
         if self.dtype is not None:
             feats = feats.to(self.dtype)
@@ -96,7 +136,9 @@ class AsrRunner:
                 feats, feats_lengths, decoding_chunk_size,
                 num_decoding_left_chunks)
         encoder_lens = encoder_mask[:, 0, :].sum(-1)
-        results: Dict[str, List[DecodeResult]] = {}
+        results: Dict[str, List[DecodeResult]] = rnnt_decode(
+            model, encoder_out, encoder_lens, methods, beam_size,
+            rnnt_n_steps)
         if 'attention' in methods:
             results['attention'] = attention_beam_search(
                 model, encoder_out, encoder_mask, beam_size, length_penalty,

@@ -30,6 +30,10 @@ import yaml
 
 _LIST_SEG = re.compile(r'^(encoders|decoders)_(\d+)$')
 _CONV_SEG = re.compile(r'^conv_(\d+)$')
+# the transducer joint's HAT heads: the Linear at index 2 of the
+# reference's Sequentials, `blank_pred_2` / `token_pred_2` in the JAX
+# package
+_HAT_SEG = re.compile(r'^(blank_pred|token_pred)_(\d+)$')
 # Dense kernels that are pointwise Conv1d in the reference: the conv
 # modules' pointwise convs and Squeezeformer's time reduction
 _POINTWISE_CONV1D = re.compile(
@@ -52,7 +56,7 @@ def torch_key(path: Tuple[str, ...]) -> str:
     collection, *segs = path
     out = []
     for i, seg in enumerate(segs[:-1]):
-        m = _LIST_SEG.match(seg)
+        m = _LIST_SEG.match(seg) or _HAT_SEG.match(seg)
         if m:
             out += [m.group(1), m.group(2)]
         elif _CONV_SEG.match(seg) and out[-1:] == ['embed']:

@@ -1,6 +1,7 @@
-"""Label utilities for the attention loss.  Counterpart of
-wenet_tpu/utils/common.py `add_sos_eos`, `reverse_pad_list` and
-`th_accuracy`: fixed-shape tensor transforms, no Python lists."""
+"""Label utilities for the attention and transducer losses.  Counterpart
+of wenet_tpu/utils/common.py `add_sos_eos`, `reverse_pad_list`,
+`th_accuracy` and `add_blank`: fixed-shape tensor transforms, no Python
+lists."""
 
 from typing import Tuple
 
@@ -44,3 +45,12 @@ def th_accuracy(pad_outputs: torch.Tensor, pad_targets: torch.Tensor,
     mask = pad_targets != ignore_label
     num = ((pred == pad_targets) & mask).sum()
     return num / mask.sum().clamp(min=1)
+
+
+def add_blank(ys_pad: torch.Tensor, blank: int,
+              ignore_id: int) -> torch.Tensor:
+    """The transducer predictor's input: a blank column prepended to
+    ignore_id-padded labels (B, L), pads turned to blank -> (B, L+1)."""
+    col = ys_pad.new_full((ys_pad.shape[0], 1), blank)
+    out = torch.cat([col, ys_pad], dim=1)
+    return out.masked_fill(out == ignore_id, blank)

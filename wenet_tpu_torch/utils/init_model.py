@@ -1,8 +1,9 @@
-"""Config-driven model construction.  Counterpart of the `asr_model` and
-`whisper` entries of wenet_tpu/utils/init_model.py: an encoder of the
-zoo (conformer, transformer, branchformer, E-Branchformer, Squeezeformer,
-efficient conformer), a (bi)transformer decoder and a CTC head, from the
-same train.yaml schema (the efficient conformer's `efficient_conf`
+"""Config-driven model construction.  Counterpart of the `asr_model`,
+`transducer` and `whisper` entries of wenet_tpu/utils/init_model.py: an
+encoder of the zoo (conformer, transformer, branchformer, E-Branchformer,
+Squeezeformer, efficient conformer), a (bi)transformer decoder and a CTC
+head, and a transducer's predictor (rnn, embedding, conv) and joint,
+from the same train.yaml schema (the efficient conformer's `efficient_conf`
 section merged into its encoder_conf, as the JAX package does), with
 LoRA attention projections when `lora_conf.use_lora` is set (the
 conformer's and transformer's encoder always, the decoder's with
@@ -35,6 +36,9 @@ from wenet_tpu_torch.models.e_branchformer.encoder import EBranchformerEncoder
 from wenet_tpu_torch.models.efficient_conformer.encoder import (
     EfficientConformerEncoder)
 from wenet_tpu_torch.models.squeezeformer.encoder import SqueezeformerEncoder
+from wenet_tpu_torch.models.transducer.joint import JOINT_CLASSES
+from wenet_tpu_torch.models.transducer.predictor import PREDICTOR_CLASSES
+from wenet_tpu_torch.models.transducer.transducer import Transducer
 from wenet_tpu_torch.models.transformer.encoder import (ConformerEncoder,
                                                         TransformerEncoder)
 from wenet_tpu_torch.models.whisper.convert import default_special_tokens
@@ -56,13 +60,14 @@ ENCODER_TYPE_OF = {'dual_transformer': 'transformer',
                    'dual_conformer': 'conformer'}
 DECODER_CLASSES = {'transformer': TransformerDecoder,
                    'bitransformer': BiTransformerDecoder}
-MODEL_CLASSES = {'asr_model': ASRModel, 'whisper': Whisper}
+MODEL_CLASSES = {'asr_model': ASRModel, 'whisper': Whisper,
+                 'transducer': Transducer}
 # the ROADMAP.md queue 1 item of each model family not ported (item 8,
 # the rest of the encoder zoo, for any other name)
 UNPORTED_ITEM = {'paraformer': 9, 'sanm_encoder': 9,
                  'sanm_encoder_with_tp': 9, 'sensevoice_small': 9,
-                 'firered': 9, 'firered_conformer': 9, 'transducer': 10,
-                 'k2_model': 11, 'bestrq_model': 11, 'w2vbert_model': 11,
+                 'firered': 9, 'firered_conformer': 9, 'k2_model': 11,
+                 'bestrq_model': 11, 'w2vbert_model': 11,
                  'wav2vec2_model': 11}
 # accepted and ignored (remat is not ported; it changes no result)
 _IGNORED = {'gradient_checkpointing', 'use_sdpa'}
@@ -184,15 +189,51 @@ def init_model(configs: dict, generator: Optional[torch.Generator] = None,
                           lora_conf=dec_lora, **dec_conf)
         ctc = CTC(vocab_size, encoder.output_size(),
                   configs.get('ctc_conf', {}).get('ctc_blank_id', 0))
-        model = MODEL_CLASSES[model_type](
+        model_cls = MODEL_CLASSES[model_type]
+        extra = (_transducer_parts(configs, vocab_size,
+                                   encoder.output_size())
+                 if model_type == 'transducer' else {})
+        model_conf = dict(configs.get('model_conf', {}))
+        if model_type == 'transducer':
+            # accepted and ignored, as the JAX package's Transducer does:
+            # the attention loss weighs 1 - transducer_weight - ctc_weight
+            model_conf.pop('attention_weight', None)
+        model = model_cls(
             vocab_size, encoder, decoder, ctc,
-            special_tokens=special_tokens,
-            **_conf(configs.get('model_conf', {}),
-                    _params(ASRModel.__init__), 'model'))
+            special_tokens=special_tokens, **extra,
+            **_conf(model_conf,
+                    _params(ASRModel.__init__) | _params(model_cls.__init__),
+                    'model'))
     if torch.device(device).type != 'meta':
         model.to_empty(device=device)
         init_weights(model, generator)
     return model
+
+
+def _transducer_parts(configs: dict, vocab_size: int,
+                      enc_output_size: int) -> dict:
+    """The transducer's predictor and joint from `predictor` /
+    `predictor_conf` and `joint` / `joint_conf`, with the JAX package's
+    defaults (the joint's widths: the encoder's, the predictor's output
+    or 256, join_dim 256), and its blank, 0."""
+    kinds = (('predictor', 'rnn', PREDICTOR_CLASSES),
+             ('joint', 'transducer_joint', JOINT_CLASSES))
+    for key, default, classes in kinds:
+        if configs.get(key, default) not in classes:
+            raise ValueError(f'unknown {key}: {configs[key]!r}')
+    pred_cls = PREDICTOR_CLASSES[configs.get('predictor', 'rnn')]
+    pred_conf = _conf(configs.get('predictor_conf', {}),
+                      _params(pred_cls.__init__), 'predictor')
+    joint_cls = JOINT_CLASSES[configs.get('joint', 'transducer_joint')]
+    joint_conf = _conf(configs.get('joint_conf', {}),
+                       _params(joint_cls.__init__), 'joint')
+    joint_conf.setdefault('enc_output_size', enc_output_size)
+    joint_conf.setdefault('pred_output_size',
+                          pred_conf.get('output_size', 256))
+    joint_conf.setdefault('join_dim', 256)
+    return {'predictor': pred_cls(voca_size=vocab_size, **pred_conf),
+            'joint': joint_cls(vocab_size=vocab_size, **joint_conf),
+            'blank': 0}
 
 
 def init_weights(model: nn.Module,
@@ -222,6 +263,10 @@ def init_weights(model: nn.Module,
             if isinstance(m, LoRALinear):
                 fill(m.lora_A, uniform(1.0 / math.sqrt(m.lora_A.shape[1])))
                 fill(m.lora_B, nn.init.zeros_)
+        elif isinstance(m, nn.LSTM):
+            # torch's own LSTM init: U(-1/sqrt(H), 1/sqrt(H)) for all
+            for t in m.parameters():
+                fill(t, uniform(1.0 / math.sqrt(m.hidden_size)))
         elif isinstance(m, nn.Embedding):
             fill(m.weight, lambda t: t.normal_(generator=generator))
         elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d)):
