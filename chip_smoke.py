@@ -78,7 +78,8 @@ Phases, each of which raises on failure (non-zero exit):
               launch of K4-train, K5 and K6 per encoder layer and
               micro-step), a checkpoint round trip, and twenty steps on one
               batch that must lower the loss
-  8c. whisper train speed (informational): 32 + 32 layers, B=2 x 30 s,
+  8c. whisper train speed (informational): 16 + 16 layers (half of
+              large-v3's depth, for the script's time), B=2 x 30 s,
               eight micro-steps (one AdamW update) through Executor.train,
               fp32 then bf16 autocast: ms per micro-step, audio-sec/s,
               stage times, peak memory, device-busy share, profiler table
@@ -168,8 +169,9 @@ Phases, each of which raises on failure (non-zero exit):
               train_squeezeformer.yaml, train_u2pp_efficonformer.yaml).
               12a: AsrRunner.decode of B=16 x 15 s in CTC greedy, CTC
               prefix beam and attention rescoring on the card against the
-              CPU (encoder output and log-probs within 1e-3, identical
-              hypotheses), the conv2d transformer also at B=64 x 15 s;
+              CPU on the first half of the rows (encoder output and
+              log-probs within 1e-3, identical hypotheses), the conv2d
+              transformer also at B=64 x 15 s;
               12b: launches per decode: K1 16 (E-Branchformer), 24
               (openasr), 8 (efficient conformer), 0 (transformers,
               Squeezeformer); K4 12 at B=64 and 0 at B=16.  12c: one train
@@ -190,9 +192,9 @@ Phases, each of which raises on failure (non-zero exit):
               raised so that posteriors are peaked and mostly blank, as a
               trained head's are).  13a: a lexicon of 5000 words (every
               char, and words of 2-4 chars) and a 3-gram ARPA from counts
-              over 1500 seeded sentences, every word a unigram, through
-              the port's pure-Python build_tlg (states, arcs, build
-              seconds).  13b:
+              over 750 seeded sentences (for the script's time), every
+              word a unigram, through the port's
+              pure-Python build_tlg (states, arcs, build seconds).  13b:
               decoder_main --fst_path TLG.txt --dict_path words.txt over
               eight wavs of 4-15 s on the card and on the CPU: words equal
               up to what the two devices' log-prob rows explain (best
@@ -210,14 +212,24 @@ Phases, each of which raises on failure (non-zero exit):
               ExportedAsrDecoder on 9c's utterances equal to AsrDecoder
               partial by partial; the exported and the eager chunk step's
               card time and enqueue, the eager one also with K1 called
-              directly (no op), and K1's wrapper host time both ways
+              directly (no op), and K1's wrapper host time both ways;
+              then plain attention through export: the aishell
+              transformer yaml at full width (random weights) through
+              bin/export_model with max_hyp_len 128: the exported full
+              encoder bit-equal to eager at B=16 x 15 s (below K4's gate)
+              and within 2e-4 of eager at B=64 x 15 s (eager runs K4 at
+              (64,4,374,374,64), the program the plain path), the
+              decoder at 10 x 128 bit-equal, no K4 launch in the
+              programs; both encoders' card times at B=16 and B=64
   14. the transducer at the full width of examples/aishell/rnnt/conf/
               train_u2pp_transducer.yaml (12 rel-pos blocks, LSTM
               predictor 2 x 256, join_dim 512, 4233 chars; random
               weights from the seed), fp32 with TF32 off.  14a:
               AsrRunner.decode at B=16 x 10-15 s of speech-like fbank in
               the CTC modes, rnnt_greedy_search, rnnt_beam_search (beam
-              10) and attention rescoring on the card against the CPU,
+              10) and attention rescoring on the card against the CPU
+              (the encoder output within 2e-4; the rnnt searches held to
+              the CPU's on the card's encoder output),
               the joint's output scaled and its blank raised
               (`shape_joint_blank`) and rnnt_n_steps 1 (random weights
               emit on every step otherwise): hypotheses equal up to the
@@ -241,6 +253,26 @@ Phases, each of which raises on failure (non-zero exit):
               rnnt_greedy_search, rnnt_beam_search and
               attention_rescoring (audio-sec/s a mode over 16 wavs; card
               == CPU on 8 by 14a's tie rule, each text the runner's)
+  15. whisper large-v3 through the recipe's entry points at full width,
+              4 + 4 layers (the finetune yaml's num_blocks through
+              --override_config; its log-mel front end and blank id as
+              models/whisper/convert.py writes them), fp32 with TF32 off.
+              15a: a rank file of 50257 ranks (the bytes, 600 merges
+              learned from seeded zh/en lines, unreachable fillers)
+              through the port's WhisperTokenizer: 51866 tokens,
+              large-v3's special tokens, 200 seeded lines round trip;
+              the encode rate.  15b: 24 wavs of 12-28 s with zh/en
+              transcripts in tar shards, a random checkpoint (8b's
+              weights), the entry point's first step card == CPU,
+              bin/train.py for two epochs (accum_grad 1, a profiler
+              window; K4-train, K5, K6 4 launches a step, counted),
+              average_model --num 2 --val_best (its LoRA tensors).
+              15c: the average's eot bias calibrated (7b's rule) on the
+              16 decode wavs, bin/recognize.py --modes attention, beam
+              5, B=4, without and with --timestamps on the card (16
+              wavs; K4 4 launches a batch, counted) and the CPU (the
+              first 8): text and segments identical; audio-sec/s and
+              the card's busy share (train and decode)
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX
 package (wenet_tpu), and checks so at the end.
@@ -1757,6 +1789,7 @@ FLASH_TRAIN_SHAPES = [  # B, h, T1, T2, d, mask, bias shape
 FINETUNE_CONFIG = os.path.join(REPO, 'examples/aishell/whisper/conf/'
                                'finetune_whisper_largev3.yaml')
 WHISPER_TRAIN_LR = 2e-4  # 8b's twenty steps on one batch, no warmup
+WHISPER_TRAIN_SPEED_LAYERS = 16  # 8c's depth (large-v3 has 32)
 
 
 def flash_train_kernel_check():
@@ -2131,11 +2164,12 @@ def whisper_train_speed(smi):
     import gc
     gc.collect()  # 7c's model
     torch.cuda.empty_cache()
-    configs = finetune_configs(32)
+    configs = finetune_configs(WHISPER_TRAIN_SPEED_LAYERS)
     t0 = time.perf_counter()
     model = whisper_train_model(
         configs, torch.Generator('cuda').manual_seed(SEED), 'cuda')
-    print(f'  32 + 32 layers built on the card in '
+    print(f'  {WHISPER_TRAIN_SPEED_LAYERS} + {WHISPER_TRAIN_SPEED_LAYERS} '
+          f'layers built on the card in '
           f'{time.perf_counter() - t0:.1f} s '
           f'({sum(p.numel() for p in model.parameters()) / 1e9:.3f}B '
           f'parameters)')
@@ -3052,10 +3086,15 @@ def entry_first_step(args):
         _, m = step(state, to_device_batch(batch, dev), (args.seed, 0))
         outs.append(({k: float(v) for k, v in m.items()},
                      {n: p.grad.detach().cpu()
-                      for n, p in model.named_parameters()}))
+                      for n, p in model.named_parameters()
+                      if p.grad is not None}))
     (card, card_grads), (cpu, cpu_grads) = outs
+    if card_grads.keys() != cpu_grads.keys():
+        raise RuntimeError('entry first step: the card and the CPU gave '
+                           'gradients to other parameters')
     B, T = batch['feats'].shape[:2]
-    for k in ('loss', 'loss_att', 'loss_ctc'):
+    # a loss the model has not (whisper's CTC at ctc_weight 0) is absent
+    for k in [k for k in ('loss', 'loss_att', 'loss_ctc') if k in cpu]:
         print(f'  first step, B={B} x T={T}, K1 dropout on {kept // 2} '
               f'blocks: {k} card {card[k]:.6f} cpu {cpu[k]:.6f}')
         if not abs(card[k] - cpu[k]) <= 1e-4 * abs(cpu[k]) + 1e-6:
@@ -3073,26 +3112,46 @@ def entry_first_step(args):
     torch.cuda.empty_cache()
 
 
-def trace_readings(path):
-    """(kernel launches by K1 / K2 / K3 name, kernel time / the traced
-    span) of a torch.profiler Chrome trace."""
+def logged_train(train, argv, on_step):
+    """bin/train.main(argv, on_step=on_step) -> (its summary, the train
+    losses it logged, step by step)."""
+    import logging
+    import re
+    losses = []
+
+    class Losses(logging.Handler):
+        def emit(self, record):
+            m = re.search(r'TRAIN \|.* \| loss (\S+) ', record.getMessage())
+            if m:
+                losses.append(float(m.group(1)))
+
+    handler = Losses()
+    logging.getLogger().addHandler(handler)
+    logging.getLogger().setLevel(logging.INFO)
+    try:
+        return train.main(argv, on_step=on_step), losses
+    finally:
+        logging.getLogger().removeHandler(handler)
+
+
+def trace_readings(path, keys=('relpos_fwd_', 'relpos_bwd_dq_',
+                               'relpos_bwd_dkpv_')):
+    """(kernel launches by the kernel names' parts `keys` (K1, K2, K3 by
+    default), kernel time / the traced span) of a torch.profiler Chrome
+    trace."""
     with open(path) as f:
         events = json.load(f)['traceEvents']
     timed = [e for e in events if e.get('ph') == 'X' and 'dur' in e]
     kernels = [e for e in timed if e.get('cat') == 'kernel']
     span = (max(e['ts'] + e['dur'] for e in timed) -
             min(e['ts'] for e in timed))
-    counts = {key: sum(key in e['name'] for e in kernels)
-              for key in ('relpos_fwd_', 'relpos_bwd_dq_',
-                          'relpos_bwd_dkpv_')}
+    counts = {key: sum(key in e['name'] for e in kernels) for key in keys}
     return counts, sum(e['dur'] for e in kernels) / span
 
 
 def train_entry_check(smi):
     phase('10 train entry: compute_cmvn_stats, train, average_model, '
           'decoder_main')
-    import logging
-    import re
     import shutil
     import yaml
     from wenet_tpu_torch.bin import (average_model, compute_cmvn_stats,
@@ -3119,24 +3178,10 @@ def train_entry_check(smi):
             '--profile_start_step', '1', '--profile_steps', '3']
     entry_first_step(train.get_parser().parse_args(argv))
 
-    losses = []
-
-    class Losses(logging.Handler):
-        def emit(self, record):
-            m = re.search(r'TRAIN \|.* \| loss (\S+) ', record.getMessage())
-            if m:
-                losses.append(float(m.group(1)))
-
-    handler = Losses()
-    logging.getLogger().addHandler(handler)
-    logging.getLogger().setLevel(logging.INFO)
     records = []
     fa.reset_launches()
     t0 = time.perf_counter()
-    try:
-        summary = train.main(argv, on_step=records.append)
-    finally:
-        logging.getLogger().removeHandler(handler)
+    summary, losses = logged_train(train, argv, records.append)
     torch.cuda.synchronize()
     launches = dict(fa.LAUNCHES)
     wall = time.perf_counter() - t0
@@ -3873,7 +3918,11 @@ def zoo_decode_check(name, B, seconds, k1, k4, smi):
     torch.cuda.synchronize()
     counted = {'K1': fa.LAUNCHES['relpos_attention_fwd'],
                'K4': fa.LAUNCHES['flash_attention_fwd']}
-    want = AsrRunner(cpu_model, 'cpu').decode(MODES, feats, lens, **kw)
+    # the CPU decodes the first half of the rows (its first row is the
+    # batch's longest, so its padded length is the card's)
+    h = B // 2
+    want = AsrRunner(cpu_model, 'cpu').decode(MODES, feats[:h], lens[:h],
+                                              **kw)
     with torch.inference_mode():
         x, n = torch.from_numpy(feats), torch.from_numpy(lens)
         fa.reset_launches()
@@ -3882,7 +3931,7 @@ def zoo_decode_check(name, B, seconds, k1, k4, smi):
         encoder = {'K1': fa.LAUNCHES['relpos_attention_fwd'],
                    'K4': fa.LAUNCHES['flash_attention_fwd']}
         logp = runner.model.ctc_logprobs(eo)
-        ceo, cem = cpu_model.forward_encoder(x, n)
+        ceo, cem = cpu_model.forward_encoder(x[:h], n[:h])
         clogp = cpu_model.ctc_logprobs(ceo)
     dec_k4, L = rescoring_k4(configs, got['ctc_prefix_beam_search'],
                              eo.shape[1], kw['reverse_weight'])
@@ -3898,13 +3947,13 @@ def zoo_decode_check(name, B, seconds, k1, k4, smi):
                                                    clogp)):
         if not torch.isfinite(a).all():
             raise RuntimeError(f'{name}: {what} on the card is not finite')
-        errs.append((a.cpu() - b).abs().max().item())
-        torch.testing.assert_close(a.cpu(), b, atol=1e-3, rtol=0,
+        errs.append((a[:h].cpu() - b).abs().max().item())
+        torch.testing.assert_close(a[:h].cpu(), b, atol=1e-3, rtol=0,
                                    msg=f'{name}: {what}')
-    if not torch.equal(em.cpu(), cem):
+    if not torch.equal(em[:h].cpu(), cem):
         raise RuntimeError(f'{name}: encoder masks differ')
-    flips = zoo_same_hypotheses(name, got, want, logp, clogp,
-                                cem[:, 0].sum(-1))
+    flips = zoo_same_hypotheses(name, {m: r[:h] for m, r in got.items()},
+                                want, logp[:h], clogp, cem[:, 0].sum(-1))
     # the rescoring decode's speed, after the checked run
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3915,10 +3964,11 @@ def zoo_decode_check(name, B, seconds, k1, k4, smi):
     print(f'  {name} ({ZOO[name][0].split("/")[1]}; '
           f'{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, '
           f'{len(model.encoder.encoders)} blocks) B={B} x {seconds:.0f} s: '
-          f'encoder_out {tuple(eo.shape)}, max |card - cpu| '
+          f'encoder_out {tuple(eo.shape)}, on the {h} rows the CPU '
+          f'decodes max |card - cpu| '
           f'{errs[0]:.3g} / log-probs {errs[1]:.3g} (bar 1e-3); '
           f'hypotheses equal the CPU\'s but at ties: '
-          + ', '.join(f'{m} {flips[m]}/{B}' for m in MODES)
+          + ', '.join(f'{m} {flips[m]}/{h}' for m in MODES)
           + f' ({chars} tokens of rescoring text); launches K1 '
           f'{counted["K1"]}, K4 {counted["K4"]} '
           f'({encoder["K4"]} in the encoder, {dec_k4} in the rescoring '
@@ -4201,7 +4251,7 @@ def zoo_check(smi):
 # ---------------------------------------------------------------------------
 # 13. the recipe's stages 6 and 7: export and TLG decoding
 # ---------------------------------------------------------------------------
-TLG_WORDS, TLG_SENTENCES = 5000, 1500  # 13a's lexicon and LM text
+TLG_WORDS, TLG_SENTENCES = 5000, 750  # 13a's lexicon and LM text
 TLG_UTTS = (8, 4.0, 15.0)  # 13b: wavs, shortest and longest seconds
 PLAIN_SEARCH_BUDGET_S = 60.0  # 13b: the Python searcher's time budget
 EXPORT_ARGS = ['--chunk_size', '16', '--beam', '10', '--max_hyp_len', '64',
@@ -4779,6 +4829,124 @@ def export_check(d, model, tokenizer, smi):
     return launches, readings
 
 
+# 13c (2): plain self-attention through export_model, at the aishell
+# transformer's width: below K4's gate (B=16) and above it (B=64), 15 s rows
+EXPORT_ZOO = 'transformer'
+EXPORT_ZOO_ROWS = (16, 64)
+EXPORT_ZOO_MAX_HYP = 128  # the decoder length the export used to refuse
+EXPORT_PLAIN_TOL = 2e-4  # exported (plain path) against eager K4
+
+
+def export_plain_check(d, smi):
+    """13c (2): bin/export_model of the aishell transformer yaml at full
+    width (random weights from the seed) with max_hyp_len 128.  The
+    exported full encoder equals eager bit for bit at B=16 x 15 s (both the
+    plain path, below K4's gate) and lies within EXPORT_PLAIN_TOL of eager
+    at B=64 x 15 s (eager launches K4, the program the plain path); the
+    exported decoder equals eager; the programs launch no K4.  -> the
+    readings, with the exported and eager encoder times at B=64."""
+    import yaml
+    from wenet_tpu_torch.bin import export_model
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.runtime.exported_model import ExportedAsrModel
+    configs = zoo_configs(EXPORT_ZOO)
+    model = zoo_model(configs).cuda().eval()
+    model.requires_grad_(False)
+    mdir = os.path.join(d, 'transformer')
+    os.makedirs(mdir)
+    with open(os.path.join(mdir, 'train.yaml'), 'w') as f:
+        yaml.safe_dump(configs, f)
+    torch.save(model.state_dict(), os.path.join(mdir, 'final.pt'))
+    out = os.path.join(mdir, 'export')
+    t0 = time.perf_counter()
+    export_model.main(['--config', os.path.join(mdir, 'train.yaml'),
+                       '--checkpoint', os.path.join(mdir, 'final.pt'),
+                       '--output_dir', out, '--device', 'cuda',
+                       '--chunk_size', '16', '--beam', '10', '--max_hyp_len',
+                       str(EXPORT_ZOO_MAX_HYP)])
+    export_s = time.perf_counter() - t0
+    em = ExportedAsrModel(out, device='cuda')
+    sub = model.encoder.subsampling_rate
+    base = model.encoder.right_context + sub
+    if em.meta['time_constraint'] != f'{sub}*t + {base}':
+        raise RuntimeError(f'time constraint {em.meta["time_constraint"]}')
+    T = sub * 373 + base  # 15.02 s: 374 frames out, as 12a's 15 s rows
+    rng = np.random.RandomState(SEED + 33)
+    n_blocks = len(model.encoder.encoders)
+    readings = dict(export_s=export_s)
+    with torch.inference_mode():
+        for B in EXPORT_ZOO_ROWS:
+            x = torch.from_numpy(rng.randn(B, T, configs['input_dim']).astype(
+                np.float32)).cuda()
+            lens = rng.randint(2 * T // 3, T + 1, size=B)
+            lens[0] = T
+            n = torch.from_numpy(lens).cuda()
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            o, m, lp = em.forward_full(x, n)
+            torch.cuda.synchronize()
+            exp_k4 = fa.LAUNCHES['flash_attention_fwd']
+            fa.reset_launches()
+            e_o, e_m = model.forward_encoder(x, n)
+            e_lp = model.ctc_activation(e_o)
+            torch.cuda.synchronize()
+            eager_k4 = fa.LAUNCHES['flash_attention_fwd']
+            t2 = e_o.shape[1]
+            want_k4 = n_blocks if gate_open(B, 4, t2, t2) else 0
+            valid = e_m[:, 0, :, None]
+            err = max((o - e_o).mul(valid).abs().max().item(),
+                      (lp - e_lp).mul(valid).abs().max().item())
+            equal = torch.equal(o, e_o) and torch.equal(lp, e_lp)
+            if exp_k4 or eager_k4 != want_k4 or not torch.equal(m, e_m):
+                raise RuntimeError(f'13c plain export B={B}: K4 launches '
+                                   f'{exp_k4} exported, {eager_k4} eager '
+                                   f'(expected 0 and {want_k4}), or masks '
+                                   'differ')
+            if (want_k4 == 0 and not equal) or err > EXPORT_PLAIN_TOL:
+                raise RuntimeError(f'13c plain export B={B}: exported off '
+                                   f'eager by {err:.3g}')
+            ms = {'exported': [], 'eager': []}
+            for _ in range(2):  # interleaved, best of two
+                ms['exported'].append(cuda_time_ms(
+                    lambda: em.forward_full(x, n), reps=3, warmup=1))
+                ms['eager'].append(cuda_time_ms(
+                    lambda: model.ctc_activation(
+                        model.forward_encoder(x, n)[0]), reps=3, warmup=1))
+            readings[f'B{B}'] = dict(
+                exported_ms=min(ms['exported']), eager_ms=min(ms['eager']),
+                max_abs_err=err, bit_equal=equal, eager_k4=eager_k4)
+            bar = EXPORT_PLAIN_TOL if want_k4 else 'equality'
+            print(f'  encoder_full B={B} x T={T} ({t2} frames): exported '
+                  f'{"bit-equal to" if equal else "within"} eager (max '
+                  f'|diff| {err:.3g}, bar {bar}); '
+                  f'K4 launches: eager {eager_k4}, exported {exp_k4}; card '
+                  f'time exported {min(ms["exported"]):.3f} ms, eager '
+                  f'{min(ms["eager"]):.3f} ms (CUDA events, best of 2; '
+                  f'{smi})', flush=True)
+            if B == EXPORT_ZOO_ROWS[0]:
+                enc_out = e_o[:1]
+        beam, max_len = 10, EXPORT_ZOO_MAX_HYP
+        hyps = torch.from_numpy(rng.randint(
+            3, configs['output_dim'], (beam, max_len))).cuda()
+        hyps[:, 0] = model.sos
+        hl = torch.from_numpy(rng.randint(1, max_len + 1, beam)).cuda()
+        hl[0] = max_len
+        fa.reset_launches()
+        dec, _ = em.rescore(hyps, hl, enc_out)
+        torch.cuda.synchronize()
+        dec_k4 = fa.LAUNCHES['flash_attention_fwd']
+        e_dec, _ = model.forward_attention_decoder(hyps, hl, enc_out, 0.0)
+    err = (dec - e_dec).abs().max().item()
+    if dec_k4 or not torch.equal(dec, e_dec):
+        raise RuntimeError(f'13c decoder_rescore at {beam} x {max_len}: '
+                           f'{err:.3g} off eager, {dec_k4} K4 launches')
+    print(f'  decoder_rescore {beam} x {max_len} over {enc_out.shape[1]} '
+          f'frames: bit-equal to eager, no K4 launch; export_model '
+          f'{export_s:.1f} s')
+    readings['decoder_bit_equal'] = True
+    return readings
+
+
 def export_wfst_check(smi):
     """Phase 13 on one flagship model -> ({'wfst': K1 launches of 13b's
     card decode, 'export': of 13c's exported stream}, readings)."""
@@ -4793,6 +4961,7 @@ def export_wfst_check(smi):
     tlg = tlg_build(d, tokenizer)
     wfst_launches, wfst = tlg_decode_check(d, model, tokenizer, smi)
     export_launches, export = export_check(d, model, tokenizer, smi)
+    export['plain_attention'] = export_plain_check(d, smi)
     return (dict(wfst=wfst_launches, export=export_launches),
             dict(tlg=tlg, wfst=wfst, export=export))
 
@@ -4820,6 +4989,9 @@ RNNT_N_STEPS = 1
 # beam scores card against CPU: this (the torch bar) on top of what the
 # devices' log-probs explain (`rnnt_compare`)
 RNNT_SCORE_TOL = 2e-4
+# the encoder output the rnnt searches are held on: the per-layer forward
+# bar, as the searches are held to the CPU's on the card's encoder output
+RNNT_ENCODER_TOL = 2e-4
 RNNT_LOSS_SHAPE = ([300, 277, 251, 213], [40, 33, 19, 0])  # 14b T, U
 RNNT_LOSS_RTOL = 1e-5
 RNNT_GRAD_SHARE = 1e-4  # of the largest gradient
@@ -5012,8 +5184,9 @@ def rnnt_compare(what, model, cpu_model, feats, lens, kw):
     if not torch.equal(em[:, 0].sum(-1).cpu(), elens):
         raise RuntimeError(f'{what}: encoder lengths differ')
     enc_err = float((heo - ceo).abs().max())
-    if not enc_err <= 1e-3:
-        raise RuntimeError(f'{what}: encoder_out card - CPU {enc_err}')
+    if not enc_err <= RNNT_ENCODER_TOL:
+        raise RuntimeError(f'{what}: encoder_out card - CPU {enc_err} (bar '
+                           f'{RNNT_ENCODER_TOL})')
     flips = zoo_same_hypotheses(what, got, want, logp, clogp, elens)
     with torch.inference_mode():
         rnnt = rnnt_decode(cpu_model, heo, elens,
@@ -5096,7 +5269,8 @@ def rnnt_decode_check(smi):
           f'best {min(beam)}-{max(beam)}; card == CPU but at ties: '
           + ', '.join(f'{m} {f}/{B}' for m, f in flips.items())
           + f'; the rnnt searches on the card\'s encoder output (encoder '
-          f'card - CPU {errs["enc_err"]:.3g}, bar 1e-3): joint log-probs '
+          f'card - CPU {errs["enc_err"]:.3g}, bar '
+          f'{RNNT_ENCODER_TOL}): joint log-probs '
           f'within {errs["joint_err"]:.3g}, beam scores within '
           f'{errs["beam_gap"]:.3g}, {100 * errs["beam_share"]:.0f}% of '
           f'their bound; rnnt hypotheses equal to the CPU\'s own decode\'s '
@@ -5476,6 +5650,346 @@ def transducer_check(smi):
                       'recipe': recipe}
 
 
+# ---------------------------------------------------------------------------
+# 15. whisper large-v3 through the recipe's entry points
+# ---------------------------------------------------------------------------
+WHISPER_RECIPE_LAYERS = 4  # encoder and decoder blocks, by --override_config
+WHISPER_RECIPE_UTTS = (20, 4)  # train, cv wavs
+WHISPER_RECIPE_SECONDS = (12.0, 28.0)
+WHISPER_RECIPE_DECODE = (16, 8)  # wavs recognized on the card, and the CPU
+WHISPER_RECIPE_BATCH = 4
+WHISPER_RECIPE_BEAM = 5
+WHISPER_RECIPE_MAX_TOKENS = 100  # the calibrated eot ends every beam by then
+WHISPER_BASE_RANKS = 50257  # large-v3's text ranks: 51866 with the specials
+WHISPER_RANK_MERGES = 600  # learned from the corpus; unreachable fillers after
+WHISPER_TOKENIZER_LINES = 200
+ZH_CHARS = [chr(c) for c in range(0x4e00, 0x4e00 + 600)]
+EN_WORDS = ['the', 'speech', 'model', "it's", "we're", "don't", 'train',
+            'data', 'hello', 'world', 'one', 'two', 'three', "they'll",
+            'Recognition', 'GPU', 'test']
+
+
+def zh_en_lines(rng, n):
+    """`n` seeded transcripts: CJK chars, English words with contractions,
+    numbers and punctuation."""
+    tails = ['', '.', '?', '!', ', 12', ' 2024.', '，好。']
+    return [''.join(rng.choice(ZH_CHARS, size=rng.randint(4, 17))) + ' ' +
+            ' '.join(rng.choice(EN_WORDS, size=rng.randint(2, 7))) +
+            tails[rng.randint(len(tails))] for _ in range(n)]
+
+
+def learn_byte_ranks(lines, n_merges):
+    """Byte-level BPE ranks: the 256 bytes, then `n_merges` merges of the
+    most frequent adjacent pair (ties to the larger pair) over the pieces
+    the whisper pattern splits `lines` into -> {bytes: rank}."""
+    import collections
+    from wenet_tpu_torch.text.whisper_tokenizer import pre_split
+    words = collections.Counter()
+    for line in lines:
+        for piece in pre_split(line):
+            words[tuple(bytes([b]) for b in piece.encode('utf-8'))] += 1
+    ranks = {bytes([b]): b for b in range(256)}
+    for _ in range(n_merges):
+        pairs = collections.Counter()
+        for w, c in words.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] += c
+        if not pairs:
+            break
+        (a, b), _ = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        ranks.setdefault(a + b, len(ranks))
+        merged = collections.Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and w[i] == a and w[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += c
+        words = merged
+    return ranks
+
+
+def whisper_tokenizer_check(d, smi):
+    """15a: a rank file of large-v3's 50257 text ranks (the bytes, merges
+    learned from a seeded zh/en corpus, unique fillers no text reaches:
+    0xff never occurs in UTF-8) through the port's WhisperTokenizer:
+    51866 tokens, large-v3's special tokens, decode(encode(line)) == line
+    on 200 seeded lines -> (the rank file, the tokenizer)."""
+    import base64
+    from wenet_tpu_torch.models.whisper.convert import default_special_tokens
+    from wenet_tpu_torch.text.whisper_tokenizer import WhisperTokenizer
+    rng = np.random.RandomState(SEED + 40)
+    t0 = time.perf_counter()
+    ranks = learn_byte_ranks(zh_en_lines(rng, 300), WHISPER_RANK_MERGES)
+    merges = len(ranks) - 256
+    i = 0
+    while len(ranks) < WHISPER_BASE_RANKS:
+        ranks[b'\xff' + i.to_bytes(3, 'big')] = len(ranks)
+        i += 1
+    path = os.path.join(d, 'multilingual.tiktoken')
+    with open(path, 'wb') as f:
+        for tok, r in sorted(ranks.items(), key=lambda kv: kv[1]):
+            f.write(base64.b64encode(tok) + b' ' + str(r).encode() + b'\n')
+    learn_s = time.perf_counter() - t0
+    tok = WhisperTokenizer(vocab_path=path)
+    if tok.vocab_size() != WHISPER_V3['n_vocab']:
+        raise RuntimeError(f'15a: vocab_size {tok.vocab_size()}')
+    if tok.special_tokens != default_special_tokens(WHISPER_V3['n_vocab']):
+        raise RuntimeError('15a: special tokens differ from large-v3\'s')
+    lines = zh_en_lines(rng, WHISPER_TOKENIZER_LINES)
+    t0 = time.perf_counter()
+    ids = [tok.text2tokens(line) for line in lines]
+    encode_s = time.perf_counter() - t0
+    bad = [line for line, x in zip(lines, ids) if tok.tokens2text(x) != line]
+    if bad:
+        raise RuntimeError(f'15a: decode(encode(line)) != line: {bad[:2]}')
+    n_ids = sum(len(x) for x in ids)
+    n_chars = sum(len(line) for line in lines)
+    print(f'  rank file: 256 bytes, {merges} merges, '
+          f'{WHISPER_BASE_RANKS - 256 - merges} fillers ({learn_s:.1f} s); '
+          f'vocab {tok.vocab_size()}, large-v3\'s special tokens; '
+          f'{len(lines)} lines round trip ({n_chars} chars -> {n_ids} ids); '
+          f'encode {len(lines) / encode_s:.0f} lines/s (host)', flush=True)
+    return path, tok, dict(encode_lines_per_s=len(lines) / encode_s,
+                           ids_per_char=n_ids / n_chars)
+
+
+def whisper_recipe_yaml(d, rank_file):
+    """finetune_whisper_largev3.yaml with whisper's log-mel front end and a
+    blank id, as models/whisper/convert.py `build_config` writes them: as
+    written the yaml sets no feats_type (both packages then make a 23-bin
+    fbank for its 128-bin input), its log-mel conf names frame_shift and
+    frame_length, which compute_log_mel_spectrogram does not take, and it
+    has no ctc_conf.ctc_blank_id, which get_blank_id asserts."""
+    import yaml
+    from wenet_tpu_torch.models.whisper.convert import default_special_tokens
+    with open(FINETUNE_CONFIG) as f:
+        configs = yaml.safe_load(f)
+    configs['dataset_conf'].update(
+        feats_type='log_mel_spectrogram',
+        log_mel_spectrogram_conf={'n_fft': 400, 'hop_length': 160,
+                                  'num_mel_bins': WHISPER_V3['n_mels'],
+                                  'padding': 0})
+    configs['ctc_conf'] = {'ctc_blank_id': default_special_tokens(
+        WHISPER_V3['n_vocab'])['no_speech']}
+    path = os.path.join(d, 'finetune_whisper_largev3.yaml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(configs, f)
+    return path
+
+
+def whisper_recipe_train(d, rank_file, smi):
+    """15b: 24 wavs of 12-28 s with zh/en transcripts in local tar shards,
+    a random checkpoint (8b's weights: the decoder shaped, lora_B drawn),
+    the entry point's first step card == CPU, bin/train.py for two
+    epochs (accum_grad 1, a profiler window), average_model --num 2
+    --val_best -> (the run's train.yaml, the average, the wavs, launches,
+    readings)."""
+    from wenet_tpu_torch.bin import average_model, train
+    from wenet_tpu_torch.dataset.audio import write_wav
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.utils.checkpoint import save_checkpoint
+    rng = np.random.RandomState(SEED + 41)
+    entries = []
+    texts = zh_en_lines(rng, sum(WHISPER_RECIPE_UTTS))
+    for i in range(sum(WHISPER_RECIPE_UTTS)):
+        path = os.path.join(d, f'w{i:02d}.wav')
+        write_wav(path, speech_like(rng, rng.uniform(
+            *WHISPER_RECIPE_SECONDS)), SR)
+        entries.append({'key': f'w{i:02d}', 'wav': path, 'txt': texts[i]})
+    n_train = WHISPER_RECIPE_UTTS[0]
+    train_list = write_shards(d, 'train', entries[:n_train], 4)
+    cv_list = write_shards(d, 'cv', entries[n_train:], 1)
+    yaml_path = whisper_recipe_yaml(d, rank_file)
+    n = WHISPER_RECIPE_LAYERS
+    model = whisper_train_model(finetune_configs(n),
+                                torch.Generator().manual_seed(SEED), 'cpu')
+    init = os.path.join(d, 'init.pt')
+    save_checkpoint(model, init)
+    del model
+    exp = os.path.join(d, 'exp')
+    argv = ['--config', yaml_path, '--train_data', train_list, '--cv_data',
+            cv_list, '--data_type', 'shard', '--model_dir', exp,
+            '--checkpoint', init, '--seed', str(SEED), '--device', 'cuda',
+            '--override_config', f'encoder_conf.num_blocks {n}',
+            '--override_config', f'decoder_conf.num_blocks {n}',
+            '--override_config', f'tokenizer_conf.vocab_path {rank_file}',
+            '--override_config', 'max_epoch 2',
+            '--override_config', 'accum_grad 1',
+            '--override_config', 'log_interval 1',
+            '--profile_dir', os.path.join(d, 'profile'),
+            '--profile_start_step', '1', '--profile_steps', '3']
+    entry_first_step(train.get_parser().parse_args(argv))
+    records = []
+    fa.reset_launches()
+    summary, losses = logged_train(train, argv, records.append)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    epochs = summary['epochs']
+    for name in FLASH_TRAIN_KERNELS:
+        if launches[name] != n * len(records):
+            raise RuntimeError(f'15b: {name} {launches[name]} launches over '
+                               f'{len(records)} steps, expected {n} a step')
+    if launches['flash_attention_fwd'] == 0 or \
+            launches['flash_attention_fwd'] % n:
+        raise RuntimeError(f'15b: cv launched K4 '
+                           f'{launches["flash_attention_fwd"]} times')
+    if len(losses) != len(records) or not np.isfinite(losses).all() or \
+            not all(np.isfinite(e['cv']['loss']) for e in epochs):
+        raise RuntimeError(f'15b: losses {losses}')
+    _, busy = trace_readings(summary['profile_trace'], keys=())
+    rate = (sum(e['audio_seconds'] for e in epochs) /
+            sum(e['train_seconds'] for e in epochs))
+    for e in epochs:
+        print(f'  bin/train.py epoch {e["epoch"]}: {e["steps"]} steps in '
+              f'{e["train_seconds"]:.2f} s, '
+              f'{e["audio_seconds"] / e["train_seconds"]:.1f} audio-sec/s, '
+              f'data wait {e["data_wait_seconds"]:.2f} s; cv loss '
+              f'{e["cv"]["loss"]:.4f} ({smi})', flush=True)
+    print(f'    steps B x T: ' + ', '.join(
+        f'{r["batch"]}x{r["frames"]}' for r in records) +
+        f'; losses {[round(x, 3) for x in losses]}; each step {n} launches '
+        f'of K4-train, K5, K6 (counted); K4 in cv '
+        f'{launches["flash_attention_fwd"]}; card busy {100 * busy:.1f}% of '
+        f'the profiled steps 2-4', flush=True)
+    avg = os.path.join(d, 'avg_2.pt')
+    chosen = average_model.main(['--src_path', exp, '--dst_model', avg,
+                                 '--num', '2', '--val_best'])
+    state = torch.load(avg, weights_only=True)
+    lora = [k for k in state if k.endswith(('.lora_A', '.lora_B'))]
+    if len(chosen) != 2 or len(lora) != 2 * 4 * n:
+        raise RuntimeError(f'15b: average of {chosen} holds {len(lora)} LoRA '
+                           'tensors')
+    print(f'  average_model --num 2 --val_best: {len(lora)} LoRA tensors')
+    return (os.path.join(exp, 'train.yaml'), avg,
+            [e['wav'] for e in entries], launches,
+            dict(train_audio_sec_per_s=rate, train_busy=busy,
+                 steps=len(records)))
+
+
+def whisper_recipe_recognize(d, config, avg, wavs, smi):
+    """15c: the eot bias of the average calibrated (7b's rule) on the
+    decode set, then bin/recognize.py --modes attention on the card (16
+    wavs, B=4) and on the CPU (the first 8), without and with
+    --timestamps: text and segments of the 8 equal, K4 4 launches a
+    batch -> (K4 launches, readings)."""
+    import re
+    from wenet_tpu_torch.bin import recognize
+    from wenet_tpu_torch.ops import flash_attention as fa
+    n_card, n_cpu = WHISPER_RECIPE_DECODE
+    lists = {}
+    for name, k in (('card', n_card), ('cpu', n_cpu)):
+        lists[name] = os.path.join(d, f'decode_{name}.list')
+        with open(lists[name], 'w') as f:
+            f.writelines(json.dumps({'key': f'd{i:02d}', 'wav': w,
+                                     'txt': ''}) + '\n'
+                         for i, w in enumerate(wavs[:k]))
+    base = ['--config', config, '--beam_size', str(WHISPER_RECIPE_BEAM),
+            '--modes', 'attention']
+    args = recognize.get_parser().parse_args(base + [
+        '--test_data', lists['card'], '--checkpoint', avg, '--batch_size',
+        str(n_card), '--result_dir', d, '--device', 'cuda'])
+    _, _, _, dataset, runner = recognize.build(args)
+    (batch,) = list(dataset)
+    with torch.inference_mode():
+        eo, em = runner.model.forward_encoder(
+            torch.from_numpy(batch['feats']).cuda(),
+            torch.from_numpy(batch['feats_lengths']).cuda())
+    infos = {'langs': batch['langs'], 'tasks': batch['tasks']}
+    bias = calibrate_eot_bias(runner.model, eo, em, WHISPER_RECIPE_BEAM,
+                              (infos, dict(infos, no_timestamp=False)),
+                              high=WHISPER_RECIPE_MAX_TOKENS)
+    eot = runner.model.eos
+    del runner, eo, em
+    torch.cuda.empty_cache()
+    state = torch.load(avg, weights_only=True)
+    state['decoder.output_layer.bias'][eot] = bias
+    ckpt = os.path.join(d, 'avg_eot.pt')
+    torch.save(state, ckpt)
+    n = WHISPER_RECIPE_LAYERS
+    batches = -(-n_card // WHISPER_RECIPE_BATCH)
+    out, launches, readings = {}, 0, {}
+    for ts in (False, True):
+        extra = ['--timestamps'] if ts else []
+        for dev in ('cuda', 'cpu'):
+            res = os.path.join(d, f'{dev}_{int(ts)}')
+            argv = base + extra + [
+                '--test_data', lists['card' if dev == 'cuda' else 'cpu'],
+                '--checkpoint', ckpt, '--batch_size',
+                str(WHISPER_RECIPE_BATCH), '--result_dir', res,
+                '--device', dev]
+            fa.reset_launches()
+            if dev == 'cuda':
+                summary, busy, _ = busy_share(lambda: recognize.main(argv))
+                torch.cuda.synchronize()
+                k4 = fa.LAUNCHES['flash_attention_fwd']
+                if k4 != n * batches:
+                    raise RuntimeError(f'15c: K4 {k4} launches over {batches} '
+                                       f'batches, expected {n} a batch')
+                launches += k4
+                rate = summary['audio_seconds'] / summary['seconds']
+                readings['timestamps' if ts else 'text'] = dict(
+                    audio_sec_per_s=rate, busy=busy)
+            else:
+                recognize.main(argv)
+            files = {}
+            for name in ('text', 'segments') if ts else ('text',):
+                with open(os.path.join(res, 'attention', name),
+                          encoding='utf-8') as f:
+                    files[name] = f.read()
+            out[dev, ts] = files
+        for name, card in out['cuda', ts].items():
+            # the lists' order: the CPU's utterances lead the card's, and
+            # a decoded text may hold a line break of its own
+            cpu = out['cpu', ts][name]
+            rest = re.match(r'd(\d\d) ', card[len(cpu):])
+            if not card.startswith(cpu) or (
+                    len(card) > len(cpu) and
+                    (rest is None or int(rest.group(1)) < n_cpu)):
+                raise RuntimeError(f'15c: {name} (timestamps {ts}) on the '
+                                   'card differs from the CPU\'s')
+        text = out['cuda', ts]['text']
+        chars = len(text) - sum(len(f'd{i:02d} \n') for i in range(n_card))
+        segs = len(re.findall(r'^d\d\d \d', out['cuda', ts].get(
+            'segments', ''), re.M))
+        r = readings['timestamps' if ts else 'text']
+        print(f'  bin/recognize.py --modes attention'
+              f'{" --timestamps" if ts else ""}: {n_card} texts '
+              f'({chars} chars{f", {segs} segments" if ts else ""}), the '
+              f'first {n_cpu} equal to the CPU\'s (text'
+              f'{" and segments" if ts else ""}); K4 {n} launches a batch; '
+              f'{r["audio_sec_per_s"]:.1f} audio-sec/s, card busy '
+              f'{100 * r["busy"]:.1f}% (profiled; {smi})', flush=True)
+    readings['eot_bias'] = bias
+    return launches, readings
+
+
+def whisper_recipe_check(smi):
+    """Phase 15 -> ({kernel name: launches}, readings)."""
+    phase('15 whisper large-v3 through the recipe (4 + 4 layers): '
+          'tokenizer, train, average, recognize')
+    import shutil
+    t0 = time.perf_counter()
+    d = tempfile.mkdtemp(prefix='chip_smoke_whisper_recipe_')
+    phase('15a the whisper tokenizer')
+    rank_file, _, tok_readings = whisper_tokenizer_check(d, smi)
+    phase('15b bin/train.py, average_model')
+    config, avg, wavs, launches, train = whisper_recipe_train(d, rank_file,
+                                                              smi)
+    phase('15c bin/recognize.py, card vs CPU, with and without timestamps')
+    k4, decode = whisper_recipe_recognize(d, config, avg, wavs, smi)
+    launches = {name: launches[name] for name in (
+        'flash_attention_fwd', *FLASH_TRAIN_KERNELS)}
+    launches['flash_attention_fwd'] += k4
+    shutil.rmtree(d)
+    print(f'  phase 15 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return launches, dict(tokenizer=tok_readings, train=train, decode=decode)
+
+
 def main():
     smi = device()
     build()
@@ -5501,6 +6015,7 @@ def main():
     zoo_launches, zoo_readings = zoo_check(smi)
     stage67_launches, stage67_readings = export_wfst_check(smi)
     rnnt_launches, rnnt_readings = transducer_check(smi)
+    whisper_launches, whisper_readings = whisper_recipe_check(smi)
     foreign = [m for m in sys.modules
                if m == 'jax' or m.startswith('jax.') or m == 'wenet_tpu'
                or m.startswith('wenet_tpu.')]
@@ -5540,15 +6055,20 @@ def main():
                         source='wenet_tpu_torch/csrc/flash_attention.cu',
                         replaces='wenet_tpu/ops/flash_attention.py:68',
                         launches=flash_launches +
-                        zoo_launches['flash_attention_fwd'],
+                        zoo_launches['flash_attention_fwd'] +
+                        whisper_launches['flash_attention_fwd'],
                         launches_zoo=zoo_launches['flash_attention_fwd'],
+                        launches_whisper_recipe=whisper_launches[
+                            'flash_attention_fwd'],
+                        whisper_recipe=whisper_readings,
                         **flash_report))
     for name, (source, replaces) in FLASH_TRAIN_KERNELS.items():
         kernels.append(dict(name=name, route='cuda', source=source,
                             replaces=replaces,
                             launches=flash_train_launches[name] +
-                            zoo_launches[name],
+                            zoo_launches[name] + whisper_launches[name],
                             launches_zoo=zoo_launches[name],
+                            launches_whisper_recipe=whisper_launches[name],
                             **flash_train_report[name]))
     print(f'== done (at {time.perf_counter() - _T0:.0f} s)')
     print(json.dumps({'kernels': kernels}))

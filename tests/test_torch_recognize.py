@@ -301,7 +301,8 @@ def test_recognize_one_mode_equals_all_modes(recipe, tmp_path):
     assert nonempty >= 2 * N_UTTS
 
 
-def test_recognize_raises_for_what_is_not_ported(recipe, tmp_path):
+def test_recognize_raises_for_what_is_not_ported(recipe, tmp_path,
+                                                 monkeypatch):
     from wenet_tpu_torch.bin import recognize
     base = ['--config', str(recipe / 'train.yaml'), '--test_data',
             str(recipe / 'data.list'), '--checkpoint',
@@ -314,8 +315,14 @@ def test_recognize_raises_for_what_is_not_ported(recipe, tmp_path):
     # the rnnt modes are ported, and need a transducer
     with pytest.raises(ValueError, match='need a transducer'):
         recognize.main(base + ['--modes', 'rnnt_beam_search'])
-    with pytest.raises(NotImplementedError, match='item 4'):
+    # --timestamps is ported: a model without timestamp tokens exits as
+    # the JAX package's recognize does
+    with pytest.raises(SystemExit) as got:
         recognize.main(base + ['--timestamps'])
+    with pytest.raises(SystemExit) as want:
+        _jax_recognize(monkeypatch, [a for a in base if a != 'cpu' and
+                                     a != '--device'] + ['--timestamps'])
+    assert str(got.value) == str(want.value) and 'whisper' in str(got.value)
     # the hlg modes' own options are not accepted
     with pytest.raises(SystemExit):
         recognize.get_parser().parse_args(base + ['--hlg', 'HLG.txt'])

@@ -255,8 +255,9 @@ def _assert_same_losses(got, want, keys=('loss', 'loss_att', 'loss_ctc',
                                                f'{k}')
     assert len(gcv) == len(wcv) > 0
     for g, w in zip(gcv, wcv):
-        for k in ('loss', 'loss_att', 'loss_ctc'):
-            np.testing.assert_allclose(g[k], w[k], rtol=1e-4, err_msg=k)
+        for k in keys:
+            if k != 'lr':
+                np.testing.assert_allclose(g[k], w[k], rtol=1e-4, err_msg=k)
 
 
 def test_train_matches_jax_per_step(runs):

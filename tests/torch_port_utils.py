@@ -197,3 +197,57 @@ def zoo_config(name, **encoder_overrides):
               'self_attention_dropout_rate', 'src_attention_dropout_rate'):
         cfg['decoder_conf'][k] = 0.0
     return cfg
+
+
+# --- tokenizer files the tests write -------------------------------------
+def write_ranks(path, ranks):
+    """`ranks` as a *.tiktoken file (base64 token, rank)."""
+    import base64
+    with open(path, 'wb') as f:
+        for tok, r in sorted(ranks.items(), key=lambda kv: kv[1]):
+            f.write(base64.b64encode(tok) + b' ' + str(r).encode() + b'\n')
+    return str(path)
+
+
+class StubSentencePiece:
+    """The `sentencepiece.SentencePieceProcessor` calls the tokenizers make,
+    over a piece list (one piece per line of the model file): greedy
+    longest match of the text, its spaces as '▁' and a '▁' before it."""
+
+    def load(self, path):
+        with open(path, encoding='utf-8') as f:
+            self.pieces = [line.rstrip('\n') for line in f if line.strip()]
+        self.ids = {p: i for i, p in enumerate(self.pieces)}
+        self.longest = max(len(p) for p in self.pieces)
+        return True
+
+    def encode_as_pieces(self, text):
+        text = '▁' + text.replace(' ', '▁')
+        out, i = [], 0
+        while i < len(text):
+            for n in range(min(self.longest, len(text) - i), 0, -1):
+                if text[i:i + n] in self.ids or n == 1:
+                    out.append(text[i:i + n])
+                    i += n
+                    break
+        return out
+
+    def decode_pieces(self, pieces):
+        return ''.join(pieces).replace('▁', ' ').strip()
+
+    def piece_to_id(self, piece):
+        return self.ids.get(piece, 0)
+
+    def id_to_piece(self, i):
+        return self.pieces[i]
+
+    def get_piece_size(self):
+        return len(self.pieces)
+
+
+def stub_sentencepiece_module():
+    """A module object standing in for `sentencepiece`."""
+    import types
+    mod = types.ModuleType('sentencepiece')
+    mod.SentencePieceProcessor = StubSentencePiece
+    return mod

@@ -28,11 +28,15 @@ Written to --output_dir:
         --checkpoint exp/final.pt --output_dir exp/export --device cuda
 
 The programs run on the device they were exported on (`--device`,
-default cuda); `runtime/exported_model.py` moves them where asked.  A
-model whose plain attention reaches the flash gate with a dynamic length
-(`flash_eligible` in models/transformer/attention.py) is not exported:
-the gate would become a guard on the symbolic length, so `export_model`
-raises (the flagship's rel-pos attention has no gate)."""
+default cuda); `runtime/exported_model.py` moves them where asked.  Plain
+self-attention and the decoder's cross attention are exported on the
+plain matmul-softmax-matmul path, whatever the lengths: the flash gate
+(`flash_eligible` in models/transformer/attention.py) is False while
+`torch.export` traces, and its length rule is False for a symbolic
+length, as the JAX package's export (wenet_tpu/bin/export_model.py)
+never turns its `_FLASH` switch on.  So an exported transformer encoder,
+or a decoder at any max_hyp_len, holds no K4: eager above the gate runs
+K4, the exported program the plain path."""
 
 import argparse
 import json
@@ -90,22 +94,6 @@ def _export(module, args, dynamic_shapes=None):
                                    dynamic_shapes=dynamic_shapes)
 
 
-def _check_no_gate(model):
-    """Raise for a model whose plain attention can reach the flash gate
-    (`attention_core`): its branch on a symbolic length would be a guard
-    in the exported program."""
-    from wenet_tpu_torch.models.transformer.attention import (
-        MultiHeadedAttention, RelPositionMultiHeadedAttention)
-    plain = [name for name, m in model.encoder.named_modules()
-             if isinstance(m, MultiHeadedAttention)
-             and not isinstance(m, RelPositionMultiHeadedAttention)]
-    if plain:
-        raise NotImplementedError(
-            f'export of an encoder with plain self-attention ({plain[0]}): '
-            'the flash gate of attention_core would branch on the dynamic '
-            'length (ROADMAP.md, queue 1 item 6)')
-
-
 def export_encoder_chunk(model, cfg: StreamingConfig, input_dim: int,
                          device='cuda'):
     """The streaming chunk step at fixed shapes -> (ExportedProgram, the
@@ -129,7 +117,6 @@ def export_encoder_full(model, input_dim: int, device='cuda'):
     -> (ExportedProgram, time constraint).  T = sub*t + (right_context +
     sub) gives t + 1 whole output frames, so the subsampling's lengths
     simplify without a guard."""
-    _check_no_gate(model)
     enc = model.encoder
     sub, ctx = enc.subsampling_rate, enc.right_context + 1
     constraint = f'{sub}*t + {ctx + sub - 1}'
@@ -146,13 +133,8 @@ def export_encoder_full(model, input_dim: int, device='cuda'):
 def export_decoder(model, beam: int, max_len: int, d_model: int,
                    reverse_weight: float, device='cuda'):
     """The rescoring decoder at fixed (beam, max_len) and a dynamic encoder
-    length -> ExportedProgram.  Raises where `max_len` would put the
-    cross attention's flash gate on the encoder length."""
-    if max_len >= 128:  # `flash_eligible`'s shortest query length
-        raise NotImplementedError(
-            f'export of the decoder at max_hyp_len {max_len}: the flash gate '
-            'of attention_core would branch on the dynamic encoder length '
-            '(ROADMAP.md, queue 1 item 6)')
+    length -> ExportedProgram.  Its attention is the plain path at every
+    max_len (the flash gate is off under `torch.export`)."""
     te = torch.export.Dim('te', min=1, max=MAX_FRAMES)
     args = (torch.full((beam, max_len), model.sos, dtype=torch.int64,
                        device=device),

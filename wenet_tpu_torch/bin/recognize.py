@@ -21,14 +21,17 @@ sets (PERF.md), and its transducer greedy branch
 (`decode_rnnt_greedy_batches`) is left out for the same reason.
 --context_list_path biases the prefix beam (the C++ searcher);
 --lm_path re-ranks each n-best with an ARPA LM (score + lm_weight * LM).
-The checkpoint is the port's `.pt` (as bin/average_model writes it).
+--timestamps (a whisper-family model: its special tokens hold
+timestamp_begin) ends the decode prompt with <|0.00|>, so that the beam
+applies the timestamp grammar, and writes `<result_dir>/<mode>/segments`
+(`key start end text` lines, end '-' for a segment the decode ended
+inside) beside each text file.  The checkpoint is the port's `.pt` (as
+bin/average_model writes it).
 
 Not ported, and raising NotImplementedError: the hlg_* modes (ROADMAP.md
-queue 1 item 11), the paraformer_* modes (item 9), and whisper-family
-configs, which need the whisper tokenizer (item 4), and with them
---timestamps.  The hlg modes' own options
-(--hlg, --word, --lm_scale, --decoder_scale, --r_decoder_scale) are not
-accepted."""
+queue 1 item 11) and the paraformer_* modes (item 9).  The hlg modes' own
+options (--hlg, --word, --lm_scale, --decoder_scale, --r_decoder_scale)
+are not accepted."""
 
 import argparse
 import dataclasses
@@ -38,6 +41,7 @@ import time
 
 from wenet_tpu_torch.dataset.dataset import Dataset
 from wenet_tpu_torch.models.runner import MODES, AsrRunner
+from wenet_tpu_torch.models.whisper.tokens import whisper_tokens_to_segments
 from wenet_tpu_torch.utils.checkpoint import load_model
 from wenet_tpu_torch.utils.config import load_config
 from wenet_tpu_torch.utils.ctc_utils import get_blank_id
@@ -69,7 +73,9 @@ def get_parser() -> argparse.ArgumentParser:
                         default=-1)
     parser.add_argument('--simulate_streaming', action='store_true')
     parser.add_argument('--timestamps', action='store_true',
-                        help='whisper-family timestamps (not ported)')
+                        help='whisper-family attention decode with '
+                        'timestamp tokens; segments go to a "segments" '
+                        'file beside each text file')
     parser.add_argument('--override_config', action='append', default=[])
     parser.add_argument('--context_list_path', default=None)
     parser.add_argument('--context_graph_score', type=float, default=6.0)
@@ -80,7 +86,7 @@ def get_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _check_ported(args, configs) -> None:
+def _check_ported(args) -> None:
     for mode in args.modes:
         for prefix, item in _NOT_PORTED.items():
             if mode.startswith(prefix):
@@ -89,11 +95,6 @@ def _check_ported(args, configs) -> None:
                     f'{item})')
         if mode not in MODES:
             raise ValueError(f'unknown mode {mode}')
-    if configs.get('model') == 'whisper' or \
-            configs.get('tokenizer') == 'whisper' or args.timestamps:
-        raise NotImplementedError(
-            'whisper-family recognize (and --timestamps) needs the whisper '
-            'tokenizer, which is not ported (ROADMAP.md, queue 1 item 4)')
     if args.simulate_streaming and args.decoding_chunk_size > 0 and \
             args.batch_size != 1:
         raise ValueError('--simulate_streaming decodes one utterance at a '
@@ -138,7 +139,7 @@ def build(args):
     """-> (configs, tokenizer, blank id, test Dataset, AsrRunner over the
     checkpoint's model on args.device)."""
     configs = load_config(args.config, args.override_config)
-    _check_ported(args, configs)
+    _check_ported(args)
     test_conf = decode_dataset_conf(configs, args.batch_size)
     tokenizer = init_tokenizer(configs)
     configs['input_dim'] = test_conf.get(
@@ -175,19 +176,37 @@ def main(argv=None):
                                      tokenizer.symbol_table,
                                      context_score=args.context_graph_score)
 
-    files = {}
+    ts_begin = None
+    if args.timestamps:
+        st = dict(getattr(runner.model, 'special_tokens', None) or {})
+        if 'timestamp_begin' not in st:
+            raise SystemExit('--timestamps needs a whisper-family '
+                             'model (special_tokens.timestamp_begin)')
+        ts_begin = int(st['timestamp_begin'])
+    files, seg_files = {}, {}
     for mode in args.modes:
         d = os.path.join(args.result_dir, mode)
         os.makedirs(d, exist_ok=True)
         files[mode] = open(os.path.join(d, 'text'), 'w', encoding='utf8')
+        if ts_begin is not None:
+            seg_files[mode] = open(os.path.join(d, 'segments'), 'w',
+                                   encoding='utf8')
     counts = dict.fromkeys(args.modes, 0)
 
     def write_results(keys, mode, hyps):
         for key, hyp in zip(keys, hyps):
             if lm is not None and hyp.nbest:
                 hyp = _lm_rescore(hyp, lm, args.lm_weight, id2sym)
-            line = '{} {}'.format(
-                key, tokenizer.detokenize([int(t) for t in hyp.tokens])[0])
+            tokens = [int(t) for t in hyp.tokens]
+            if ts_begin is not None:
+                tokens, segments = whisper_tokens_to_segments(tokens,
+                                                              ts_begin)
+                for start, end, seg in segments:
+                    seg_files[mode].write('{} {:.2f} {} {}\n'.format(
+                        key, start,
+                        '-' if end is None else '{:.2f}'.format(end),
+                        tokenizer.detokenize(seg)[0]))
+            line = '{} {}'.format(key, tokenizer.detokenize(tokens)[0])
             logging.info('%s %s', mode, line)
             files[mode].write(line + '\n')
             counts[mode] += 1
@@ -207,12 +226,12 @@ def main(argv=None):
                 blank_penalty=args.blank_penalty,
                 length_penalty=args.length_penalty,
                 infos={'tasks': batch['tasks'], 'langs': batch['langs'],
-                       'no_timestamp': True},
+                       'no_timestamp': not args.timestamps},
                 context_graph=context_graph)
             for mode, hyps in results.items():
                 write_results(batch['keys'], mode, hyps)
     finally:
-        for f in files.values():
+        for f in [*files.values(), *seg_files.values()]:
             f.close()
     shift_ms = configs['dataset_conf'].get('fbank_conf', {}).get(
         'frame_shift', 10)

@@ -9,8 +9,11 @@ Each epoch trains through the `Dataset` pipeline, runs cv, writes
 `epoch_{n}.pt` with `epoch_{n}.yaml` (epoch, step, tag, cv_loss,
 save_time) and points `final.pt` / `final.yaml` at it.  --checkpoint
 loads weights (after the global cmvn stats of `cmvn_conf.cmvn_file`) and
-resumes at the epoch after its `epoch`, at its `step`.  `dtype: bf16`
-trains under bf16 autocast.
+resumes at the epoch after its `epoch`, at its `step`; a checkpoint
+without LoRA factors (models/whisper/convert.py's, for a `lora_conf`
+yaml such as examples/aishell/whisper/conf/finetune_whisper_largev3.yaml)
+leaves them at their initial values.  `dtype: bf16` trains under bf16
+autocast.
 
 Beside the JAX trainer's flags it takes --device.  --tensorboard_dir has
 no default: a SummaryWriter is made only when it is given and tensorboard
@@ -126,7 +129,8 @@ def build(args) -> types.SimpleNamespace:
             model.encoder.global_cmvn.istd.copy_(torch.from_numpy(istd))
     infos = {}
     if args.checkpoint is not None:
-        infos = load_checkpoint(model, args.checkpoint)
+        infos = load_checkpoint(model, args.checkpoint,
+                                lora_from_init=True)
     configs['init_infos'] = infos
 
     accum = max(int(configs.get('accum_grad', 1)), 1)

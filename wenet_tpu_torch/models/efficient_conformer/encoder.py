@@ -21,7 +21,7 @@ from wenet_tpu_torch.models.transformer.convolution import ConvolutionModule
 from wenet_tpu_torch.models.transformer.encoder import BaseEncoder
 from wenet_tpu_torch.models.transformer.encoder_layer import (
     ConformerEncoderLayer)
-from wenet_tpu_torch.models.transformer.norm import channel_norm
+from wenet_tpu_torch.models.transformer.norm import BatchNorm1d, channel_norm
 from wenet_tpu_torch.models.transformer.positionwise_feed_forward import (
     make_mlp)
 from wenet_tpu_torch.utils.mask import add_optional_chunk_mask
@@ -122,7 +122,7 @@ class StrideConvModule(nn.Module):
             channels, channels, kernel_size, stride, groups=channels,
             padding=0 if causal else kernel_size // 2)
         # the JAX package's flax norms: LayerNorm's eps is 1e-6
-        self.norm = (nn.BatchNorm1d(channels, eps=1e-5)
+        self.norm = (BatchNorm1d(channels, eps=1e-5)
                      if norm == 'batch_norm'
                      else nn.LayerNorm(channels, eps=1e-6))
         self.act = get_activation(activation)

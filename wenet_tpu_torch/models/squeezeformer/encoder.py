@@ -20,7 +20,7 @@ from wenet_tpu_torch.models.transformer.attention import T_CACHE
 from wenet_tpu_torch.models.transformer.cmvn import GlobalCMVN
 from wenet_tpu_torch.models.transformer.embedding import (
     sinusoidal_position_encoding)
-from wenet_tpu_torch.models.transformer.norm import channel_norm
+from wenet_tpu_torch.models.transformer.norm import BatchNorm1d, channel_norm
 from wenet_tpu_torch.utils.mask import add_optional_chunk_mask, make_pad_mask
 
 LN_EPS = 1e-6
@@ -175,7 +175,7 @@ class SqueezeConvModule(nn.Module):
             padding=0 if causal else kernel_size // 2)
         if norm not in ('batch_norm', 'layer_norm'):
             raise NotImplementedError(f'cnn_norm_type={norm!r} is not ported')
-        self.norm = (nn.BatchNorm1d(channels, eps=1e-5)
+        self.norm = (BatchNorm1d(channels, eps=1e-5)
                      if norm == 'batch_norm'
                      else nn.LayerNorm(channels, eps=LN_EPS))
         self.act = get_activation(activation)

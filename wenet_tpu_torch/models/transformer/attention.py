@@ -12,7 +12,8 @@ package's flash training path does.
 `attention_core` (plain MHA and cross attention) goes through
 `flash_attention` on CUDA tensors that pass the JAX package's gate
 (`_flash_eligible`, attention.py:70-82: both lengths >= 512, or both >=
-128 with B·h·T1·T2 >= 24M scores) when no attention dropout is active:
+128 with B·h·T1·T2 >= 24M scores; `flash_gate`) when no attention
+dropout is active and `torch.export` is not tracing:
 K4 in inference; K4 with lse, then K5 and K6 in the backward, when
 autograd records (whisper's encoder in training).  The kernels raise on a
 dtype or head dim they have no instance for.  Active attention dropout,
@@ -41,17 +42,32 @@ T_CACHE = Tuple[torch.Tensor, torch.Tensor]  # (k, v): (B, h, T, d)
 FLASH_GATE = {'min_len': 512, 'score_elems': 24 * 1024 * 1024}
 
 
-def flash_eligible(q: torch.Tensor, k: torch.Tensor) -> bool:
-    """True where `attention_core` takes the flash kernels: CUDA
-    (B, h, T, d) inputs long enough to pass the gate, whatever their dtype
-    and head dim."""
-    if q.device.type != 'cuda' or q.dim() != 4 or q.shape[1] != k.shape[1]:
+def flash_gate(B, h, T1, T2) -> bool:
+    """The gate's length rule: both lengths >= 512, or both >= 128 with
+    B·h·T1·T2 >= 24M scores.  A symbolic length (a `torch.SymInt` while
+    `torch.export` traces) fails it: a branch on it would become a guard
+    of the exported program, and the JAX package's export never takes the
+    flash path either (its `_FLASH` switch is on only in `AsrRunner` and
+    bin/train.py, and `_flash_eligible` takes the TPU only,
+    attention.py:70-75)."""
+    if any(isinstance(n, torch.SymInt) for n in (B, h, T1, T2)):
         return False
-    T1, T2 = q.shape[2], k.shape[2]
     if T1 >= FLASH_GATE['min_len'] and T2 >= FLASH_GATE['min_len']:
         return True
-    return (T1 >= 128 and T2 >= 128 and
-            q.shape[0] * q.shape[1] * T1 * T2 >= FLASH_GATE['score_elems'])
+    return T1 >= 128 and T2 >= 128 and \
+        B * h * T1 * T2 >= FLASH_GATE['score_elems']
+
+
+def flash_eligible(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """True where `attention_core` takes the flash kernels: CUDA
+    (B, h, T, d) inputs whose lengths pass `flash_gate`, whatever their
+    dtype and head dim, outside `torch.export` (an exported program is
+    the plain path, as the JAX package's is, whatever its shapes)."""
+    if q.device.type != 'cuda' or q.dim() != 4 or q.shape[1] != k.shape[1]:
+        return False
+    if torch.compiler.is_exporting():
+        return False
+    return flash_gate(q.shape[0], q.shape[1], q.shape[2], k.shape[2])
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

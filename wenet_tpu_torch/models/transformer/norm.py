@@ -3,7 +3,28 @@
 the conv modules' `batch_norm`.  RMSNorm is not ported (ROADMAP.md,
 queue 1 item 8)."""
 
+import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """nn.BatchNorm1d whose running variance follows the batch's biased
+    variance, as flax's BatchNorm (the JAX package's conv module,
+    convolution.py:78) updates it; torch's own takes the unbiased one.
+    Normalization and parameters are nn.BatchNorm1d's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            xf = x.float()
+            self.running_mean.lerp_(xf.mean(dim=(0, 2)), self.momentum)
+            self.running_var.lerp_(xf.var(dim=(0, 2), unbiased=False),
+                                   self.momentum)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
 
 
 def get_norm(norm_type: str, dim: int, eps: float = 1e-5) -> nn.Module:
@@ -12,7 +33,7 @@ def get_norm(norm_type: str, dim: int, eps: float = 1e-5) -> nn.Module:
     if norm_type == 'layer_norm':
         return nn.LayerNorm(dim, eps=eps)
     if norm_type == 'batch_norm':
-        return nn.BatchNorm1d(dim, eps=eps)
+        return BatchNorm1d(dim, eps=eps)
     raise NotImplementedError(f'norm {norm_type!r} is not ported '
                               '(ROADMAP.md, queue 1 item 8)')
 

@@ -1,9 +1,10 @@
-"""Whisper's language list, special-token layout and decode prompt.
-The port's own copy of wenet_tpu/models/whisper/tokens.py
-(`WHISPER_LANGS`, `build_whisper_prefix`) and of `_special_tokens` in
-wenet_tpu/text/whisper_tokenizer.py."""
+"""Whisper's language list, special-token layout, decode prompt and
+timestamp segments.  The port's own copy of
+wenet_tpu/models/whisper/tokens.py (`WHISPER_LANGS`,
+`build_whisper_prefix`, `whisper_tokens_to_segments`) and of
+`_special_tokens` in wenet_tpu/text/whisper_tokenizer.py."""
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 # language order must match whisper.tokenizer.LANGUAGES key order
 WHISPER_LANGS = (
@@ -60,3 +61,33 @@ def build_whisper_prefix(special_tokens: Dict[str, int], task: str,
     else:
         prefix.append(special_tokens['no_speech'])
     return prefix
+
+
+def whisper_tokens_to_segments(tokens: List[int], timestamp_begin: int,
+                               precision: float = 0.02):
+    """Split a timestamp decode's hypothesis (the prompt, which ends with
+    <|0.00|> and so opens the first segment, stripped) into timed segments.
+
+    The grammar makes the stream `text+ t_close (t_open text+ t_close)*`,
+    each `t` a token >= timestamp_begin meaning (t - timestamp_begin) *
+    precision seconds.  -> (the text tokens, [(start_sec, end_sec, [token
+    ids])]); end_sec is None for a segment the decode ended inside."""
+    segments = []
+    text: List[int] = []
+    cur: List[int] = []
+    cur_start: Optional[float] = 0.0  # the prompt's <|0.00|>
+    for t in tokens:
+        t = int(t)
+        if t >= timestamp_begin:
+            sec = round((t - timestamp_begin) * precision, 4)
+            if cur_start is None:  # an opening timestamp
+                cur_start = sec
+            else:  # a closing one
+                segments.append((cur_start, sec, cur))
+                cur, cur_start = [], None
+        else:
+            cur.append(t)
+            text.append(t)
+    if cur and cur_start is not None:
+        segments.append((cur_start, None, cur))
+    return text, segments

@@ -134,7 +134,8 @@ def link_final(model_dir: str, name: str) -> None:
         os.replace(tmp, final)
 
 
-def load_checkpoint(model: torch.nn.Module, path: str) -> dict:
+def load_checkpoint(model: torch.nn.Module, path: str,
+                    lora_from_init: bool = False) -> dict:
     """Load a checkpoint into `model` (strict) -> the infos beside it.
 
     `path` is a state dict (.pt, .pth, .bin: `save_checkpoint`'s, or the
@@ -145,7 +146,10 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> dict:
     tables, recomputed here) are dropped, BatchNorm step counts the
     JAX package does not write start at 0, and an (out, in) weight
     where the model has a pointwise Conv1d's (out, in, 1) gets its
-    kernel axis."""
+    kernel axis.  With `lora_from_init`, LoRA factors the checkpoint lacks
+    (one written before LoRA, as models/whisper/convert.py writes them)
+    keep the model's initial values, as the JAX package's non-strict load
+    keeps them; every other key is still required."""
     if path.endswith('.zip'):
         state = torch.jit.load(path, map_location='cpu').state_dict()
     elif path.endswith(('.pt', '.pth', '.bin')):
@@ -164,6 +168,9 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> dict:
     for k in own:
         if k.endswith('num_batches_tracked') and k not in state:
             state[k] = torch.zeros_like(own[k])
+        elif lora_from_init and k.endswith(('.lora_A', '.lora_B')) and \
+                k not in state:
+            state[k] = own[k]
         elif k in state and state[k].dim() == 2 and own[k].dim() == 3 \
                 and tuple(state[k].shape) + (1,) == tuple(own[k].shape):
             # the JAX package's export keeps Squeezeformer's time

@@ -1,7 +1,7 @@
 """Tokenizer factory from train.yaml.  Counterpart of
-wenet_tpu/utils/init_tokenizer.py for the char tokenizer; the others
-(whisper, bpe, paraformer, sentencepiece, huggingface) are not ported
-and raise NotImplementedError."""
+wenet_tpu/utils/init_tokenizer.py: whisper, char, bpe, sentencepiece and
+huggingface.  The paraformer tokenizer comes with the paraformer model
+(ROADMAP.md, queue 1 item 9) and raises NotImplementedError."""
 
 import logging
 
@@ -10,15 +10,38 @@ from wenet_tpu_torch.text.base_tokenizer import BaseTokenizer
 
 def init_tokenizer(configs) -> BaseTokenizer:
     tokenizer_type = configs.get('tokenizer', 'char')
-    if tokenizer_type != 'char':
-        raise NotImplementedError(
-            f'the {tokenizer_type} tokenizer is not ported (ROADMAP.md, '
-            'queue 1 item 4)')
-    from wenet_tpu_torch.text.char_tokenizer import CharTokenizer
     conf = configs.get('tokenizer_conf', {})
-    tokenizer = CharTokenizer(
-        conf['symbol_table_path'], conf.get('non_lang_syms_path'),
-        split_with_space=conf.get('split_with_space', False),
-        connect_symbol=conf.get('connect_symbol', ''))
+    if tokenizer_type == 'whisper':
+        from wenet_tpu_torch.text.whisper_tokenizer import WhisperTokenizer
+        tokenizer = WhisperTokenizer(
+            multilingual=conf['is_multilingual'],
+            num_languages=conf['num_languages'],
+            vocab_path=conf.get('vocab_path'))
+    elif tokenizer_type == 'char':
+        from wenet_tpu_torch.text.char_tokenizer import CharTokenizer
+        tokenizer = CharTokenizer(
+            conf['symbol_table_path'], conf.get('non_lang_syms_path'),
+            split_with_space=conf.get('split_with_space', False),
+            connect_symbol=conf.get('connect_symbol', ''))
+    elif tokenizer_type == 'bpe':
+        from wenet_tpu_torch.text.bpe_tokenizer import BpeTokenizer
+        tokenizer = BpeTokenizer(
+            conf['bpe_path'], conf['symbol_table_path'],
+            conf.get('non_lang_syms_path'),
+            split_with_space=conf.get('split_with_space', False))
+    elif tokenizer_type == 'paraformer':
+        raise NotImplementedError(
+            'the paraformer tokenizer is not ported (ROADMAP.md, queue 1 '
+            'item 9)')
+    elif tokenizer_type == 'sentencepiece':
+        from wenet_tpu_torch.text.sentencepiece_tokenizer import (
+            SentencepieceTokenizer)
+        tokenizer = SentencepieceTokenizer(model_path=conf['model_path'])
+    elif tokenizer_type == 'huggingface':
+        from wenet_tpu_torch.text.hugging_face_tokenizer import (
+            HuggingFaceTokenizer)
+        tokenizer = HuggingFaceTokenizer(model=conf['model'])
+    else:
+        raise NotImplementedError(tokenizer_type)
     logging.info('use %s tokenizer', tokenizer_type)
     return tokenizer
