@@ -60,8 +60,9 @@ Phases, each of which raises on failure (non-zero exit):
               AsrRunner.decode(['attention']) on the card against the CPU,
               beam 5, with and without timestamps: identical hypotheses,
               encoder output within 2e-4, one K4 launch per encoder layer
-  7c. whisper speed (informational): 32 + 32 layers, B=4 x 20-30 s,
-              beam 5, a fixed eot bias (116 decoder steps), fp32 then
+  7c. whisper speed (informational): 16 + 16 layers (half of
+              large-v3's depth, for the script's time), B=4 x 20-30 s,
+              beam 5, a fixed eot bias (28 decoder steps), fp32 then
               bf16: AsrRunner.decode end to end (audio-sec/s) with the
               encoder's share, peak memory, device-busy share, profiler
               table
@@ -273,6 +274,42 @@ Phases, each of which raises on failure (non-zero exit):
               wavs; K4 4 launches a batch, counted) and the CPU (the
               first 8): text and segments identical; audio-sec/s and
               the card's busy share (train and decode)
+  16. the paraformer at the full width of examples/aishell/paraformer/
+              conf/train_paraformer.yaml (50 + 16 blocks of 512, 4 heads:
+              d = 128; LFR 7/6; CIF; random weights from the seed), fp32
+              with TF32 off.  16a: K4 at the decode's (32,4,500,500,128)
+              pad and K4-train, K5, K6 through the FlashAttention Function
+              at a long-form step's (2,4,534,534,128) against their plain
+              versions, fp32 and bf16: each one's share of its bar, kernel,
+              plain, SDPA and bound times.  16b: AsrRunner.decode of B=32 x
+              20-30 s in paraformer_greedy_search and paraformer_beam_search
+              on the card (66 K4 launches: 50 encoder self-attentions, 16
+              decoder cross-attentions over the 500-frame cap) against the
+              CPU on 4 rows (the encoder within 1e-3; token counts equal
+              unless the CPU's unfloored sum lies within 1e-4 of an
+              integer; an argmax may differ where the CPU's top two lie
+              within twice the position's log-prob difference; peak times
+              equal up to a trace within 1e-4 of the threshold); decode
+              audio-sec/s, busy share, the CIF predictor's launches and
+              time.  16c: the recipe's stages 1, 4 and 5 (24 + 6 wavs of
+              3-12 s, zh/en transcripts, a 4233-symbol dict and a
+              seg_dict; compute_cmvn_stats's 80 bins tiled over LFR's 7
+              frames as FunASR's am.mvn, converted), bin/train.py two
+              epochs with the yaml's pipeline (dynamic batches of 8000
+              frames, SpecAugment, the sampler) and the CIF threshold at
+              0.9999 (at 1.0 the training CIF's last fire sits on the
+              float32 rounding of an integer total), the first step card
+              == CPU (loss terms rtol 1e-4, grads 1e-3), average_model; a
+              long-form step of B=2 x 32 s: K4-train, K5, K6 50 launches
+              each.  16d: bin/recognize.py in both paraformer modes over
+              16 wavs of 20-32 s, B=8, on the card (66 K4 launches a
+              batch) and the first batch on the CPU: texts equal, or a
+              row that differs explained by 16b's rule.  16e:
+              SenseVoice-small (6 + 2 of its 50 + 20 blocks, CTC greedy, B=32
+              x 20-30 s, K4 8 a decode) and FireRed-AED-L (4 + 2 of its 16
+              + 16 blocks of 1280, its rel-pos attention plain as the JAX
+              package's, the attention beam search, beam 3, B=4 x 2-3 s)
+              on the card against the CPU on 4 rows
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX
 package (wenet_tpu), and checks so at the end.
@@ -388,9 +425,11 @@ WHISPER_V3 = {'n_mels': 128, 'n_vocab': 51866, 'n_audio_state': 1280,
               'n_text_head': 20, 'n_text_layer': 32, 'n_audio_ctx': 1500,
               'n_text_ctx': 448}
 # 7c's eot bias, fixed so that every run decodes the same work: with 7c's
-# seeded weights and features the beams end after 116 decoder steps (a
-# value `calibrate_eot_bias` found for them)
-WHISPER_SPEED_EOT_BIAS = 17.129
+# seeded weights and features at 16 + 16 layers the beams end after 28
+# decoder steps (the value `calibrate_eot_bias` found for them, with
+# high=116; 17.129 gave 116 steps at 32 + 32 layers)
+WHISPER_SPEED_EOT_BIAS = 14.792291
+WHISPER_SPEED_LAYERS = 16  # 7c's depth (large-v3 has 32), for the time
 
 
 def bound(flops, nbytes, dtype=torch.float32, tf32_split=False):
@@ -1427,6 +1466,48 @@ def flash_sdpa(q, k, v, mask, bias, scale, want):
         q, k, v, attn_mask=m, scale=scale))
 
 
+def k4_case(rng, B, h, T1, T2, d, mask_kind, use_bias, dtype):
+    """K4 at one shape and dtype against its plain version (FLASH_TOL),
+    timed with its plain version, SDPA and the bound (fp32: 3xTF32, FFMA
+    printed beside it); prints the line -> readings."""
+    from wenet_tpu_torch.ops import flash_attention as fa
+    q, k, v, mask, bias = flash_inputs(rng, B, h, T1, T2, d, mask_kind,
+                                       use_bias, dtype)
+    scale = 1.0 / d ** 0.5
+    got = fa.flash_attention(q, k, v, mask, bias, scale)
+    torch.cuda.synchronize()
+    want, _ = fa.flash_fwd_reference(q.float(), k.float(), v.float(), mask,
+                                     bias, scale)
+    err = (got.float() - want).abs().max().item()
+    tol = FLASH_TOL[dtype]
+    of_bar = share_of_bar(got, want, tol)
+    torch.testing.assert_close(got.float(), want, **tol)
+    if not torch.isfinite(got).all():
+        raise RuntimeError('K4 output is not finite')
+    if mask_kind == 'masked_row' and got[0, :, 5].any():
+        raise RuntimeError('K4: fully masked row is not zero')
+    ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, mask, bias, scale))
+    plain_ms = cuda_time_ms(
+        lambda: fa.flash_fwd_reference(q, k, v, mask, bias, scale))
+    lib_ms = flash_sdpa(q, k, v, mask, bias, scale, got)
+    # 2 products of 2*d FLOPs per attended pair
+    flops = 4 * d * attended_pairs(mask, B, h, T1, T2)
+    moved = nbytes(q, k, v, mask, bias, got)
+    b_ms, b_by = bound(flops, moved, dtype, tf32_split=True)
+    extra = ''
+    if dtype == torch.float32:  # 3xTF32, beside the CUDA cores' FFMA
+        extra = f' at 3xTF32, {bound(flops, moved)[0]:.4f} ms at FFMA'
+    print(f'  ({B},{h},{T1},{T2},{d}) mask={mask_kind} '
+          f'bias={use_bias} {str(dtype)[6:]}: max_abs_err={err:.3g} '
+          f'({100 * of_bar:.0f}% of the bar) kernel {ms:.4f} ms, '
+          f'plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, '
+          f'bound {b_ms:.4f} ms ({b_by}{extra}); '
+          f'{flops / ms / 1e9:.1f} TFLOP/s', flush=True)
+    return dict(max_abs_err=err, share_of_bar=of_bar, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, tflops=flops / ms / 1e9)
+
+
 def flash_kernel_check():
     phase('7a K4 masked flash attention vs plain, SDPA and the bound')
     from wenet_tpu_torch.models.transformer import attention as A
@@ -1435,57 +1516,22 @@ def flash_kernel_check():
     report, max_err, zoo = None, 0.0, {}
     for i, (B, h, T1, T2, d, mask_kind, use_bias) in enumerate(FLASH_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, mask, bias = flash_inputs(rng, B, h, T1, T2, d,
-                                               mask_kind, use_bias, dtype)
-            scale = 1.0 / d ** 0.5
-            got = fa.flash_attention(q, k, v, mask, bias, scale)
-            torch.cuda.synchronize()
-            want, _ = fa.flash_fwd_reference(q.float(), k.float(),
-                                             v.float(), mask, bias, scale)
-            err = (got.float() - want).abs().max().item()
-            tol = FLASH_TOL[dtype]
-            of_bar = share_of_bar(got, want, tol)
-            torch.testing.assert_close(got.float(), want, **tol)
-            if not torch.isfinite(got).all():
-                raise RuntimeError('K4 output is not finite')
-            if mask_kind == 'masked_row' and got[0, :, 5].any():
-                raise RuntimeError('K4: fully masked row is not zero')
-            ms = cuda_time_ms(
-                lambda: fa.flash_attention(q, k, v, mask, bias, scale))
-            plain_ms = cuda_time_ms(
-                lambda: fa.flash_fwd_reference(q, k, v, mask, bias, scale))
-            lib_ms = flash_sdpa(q, k, v, mask, bias, scale, got)
-            # 2 products of 2*d FLOPs per attended pair
-            flops = 4 * d * attended_pairs(mask, B, h, T1, T2)
-            moved = nbytes(q, k, v, mask, bias, got)
-            b_ms, b_by = bound(flops, moved, dtype, tf32_split=True)
-            extra = ''
-            if dtype == torch.float32:  # 3xTF32, beside the CUDA cores' FFMA
-                extra = f' at 3xTF32, {bound(flops, moved)[0]:.4f} ms at FFMA'
-            print(f'  ({B},{h},{T1},{T2},{d}) mask={mask_kind} '
-                  f'bias={use_bias} {str(dtype)[6:]}: max_abs_err={err:.3g} '
-                  f'({100 * of_bar:.0f}% of the bar) kernel {ms:.4f} ms, '
-                  f'plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, '
-                  f'bound {b_ms:.4f} ms ({b_by}{extra}); '
-                  f'{flops / ms / 1e9:.1f} TFLOP/s', flush=True)
+            r = k4_case(rng, B, h, T1, T2, d, mask_kind, use_bias, dtype)
             if dtype == torch.float32:
-                max_err = max(max_err, err)
+                max_err = max(max_err, r['max_abs_err'])
             if i == 0 and dtype == torch.float32:  # whisper's encoder
-                report = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                              bound_by=b_by, library_ms=lib_ms,
-                              tflops=flops / ms / 1e9)
+                report = {k: r[k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                            'bound_by', 'library_ms',
+                                            'tflops')}
             elif i == 0:
-                report.update(ms_bf16=ms, bound_ms_bf16=b_ms,
-                              library_ms_bf16=lib_ms,
-                              tflops_bf16=flops / ms / 1e9)
+                report.update(ms_bf16=r['ms'], bound_ms_bf16=r['bound_ms'],
+                              library_ms_bf16=r['library_ms'],
+                              tflops_bf16=r['tflops'])
             if (B, h, T1, T2, d) == ZOO_FLASH_SHAPE:
                 key = '' if dtype == torch.float32 else '_bf16'
-                zoo.update({'ms' + key: ms, 'plain_ms' + key: plain_ms,
-                            'bound_ms' + key: b_ms, 'bound_by' + key: b_by,
-                            'library_ms' + key: lib_ms,
-                            'max_abs_err' + key: err,
-                            'share_of_bar' + key: of_bar,
-                            'tflops' + key: flops / ms / 1e9})
+                zoo.update({k + key: r[k] for k in (
+                    'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+                    'max_abs_err', 'share_of_bar', 'tflops')})
 
     # the gate: K4 against attention_core's ordinary path above and below
     for B, h, T1, T2, d in (FLASH_SHAPES[0][:5], GATE_BELOW):
@@ -1676,17 +1722,19 @@ def whisper_check():
 
 
 def whisper_speed(smi):
-    phase('7c whisper large-v3 decode speed (informational)')
+    phase('7c whisper large-v3 decode speed (informational, 16 + 16 '
+          'layers)')
     from torch.profiler import ProfilerActivity, profile
     from wenet_tpu_torch.models.runner import AsrRunner
     from wenet_tpu_torch.utils.init_model import init_model
-    configs = whisper_configs(32)
+    n = WHISPER_SPEED_LAYERS
+    configs = whisper_configs(n)
     t0 = time.perf_counter()
     gen = torch.Generator('cuda').manual_seed(SEED)
     model = init_model(configs, gen, device='cuda')
     shape_decoder_weights(model, gen)
     set_eot_bias(model, WHISPER_SPEED_EOT_BIAS)
-    print(f'  32 + 32 layers built on the card in '
+    print(f'  {n} + {n} layers built on the card in '
           f'{time.perf_counter() - t0:.1f} s '
           f'({sum(p.numel() for p in model.parameters()) / 1e9:.3f}B '
           f'parameters); eot bias {WHISPER_SPEED_EOT_BIAS}')
@@ -1792,137 +1840,156 @@ WHISPER_TRAIN_LR = 2e-4  # 8b's twenty steps on one batch, no warmup
 WHISPER_TRAIN_SPEED_LAYERS = 16  # 8c's depth (large-v3 has 32)
 
 
+def flash_train_case(rng, B, h, T1, T2, d, mask_kind, bias_shape, dtype):
+    """K4-train, K5 and K6 at one shape and dtype through the
+    `FlashAttention` Function against the plain versions chained as the
+    Function chains them; each kernel's and its plain version's time,
+    the bounds and SDPA's forward / backward; prints the lines ->
+    (max_abs_err by kernel, share of the bar by kernel, (kernel ms, plain
+    ms) by kernel, (bound ms, bound_by) by kernel, SDPA (forward ms,
+    backward ms) or None, TFLOP/s of K4-train / K5 / K6, attended
+    pairs)."""
+    from wenet_tpu_torch.ops import flash_attention as fa
+    errs, shares = {}, {}
+    q, k, v, mask, bias = flash_inputs(rng, B, h, T1, T2, d,
+                                       mask_kind, bias_shape, dtype)
+    do = torch.from_numpy(
+        rng.randn(B, h, T1, d).astype(np.float32)).cuda().to(dtype)
+    scale = 1.0 / d ** 0.5
+    # the kernels: K4-train in the Function's forward, K5 and K6
+    # in its backward (dbias summed over the broadcast dims)
+    leaves = [t.detach().requires_grad_()
+              for t in (q, k, v, bias) if t is not None]
+    out = fa.flash_attention(*leaves[:3], mask,
+                             leaves[3] if bias is not None else None,
+                             scale)
+    out.backward(do)
+    _, lse = fa.flash_fwd(q, k, v, mask, bias, scale, True)
+    torch.cuda.synchronize()
+    # the plain versions chained as the Function chains them, in
+    # fp32 on the same inputs: the forward, its output rounded to
+    # the Function's type, delta = rowsum(do·out) of that (as the
+    # JAX package's `_bwd_call` takes it), plain K5 and K6, and
+    # dbias summed over the bias's broadcast dims.  In fp32 this
+    # is dense autograd; in bf16 dense autograd would also hold
+    # the kernels to the rounding of out, which on the peaked
+    # shape alone takes dk past the bar with exact kernels.
+    grads = [t.grad for t in leaves]
+    x32 = [t.float() for t in (q, k, v)]
+    want, want_lse = fa.flash_fwd_reference(*x32, mask, bias, scale,
+                                            True)
+    ref_args = (mask, bias, do.float(), want_lse,
+                (do.float() * want.to(dtype).float()).sum(-1), scale)
+    want_dq, want_dbias = fa.flash_bwd_dq_reference(*x32, *ref_args)
+    want_grads = [want_dq,
+                  *fa.flash_bwd_dkv_reference(*x32, *ref_args)]
+    if bias is not None:
+        b4 = bias if bias.dim() == 4 else bias.unsqueeze(1)
+        dims = [i for i in range(4) if b4.shape[i] == 1]
+        want_grads.append((want_dbias.sum(dims, keepdim=True)
+                           if dims else want_dbias).view(bias.shape))
+    # K4-train is held to K4's bars (its output to its dtype's,
+    # its fp32 lse to fp32's), the gradients to TRAIN_TOL
+    g_tol = TRAIN_TOL[dtype]
+    pairs = {
+        'flash_attention_fwd_train': [
+            (out, want, FLASH_TOL[dtype]),
+            (lse, want_lse, FLASH_TOL[torch.float32])],
+        'flash_attention_bwd_dq': [
+            (grads[0], want_grads[0], g_tol)] + (
+            [(grads[3], want_grads[3], g_tol)]
+            if bias is not None else []),
+        'flash_attention_bwd_dkv': [
+            (g, w, g_tol) for g, w in zip(grads[1:3],
+                                          want_grads[1:3])],
+    }
+    line = []
+    for name, checks in pairs.items():
+        err = of_bar = 0.0
+        for got, w, tol in checks:
+            if not torch.isfinite(got).all():
+                raise RuntimeError(f'{name}: output is not finite')
+            diff = (got.float() - w.float()).abs()
+            torch.testing.assert_close(got.float(), w.float(),
+                                       **tol, msg=name)
+            err = max(err, diff.max().item())
+            of_bar = max(of_bar, share_of_bar(got, w, tol))
+        errs[name], shares[name] = err, of_bar
+        line.append(f'{name[16:]} {err:.3g} ({100 * of_bar:.0f}% '
+                    f'of the bar)')
+    if mask_kind == 'masked_row' and (
+            out[0, :, 5].any() or grads[0][0, :, 5].any()
+            or not lse[0, :, 5].eq(fa.NEG_INF).all()):
+        raise RuntimeError('fully masked row: output or dq not zero, '
+                           'or lse not NEG_INF')
+    # CUDA-event times of each kernel and of its plain version on
+    # the same lse and delta
+    delta = (do.float() * want.detach()).sum(-1)
+    args = (mask, bias, do, want_lse.detach(), delta, scale)
+    t = {
+        'flash_attention_fwd_train': (
+            cuda_time_ms(lambda: fa.flash_fwd(
+                q, k, v, mask, bias, scale, True)),
+            cuda_time_ms(lambda: fa.flash_fwd_reference(
+                q, k, v, mask, bias, scale, True))),
+        'flash_attention_bwd_dq': (
+            cuda_time_ms(lambda: fa.flash_bwd_dq(q, k, v, *args)),
+            cuda_time_ms(lambda: fa.flash_bwd_dq_reference(
+                q, k, v, *args))),
+        'flash_attention_bwd_dkv': (
+            cuda_time_ms(lambda: fa.flash_bwd_dkv(q, k, v, *args)),
+            cuda_time_ms(lambda: fa.flash_bwd_dkv_reference(
+                q, k, v, *args))),
+    }
+    n_pairs = attended_pairs(mask, B, h, T1, T2)
+    common = nbytes(q, k, v, mask, bias, do, want_lse, delta)
+    # 2, 3 and 4 products of 2*d FLOPs per pair; each kernel's
+    # fp32 route is 3xTF32 (FFMA printed beside it)
+    work = {
+        'flash_attention_fwd_train': (
+            4 * d * n_pairs, nbytes(q, k, v, mask, bias, out, lse)),
+        'flash_attention_bwd_dq': (
+            6 * d * n_pairs, common + nbytes(grads[0]) + (
+                4 * B * h * T1 * T2 if bias is not None else 0)),
+        'flash_attention_bwd_dkv': (
+            8 * d * n_pairs, common + nbytes(*grads[1:3])),
+    }
+    bounds = {n: bound(*w, dtype, tf32_split=True)
+              for n, w in work.items()}
+    sdpa = None
+    if bias is None and mask_kind in ('pad', None):
+        sdpa = flash_sdpa_train(q, k, v, mask, scale, do, out,
+                                grads[:3])
+    print(f'  ({B},{h},{T1},{T2},{d}) mask={mask_kind} '
+          f'bias={bias_shape} {str(dtype)[6:]}: max_abs_err '
+          + ', '.join(line), flush=True)
+    print('    kernel / plain / bound ms: ' + ', '.join(
+        f'{n[16:]} {a:.4f} / {b:.4f} / {bounds[n][0]:.4f} '
+        f'({bounds[n][1]}' + (
+            f', FFMA {bound(*work[n])[0]:.4f}'
+            if dtype == torch.float32 else '') + ')'
+        for n, (a, b) in t.items())
+        + ('' if sdpa is None else
+           f'; SDPA forward {sdpa[0]:.4f}, backward (dq, dk, dv '
+           f'together) {sdpa[1]:.4f}'), flush=True)
+    tflops = [f * d * n_pairs / t[n][0] / 1e9 for f, n in
+              zip((4, 6, 8), FLASH_TRAIN_KERNELS)]
+    return errs, shares, t, bounds, sdpa, tflops, n_pairs
+
+
 def flash_train_kernel_check():
     phase('8a K4-train, K5, K6 (masked flash attention backward) vs plain')
-    from wenet_tpu_torch.ops import flash_attention as fa
     rng = np.random.RandomState(SEED + 9)
     errs = {name: 0.0 for name in FLASH_TRAIN_KERNELS}
     report = None
     for i, (B, h, T1, T2, d, mask_kind, bias_shape) in enumerate(
             FLASH_TRAIN_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, mask, bias = flash_inputs(rng, B, h, T1, T2, d,
-                                               mask_kind, bias_shape, dtype)
-            do = torch.from_numpy(
-                rng.randn(B, h, T1, d).astype(np.float32)).cuda().to(dtype)
-            scale = 1.0 / d ** 0.5
-            # the kernels: K4-train in the Function's forward, K5 and K6
-            # in its backward (dbias summed over the broadcast dims)
-            leaves = [t.detach().requires_grad_()
-                      for t in (q, k, v, bias) if t is not None]
-            out = fa.flash_attention(*leaves[:3], mask,
-                                     leaves[3] if bias is not None else None,
-                                     scale)
-            out.backward(do)
-            _, lse = fa.flash_fwd(q, k, v, mask, bias, scale, True)
-            torch.cuda.synchronize()
-            # the plain versions chained as the Function chains them, in
-            # fp32 on the same inputs: the forward, its output rounded to
-            # the Function's type, delta = rowsum(do·out) of that (as the
-            # JAX package's `_bwd_call` takes it), plain K5 and K6, and
-            # dbias summed over the bias's broadcast dims.  In fp32 this
-            # is dense autograd; in bf16 dense autograd would also hold
-            # the kernels to the rounding of out, which on the peaked
-            # shape alone takes dk past the bar with exact kernels.
-            grads = [t.grad for t in leaves]
-            x32 = [t.float() for t in (q, k, v)]
-            want, want_lse = fa.flash_fwd_reference(*x32, mask, bias, scale,
-                                                    True)
-            ref_args = (mask, bias, do.float(), want_lse,
-                        (do.float() * want.to(dtype).float()).sum(-1), scale)
-            want_dq, want_dbias = fa.flash_bwd_dq_reference(*x32, *ref_args)
-            want_grads = [want_dq,
-                          *fa.flash_bwd_dkv_reference(*x32, *ref_args)]
-            if bias is not None:
-                b4 = bias if bias.dim() == 4 else bias.unsqueeze(1)
-                dims = [i for i in range(4) if b4.shape[i] == 1]
-                want_grads.append((want_dbias.sum(dims, keepdim=True)
-                                   if dims else want_dbias).view(bias.shape))
-            # K4-train is held to K4's bars (its output to its dtype's,
-            # its fp32 lse to fp32's), the gradients to TRAIN_TOL
-            g_tol = TRAIN_TOL[dtype]
-            pairs = {
-                'flash_attention_fwd_train': [
-                    (out, want, FLASH_TOL[dtype]),
-                    (lse, want_lse, FLASH_TOL[torch.float32])],
-                'flash_attention_bwd_dq': [
-                    (grads[0], want_grads[0], g_tol)] + (
-                    [(grads[3], want_grads[3], g_tol)]
-                    if bias is not None else []),
-                'flash_attention_bwd_dkv': [
-                    (g, w, g_tol) for g, w in zip(grads[1:3],
-                                                  want_grads[1:3])],
-            }
-            line = []
-            for name, checks in pairs.items():
-                err = of_bar = 0.0
-                for got, w, tol in checks:
-                    if not torch.isfinite(got).all():
-                        raise RuntimeError(f'{name}: output is not finite')
-                    diff = (got.float() - w.float()).abs()
-                    torch.testing.assert_close(got.float(), w.float(),
-                                               **tol, msg=name)
-                    err = max(err, diff.max().item())
-                    of_bar = max(of_bar, share_of_bar(got, w, tol))
-                if dtype == torch.float32:
+            errs_i, _, t, bounds, sdpa, tflops, n_pairs = flash_train_case(
+                rng, B, h, T1, T2, d, mask_kind, bias_shape, dtype)
+            if dtype == torch.float32:
+                for name, err in errs_i.items():
                     errs[name] = max(errs[name], err)
-                line.append(f'{name[16:]} {err:.3g} ({100 * of_bar:.0f}% '
-                            f'of the bar)')
-            if mask_kind == 'masked_row' and (
-                    out[0, :, 5].any() or grads[0][0, :, 5].any()
-                    or not lse[0, :, 5].eq(fa.NEG_INF).all()):
-                raise RuntimeError('fully masked row: output or dq not zero, '
-                                   'or lse not NEG_INF')
-            # CUDA-event times of each kernel and of its plain version on
-            # the same lse and delta
-            delta = (do.float() * want.detach()).sum(-1)
-            args = (mask, bias, do, want_lse.detach(), delta, scale)
-            t = {
-                'flash_attention_fwd_train': (
-                    cuda_time_ms(lambda: fa.flash_fwd(
-                        q, k, v, mask, bias, scale, True)),
-                    cuda_time_ms(lambda: fa.flash_fwd_reference(
-                        q, k, v, mask, bias, scale, True))),
-                'flash_attention_bwd_dq': (
-                    cuda_time_ms(lambda: fa.flash_bwd_dq(q, k, v, *args)),
-                    cuda_time_ms(lambda: fa.flash_bwd_dq_reference(
-                        q, k, v, *args))),
-                'flash_attention_bwd_dkv': (
-                    cuda_time_ms(lambda: fa.flash_bwd_dkv(q, k, v, *args)),
-                    cuda_time_ms(lambda: fa.flash_bwd_dkv_reference(
-                        q, k, v, *args))),
-            }
-            n_pairs = attended_pairs(mask, B, h, T1, T2)
-            common = nbytes(q, k, v, mask, bias, do, want_lse, delta)
-            # 2, 3 and 4 products of 2*d FLOPs per pair; each kernel's
-            # fp32 route is 3xTF32 (FFMA printed beside it)
-            work = {
-                'flash_attention_fwd_train': (
-                    4 * d * n_pairs, nbytes(q, k, v, mask, bias, out, lse)),
-                'flash_attention_bwd_dq': (
-                    6 * d * n_pairs, common + nbytes(grads[0]) + (
-                        4 * B * h * T1 * T2 if bias is not None else 0)),
-                'flash_attention_bwd_dkv': (
-                    8 * d * n_pairs, common + nbytes(*grads[1:3])),
-            }
-            bounds = {n: bound(*w, dtype, tf32_split=True)
-                      for n, w in work.items()}
-            sdpa = None
-            if bias is None and mask_kind in ('pad', None):
-                sdpa = flash_sdpa_train(q, k, v, mask, scale, do, out,
-                                        grads[:3])
-            print(f'  ({B},{h},{T1},{T2},{d}) mask={mask_kind} '
-                  f'bias={bias_shape} {str(dtype)[6:]}: max_abs_err '
-                  + ', '.join(line), flush=True)
-            print('    kernel / plain / bound ms: ' + ', '.join(
-                f'{n[16:]} {a:.4f} / {b:.4f} / {bounds[n][0]:.4f} '
-                f'({bounds[n][1]}' + (
-                    f', FFMA {bound(*work[n])[0]:.4f}'
-                    if dtype == torch.float32 else '') + ')'
-                for n, (a, b) in t.items())
-                + ('' if sdpa is None else
-                   f'; SDPA forward {sdpa[0]:.4f}, backward (dq, dk, dv '
-                   f'together) {sdpa[1]:.4f}'), flush=True)
             if i == 0:  # the first shape is the main path's
                 # SDPA's forward is K4-train's yardstick, its backward
                 # K5 + K6 together's
@@ -1937,8 +2004,6 @@ def flash_train_kernel_check():
                     if not key:
                         report[n].update(plain_ms=t[n][1],
                                          bound_by=bounds[n][1])
-                tflops = [f * d * n_pairs / t[n][0] / 1e9 for f, n in
-                          zip((4, 6, 8), FLASH_TRAIN_KERNELS)]
                 for n, x in zip(FLASH_TRAIN_KERNELS, tflops):
                     report[n]['tflops' + key] = x
                 print(f'    main shape: {n_pairs / 1e6:.1f}M attended pairs; '
@@ -3094,7 +3159,8 @@ def entry_first_step(args):
                            'gradients to other parameters')
     B, T = batch['feats'].shape[:2]
     # a loss the model has not (whisper's CTC at ctc_weight 0) is absent
-    for k in [k for k in ('loss', 'loss_att', 'loss_ctc') if k in cpu]:
+    for k in [k for k in ('loss', 'loss_att', 'loss_ctc', 'loss_decoder',
+                          'loss_quantity', 'loss_quantity_tp') if k in cpu]:
         print(f'  first step, B={B} x T={T}, K1 dropout on {kept // 2} '
               f'blocks: {k} card {card[k]:.6f} cpu {cpu[k]:.6f}')
         if not abs(card[k] - cpu[k]) <= 1e-4 * abs(cpu[k]) + 1e-6:
@@ -5990,6 +6056,686 @@ def whisper_recipe_check(smi):
     return launches, dict(tokenizer=tok_readings, train=train, decode=decode)
 
 
+PARAFORMER_CONFIG = os.path.join(REPO, 'examples/aishell/paraformer/conf/'
+                                 'train_paraformer.yaml')
+PARAFORMER_VOCAB = 4233  # aishell's lang_char.txt
+PARAFORMER_K4_SHAPE = (32, 4, 500, 500, 128, 'pad', False)  # 16b's decode
+PARAFORMER_TRAIN_SHAPE = (2, 4, 534, 534, 128, 'pad', None)  # 2 x 32 s
+PARAFORMER_DECODE = (32, 20.0, 30.0)  # 16b: B, shortest, longest seconds
+PARAFORMER_DECODE_CPU = 4  # 16b: the rows decoded on the CPU too
+PARAFORMER_MODES = ['paraformer_greedy_search', 'paraformer_beam_search']
+PARAFORMER_LONG_STEP = (2, 31.9, 32.05)  # 16c: B, seconds (534 LFR frames)
+# 16c's CIF threshold: in training the alphas are scaled to integrate to
+# the label count, so at the yaml's 1.0 the last token fires or not on
+# the float32 rounding of that total, which differs between the card and
+# the CPU; 0.9999 puts the fire 1e-4 clear of it (ROADMAP.md queue 3)
+PARAFORMER_TRAIN_THRESHOLD = 0.9999
+TOKEN_SUM_BAND = 1e-4  # ⌊token sum⌋ may move where the sum is this near
+PEAK_TIE = 1e-4  # a CIF peak trace this near its threshold may move
+PARAFORMER_RECIPE_UTTS = (24, 6)  # train, cv wavs
+PARAFORMER_RECIPE_SECONDS = (3.0, 12.0)
+PARAFORMER_RECOGNIZE = (16, 8)  # 16d: wavs on the card, and the CPU
+PARAFORMER_RECOGNIZE_SECONDS = (20.0, 30.0)
+EN_PIECES = {'hello': 'he@@ llo', 'world': 'wor@@ ld', 'speech': 'spe@@ ech'}
+# 16e: FunASR SenseVoice-small's and FireRed-AED-L's published widths at
+# a reduced depth
+SENSEVOICE_SMALL = dict(output_size=512, attention_heads=4, linear_units=2048,
+                        num_blocks=50, tp_blocks=20, kernel_size=11,
+                        sanm_shfit=0, dropout_rate=0.1,
+                        positional_dropout_rate=0.1,
+                        attention_dropout_rate=0.1)
+SENSEVOICE_VOCAB = 25055
+SENSEVOICE_DEPTH = (6, 2)  # num_blocks, tp_blocks (of 50, 20)
+FIRERED_AED_L = dict(d_model=1280, n_head=20, d_inner=5120, n_layers_enc=16,
+                     n_layers_dec=16, kernel_size=33, odim=7832)
+FIRERED_DEPTH = (4, 2)  # encoder, decoder blocks (of 16, 16)
+REDUCED_DECODE = {'sensevoice': (32, 20.0, 30.0), 'firered': (4, 2.0, 3.0)}
+REDUCED_CPU = 4
+
+
+def paraformer_configs(**model_conf):
+    """The paraformer yaml as written (50 + 16 blocks of 512, 4 heads:
+    d = 128), with input_dim (80 mel bins x lfr_m 7) and the aishell
+    vocabulary's output_dim."""
+    import yaml
+    with open(PARAFORMER_CONFIG) as f:
+        configs = yaml.safe_load(f)
+    configs['input_dim'], configs['output_dim'] = 80 * 7, PARAFORMER_VOCAB
+    configs['model_conf'].update(model_conf)
+    return configs
+
+
+def set_lfr_cmvn(cmvn, feats, lens):
+    """The global cmvn of the LFR features of (feats, lens)."""
+    from wenet_tpu_torch.models.paraformer.layers import lfr
+    x, n = lfr(torch.from_numpy(feats), torch.from_numpy(lens))
+    valid = torch.arange(x.shape[1])[None, :] < n[:, None]
+    rows = x[valid].double()
+    with torch.no_grad():
+        cmvn.mean.copy_(rows.mean(0).float())
+        cmvn.istd.copy_((1.0 / rows.std(0).clamp(min=1e-3)).float())
+
+
+def paraformer_kernel_check():
+    """16a: K4 at the decode's shape, K4-train, K5 and K6 at the
+    long-form step's, fp32 and bf16 -> readings by kernel."""
+    phase('16a K4, K4-train, K5, K6 at head dim 128 (paraformer shapes)')
+    rng = np.random.RandomState(SEED + 61)
+    report = {'flash_attention_fwd': {}}
+    report.update({n: {} for n in FLASH_TRAIN_KERNELS})
+    shape = '(' + ','.join(map(str, PARAFORMER_K4_SHAPE[:5])) + ') pad'
+    for dtype in (torch.float32, torch.bfloat16):
+        key = '' if dtype == torch.float32 else '_bf16'
+        r = k4_case(rng, *PARAFORMER_K4_SHAPE, dtype)
+        report['flash_attention_fwd'].update(
+            {k + key: v for k, v in r.items()}, shape=shape)
+    shape = '(' + ','.join(map(str, PARAFORMER_TRAIN_SHAPE[:5])) + ') pad'
+    for dtype in (torch.float32, torch.bfloat16):
+        key = '' if dtype == torch.float32 else '_bf16'
+        errs, shares, t, bounds, sdpa, tflops, _ = flash_train_case(
+            rng, *PARAFORMER_TRAIN_SHAPE, dtype)
+        for i, n in enumerate(FLASH_TRAIN_KERNELS):
+            report[n].update({
+                'max_abs_err' + key: errs[n], 'share_of_bar' + key: shares[n],
+                'ms' + key: t[n][0], 'plain_ms' + key: t[n][1],
+                'bound_ms' + key: bounds[n][0], 'bound_by' + key: bounds[n][1],
+                'library_ms' + key: sdpa[0 if i == 0 else 1],
+                'tflops' + key: tflops[i]}, shape=shape)
+    return report
+
+
+def sanm_blocks(model):
+    """(encoder blocks, decoder blocks): the K4 launches of a decode above
+    the gate are their sum (each encoder block's self-attention, each
+    decoder block's cross-attention, whose queries are the encoder-frame
+    cap), of a training step the first (the decoder's queries are the
+    labels, below it)."""
+    return (len(model.encoder.encoders0) + len(model.encoder.encoders),
+            len(model.decoder.decoders))
+
+
+def token_sums(model, feats, lens):
+    """The unfloored token counts of a decode: the CIF alphas' sum with
+    the tail slot."""
+    cif = model.predictor.predictor
+    with torch.inference_mode():
+        enc, mask = model._forward_encoder_lfr(feats, lens)
+        alphas = cif.compute_alphas(enc, mask)
+        return cif.tail_process_fn(enc, alphas, mask)[1].sum(-1).cpu()
+
+
+def paraformer_same(what, got, want, card, cpu):
+    """Raise unless the card's paraformer results (`got`, from
+    forward_paraformer's `card` dict, rows cut to the CPU's) equal the
+    CPU's (`want`, `cpu`), up to what float32 noise explains: a row's
+    token count ⌊sum⌋ may differ where the CPU's sum lies within
+    TOKEN_SUM_BAND of an integer (the row is then not compared further);
+    a position's argmax may differ where the CPU's top two log-probs lie
+    within twice that position's largest |card - cpu| log-prob; the
+    greedy search's peak times may differ from the first frame whose CPU
+    trace lies within PEAK_TIE of the peak threshold; a beam score lies
+    within the summed largest log-prob differences + 2e-4.  -> counts of
+    the rows in the band, the flipped argmaxes and the moved peaks."""
+    n = len(want[PARAFORMER_MODES[0]])
+    lp_c = card['decoder_out'][:n].float().cpu()
+    lp_p = cpu['decoder_out'].float()
+    lens_c = card['decoder_out_lens'][:n].cpu()
+    lens_p = cpu['decoder_out_lens']
+    sums = cpu['token_sums']
+    U = min(lp_c.shape[1], lp_p.shape[1])
+    diff = (lp_c[:, :U] - lp_p[:, :U]).abs().amax(-1)
+    band = flips = moved = 0
+    for b in range(n):
+        k = int(lens_p[b])
+        if int(lens_c[b]) != k:
+            if abs(float(sums[b]) - round(float(sums[b]))) > TOKEN_SUM_BAND:
+                raise RuntimeError(f'{what}: row {b} has {int(lens_c[b])} '
+                                   f'tokens on the card, {k} on the CPU '
+                                   f'(sum {float(sums[b]):.6f})')
+            band += 1
+            continue
+        bound = float(diff[b, :k].sum()) + 2e-4
+        for mode in PARAFORMER_MODES:
+            g, w = got[mode][b], want[mode][b]
+            if list(g.tokens) != list(w.tokens):
+                pos = [i for i in range(k) if g.tokens[i] != w.tokens[i]]
+                top = lp_p[b, pos].topk(2, dim=-1).values
+                if not bool((top[:, 0] - top[:, 1] <=
+                             2 * diff[b, pos]).all()):
+                    raise RuntimeError(f'{what}: {mode} row {b} differs at '
+                                       f'{pos[:5]} beyond a tie')
+                flips += len(pos) if mode == PARAFORMER_MODES[0] else 0
+            elif mode == 'paraformer_beam_search' and \
+                    abs(g.score - w.score) > bound:
+                raise RuntimeError(f'{what}: beam score {g.score} vs '
+                                   f'{w.score} (bound {bound:.3g})')
+        g, w = got[PARAFORMER_MODES[0]][b], want[PARAFORMER_MODES[0]][b]
+        if g.times != w.times:
+            i = next(i for i, (x, y) in enumerate(zip(g.times, w.times))
+                     if x != y)
+            trace = cpu['peaks'][b]
+            near = [f for f in (g.times[i], w.times[i])
+                    if abs(float(trace[f]) - (1 - 1e-4)) <= PEAK_TIE]
+            if not near:
+                raise RuntimeError(f'{what}: row {b} peak times differ at '
+                                   f'token {i}: {g.times[i]} vs '
+                                   f'{w.times[i]}')
+            moved += 1
+    return dict(band=band, flips=flips, moved_peaks=moved)
+
+
+def paraformer_forward(model, feats, lens):
+    """forward_paraformer and the CIF peak trace (host), with the token
+    sums."""
+    with torch.inference_mode():
+        res = model.forward_paraformer(feats, lens)
+        res['peaks'] = model.forward_cif_peaks(
+            res['tp_alphas'].float().cpu(),
+            res['decoder_out_lens'].cpu())
+    res['token_sums'] = token_sums(model, feats, lens)
+    return res
+
+
+def paraformer_decode_check(smi):
+    """16b: the paraformer yaml at full width decodes B=32 x 20-30 s in
+    both paraformer modes on the card (66 K4 launches) against the CPU on
+    4 rows; speed, busy share and the CIF loop's launches and time."""
+    phase('16b paraformer decode, B=32 x 20-30 s, card vs CPU')
+    from wenet_tpu_torch.models.runner import AsrRunner, paraformer_decode
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.utils.init_model import init_model
+    configs = paraformer_configs()
+    t0 = time.perf_counter()
+    model = init_model(configs, torch.Generator('cuda').manual_seed(
+        SEED + 62), device='cuda').eval()
+    B, shortest, longest = PARAFORMER_DECODE
+    feats, lens = speech_features(np.random.RandomState(SEED + 63), B,
+                                  shortest, longest)
+    set_lfr_cmvn(model.encoder.global_cmvn, feats, lens)
+    enc, dec = configs['encoder_conf'], configs['decoder_conf']
+    print(f'  {enc["num_blocks"]} + {dec["num_blocks"]} blocks of '
+          f'{enc["output_size"]} ({enc["attention_heads"]} heads, d = '
+          f'{enc["output_size"] // enc["attention_heads"]}) built on the '
+          f'card in {time.perf_counter() - t0:.1f} s '
+          f'({sum(p.numel() for p in model.parameters()) / 1e6:.1f}M '
+          f'parameters); features {tuple(feats.shape)}', flush=True)
+    runner = AsrRunner(model, 'cuda')
+    x, n_x = torch.from_numpy(feats).cuda(), torch.from_numpy(lens).cuda()
+    runner.decode(PARAFORMER_MODES, x, n_x)  # warm-up
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    got = runner.decode(PARAFORMER_MODES, x, n_x)
+    torch.cuda.synchronize()
+    k4 = fa.LAUNCHES['flash_attention_fwd']
+    blocks = sanm_blocks(model)
+    if k4 != sum(blocks):
+        raise RuntimeError(f'16b: K4 launched {k4} times in a decode, '
+                           f'expected {sum(blocks)}')
+    card = paraformer_forward(model, x, n_x)
+    n = PARAFORMER_DECODE_CPU
+    cpu_model = copy.deepcopy(model).cpu()
+    xc, nc = torch.from_numpy(feats[:n]), torch.from_numpy(lens[:n])
+    with torch.inference_mode():
+        want = paraformer_decode(cpu_model, xc, nc, PARAFORMER_MODES)
+    cpu = paraformer_forward(cpu_model, xc, nc)
+    enc_err = max((card['encoder_out'][b, :int(l)].cpu() -
+                   cpu['encoder_out'][b, :int(l)]).abs().max().item()
+                  for b, l in enumerate(cpu['encoder_out_mask'][:, 0].sum(-1)))
+    if enc_err > 1e-3:
+        raise RuntimeError(f'16b: encoder output {enc_err} from the CPU')
+    ties = paraformer_same('16b', {m: got[m][:n] for m in got}, want, card,
+                           cpu)
+    lens_c = card['decoder_out_lens'].cpu()
+    sums = card['token_sums']
+    near = int(((sums - sums.round()).abs() <= TOKEN_SUM_BAND).sum())
+    print(f'  {B} rows: tokens {int(lens_c.min())}-{int(lens_c.max())} a '
+          f'row; K4 {k4} launches a decode ({blocks[0]} encoder, '
+          f'{blocks[1]} cross-attention)'
+          f'; encoder output within {enc_err:.3g} of the CPU; {n} rows '
+          f'card == CPU ({ties["band"]} in the token-count band, '
+          f'{ties["flips"]} argmax ties, {ties["moved_peaks"]} moved peaks);'
+          f' {near} of {B} card rows within {TOKEN_SUM_BAND} of an integer '
+          'token sum', flush=True)
+    # speed: the decode end to end, its busy share, the CIF loop
+    audio = float(lens.sum()) / 100
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        runner.decode(PARAFORMER_MODES, x, n_x)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    _, busy, _ = busy_share(lambda: runner.decode(PARAFORMER_MODES, x, n_x))
+    with torch.inference_mode():
+        enc, mask = model._forward_encoder_lfr(x, n_x)
+        cif = model.predictor.predictor
+        cap = enc.shape[1]
+
+        def cif_loop():
+            return cif(enc, None, mask, cap)
+        cif_loop()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cif_loop()
+        torch.cuda.synchronize()
+        cif_wall = time.perf_counter() - t0
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cif_loop()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+    cif_launches = sum(c for c, _ in rows.values())
+    cif_device = sum(ms for _, ms in rows.values())
+    print(f'  decode B={B}: {1e3 * wall:.1f} ms, {audio / wall:.1f} '
+          f'audio-sec/s, card busy {100 * busy:.1f}%; the CIF predictor '
+          f'({cap} frames + the tail) {1e3 * cif_wall:.1f} ms wall, '
+          f'{cif_launches} launches, {cif_device:.2f} ms of kernels ({smi})',
+          flush=True)
+    del runner, model, cpu_model
+    torch.cuda.empty_cache()
+    return k4, dict(audio_sec_per_s=audio / wall, ms=1e3 * wall, busy=busy,
+                    cif_ms=1e3 * cif_wall, cif_launches=cif_launches,
+                    cif_kernel_ms=cif_device, encoder_err=enc_err, **ties)
+
+
+def paraformer_units(d, rng):
+    """lang_char.txt of 4233 symbols (the specials, CJK chars and the
+    seg_dict's pieces), seg_dict, and a transcript maker."""
+    pieces = sorted({p for v in EN_PIECES.values() for p in v.split()})
+    chars = [chr(0x4e00 + i) for i in range(PARAFORMER_VOCAB - 3 -
+                                            len(pieces))]
+    units = os.path.join(d, 'lang_char.txt')
+    with open(units, 'w', encoding='utf-8') as f:
+        for i, s in enumerate(['<blank>', '<unk>', '<sos/eos>'] + chars +
+                              pieces):
+            f.write(f'{s} {i}\n')
+    seg = os.path.join(d, 'seg_dict')
+    with open(seg, 'w', encoding='utf-8') as f:
+        f.writelines(f'{w}\t{p}\n' for w, p in EN_PIECES.items())
+
+    def text(seconds):
+        n = int(3 * seconds) + rng.randint(0, 4)
+        return (''.join(rng.choice(chars[:600], size=n)) + ' ' +
+                rng.choice(list(EN_PIECES)))
+    return units, seg, text
+
+
+def paraformer_recipe(d):
+    """16c's files: wavs of 3-12 s with zh/en transcripts (train and cv
+    lists), the dict and seg_dict, a 560-dim cmvn (the 80-bin stats of
+    compute_cmvn_stats tiled over the 7 stacked frames, written as
+    FunASR's am.mvn and converted), and the yaml with them (the CIF
+    threshold 0.9999, two epochs, every step logged) -> (yaml, train
+    list, cv list)."""
+    import yaml
+    from wenet_tpu_torch.bin import compute_cmvn_stats
+    from wenet_tpu_torch.dataset.audio import write_wav
+    from wenet_tpu_torch.models.paraformer.convert import (
+        convert_funasr_cmvn)
+    rng = np.random.RandomState(SEED + 64)
+    units, seg, text = paraformer_units(d, rng)
+    entries = []
+    for i in range(sum(PARAFORMER_RECIPE_UTTS)):
+        seconds = rng.uniform(*PARAFORMER_RECIPE_SECONDS)
+        path = os.path.join(d, f'p{i:02d}.wav')
+        write_wav(path, speech_like(rng, seconds), SR)
+        entries.append({'key': f'p{i:02d}', 'wav': path,
+                        'txt': text(seconds)})
+    n_train = PARAFORMER_RECIPE_UTTS[0]
+    lists = []
+    for name, part in (('train', entries[:n_train]),
+                       ('cv', entries[n_train:])):
+        lists.append(os.path.join(d, f'{name}.list'))
+        with open(lists[-1], 'w', encoding='utf-8') as f:
+            f.writelines(json.dumps(e, ensure_ascii=False) + '\n'
+                         for e in part)
+    with open(PARAFORMER_CONFIG) as f:
+        configs = yaml.safe_load(f)
+    configs['tokenizer_conf'].update(symbol_table_path=units,
+                                     seg_dict_path=seg)
+    configs['predictor_conf'] = {'threshold': PARAFORMER_TRAIN_THRESHOLD}
+    configs['cmvn_conf']['cmvn_file'] = os.path.join(d, 'global_cmvn')
+    configs.update(max_epoch=2, log_interval=1)
+    path = os.path.join(d, 'train_paraformer.yaml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(configs, f)
+    scp = os.path.join(d, 'wav.scp')
+    with open(scp, 'w') as f:
+        f.writelines(f'{e["key"]} {e["wav"]}\n' for e in entries[:n_train])
+    stats = compute_cmvn_stats.main(['--train_config', path, '--in_scp', scp,
+                                     '--out_cmvn', os.path.join(d, 'mel')])
+    count = stats['frame_num']
+    mean = np.asarray(stats['mean_stat']) / count
+    std = np.sqrt(np.maximum(np.asarray(stats['var_stat']) / count -
+                             mean ** 2, 1e-20))
+
+    def vec(v):
+        return '[ ' + ' '.join(f'{x:.6f}' for x in np.tile(v, 7)) + ' ]'
+    with open(os.path.join(d, 'am.mvn'), 'w') as f:
+        f.write(f'<Nnet>\n<AddShift> 560 560\n<LearnRateCoef> 0 '
+                f'{vec(-mean)}\n<Rescale> 560 560\n<LearnRateCoef> 0 '
+                f'{vec(1.0 / std)}\n</Nnet>\n')
+    convert_funasr_cmvn(os.path.join(d, 'am.mvn'),
+                        os.path.join(d, 'global_cmvn'))
+    return path, lists[0], lists[1]
+
+
+def paraformer_long_step(args, smi):
+    """16c: one train step of B=2 x 32 s (534 LFR frames: the encoder's
+    self-attention above the gate) on the entry point's model, optimizer
+    and step -> {kernel: launches}, readings."""
+    from wenet_tpu_torch.bin import train
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.utils.executor import to_device_batch
+    run = train.build(args)
+    B, shortest, longest = PARAFORMER_LONG_STEP
+    rng = np.random.RandomState(SEED + 65)
+    feats, lens = speech_features(rng, B, shortest, longest)
+    L = 100
+    target = rng.randint(3, PARAFORMER_VOCAB - 10, (B, L))
+    tl = np.asarray([L, L - 17])
+    target = np.where(np.arange(L)[None] < tl[:, None], target, -1)
+    batch = to_device_batch(dict(feats=feats, feats_lengths=lens,
+                                 target=target, target_lengths=tl), 'cuda')
+    T = -(-feats.shape[1] // 6)
+    run.train_step(run.state, batch, (args.seed, 0))  # warm-up
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    _, metrics = run.train_step(run.state, batch, (args.seed, 0))
+    loss = float(metrics['loss'])
+    wall = time.perf_counter() - t0
+    launches = {n: fa.LAUNCHES[n] for n in FLASH_TRAIN_KERNELS}
+    blocks = sanm_blocks(run.model)[0]
+    for name, count in launches.items():
+        if count != blocks:
+            raise RuntimeError(f'16c long-form step: {name} launched {count} '
+                               f'times, expected {blocks} (one a SAN-M '
+                               'encoder block)')
+    if not np.isfinite(loss):
+        raise RuntimeError(f'16c long-form step: loss {loss}')
+    audio = float(lens.sum()) / 100
+    print(f'  long-form step B={B} x {tuple(feats.shape)[1]} frames ({T} LFR '
+          f'frames): loss {loss:.4f}, {1e3 * wall:.1f} ms, '
+          f'{audio / wall:.1f} audio-sec/s; K4-train, K5, K6 {blocks} '
+          f'launches each ({smi})', flush=True)
+    del run
+    torch.cuda.empty_cache()
+    return launches, dict(long_step_ms=1e3 * wall,
+                          long_step_audio_sec_per_s=audio / wall)
+
+
+def paraformer_train_check(d, smi):
+    """16c: the recipe's stages 1 (cmvn), 4 (bin/train.py, two epochs) and
+    5 (average_model) on the yaml at full width: the entry point's first
+    step card == CPU, finite losses, the long-form step's launches."""
+    phase('16c paraformer bin/train.py (full width), average_model')
+    from wenet_tpu_torch.bin import average_model, train
+    config, train_list, cv_list = paraformer_recipe(d)
+    exp = os.path.join(d, 'exp')
+    argv = ['--config', config, '--train_data', train_list, '--cv_data',
+            cv_list, '--model_dir', exp, '--seed', str(SEED),
+            '--device', 'cuda', '--profile_dir', os.path.join(d, 'profile'),
+            '--profile_start_step', '1', '--profile_steps', '2']
+    args = train.get_parser().parse_args(argv)
+    entry_first_step(args)
+    records = []
+    summary, losses = logged_train(train, argv, records.append)
+    epochs = summary['epochs']
+    if len(losses) != len(records) or not np.isfinite(losses).all() or \
+            not all(np.isfinite(e['cv']['loss']) for e in epochs):
+        raise RuntimeError(f'16c: losses {losses}')
+    _, busy = trace_readings(summary['profile_trace'], keys=())
+    rate = (sum(e['audio_seconds'] for e in epochs) /
+            sum(e['train_seconds'] for e in epochs))
+    for e in epochs:
+        print(f'  bin/train.py epoch {e["epoch"]}: {e["steps"]} steps in '
+              f'{e["train_seconds"]:.2f} s, '
+              f'{e["audio_seconds"] / e["train_seconds"]:.1f} audio-sec/s, '
+              f'data wait {e["data_wait_seconds"]:.2f} s; cv loss '
+              f'{e["cv"]["loss"]:.4f} ({smi})', flush=True)
+    print('    steps B x T: ' + ', '.join(
+        f'{r["batch"]}x{r["frames"]}' for r in records) +
+        f'; losses {[round(x, 3) for x in losses]}; card busy '
+        f'{100 * busy:.1f}% of the profiled steps 2-3', flush=True)
+    avg = os.path.join(d, 'avg_2.pt')
+    chosen = average_model.main(['--src_path', exp, '--dst_model', avg,
+                                 '--num', '2', '--val_best'])
+    if len(chosen) != 2:
+        raise RuntimeError(f'16c: average of {chosen}')
+    launches, long_step = paraformer_long_step(args, smi)
+    return (os.path.join(exp, 'train.yaml'), avg, launches,
+            dict(train_audio_sec_per_s=rate, train_busy=busy,
+                 steps=len(records), **long_step))
+
+
+def paraformer_recognize_check(d, config, avg, smi):
+    """16d: bin/recognize.py in both paraformer modes on the average over
+    16 written wavs of 20-32 s in batches of 8 (each batch's longest 32
+    s: 534 LFR frames, so the encoder and the cross-attention take K4),
+    on the card, and on the CPU over the first batch: the texts equal, or
+    a row that differs explained by 16b's rule on that batch -> (K4
+    launches, readings)."""
+    phase('16d paraformer bin/recognize.py, card vs CPU')
+    from wenet_tpu_torch.bin import recognize
+    from wenet_tpu_torch.dataset.audio import write_wav
+    from wenet_tpu_torch.models.runner import paraformer_decode
+    from wenet_tpu_torch.ops import flash_attention as fa
+    n_card, n_cpu = PARAFORMER_RECOGNIZE
+    rng = np.random.RandomState(SEED + 68)
+    lists = {'card': os.path.join(d, 'decode.list'),
+             'cpu': os.path.join(d, 'decode_cpu.list')}
+    lines = []
+    for i in range(n_card):
+        path = os.path.join(d, f'd{i:02d}.wav')
+        seconds = PARAFORMER_LONG_STEP[2] if i % n_cpu == 0 else \
+            rng.uniform(*PARAFORMER_RECOGNIZE_SECONDS)
+        write_wav(path, speech_like(rng, seconds), SR)
+        lines.append(json.dumps({'key': f'd{i:02d}', 'wav': path,
+                                 'txt': ''}) + '\n')
+    for name, k in (('card', n_card), ('cpu', n_cpu)):
+        with open(lists[name], 'w') as f:
+            f.writelines(lines[:k])
+    texts, argv = {}, {}
+    for name, dev in (('card', 'cuda'), ('cpu', 'cpu')):
+        res = os.path.join(d, f'recognize_{name}')
+        argv[name] = ['--config', config, '--test_data', lists[name],
+                      '--checkpoint', avg, '--batch_size', str(n_cpu),
+                      '--result_dir', res, '--device', dev,
+                      '--modes', *PARAFORMER_MODES]
+        if name == 'card':
+            fa.reset_launches()
+            summary, busy, _ = busy_share(lambda: recognize.main(
+                argv['card']))
+            k4 = fa.LAUNCHES['flash_attention_fwd']
+            rate = summary['audio_seconds'] / summary['seconds']
+            batches = n_card // n_cpu
+            configs = paraformer_configs()
+            want_k4 = (configs['encoder_conf']['num_blocks'] +
+                       configs['decoder_conf']['num_blocks'])
+            if k4 != want_k4 * batches:
+                raise RuntimeError(f'16d: K4 {k4} launches over {batches} '
+                                   f'batches, expected {want_k4} a batch')
+        else:
+            recognize.main(argv['cpu'])
+        for mode in PARAFORMER_MODES:
+            with open(os.path.join(res, mode, 'text'),
+                      encoding='utf-8') as f:
+                texts[name, mode] = dict(line.rstrip('\n').partition(' ')[::2]
+                                        for line in f)
+    differ = sorted({k for m in PARAFORMER_MODES
+                     for k, v in texts['cpu', m].items()
+                     if texts['card', m][k] != v})
+    ties = {}
+    if differ:
+        # the CPU's batch, the card's first, through 16b's rule
+        _, _, _, dataset, runner = recognize.build(
+            recognize.get_parser().parse_args(argv['cpu']))
+        batch = next(iter(dataset))
+        x, n = (torch.from_numpy(batch[k])
+                for k in ('feats', 'feats_lengths'))
+        cpu = paraformer_forward(runner.model, x, n)
+        with torch.inference_mode():
+            want = paraformer_decode(runner.model, x, n, PARAFORMER_MODES)
+        card_model = copy.deepcopy(runner.model).cuda()
+        card = paraformer_forward(card_model, x.cuda(), n.cuda())
+        with torch.inference_mode():
+            got = paraformer_decode(card_model, x.cuda(), n.cuda(),
+                                    PARAFORMER_MODES)
+        ties = paraformer_same('16d', got, want, card, cpu)
+        del card_model
+    nonempty = sum(bool(v) for v in texts['card', PARAFORMER_MODES[0]]
+                   .values())
+    if nonempty < n_card // 2:
+        raise RuntimeError(f'16d: {nonempty} of {n_card} texts non-empty')
+    print(f'  bin/recognize.py --modes {" ".join(PARAFORMER_MODES)}: '
+          f'{n_card} texts ({nonempty} non-empty), the first {n_cpu} equal '
+          f'to the CPU\'s but {differ} {ties}; K4 {k4} launches; '
+          f'{rate:.1f} audio-sec/s, card busy {100 * busy:.1f}% '
+          f'(profiled; {smi})', flush=True)
+    return k4, dict(audio_sec_per_s=rate, busy=busy, differ=len(differ))
+
+
+def reduced_configs(name):
+    """16e: SenseVoice-small (models/sensevoice/convert.py's config of
+    FunASR's encoder) and FireRed-AED-L at their published widths,
+    reduced depth."""
+    if name == 'sensevoice':
+        from wenet_tpu_torch.models.sensevoice.convert import build_config
+        enc = dict(SENSEVOICE_SMALL, selfattention_layer_type='sanm',
+                   pos_enc_class='SinusoidalPositionEncoder')
+        enc['num_blocks'], enc['tp_blocks'] = SENSEVOICE_DEPTH
+        configs = build_config({'encoder_conf': enc}, 'bpe.model')
+        configs['output_dim'] = SENSEVOICE_VOCAB
+        configs['cmvn'] = 'global_cmvn'
+        return configs
+    f = FIRERED_AED_L
+    return {
+        'input_dim': 80, 'output_dim': f['odim'],
+        'encoder': 'firered_conformer',
+        'encoder_conf': {'output_size': f['d_model'],
+                         'attention_heads': f['n_head'],
+                         'linear_units': f['d_inner'],
+                         'num_blocks': FIRERED_DEPTH[0],
+                         'cnn_module_kernel': f['kernel_size'],
+                         'dropout_rate': 0.1},
+        'decoder': 'transformer',
+        'decoder_conf': {'attention_heads': f['n_head'],
+                         'linear_units': f['d_inner'],
+                         'num_blocks': FIRERED_DEPTH[1]},
+        'model': 'firered', 'model_conf': {'ctc_weight': 0.0},
+        'cmvn': 'global_cmvn',
+        'tokenizer_conf': {'special_tokens': {'sos': 3, 'eos': 4}},
+    }
+
+
+def reduced_decode_check(smi):
+    """16e: SenseVoice-small (CTC greedy, K4 once a SAN-M block at B=32 x
+    20-30 s) and FireRed-AED-L (the attention beam search, beam 3; its
+    rel-pos attention is plain, as the JAX package's) at a reduced depth,
+    card vs CPU on 4 rows -> (K4 launches, readings)."""
+    phase('16e SenseVoice-small and FireRed-AED-L (reduced depth), card '
+          'vs CPU')
+    from wenet_tpu_torch.models.runner import AsrRunner
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.utils.init_model import init_model
+    total_k4, readings = 0, {}
+    for name, mode in (('sensevoice', 'ctc_greedy_search'),
+                       ('firered', 'attention')):
+        configs = reduced_configs(name)
+        model = init_model(configs, torch.Generator('cuda').manual_seed(
+            SEED + 66), device='cuda').eval()
+        B, shortest, longest = REDUCED_DECODE[name]
+        feats, lens = speech_features(np.random.RandomState(SEED + 67), B,
+                                      shortest, longest)
+        cmvn = model.global_cmvn if name == 'sensevoice' else \
+            model.encoder.global_cmvn
+        if name == 'sensevoice':
+            set_lfr_cmvn(cmvn, feats, lens)
+        else:
+            rows = torch.from_numpy(np.concatenate(
+                [f[:n] for f, n in zip(feats, lens)])).double()
+            with torch.no_grad():
+                cmvn.mean.copy_(rows.mean(0).float())
+                cmvn.istd.copy_((1 / rows.std(0)).float())
+        n = REDUCED_CPU
+        cpu_model = copy.deepcopy(model).cpu()
+        x, n_x = torch.from_numpy(feats).cuda(), torch.from_numpy(lens).cuda()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        got = AsrRunner(model, 'cuda').decode([mode], x, n_x, beam_size=3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k4 = fa.LAUNCHES['flash_attention_fwd']
+        want_k4 = sum(SENSEVOICE_DEPTH) if name == 'sensevoice' else 0
+        if k4 != want_k4:
+            raise RuntimeError(f'16e {name}: K4 {k4} launches, expected '
+                               f'{want_k4}')
+        total_k4 += k4
+        want = AsrRunner(cpu_model, 'cpu').decode(
+            [mode], feats[:n], lens[:n], beam_size=3)
+        with torch.inference_mode():
+            eo, em = model.forward_encoder(x[:n], n_x[:n])
+            ceo, cem = cpu_model.forward_encoder(torch.from_numpy(
+                feats[:n]), torch.from_numpy(lens[:n]))
+            err = max((eo[b, :int(l)].cpu() - ceo[b, :int(l)]).abs().max()
+                      .item() for b, l in enumerate(cem[:, 0].sum(-1)))
+            logp, clogp = (m.ctc_logprobs(e).float().cpu()
+                           for m, e in ((model, eo), (cpu_model, ceo)))
+        if err > 1e-3:
+            raise RuntimeError(f'16e {name}: encoder output {err} from the '
+                               'CPU')
+        flips = 0
+        for b, (g, w) in enumerate(zip(got[mode][:n], want[mode])):
+            if list(g.tokens) == list(w.tokens):
+                continue
+            if mode == 'ctc_greedy_search':
+                valid = torch.arange(logp.shape[1]) < int(cem[b, 0].sum())
+                diff = (logp[b] - clogp[b]).abs().amax(-1)
+                frames = (logp[b].argmax(-1) != clogp[b].argmax(-1)) & valid
+                top = clogp[b].topk(2, dim=-1).values
+                ok = bool((top[frames, 0] - top[frames, 1] <=
+                           2 * diff[frames]).all())
+            else:
+                ok = abs(g.score - w.score) <= DECODER_TOKEN_TIE * (
+                    len(g.tokens) + 1)
+            if not ok:
+                raise RuntimeError(f'16e {name}: {mode} row {b} differs '
+                                   'from the CPU beyond a tie')
+            flips += 1
+        audio = float(lens.sum()) / 100
+        print(f'  {name}: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}'
+              f'M parameters, {mode} B={B}: {1e3 * wall:.1f} ms, '
+              f'{audio / wall:.1f} audio-sec/s; K4 {k4} launches; encoder '
+              f'within {err:.3g} of the CPU; {n} rows card == CPU '
+              f'({flips} ties); hypothesis lengths '
+              f'{[len(r.tokens) for r in got[mode][:n]]} ({smi})', flush=True)
+        readings[name] = dict(audio_sec_per_s=audio / wall, encoder_err=err,
+                              ties=flips)
+        del model, cpu_model
+        torch.cuda.empty_cache()
+    return total_k4, readings
+
+
+def paraformer_check(smi):
+    """Phase 16 -> ({kernel name: launches}, {kernel name: 16a readings},
+    readings)."""
+    phase('16 paraformer (examples/aishell/paraformer), SenseVoice-small, '
+          'FireRed')
+    import shutil
+    t0 = time.perf_counter()
+    kernels = paraformer_kernel_check()
+    k4, decode = paraformer_decode_check(smi)
+    d = tempfile.mkdtemp(prefix='chip_smoke_paraformer_')
+    config, avg, launches, train = paraformer_train_check(d, smi)
+    k4_rec, recognize = paraformer_recognize_check(d, config, avg, smi)
+    k4_red, reduced = reduced_decode_check(smi)
+    shutil.rmtree(d)
+    launches['flash_attention_fwd'] = k4 + k4_rec + k4_red
+    print(f'  phase 16 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return launches, kernels, dict(decode=decode, train=train,
+                                   recognize=recognize, reduced=reduced)
+
+
 def main():
     smi = device()
     build()
@@ -6016,6 +6762,7 @@ def main():
     stage67_launches, stage67_readings = export_wfst_check(smi)
     rnnt_launches, rnnt_readings = transducer_check(smi)
     whisper_launches, whisper_readings = whisper_recipe_check(smi)
+    para_launches, para_kernels, para_readings = paraformer_check(smi)
     foreign = [m for m in sys.modules
                if m == 'jax' or m.startswith('jax.') or m == 'wenet_tpu'
                or m.startswith('wenet_tpu.')]
@@ -6056,19 +6803,28 @@ def main():
                         replaces='wenet_tpu/ops/flash_attention.py:68',
                         launches=flash_launches +
                         zoo_launches['flash_attention_fwd'] +
-                        whisper_launches['flash_attention_fwd'],
+                        whisper_launches['flash_attention_fwd'] +
+                        para_launches['flash_attention_fwd'],
                         launches_zoo=zoo_launches['flash_attention_fwd'],
                         launches_whisper_recipe=whisper_launches[
                             'flash_attention_fwd'],
                         whisper_recipe=whisper_readings,
+                        launches_paraformer=para_launches[
+                            'flash_attention_fwd'],
+                        paraformer=dict(
+                            para_kernels['flash_attention_fwd'],
+                            **para_readings),
                         **flash_report))
     for name, (source, replaces) in FLASH_TRAIN_KERNELS.items():
         kernels.append(dict(name=name, route='cuda', source=source,
                             replaces=replaces,
                             launches=flash_train_launches[name] +
-                            zoo_launches[name] + whisper_launches[name],
+                            zoo_launches[name] + whisper_launches[name] +
+                            para_launches[name],
                             launches_zoo=zoo_launches[name],
                             launches_whisper_recipe=whisper_launches[name],
+                            launches_paraformer=para_launches[name],
+                            paraformer=para_kernels[name],
                             **flash_train_report[name]))
     print(f'== done (at {time.perf_counter() - _T0:.0f} s)')
     print(json.dumps({'kernels': kernels}))

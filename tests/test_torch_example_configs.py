@@ -2,7 +2,7 @@
 builds with `init_model(..., device='meta')` (shapes only, no weights
 drawn), but for the model families the port does not have yet, which
 raise NotImplementedError naming their ROADMAP.md queue 1 item.  For the
-encoder zoo's and the transducers' yamls, shrunk as
+encoder zoo's, the transducers' and the paraformer's yamls, shrunk as
 tests/test_example_configs.py shrinks them, the port's state dict has the
 keys and shapes of the JAX package's variables carried across by
 `state_dict_from_jax`."""
@@ -21,7 +21,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.relpath(p, REPO) for p in glob.glob(
     os.path.join(REPO, 'examples/**/conf/*.yaml'), recursive=True))
 UNPORTED = {  # yaml -> its ROADMAP.md queue 1 item
-    'examples/aishell/paraformer/conf/train_paraformer.yaml': 9,
     'examples/librispeech/ssl/conf/train_bestrq.yaml': 11,
 }
 ZOO = ['examples/aishell/s0/conf/train_transformer.yaml',
@@ -32,8 +31,10 @@ ZOO = ['examples/aishell/s0/conf/train_transformer.yaml',
        'examples/aishell/s0/conf/train_u2pp_efficonformer.yaml']
 TRANSDUCERS = ['examples/aishell/rnnt/conf/train_u2pp_transducer.yaml',
                'examples/librispeech/rnnt/conf/conformer_rnnt.yaml']
+PARAFORMER = ['examples/aishell/paraformer/conf/train_paraformer.yaml']
 _SHRINK = {'num_blocks': 2, 'r_num_blocks': 1, 'linear_units': 64,
-           'cgmlp_linear_units': 64, 'reduce_idx': 0, 'recover_idx': 1}
+           'cgmlp_linear_units': 64, 'reduce_idx': 0, 'recover_idx': 1,
+           'att_layer_num': 2}
 
 
 def _configs(path, shrink=False):
@@ -44,14 +45,17 @@ def _configs(path, shrink=False):
     dataset_conf = configs.get('dataset_conf', {})
     configs['input_dim'] = dataset_conf.get('fbank_conf', dataset_conf.get(
         'log_mel_spectrogram_conf', {})).get('num_mel_bins', 80)
+    if 'lfr_conf' in configs:  # the LFR features' width
+        configs['input_dim'] *= configs['lfr_conf']['lfr_m']
     configs.setdefault('output_dim', 100)
     return configs
 
 
 def test_sweep_counts():
     assert len(CONFIGS) == 23
-    assert set(UNPORTED) | set(ZOO) | set(TRANSDUCERS) <= set(CONFIGS)
-    assert len(CONFIGS) - len(UNPORTED) == 21
+    assert set(UNPORTED) | set(ZOO) | set(TRANSDUCERS) | set(
+        PARAFORMER) <= set(CONFIGS)
+    assert len(CONFIGS) - len(UNPORTED) == 22
 
 
 @pytest.mark.parametrize('path', CONFIGS)
@@ -68,11 +72,12 @@ def test_config_builds_or_names_its_item(path):
         configs['encoder_conf']['output_size']
 
 
-@pytest.mark.parametrize('path', ZOO + TRANSDUCERS)
+@pytest.mark.parametrize('path', ZOO + TRANSDUCERS + PARAFORMER)
 def test_zoo_state_dict_matches_jax(path):
     """Keys and shapes of the port's state dict == the JAX package's
     variables (abstract, `jax.eval_shape`) carried across (a transducer's
-    predictor and joint too)."""
+    predictor and joint too, a paraformer's CIF predictor and sampler
+    embedding, fed features of the width before LFR)."""
     import jax
     import jax.numpy as jnp
     from wenet_tpu.utils.init_model import init_model as jax_init_model
@@ -80,7 +85,7 @@ def test_zoo_state_dict_matches_jax(path):
     configs = _configs(path, shrink=True)
     configs['cmvn'] = None
     jmodel, _ = jax_init_model(None, copy.deepcopy(configs))
-    mel = configs['input_dim']
+    mel = configs['input_dim'] // configs.get('lfr_conf', {}).get('lfr_m', 1)
     shapes = jax.eval_shape(
         jmodel.init, jax.random.PRNGKey(0), jnp.zeros((1, 32, mel)),
         jnp.asarray([32]), jnp.zeros((1, 4), jnp.int32), jnp.asarray([4]))

@@ -312,11 +312,20 @@ def test_init_tokenizer_matches_jax(kind, spm_files, hf_dir, whisper_pair,
     assert port.vocab_size() == jax_tok.vocab_size()
 
 
-def test_init_tokenizer_raises_for_paraformer():
+def test_init_tokenizer_raises_for_paraformer(tmp_path):
+    """The paraformer tokenizer is ported (tests/test_torch_paraformer.py
+    holds it to the JAX package's): it raises only for files it cannot
+    read, as the JAX package's does; an unknown kind raises
+    NotImplementedError."""
     from wenet_tpu_torch.utils.init_tokenizer import init_tokenizer
-    with pytest.raises(NotImplementedError, match='queue 1 item 9'):
-        init_tokenizer({'tokenizer': 'paraformer', 'tokenizer_conf': {
-            'symbol_table_path': 'units.txt', 'seg_dict_path': 'seg'}})
+    conf = {'symbol_table_path': str(tmp_path / 'units.txt'),
+            'seg_dict_path': str(tmp_path / 'seg')}
+    with pytest.raises(FileNotFoundError):
+        init_tokenizer({'tokenizer': 'paraformer', 'tokenizer_conf': conf})
+    (tmp_path / 'units.txt').write_text('<blank> 0\n<unk> 1\n你 2\n')
+    (tmp_path / 'seg').write_text('hello\the llo\n')
+    tok = init_tokenizer({'tokenizer': 'paraformer', 'tokenizer_conf': conf})
+    assert tok.tokenize('你 hello')[0] == ['你', 'he', 'llo']
     with pytest.raises(NotImplementedError):
         init_tokenizer({'tokenizer': 'nope'})
 

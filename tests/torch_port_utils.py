@@ -3,8 +3,22 @@ one tiny U2++ conformer config built in both packages on the same
 weights, and numpy inputs made from a seed."""
 
 import copy
+import os
 
 import numpy as np
+
+# The tier-1 command runs pytest-xdist workers side by side on the host's
+# cores.  Each torch process would start an intra-op pool of one thread a
+# core, and the workers' OpenMP threads then spin against each other: six
+# copies of a recognize test that takes 6 s alone, run side by side on 8
+# cores, took 320 s each so and 16 s with one thread each.  So each
+# worker (and the processes it starts) takes its share of the cores.
+_WORKERS = int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))
+if _WORKERS > 1:
+    import torch
+    _THREADS = max(1, len(os.sched_getaffinity(0)) // _WORKERS)
+    torch.set_num_threads(_THREADS)
+    os.environ.setdefault('OMP_NUM_THREADS', str(_THREADS))
 
 IDIM = 40
 VOCAB = 30

@@ -9,7 +9,9 @@ wenet_tpu/bin/recognize.py, on --device (default cuda):
         attention_rescoring attention
 
 (a transducer's train.yaml also takes rnnt_greedy_search and
-rnnt_beam_search, whose beam is --beam_size)
+rnnt_beam_search, whose beam is --beam_size; a paraformer's takes
+paraformer_greedy_search, paraformer_beam_search and, with a CTC head,
+the two CTC modes)
 
 writes `<result_dir>/<mode>/text` (`key text` lines) for each mode.  The
 test set goes through the port's `Dataset` without augmentation,
@@ -29,9 +31,10 @@ inside) beside each text file.  The checkpoint is the port's `.pt` (as
 bin/average_model writes it).
 
 Not ported, and raising NotImplementedError: the hlg_* modes (ROADMAP.md
-queue 1 item 11) and the paraformer_* modes (item 9).  The hlg modes' own
-options (--hlg, --word, --lm_scale, --decoder_scale, --r_decoder_scale)
-are not accepted."""
+queue 1 item 11).  Their own options (--hlg, --word, --lm_scale,
+--decoder_scale, --r_decoder_scale) are not accepted.  A config with an
+`lfr_conf` (paraformer, SenseVoice) has an input_dim of the mel bins
+times lfr_m, as in the JAX package."""
 
 import argparse
 import dataclasses
@@ -48,7 +51,7 @@ from wenet_tpu_torch.utils.ctc_utils import get_blank_id
 from wenet_tpu_torch.utils.init_tokenizer import init_tokenizer
 
 # mode prefix -> the ROADMAP.md queue 1 item that ports it
-_NOT_PORTED = {'hlg_': 11, 'paraformer_': 9}
+_NOT_PORTED = {'hlg_': 11}
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -145,6 +148,8 @@ def build(args):
     configs['input_dim'] = test_conf.get(
         'fbank_conf', test_conf.get('mfcc_conf', test_conf.get(
             'log_mel_spectrogram_conf', {}))).get('num_mel_bins', 80)
+    if 'lfr_conf' in configs:
+        configs['input_dim'] *= configs['lfr_conf'].get('lfr_m', 7)
     configs['output_dim'] = tokenizer.vocab_size()
     configs, blank_id = get_blank_id(configs, tokenizer.symbol_table)
     dataset = Dataset(args.data_type, args.test_data, tokenizer, test_conf,

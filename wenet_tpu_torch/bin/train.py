@@ -111,6 +111,9 @@ def build(args) -> types.SimpleNamespace:
     configs['input_dim'] = dc.get('fbank_conf', dc.get(
         'mfcc_conf', dc.get('log_mel_spectrogram_conf', {}))).get(
             'num_mel_bins', 80)
+    if 'lfr_conf' in configs:
+        # the model's input is the LFR features: mel bins x lfr_m
+        configs['input_dim'] *= configs['lfr_conf'].get('lfr_m', 7)
     configs['output_dim'] = tokenizer.vocab_size()
     train_dataset, cv_dataset = datasets(args, configs, tokenizer)
 
@@ -124,9 +127,13 @@ def build(args) -> types.SimpleNamespace:
         from wenet_tpu_torch.utils.cmvn import load_cmvn
         mean, istd = load_cmvn(cmvn_file, configs['cmvn_conf'].get(
             'is_json_cmvn', True))
+        # the encoder's, or the model's (SenseVoice: after LFR)
+        cmvn = getattr(model.encoder, 'global_cmvn', None)
+        if cmvn is None:
+            cmvn = model.global_cmvn
         with torch.no_grad():
-            model.encoder.global_cmvn.mean.copy_(torch.from_numpy(mean))
-            model.encoder.global_cmvn.istd.copy_(torch.from_numpy(istd))
+            cmvn.mean.copy_(torch.from_numpy(mean))
+            cmvn.istd.copy_(torch.from_numpy(istd))
     infos = {}
     if args.checkpoint is not None:
         infos = load_checkpoint(model, args.checkpoint,

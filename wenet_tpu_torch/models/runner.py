@@ -1,7 +1,8 @@
 """AsrRunner: offline batch decode on one device.  Counterpart of
 wenet_tpu/models/runner.py `AsrRunner.decode` for the CTC greedy, CTC
 prefix beam (with context biasing), attention-rescoring and attention
-(beam search) modes and a transducer's greedy and beam searches, with
+(beam search) modes, a transducer's greedy and beam searches and a
+paraformer's greedy and beam searches (`paraformer_decode`), with
 its simulated streaming (`simulate_streaming`), and of `decode_wav` (the
 fbank on the device) and `transcribe`.
 
@@ -13,6 +14,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from wenet_tpu_torch.models.paraformer.search import (
+    paraformer_beam_search_ids, paraformer_greedy_search_ids)
 from wenet_tpu_torch.models.transformer.search import (
     DecodeResult, attention_beam_search, attention_rescoring,
     ctc_greedy_search)
@@ -23,7 +26,11 @@ from wenet_tpu_torch.runtime import native_beam
 
 MODES = ('ctc_greedy_search', 'ctc_prefix_beam_search',
          'attention_rescoring', 'attention', 'rnnt_greedy_search',
-         'rnnt_beam_search')
+         'rnnt_beam_search', 'paraformer_greedy_search',
+         'paraformer_beam_search')
+# what a paraformer decodes: its own searches and CTC on the encoder
+PARAFORMER_MODES = ('paraformer_greedy_search', 'paraformer_beam_search',
+                    'ctc_greedy_search', 'ctc_prefix_beam_search')
 
 
 def ctc_prefix_beam_search(ctc_probs: torch.Tensor,
@@ -41,6 +48,52 @@ def ctc_prefix_beam_search(ctc_probs: torch.Tensor,
     return [DecodeResult(tokens=hyps[0], score=scores[0], times=times[0],
                          nbest=hyps, nbest_scores=scores, nbest_times=times)
             for hyps, times, scores in outs]
+
+
+def paraformer_decode(model, feats: torch.Tensor,
+                      feats_lengths: torch.Tensor, methods: List[str],
+                      beam_size: int = 10, blank_id: int = 0,
+                      blank_penalty: float = 0.0, context_graph=None
+                      ) -> Dict[str, List[DecodeResult]]:
+    """{mode: one DecodeResult per utterance} of a paraformer
+    (`PARAFORMER_MODES`): `forward_paraformer`, then the argmax and its
+    log-prob on the device and the host searches over them; the greedy
+    search's timestamps from the CIF peaks (the trace integrated on the
+    host); the CTC modes on the encoder output.  As in the JAX package's
+    `_decode_paraformer`."""
+    other = [m for m in methods if m not in PARAFORMER_MODES]
+    if other:
+        raise ValueError(f'{other} are not paraformer decode modes')
+    res = model.forward_paraformer(feats, feats_lengths)
+    results: Dict[str, List[DecodeResult]] = {}
+    if any(m.startswith('paraformer_') for m in methods):
+        ids = res['decoder_out'].argmax(-1)
+        lp = res['decoder_out'].gather(-1, ids[..., None])[..., 0]
+        lens = res['decoder_out_lens'].cpu().numpy()
+        ids, lp = ids.cpu().numpy(), lp.float().cpu().numpy()
+        if 'paraformer_greedy_search' in methods:
+            peaks = model.forward_cif_peaks(
+                res['tp_alphas'].float().cpu(),
+                res['decoder_out_lens'].cpu()).numpy()
+            results['paraformer_greedy_search'] = \
+                paraformer_greedy_search_ids(ids, lp, lens, peaks)
+        if 'paraformer_beam_search' in methods:
+            results['paraformer_beam_search'] = \
+                paraformer_beam_search_ids(ids, lp, lens)
+    if any(m.startswith('ctc_') for m in methods):
+        if model.ctc is None:
+            raise ValueError('this paraformer has no CTC head (ctc_weight '
+                             '0): the ctc modes need one')
+        ctc_probs = model.ctc_logprobs(res['encoder_out'], blank_penalty,
+                                       blank_id)
+        enc_lens = res['encoder_out_mask'][:, 0, :].sum(-1)
+        if 'ctc_greedy_search' in methods:
+            results['ctc_greedy_search'] = ctc_greedy_search(
+                ctc_probs, enc_lens, blank_id)
+        if 'ctc_prefix_beam_search' in methods:
+            results['ctc_prefix_beam_search'] = ctc_prefix_beam_search(
+                ctc_probs, enc_lens, beam_size, blank_id, context_graph)
+    return results
 
 
 def rnnt_decode(model, encoder_out: torch.Tensor,
@@ -112,15 +165,21 @@ class AsrRunner:
         unknown = [m for m in methods if m not in MODES]
         if unknown:
             raise NotImplementedError(f'decode modes not ported: {unknown}')
-        if any(m.startswith('rnnt_') for m in methods) and not hasattr(
-                self.model, 'greedy_search'):
-            raise ValueError(f'{[m for m in methods if "rnnt_" in m]} '
-                             'need a transducer model')
+        for prefix, attr, kind in (('rnnt_', 'greedy_search', 'transducer'),
+                                   ('paraformer_', 'forward_paraformer',
+                                    'paraformer')):
+            wanted = [m for m in methods if m.startswith(prefix)]
+            if wanted and not hasattr(self.model, attr):
+                raise ValueError(f'{wanted} need a {kind} model')
         feats = torch.as_tensor(feats, device=self.device)
         if self.dtype is not None:
             feats = feats.to(self.dtype)
         feats_lengths = torch.as_tensor(feats_lengths, device=self.device)
         model = self.model
+        if hasattr(model, 'forward_paraformer'):
+            return paraformer_decode(model, feats, feats_lengths, methods,
+                                     beam_size, blank_id, blank_penalty,
+                                     context_graph)
         if simulate_streaming and decoding_chunk_size > 0:
             if feats.shape[0] != 1:
                 raise ValueError('simulate_streaming decodes one utterance '

@@ -72,14 +72,16 @@ class RelPositionalEncoding(PositionalEncoding):
         return self.dropout(x * self.xscale), self.dropout(pos_emb)
 
 
-def whisper_position_encoding(size: int, d_model: int,
-                              device=None) -> torch.Tensor:
+def whisper_position_encoding(size: int, d_model: int, device=None,
+                              offset: int = 0) -> torch.Tensor:
     """Whisper's [sin | cos] encoding (not interleaved; log step over
-    d/2 - 1) of positions [0, size) -> (1, size, d)."""
+    d/2 - 1) of positions [offset, offset + size) -> (1, size, d) (the
+    paraformer encoder's starts at 1)."""
     log_inc = math.log(10000.0) / (d_model // 2 - 1)
     inv = torch.exp(-log_inc * torch.arange(d_model // 2, device=device,
                                             dtype=torch.float32))
-    ang = torch.arange(size, device=device, dtype=torch.float32)[:, None] * inv
+    ang = torch.arange(offset, offset + size, device=device,
+                       dtype=torch.float32)[:, None] * inv
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[None]
 
 

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 import yaml
 
-_LIST_SEG = re.compile(r'^(encoders|decoders)_(\d+)$')
+_LIST_SEG = re.compile(
+    r'^(encoders0|tp_encoders|encoders|decoders3|decoders)_(\d+)$')
 _CONV_SEG = re.compile(r'^conv_(\d+)$')
 # the transducer joint's HAT heads: the Linear at index 2 of the
 # reference's Sequentials, `blank_pred_2` / `token_pred_2` in the JAX
@@ -89,6 +90,10 @@ def _torch_layout(a: np.ndarray, leaf: str, key: str) -> np.ndarray:
         a = a.T  # Dense (in, out) -> Linear (out, in)
         if _POINTWISE_CONV1D.search(key):
             a = a[:, :, None]  # -> Conv1d (out, in, 1)
+    elif a.ndim == 3 and 'tp_upsample_cnn' in key:
+        # flax ConvTranspose (K, in, out) correlates where torch's
+        # ConvTranspose1d (in, out, K) scatters: the taps reverse
+        a = np.ascontiguousarray(a[::-1].transpose(1, 2, 0))
     elif a.ndim == 3:
         a = a.transpose(2, 1, 0)  # (K, in, out) -> Conv1d (out, in, K)
     elif a.ndim == 4:

@@ -1,10 +1,15 @@
 """Config-driven model construction.  Counterpart of the `asr_model`,
-`transducer` and `whisper` entries of wenet_tpu/utils/init_model.py: an
-encoder of the zoo (conformer, transformer, branchformer, E-Branchformer,
-Squeezeformer, efficient conformer), a (bi)transformer decoder and a CTC
-head, and a transducer's predictor (rnn, embedding, conv) and joint,
-from the same train.yaml schema (the efficient conformer's `efficient_conf`
-section merged into its encoder_conf, as the JAX package does), with
+`transducer`, `whisper`, `paraformer`, `sensevoice_small` and `firered`
+entries of wenet_tpu/utils/init_model.py: an encoder of the zoo
+(conformer, transformer, branchformer, E-Branchformer, Squeezeformer,
+efficient conformer, the SAN-M encoders, FireRed's conformer), a
+(bi)transformer or SAN-M decoder (none for SenseVoice) and a CTC head, a
+transducer's predictor (rnn, embedding, conv) and joint, and a
+paraformer's CIF predictor (`predictor_conf`, the JAX package's
+defaults; `cif_predictor_conf` is not read, as there), from the same
+train.yaml schema: `input_dim` is the LFR features' width where the
+config has an `lfr_conf`, and the efficient conformer's `efficient_conf`
+section is merged into its encoder_conf, as the JAX package does; with
 LoRA attention projections when `lora_conf.use_lora` is set (the
 conformer's and transformer's encoder always, the decoder's with
 `lora_decoder`).
@@ -16,6 +21,7 @@ config uses) must have that value; any other option raises
 NotImplementedError."""
 
 import inspect
+import logging
 import math
 from typing import Optional
 
@@ -35,6 +41,12 @@ from wenet_tpu_torch.models.branchformer.encoder import BranchformerEncoder
 from wenet_tpu_torch.models.e_branchformer.encoder import EBranchformerEncoder
 from wenet_tpu_torch.models.efficient_conformer.encoder import (
     EfficientConformerEncoder)
+from wenet_tpu_torch.models.firered.model import (FireRedConformerEncoder,
+                                                  FireRedModel)
+from wenet_tpu_torch.models.paraformer.layers import SanmDecoder, SanmEncoder
+from wenet_tpu_torch.models.paraformer.paraformer import Paraformer, Predictor
+from wenet_tpu_torch.models.sensevoice.sensevoice_small_model import (
+    SanmEncoderWithTp, SenseVoiceSmall)
 from wenet_tpu_torch.models.squeezeformer.encoder import SqueezeformerEncoder
 from wenet_tpu_torch.models.transducer.joint import JOINT_CLASSES
 from wenet_tpu_torch.models.transducer.predictor import PREDICTOR_CLASSES
@@ -55,19 +67,22 @@ ENCODER_CLASSES = {
     # plain ones for an asr_model)
     'dual_transformer': TransformerEncoder,
     'dual_conformer': ConformerEncoder,
+    'sanm_encoder': SanmEncoder,
+    'sanm_encoder_with_tp': SanmEncoderWithTp,
+    'firered_conformer': FireRedConformerEncoder,
 }
 ENCODER_TYPE_OF = {'dual_transformer': 'transformer',
                    'dual_conformer': 'conformer'}
 DECODER_CLASSES = {'transformer': TransformerDecoder,
-                   'bitransformer': BiTransformerDecoder}
+                   'bitransformer': BiTransformerDecoder,
+                   'sanm_decoder': SanmDecoder}
 MODEL_CLASSES = {'asr_model': ASRModel, 'whisper': Whisper,
-                 'transducer': Transducer}
+                 'transducer': Transducer, 'paraformer': Paraformer,
+                 'sensevoice_small': SenseVoiceSmall,
+                 'firered': FireRedModel}
 # the ROADMAP.md queue 1 item of each model family not ported (item 8,
 # the rest of the encoder zoo, for any other name)
-UNPORTED_ITEM = {'paraformer': 9, 'sanm_encoder': 9,
-                 'sanm_encoder_with_tp': 9, 'sensevoice_small': 9,
-                 'firered': 9, 'firered_conformer': 9, 'k2_model': 11,
-                 'bestrq_model': 11, 'w2vbert_model': 11,
+UNPORTED_ITEM = {'k2_model': 11, 'bestrq_model': 11, 'w2vbert_model': 11,
                  'wav2vec2_model': 11}
 # accepted and ignored (remat is not ported; it changes no result)
 _IGNORED = {'gradient_checkpointing', 'use_sdpa'}
@@ -78,6 +93,9 @@ _FIXED_ALL = {'cmvn_norm_var': True, 'static_chunk_size': 0,
               'normalize_before': True, 'query_bias': True,
               'key_bias': True, 'value_bias': True, 'mlp_bias': True,
               'mlp_type': 'position_wise_feed_forward'}
+_SANM_FIXED = {'input_layer': 'paraformer_dummy',
+               'pos_enc_layer_type': 'abs_pos_paraformer',
+               'use_dynamic_chunk': False}
 _CONFORMER_FIXED = {'pos_enc_layer_type': 'rel_pos',
                     'selfattention_layer_type': 'rel_selfattn',
                     'activation_type': 'swish', 'macaron_style': True,
@@ -93,7 +111,15 @@ _ENCODER_FIXED_BY_TYPE = {
     'squeezeformer': {'pos_enc_layer_type': 'rel_pos',
                       'time_reduction_layer_type': 'conv1d',
                       'concat_after': False},
+    'sanm_encoder': _SANM_FIXED,
+    'sanm_encoder_with_tp': _SANM_FIXED,
+    'firered_conformer': dict(
+        _CONFORMER_FIXED, input_layer='conv2d',
+        pos_enc_layer_type='rel_pos_firered',
+        selfattention_layer_type='firered_rel_selfattn', causal=False),
 }
+# model options implemented at one value only
+_MODEL_FIXED = {'paraformer': {'predictor_weight': 1.0, 'predictor_bias': 1}}
 _DECODER_FIXED = {'normalize_before': True, 'use_output_layer': True,
                   'src_attention': True}
 
@@ -158,12 +184,20 @@ def init_model(configs: dict, generator: Optional[torch.Generator] = None,
     enc_cls = ENCODER_CLASSES[encoder_type]
     vocab_size = configs['output_dim']
     decoder_type = configs.get('decoder', 'bitransformer')
-    if decoder_type not in DECODER_CLASSES:
+    if decoder_type is not None and decoder_type not in DECODER_CLASSES:
         raise NotImplementedError(f'decoder={decoder_type!r} is not ported')
-    dec_cls = DECODER_CLASSES[decoder_type]
-    dec_params = _params(TransformerDecoder.__init__)
-    if dec_cls is BiTransformerDecoder:
-        dec_params.add('r_num_blocks')
+    dec_cls = DECODER_CLASSES.get(decoder_type)
+    dec_kw, dec_params = {}, set()
+    if dec_cls is SanmDecoder:
+        dec_params = _params(SanmDecoder.__init__)
+        if dec_lora is not None:
+            raise NotImplementedError('LoRA on the sanm decoder is not '
+                                      'ported')
+    elif dec_cls is not None:
+        dec_params = _params(TransformerDecoder.__init__)
+        if dec_cls is BiTransformerDecoder:
+            dec_params.add('r_num_blocks')
+        dec_kw = {'lora_conf': dec_lora}
     dec_conf = _conf(configs.get('decoder_conf', {}), dec_params, 'decoder',
                      _DECODER_FIXED)
 
@@ -180,24 +214,37 @@ def init_model(configs: dict, generator: Optional[torch.Generator] = None,
                                   'not ported')
     fixed = dict(_FIXED_ALL, **_ENCODER_FIXED_BY_TYPE[
         ENCODER_TYPE_OF.get(encoder_type, encoder_type)])
+    # SenseVoice's cmvn is the model's, after LFR (JAX init_model.py:131)
+    use_cmvn = (configs.get('cmvn') == 'global_cmvn' and
+                model_type != 'sensevoice_small')
+    model_conf = dict(configs.get('model_conf', {}))
+    if model_type == 'transducer':
+        # accepted and ignored, as the JAX package's Transducer does:
+        # the attention loss weighs 1 - transducer_weight - ctc_weight
+        model_conf.pop('attention_weight', None)
+    for key, value in _MODEL_FIXED.get(model_type, {}).items():
+        if model_conf.get(key, value) != value:
+            raise NotImplementedError(f'model option {key}='
+                                      f'{model_conf[key]!r} is not ported')
+        model_conf.pop(key, None)
     with torch.device('meta'):
         encoder = enc_cls(
-            configs['input_dim'],
-            use_cmvn=configs.get('cmvn') == 'global_cmvn', **enc_kw,
+            configs['input_dim'], use_cmvn=use_cmvn, **enc_kw,
             **_conf(enc_conf, _params(enc_cls.__init__), 'encoder', fixed))
-        decoder = dec_cls(vocab_size, encoder.output_size(),
-                          lora_conf=dec_lora, **dec_conf)
+        decoder = (dec_cls(vocab_size, encoder.output_size(), **dec_kw,
+                           **dec_conf) if dec_cls is not None else None)
         ctc = CTC(vocab_size, encoder.output_size(),
                   configs.get('ctc_conf', {}).get('ctc_blank_id', 0))
         model_cls = MODEL_CLASSES[model_type]
-        extra = (_transducer_parts(configs, vocab_size,
-                                   encoder.output_size())
-                 if model_type == 'transducer' else {})
-        model_conf = dict(configs.get('model_conf', {}))
+        extra = {}
         if model_type == 'transducer':
-            # accepted and ignored, as the JAX package's Transducer does:
-            # the attention loss weighs 1 - transducer_weight - ctc_weight
-            model_conf.pop('attention_weight', None)
+            extra = _transducer_parts(configs, vocab_size,
+                                      encoder.output_size())
+        elif model_type == 'paraformer':
+            extra = {'predictor': _cif_predictor(configs,
+                                                 encoder.output_size())}
+            if model_conf.get('ctc_weight', 0.5) == 0.0:
+                ctc = None  # no CTC parameters, as in the JAX package
         model = model_cls(
             vocab_size, encoder, decoder, ctc,
             special_tokens=special_tokens, **extra,
@@ -208,6 +255,23 @@ def init_model(configs: dict, generator: Optional[torch.Generator] = None,
         model.to_empty(device=device)
         init_weights(model, generator)
     return model
+
+
+def _cif_predictor(configs: dict, enc_output_size: int) -> Predictor:
+    """The paraformer's CIF predictor from `predictor_conf`, with the JAX
+    package's defaults (idim the encoder's width, l_order and r_order
+    1).  `cif_predictor_conf`, which the paraformer yaml sets, is not
+    read, as in the JAX package (its values are the defaults)."""
+    if 'cif_predictor_conf' in configs and 'predictor_conf' not in configs:
+        logging.warning('cif_predictor_conf is not read: the paraformer '
+                        'predictor takes predictor_conf (here the '
+                        'defaults), as the JAX package does')
+    pred_conf = _conf(configs.get('predictor_conf', {}),
+                      _params(Predictor.__init__), 'predictor')
+    pred_conf.setdefault('idim', enc_output_size)
+    pred_conf.setdefault('l_order', 1)
+    pred_conf.setdefault('r_order', 1)
+    return Predictor(**pred_conf)
 
 
 def _transducer_parts(configs: dict, vocab_size: int,
@@ -255,7 +319,8 @@ def init_weights(model: nn.Module,
         return lambda t: t.uniform_(-bound, bound, generator=generator)
 
     for m in model.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d,
+                          nn.ConvTranspose1d)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             fill(m.weight, uniform(bound))
             if m.bias is not None:

@@ -1,7 +1,6 @@
 """Tokenizer factory from train.yaml.  Counterpart of
-wenet_tpu/utils/init_tokenizer.py: whisper, char, bpe, sentencepiece and
-huggingface.  The paraformer tokenizer comes with the paraformer model
-(ROADMAP.md, queue 1 item 9) and raises NotImplementedError."""
+wenet_tpu/utils/init_tokenizer.py: whisper, char, bpe, paraformer,
+sentencepiece and huggingface."""
 
 import logging
 
@@ -30,9 +29,11 @@ def init_tokenizer(configs) -> BaseTokenizer:
             conf.get('non_lang_syms_path'),
             split_with_space=conf.get('split_with_space', False))
     elif tokenizer_type == 'paraformer':
-        raise NotImplementedError(
-            'the paraformer tokenizer is not ported (ROADMAP.md, queue 1 '
-            'item 9)')
+        from wenet_tpu_torch.text.paraformer_tokenizer import (
+            ParaformerTokenizer)
+        tokenizer = ParaformerTokenizer(
+            symbol_table=conf['symbol_table_path'],
+            seg_dict=conf['seg_dict_path'])
     elif tokenizer_type == 'sentencepiece':
         from wenet_tpu_torch.text.sentencepiece_tokenizer import (
             SentencepieceTokenizer)
