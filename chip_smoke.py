@@ -310,6 +310,30 @@ Phases, each of which raises on failure (non-zero exit):
               + 16 blocks of 1280, its rel-pos attention plain as the JAX
               package's, the attention beam search, beam 3, B=4 x 2-3 s)
               on the card against the CPU on 4 rows
+  17. SSL and k2.  17a: examples/librispeech/ssl/conf/train_bestrq.yaml as
+              written (12 blocks of 256, 4 heads, 8192 codes of 16; random
+              weights from the seed): one train step at B=8 x 6-12 s
+              (padded to 64 frames, dropout 0) on the card against the CPU
+              on one set of host draws (loss rtol 1e-4, grads 12c's bar;
+              target codes equal outside a 1e-5 band of the best two
+              distances, the band's frames counted), K1-train, K2 and K3
+              12 launches a step; twenty Adam steps on the batch lower the
+              loss; bin/train.py with `dataset: ssl` over two epochs of 24
+              wav-only wavs of 3-12 s (the yaml's pipeline; audio-sec/s,
+              busy share, 12 launches a step, the quantizer's buffers in
+              both checkpoints).  17b: the flagship yaml as `model:
+              k2_model` over a den.txt of 300 seeded transcripts
+              (build_den_graph): one step card vs CPU at dropout 0, B=4 x
+              12 s (losses rtol 1e-4, grads 12c's bar; 12 launches of each
+              training kernel), the den score of its log-probs card vs CPU
+              vs float64 (rtol 1e-5), the den's launches, time and share
+              of the step (informational).  17c: 17b's model with the CTC
+              head shaped (13's rule) through bin/recognize.py --modes
+              hlg_onebest hlg_rescore attention_rescoring over 8 wavs of
+              5-15 s and an HLG.txt from build_hlg (up to 20 chars the head
+              ranks most as words, 20 two-char words, a bigram): card ==
+              CPU up to ties the log-prob rows explain, K1 12 an encoder
+              pass
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX
 package (wenet_tpu), and checks so at the end.
@@ -6736,6 +6760,758 @@ def paraformer_check(smi):
                                    recognize=recognize, reduced=reduced)
 
 
+# --- 17: SSL pretraining (BEST-RQ) and k2 (LF-MMI, HLG) --------------------
+BESTRQ_CONFIG = os.path.join(REPO, 'examples/librispeech/ssl/conf/'
+                             'train_bestrq.yaml')
+BESTRQ_STEP = (8, 6.0, 12.0)  # 17a: B, shortest and longest seconds
+BESTRQ_RECIPE_UTTS = (24, 4)  # train, cv wav-only wavs
+BESTRQ_RECIPE_SECONDS = (3.0, 12.0)
+BESTRQ_FIT = (20, 1e-3)  # 17a: steps on one batch, Adam's lr
+CODE_BAND = 1e-5  # a frame's best two code distances this near may swap
+GRAD_SHARE = 2e-4  # 12c's bar: 1e-3 + this share of a tensor's largest
+K2_STEP = (4, 12.0)  # 17b: B x seconds
+K2_DEN_TEXTS = 300  # transcripts of 17b's den graph
+DEN_RTOL = 1e-5
+HLG_UTTS = (8, 5.0, 15.0)  # 17c: wavs, shortest and longest seconds
+# 17c's lexicon (the chars the head ranks most often, and words of two of
+# them) and bigram text: the plain Python searcher visits every arc of
+# every active state, so the graph stays small (42 words under a 3-gram,
+# 4212 states, took 384 s over 17c's wavs, measured on one H100)
+HLG_CHARS, HLG_TWO_CHAR_WORDS, HLG_SENTENCES = 20, 20, 100
+HLG_MODES = ['hlg_onebest', 'hlg_rescore', 'attention_rescoring']
+HLG_ARGS = ['--batch_size', '8', '--beam_size', '10', '--ctc_weight', '0.3',
+            '--reverse_weight', '0.5', '--lm_scale', '0.7',
+            '--decoder_scale', '0.1', '--r_decoder_scale', '0.7']
+
+
+def bestrq_configs(num_blocks=None, dropout=True):
+    """The BEST-RQ yaml as written (80-bin fbank, output_dim 1: the SSL
+    heads do not read it); dropout=False sets the encoder's dropouts to 0;
+    `num_blocks` cuts its depth."""
+    import yaml
+    with open(BESTRQ_CONFIG) as f:
+        configs = yaml.safe_load(f)
+    configs['input_dim'], configs['output_dim'] = 80, 1
+    if not dropout:
+        for key in configs['encoder_conf']:
+            if key.endswith('dropout_rate'):
+                configs['encoder_conf'][key] = 0.0
+    if num_blocks:
+        configs['encoder_conf']['num_blocks'] = num_blocks
+    return configs
+
+
+def ssl_model(configs):
+    """The configs' SSL model on the CPU, weights and buffers from SEED."""
+    from wenet_tpu_torch.utils.init_model import init_model
+    return init_model(configs, torch.Generator().manual_seed(SEED),
+                      device='cpu')
+
+
+def pad_to(feats, multiple):
+    """feats (B, T, F) zero-padded to a multiple of `multiple` frames, as
+    the yaml's pad_conf pads a batch."""
+    T = -(-feats.shape[1] // multiple) * multiple
+    return np.pad(feats, ((0, 0), (0, T - feats.shape[1]), (0, 0)))
+
+
+def code_band(model, cpu_model, x, lens):
+    """The target codes of the unmasked features on the card and the CPU,
+    over the valid stacks: {frames, in_band (the best two distances, in
+    float64 on the CPU's projection, within CODE_BAND), differ,
+    differ_outside (of the band)}."""
+    from wenet_tpu_torch.utils.mask import make_pad_mask
+    codes, z = [], None
+    with torch.no_grad():
+        for m, dev in ((model, 'cuda'), (cpu_model, 'cpu')):
+            xs, ls = x.to(dev), lens.to(dev)
+            stacked = m._stack_features(xs, make_pad_mask(ls, xs.shape[1]))
+            codes.append(m._nearest_embedding_idx(stacked).cpu())
+            if dev == 'cpu':
+                z = stacked.double() @ m.projection.double()
+                z = z / (z.norm(dim=-1, keepdim=True) + 1e-8)
+        book = cpu_model.embeddings.double()  # (C, G, d)
+        B, n, _ = z.shape
+        lat = z.reshape(B * n, book.shape[1], -1)
+        dist = (lat.pow(2).sum(-1, keepdim=True) -
+                2 * torch.einsum('ngd,cgd->ngc', lat, book) +
+                book.permute(1, 0, 2).pow(2).sum(-1)[None])
+        top2 = dist.topk(2, dim=-1, largest=False).values
+        in_band = (top2[..., 1] - top2[..., 0] <= CODE_BAND).reshape(
+            B, n, -1)
+    stride = cpu_model.stride
+    valid = (torch.arange(n)[None, :] + 1) * stride <= lens[:, None]
+    differ = (codes[0] != codes[1]) & valid[..., None]
+    return dict(frames=int(valid.sum()) * codes[0].shape[-1],
+                in_band=int((in_band & valid[..., None]).sum()),
+                differ=int(differ.sum()),
+                differ_outside=int((differ & ~in_band).sum()))
+
+
+def bestrq_step_pair(model, cpu_model, feats, lens):
+    """One BEST-RQ forward and backward on the card (`model`) and on the
+    CPU, on the same host draws (from SEED) and padded batch -> ([card
+    out, cpu out] as floats, the codes' band readings)."""
+    x, ls = torch.from_numpy(feats), torch.from_numpy(lens)
+    n_win = (x.shape[1] - model.stack_frames) // model.stride + 1
+    draws = model.host_draws(x.shape[0], n_win,
+                             torch.Generator().manual_seed(SEED))
+    outs = []
+    for m, dev in ((model, 'cuda'), (cpu_model, 'cpu')):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        out = m(x.to(dev), ls.to(dev), draws=draws,
+                generator=torch.Generator().manual_seed(SEED))
+        out['loss'].backward()
+        outs.append({k: float(v) for k, v in out.items()})
+    torch.cuda.synchronize()
+    return outs, code_band(model, cpu_model, x, ls)
+
+
+def float64_grads(model, run):
+    """The parameter gradients of `run(m)` (a forward and backward on the
+    CPU) on a float64 copy of `model`, with the losses' float32 casts
+    (`Tensor.float`) left in float64: the exact gradients a float32 one is
+    held to."""
+    m = copy.deepcopy(model).double()
+    to_float = torch.Tensor.float
+    torch.Tensor.float = (lambda t, *a, **k: t if t.dtype == torch.float64
+                          else to_float(t, *a, **k))
+    try:
+        run(m)
+    finally:
+        torch.Tensor.float = to_float
+    return {n: p.grad for n, p in m.named_parameters() if p.grad is not None}
+
+
+def hold_gradients(what, model, cpu_model, exact=None):
+    """Every parameter's gradient on the card within 1e-3 + GRAD_SHARE x
+    its largest of the CPU's (12c's bar), finite.  Where a tensor misses
+    it and `exact` is given (a function -> `float64_grads`), the card is
+    held to the float64 gradient instead: within the bar plus the CPU's
+    own float32 error there (17b: on one large accumulation, the first
+    subsampling conv's weight, the CPU's float32 sits at 43% of the bar
+    from float64 and cuDNN's at 105%; ROADMAP.md queue 3) -> (the worst
+    gap, its share of its bar, the largest gradient and its name,
+    [(name, |card - cpu|, |card - float64|, |cpu - float64|, bar)] of the
+    tensors so held)."""
+    worst, worst_of_bar, largest = 0.0, 0.0, (0.0, '')
+    cpu_params = dict(cpu_model.named_parameters())
+    held, grads64 = [], None
+    for name, p in model.named_parameters():
+        want = cpu_params[name].grad
+        if p.grad is None or want is None or \
+                not torch.isfinite(p.grad).all():
+            raise RuntimeError(f'{what}: {name} has no finite gradient')
+        got = p.grad.cpu()
+        err = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        bar = 1e-3 + GRAD_SHARE * top
+        if err > bar:
+            if exact is None:
+                raise RuntimeError(f'{what}: {name} grad differs from the '
+                                   f'CPU by {err} (bar {bar:.3g})')
+            grads64 = grads64 if grads64 is not None else exact()
+            g64 = grads64[name]
+            card64 = (got.double() - g64).abs().max().item()
+            cpu64 = (want.double() - g64).abs().max().item()
+            held.append((name, err, card64, cpu64, bar))
+            if card64 > bar + cpu64:
+                raise RuntimeError(
+                    f'{what}: {name} grad differs from the CPU by {err} and '
+                    f'from float64 by {card64}, beyond the bar {bar:.3g} + '
+                    f'the CPU\'s own {cpu64:.3g}')
+            err, bar = card64, bar + cpu64
+        worst, worst_of_bar = max(worst, err), max(worst_of_bar, err / bar)
+        largest = max(largest, (top, name))
+    return worst, worst_of_bar, largest, held
+
+
+def bestrq_step_check(smi):
+    """17a: one train step of the yaml at full width (12 blocks of 256, 8192
+    codes) on the card against the CPU at dropout 0, B=8 x 6-12 s padded
+    to 64 frames, one set of host draws: loss rtol 1e-4, gradients 12c's
+    bar, codes equal outside CODE_BAND, 12 launches of K1-train, K2 and
+    K3; then BESTRQ_FIT steps of Adam on the batch must lower the loss ->
+    (launches, readings)."""
+    phase('17a BEST-RQ train step (examples/librispeech/ssl), card vs CPU')
+    from wenet_tpu_torch.ops import flash_attention as fa
+    configs = bestrq_configs(dropout=False)
+    cpu_model = ssl_model(configs)
+    model = copy.deepcopy(cpu_model).cuda()
+    B, shortest, longest = BESTRQ_STEP
+    feats, lens = speech_features(np.random.RandomState(SEED + 70), B,
+                                  shortest, longest)
+    feats = pad_to(feats, configs['dataset_conf']['pad_conf'][
+        'pad_to_multiple'])
+    n_blocks = configs['encoder_conf']['num_blocks']
+    fa.reset_launches()
+    outs, band = bestrq_step_pair(model, cpu_model, feats, lens)
+    launches = {k: fa.LAUNCHES[k] for k in TRAIN_KERNELS}
+    if any(v != n_blocks for v in launches.values()):
+        raise RuntimeError(f'17a: launches {launches} in one step, '
+                           f'expected {n_blocks} each')
+    for k in ('loss', 'features_l2', 'num_codes'):
+        a, w = outs[0][k], outs[1][k]
+        if not abs(a - w) <= 1e-4 * abs(w) + 1e-6:
+            raise RuntimeError(f'17a: {k} card {a} cpu {w} beyond rtol 1e-4')
+    worst, of_bar, largest, _ = hold_gradients('17a', model, cpu_model)
+    if band['differ_outside']:
+        raise RuntimeError(f'17a: {band["differ_outside"]} target codes '
+                           f'differ outside the {CODE_BAND} band: {band}')
+    print(f'  BEST-RQ step B={B} x {feats.shape[1]} frames (pad 64), '
+          f'dropout 0: loss card {outs[0]["loss"]:.6f} cpu '
+          f'{outs[1]["loss"]:.6f} (rtol 1e-4), codes_acc card '
+          f'{outs[0]["codes_acc"]:.4f} cpu {outs[1]["codes_acc"]:.4f}, '
+          f'num_codes {outs[0]["num_codes"]:.0f}; grads max |card - cpu| '
+          f'{worst:.3g}, at most {100 * of_bar:.0f}% of 12c\'s bar (largest '
+          f'{largest[0]:.3g}, {largest[1]}); target codes: '
+          f'{band["frames"]} frames, {band["in_band"]} within the '
+          f'{CODE_BAND} band, {band["differ"]} differ card vs CPU (all '
+          f'inside it); launches {launches} ({smi})', flush=True)
+    del cpu_model
+    # BESTRQ_FIT steps of Adam on this batch and these draws
+    steps, lr = BESTRQ_FIT
+    opt = torch.optim.Adam([p for p in model.parameters()
+                            if p.requires_grad], lr=lr)
+    x, ls = torch.from_numpy(feats).cuda(), torch.from_numpy(lens).cuda()
+    n_win = (x.shape[1] - model.stack_frames) // model.stride + 1
+    draws = model.host_draws(B, n_win, torch.Generator().manual_seed(SEED))
+    losses = []
+    for i in range(steps):
+        opt.zero_grad(set_to_none=True)
+        out = model(x, ls, draws=draws,
+                    generator=torch.Generator().manual_seed(SEED + i))
+        out['loss'].backward()
+        opt.step()
+        losses.append(float(out['loss']))
+    fit = {k: fa.LAUNCHES[k] for k in TRAIN_KERNELS}
+    if not losses[-1] < losses[0] or not np.isfinite(losses).all():
+        raise RuntimeError(f'17a: {steps} steps on one batch: losses '
+                           f'{losses}')
+    if any(v != n_blocks * (1 + steps) for v in fit.values()):
+        raise RuntimeError(f'17a: launches {fit} over {1 + steps} steps')
+    print(f'  {steps} Adam steps (lr {lr}) on the batch: loss '
+          f'{losses[0]:.4f} -> {losses[-1]:.4f}; launches since the '
+          f'step {fit}', flush=True)
+    del model, opt
+    torch.cuda.empty_cache()
+    return fit, dict(loss=outs[0]['loss'], codes=band, grad_gap=worst,
+                     fit_losses=(losses[0], losses[-1]))
+
+
+def bestrq_recipe(d):
+    """17a's files: wav-only data lists (no txt) of BESTRQ_RECIPE_UTTS
+    speech-like wavs of 3-12 s and the yaml with two epochs, every step
+    logged -> (yaml, train list, cv list, the train audio seconds)."""
+    import yaml
+    from wenet_tpu_torch.dataset.audio import write_wav
+    rng = np.random.RandomState(SEED + 71)
+    entries, seconds = [], 0.0
+    for i in range(sum(BESTRQ_RECIPE_UTTS)):
+        s = rng.uniform(*BESTRQ_RECIPE_SECONDS)
+        seconds += s if i < BESTRQ_RECIPE_UTTS[0] else 0.0
+        path = os.path.join(d, f's{i:02d}.wav')
+        write_wav(path, speech_like(rng, s), SR)
+        entries.append({'key': f's{i:02d}', 'wav': path})
+    lists = []
+    n = BESTRQ_RECIPE_UTTS[0]
+    for name, part in (('train', entries[:n]), ('cv', entries[n:])):
+        lists.append(os.path.join(d, f'{name}.list'))
+        with open(lists[-1], 'w') as f:
+            f.writelines(json.dumps(e) + '\n' for e in part)
+    configs = bestrq_configs()
+    del configs['input_dim'], configs['output_dim']
+    configs.update(max_epoch=2, log_interval=1)
+    path = os.path.join(d, 'train_bestrq.yaml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(configs, f)
+    return path, lists[0], lists[1], seconds
+
+
+def bestrq_train_check(smi):
+    """17a: bin/train.py with `dataset: ssl` over two epochs of the wav-only
+    list (the yaml's pipeline: dither, shuffle, sort, dynamic batches of
+    18000 frames, pad 64), a profiler window: finite losses and cv, 12
+    launches of K1-train, K2 and K3 a step, 12 of K1 a cv batch, both
+    epoch checkpoints with the quantizer's buffers as initialized ->
+    (launches, readings)."""
+    phase('17a BEST-RQ bin/train.py (dataset: ssl, wav-only list)')
+    import shutil
+    from wenet_tpu_torch.bin import train
+    from wenet_tpu_torch.ops import flash_attention as fa
+    n_blocks = bestrq_configs()['encoder_conf']['num_blocks']
+    d = tempfile.mkdtemp(prefix='chip_smoke_bestrq_')
+    config, train_list, cv_list, _ = bestrq_recipe(d)
+    exp = os.path.join(d, 'exp')
+    argv = ['--config', config, '--train_data', train_list, '--cv_data',
+            cv_list, '--model_dir', exp, '--seed', str(SEED), '--device',
+            'cuda', '--profile_dir', os.path.join(d, 'profile'),
+            '--profile_start_step', '1', '--profile_steps', '1']
+    records = []
+    fa.reset_launches()
+    summary, losses = logged_train(train, argv, records.append)
+    launches = dict(fa.LAUNCHES)
+    epochs = summary['epochs']
+    steps = len(records)
+    if not steps or len(losses) != steps or not np.isfinite(losses).all() \
+            or not all(np.isfinite(e['cv']['loss']) for e in epochs):
+        raise RuntimeError(f'17a bin/train.py: losses {losses}, '
+                           f'{steps} steps')
+    for k in TRAIN_KERNELS:
+        if launches[k] != n_blocks * steps:
+            raise RuntimeError(f'17a bin/train.py: {k} {launches[k]} '
+                               f'launches over {steps} steps')
+    k1 = launches['relpos_attention_fwd']
+    if k1 % n_blocks or k1 < n_blocks * len(epochs):
+        raise RuntimeError(f'17a bin/train.py: K1 {k1} launches in cv, '
+                           f'not {n_blocks} a cv batch')
+    init = None
+    for e in epochs:
+        state = torch.load(os.path.join(exp, f'epoch_{e["epoch"]}.pt'),
+                           map_location='cpu', weights_only=True)
+        if init is not None and not all(torch.equal(state[k], init[k])
+                                        for k in ('projection',
+                                                  'embeddings')):
+            raise RuntimeError('17a: the quantizer buffers moved')
+        init = state
+    _, busy = trace_readings(summary['profile_trace'], keys=())
+    audio = sum(e['audio_seconds'] for e in epochs)
+    rate = audio / sum(e['train_seconds'] for e in epochs)
+    for e in epochs:
+        print(f'  epoch {e["epoch"]}: {e["steps"]} steps in '
+              f'{e["train_seconds"]:.2f} s, '
+              f'{e["audio_seconds"] / e["train_seconds"]:.1f} audio-sec/s, '
+              f'data wait {e["data_wait_seconds"]:.2f} s; cv loss '
+              f'{e["cv"]["loss"]:.4f}, codes_acc '
+              f'{e["cv"]["codes_acc"]:.4f} ({smi})', flush=True)
+    print('    steps B x T: ' + ', '.join(
+        f'{r["batch"]}x{r["frames"]}' for r in records) +
+        f'; losses {[round(x, 3) for x in losses]}; card busy '
+        f'{100 * busy:.1f}% of the profiled step 2; launches {launches}',
+        flush=True)
+    shutil.rmtree(d)
+    return launches, dict(train_audio_sec_per_s=rate, train_busy=busy,
+                          steps=steps)
+
+
+def den_transcripts(rng, n, vocab):
+    """`n` unit sequences of 8-30 units, Zipf-like over ids 3..vocab-1."""
+    p = 1.0 / np.arange(1, vocab - 2)
+    p /= p.sum()
+    return [list(3 + rng.choice(vocab - 3, rng.randint(8, 31), p=p))
+            for _ in range(n)]
+
+
+def build_den(d, n_texts=K2_DEN_TEXTS):
+    """17b's den.txt in `d`: build_den_graph over `n_texts` seeded
+    transcripts of the flagship's 4233 units -> (its DenseFsa, readings:
+    states, arcs, eps depth, build seconds)."""
+    from wenet_tpu_torch.lm.build_graph import build_den_graph
+    from wenet_tpu_torch.lm.fst import TextFst
+    from wenet_tpu_torch.ops.fsa import fst_to_dense_arcs
+    t0 = time.perf_counter()
+    build_den_graph(den_transcripts(np.random.RandomState(SEED + 72),
+                                    n_texts, 4233), 4232, outdir=d)
+    build_s = time.perf_counter() - t0
+    fsa = fst_to_dense_arcs(TextFst.read(os.path.join(d, 'den.txt')))
+    return fsa, dict(states=fsa.num_states, emit_arcs=len(fsa.emit_src),
+                     eps_arcs=len(fsa.eps_src), eps_depth=fsa.eps_depth,
+                     build_s=build_s)
+
+
+def den_scores(fsa, logp, lens):
+    """The den forward score of log-probs `logp` (B, T, V) and `lens` on
+    the card, the CPU and in float64 on the CPU, each gradient finite ->
+    the largest relative gaps; raises beyond DEN_RTOL."""
+    from wenet_tpu_torch.ops.fsa import fsa_forward_score
+    scores = {}
+    for name, dev, dtype in (('card', 'cuda', torch.float32),
+                             ('cpu', 'cpu', torch.float32),
+                             ('f64', 'cpu', torch.float64)):
+        x = logp.detach().to(dev, dtype).requires_grad_()
+        s = fsa_forward_score(x, lens.to(dev), fsa)
+        s.sum().backward()
+        if not torch.isfinite(x.grad).all():
+            raise RuntimeError(f'17b: den gradient on {name} not finite')
+        scores[name] = s.detach().cpu().double()
+
+    def rel(a, b):
+        return float(((scores[a] - scores[b]).abs() /
+                      scores[b].abs()).max())
+
+    out = dict(card_cpu_rtol=rel('card', 'cpu'),
+               card_f64_rtol=rel('card', 'f64'),
+               cpu_f64_rtol=rel('cpu', 'f64'))
+    if max(out['card_cpu_rtol'], out['card_f64_rtol']) > DEN_RTOL:
+        raise RuntimeError(f'17b: den score card / cpu / float64 beyond '
+                           f'rtol {DEN_RTOL}: {out}')
+    return out
+
+
+def k2_configs(lfmmi_dir, dropout=True):
+    configs = flagship_configs(dropout)
+    configs['model'] = 'k2_model'
+    configs['model_conf']['lfmmi_dir'] = lfmmi_dir
+    return configs
+
+
+def k2_step_check(d, smi):
+    """17b: the flagship yaml as `model: k2_model` over a den.txt the phase
+    builds: one step card vs CPU at dropout 0, B=4 x 12 s, dynamic chunk
+    (loss terms rtol 1e-4, grads 12c's bar), 12 launches of K1-train, K2
+    and K3; the den score of the step's log-probs card vs CPU vs float64
+    (rtol 1e-5); the LF-MMI loss's time, launches and share of the step
+    (informational) -> (the card model, launches, readings)."""
+    phase('17b k2 model (LF-MMI) at the flagship width, card vs CPU')
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.ops.fsa import fsa_forward_score
+    from wenet_tpu_torch.utils.executor import to_device_batch
+    configs = k2_configs(d, dropout=False)
+    cpu_model = zoo_model(configs)
+    model = copy.deepcopy(cpu_model).cuda()
+    B, seconds = K2_STEP
+    b = zoo_train_batch(np.random.RandomState(SEED + 73), B, seconds, 80,
+                        configs['output_dim'])
+    outs = []
+
+    def step(m, dev):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        tb = to_device_batch(b, dev)
+        out = m(tb['feats'].to(next(m.parameters()).dtype),
+                tb['feats_lengths'], tb['target'], tb['target_lengths'],
+                generator=torch.Generator().manual_seed(SEED))
+        out['loss'].backward()
+        return out
+
+    fsa, den = build_den(d)
+    fa.reset_launches()
+    outs.append(step(model, 'cuda'))
+    torch.cuda.synchronize()
+    launches = {k: fa.LAUNCHES[k] for k in TRAIN_KERNELS}
+    outs.append(step(cpu_model, 'cpu'))
+    outs = [{k: float(v) for k, v in out.items() if v is not None}
+            for out in outs]
+    n_blocks = configs['encoder_conf']['num_blocks']
+    if any(v != n_blocks for v in launches.values()):
+        raise RuntimeError(f'17b: launches {launches}, expected {n_blocks}')
+    for k in ('loss', 'loss_ctc', 'loss_att', 'th_accuracy'):
+        a, w = outs[0][k], outs[1][k]
+        if not abs(a - w) <= 1e-4 * abs(w) + 1e-6:
+            raise RuntimeError(f'17b: {k} card {a} cpu {w} beyond rtol 1e-4')
+    worst, of_bar, largest, held = hold_gradients(
+        '17b', model, cpu_model,
+        exact=lambda: float64_grads(cpu_model, lambda m: step(m, 'cpu')))
+    print(f'  k2 step B={B} x {seconds:.0f} s, dropout 0: loss card '
+          f'{outs[0]["loss"]:.6f} cpu {outs[1]["loss"]:.6f}, LF-MMI card '
+          f'{outs[0]["loss_ctc"]:.6f} cpu {outs[1]["loss_ctc"]:.6f}, '
+          f'loss_att card {outs[0]["loss_att"]:.6f} cpu '
+          f'{outs[1]["loss_att"]:.6f} (rtol 1e-4); grads max |card - cpu| '
+          f'{worst:.3g}, at most {100 * of_bar:.0f}% of 12c\'s bar (largest '
+          f'{largest[0]:.3g}, {largest[1]}); held to float64 instead: '
+          + ('; '.join(f'{n} |card - cpu| {e:.3g}, |card - f64| {c64:.3g}, '
+                       f'|cpu - f64| {p64:.3g} (bar {bar:.3g})'
+                       for n, e, c64, p64, bar in held) or 'none') +
+          f'; launches {launches}', flush=True)
+    del cpu_model
+    # the den score of the step's own log-probs, card vs CPU vs float64
+    tb = to_device_batch(b, 'cuda')
+    with torch.no_grad():
+        model.eval()
+        eo, em = model.encoder(tb['feats'], tb['feats_lengths'])
+        logp = model.ctc.log_softmax(eo).float()
+        lens = em[:, 0].sum(-1)
+    den.update(den_scores(fsa, logp.cpu(), lens.cpu()))
+    print(f'  den graph of {K2_DEN_TEXTS} seeded transcripts over 4233 '
+          f'units: {den["states"]} states, {den["emit_arcs"]} emit and '
+          f'{den["eps_arcs"]} eps arcs, eps depth {den["eps_depth"]}, built '
+          f'in {den["build_s"]:.1f} s; den score of the step\'s log-probs '
+          f'{tuple(logp.shape)}: card vs CPU {den["card_cpu_rtol"]:.2e}, '
+          f'card vs float64 {den["card_f64_rtol"]:.2e}, CPU vs float64 '
+          f'{den["cpu_f64_rtol"]:.2e} (rtol {DEN_RTOL})', flush=True)
+    # the LF-MMI denominator's time and launches beside the whole step
+    model.train()
+    x = logp.detach().requires_grad_()
+    n_fwd, fwd_ms, fwd_wall = search_launches(
+        lambda: fsa_forward_score(x, lens, fsa))
+    n_all, all_ms, all_wall = search_launches(
+        lambda: fsa_forward_score(x, lens, fsa).sum().backward())
+    _, step_ms, step_wall = search_launches(lambda: step(model, 'cuda'))
+    T = logp.shape[1]
+    print(f'    the den forward at {tuple(logp.shape)}: {n_fwd} launches '
+          f'({n_fwd / T:.1f} a frame, eps depth {fsa.eps_depth}), '
+          f'{fwd_ms:.2f} ms of kernels in {fwd_wall:.1f} ms; forward + '
+          f'backward {n_all} launches, {all_ms:.2f} ms of kernels in '
+          f'{all_wall:.1f} ms; the whole step {step_ms:.2f} ms of kernels in '
+          f'{step_wall:.1f} ms: the den {100 * all_wall / step_wall:.1f}% '
+          f'of the step\'s wall (profiled; {smi})', flush=True)
+    model.eval()
+    return model, configs, launches, dict(
+        den=den, den_fwd_launches=n_fwd, den_fwd_wall_ms=fwd_wall,
+        den_fwd_bwd_launches=n_all, den_fwd_bwd_wall_ms=all_wall,
+        den_fwd_bwd_kernel_ms=all_ms, step_wall_ms=step_wall,
+        step_kernel_ms=step_ms, grad_gap=worst,
+        grads_held_to_float64=[h[0] for h in held])
+
+
+def k2_grad_precision(smi):
+    """On demand, not run by `main` (python3 -c "import chip_smoke as c;
+    smi = c.device(); c.build(); c.k2_grad_precision(smi)"): 17b's step,
+    and the same step with the plain CTC loss (no lfmmi_dir), on the CPU
+    in float32 and on the card with cuDNN as set, deterministic and off,
+    each against the CPU's float64 gradients: the three tensors nearest
+    12c's bar per run, as shares of it."""
+    phase('x k2 gradient precision: CPU fp32 and the card vs float64')
+    from wenet_tpu_torch.utils.executor import to_device_batch
+    d = tempfile.mkdtemp(prefix='chip_smoke_k2_precision_')
+    build_den(d)
+    B, seconds = K2_STEP
+    for kind, lfmmi_dir in (('k2', d), ('asr', '')):
+        configs = k2_configs(lfmmi_dir, dropout=False)
+        cpu_model = zoo_model(configs)
+        b = zoo_train_batch(np.random.RandomState(SEED + 73), B, seconds,
+                            80, configs['output_dim'])
+
+        def step(m, dev):
+            m.train()
+            m.zero_grad(set_to_none=True)
+            tb = to_device_batch(b, dev)
+            m(tb['feats'].to(next(m.parameters()).dtype),
+              tb['feats_lengths'], tb['target'], tb['target_lengths'],
+              generator=torch.Generator().manual_seed(SEED))[
+                  'loss'].backward()
+
+        exact = float64_grads(cpu_model, lambda m: step(m, 'cpu'))
+        step(cpu_model, 'cpu')
+
+        def report(label, m):
+            rows = []
+            for n, g in exact.items():
+                err = (m.get_parameter(n).grad.double().cpu() -
+                       g).abs().max().item()
+                top = g.abs().max().item()
+                rows.append((err / (1e-3 + GRAD_SHARE * top), err, top, n))
+            print(f'  {kind} {label}: ' + '; '.join(
+                f'{share:.3f} of the bar ({err:.3g}, largest {top:.3g}, '
+                f'{n})' for share, err, top, n in sorted(rows)[-3:]) +
+                f' ({smi})', flush=True)
+
+        report('CPU fp32', cpu_model)
+        for label, det, on in (('card, cuDNN as set', False, True),
+                               ('card, cuDNN deterministic', True, True),
+                               ('card, cuDNN off', False, False)):
+            torch.backends.cudnn.deterministic = det
+            torch.backends.cudnn.enabled = on
+            try:
+                m = copy.deepcopy(cpu_model).cuda()
+                step(m, 'cuda')
+                torch.cuda.synchronize()
+                report(label, m)
+            finally:
+                torch.backends.cudnn.deterministic = False
+                torch.backends.cudnn.enabled = True
+            del m
+        del cpu_model
+        torch.cuda.empty_cache()
+
+
+def hlg_lang(d, tokenizer, logp, lens):
+    """17c's lexicon: the HLG_CHARS chars most often in the top 5 of the
+    frames the searcher reads (the blank below its skip threshold, 0.98),
+    so that the graph holds what the head emits, each a word, and up to
+    HLG_TWO_CHAR_WORDS words of two of them; a bigram over HLG_SENTENCES
+    seeded sentences; HLG.txt by build_hlg -> readings."""
+    from collections import Counter
+    from wenet_tpu_torch.lm.build_graph import build_hlg
+    rng = np.random.RandomState(SEED + 74)
+    write_units(os.path.join(d, 'units.txt'), tokenizer)
+    id2sym = {i: s for s, i in tokenizer.symbol_table.items()}
+    valid = torch.arange(logp.shape[1])[None] < lens[:, None]
+    read = valid & (logp[..., 0].exp() < 0.98)
+    counts = Counter(i for i in logp.topk(5, dim=-1).indices[read]
+                     .flatten().tolist() if i >= 3)
+    chars = sorted(id2sym[i] for i, _ in counts.most_common(HLG_CHARS))
+    if not chars:
+        raise RuntimeError('17c: the shaped head ranks no unit')
+    words = set(chars)
+    while len(words) < len(chars) + min(HLG_TWO_CHAR_WORDS,
+                                        len(chars) ** 2):
+        words.add(''.join(rng.choice(chars, 2)))
+    words = sorted(words)
+    with open(os.path.join(d, 'lexicon.txt'), 'w', encoding='utf-8') as f:
+        f.writelines(f'{w} {" ".join(w)}\n' for w in words)
+    write_arpa(os.path.join(d, 'lm.arpa'),
+               [list(rng.choice(words, rng.randint(1, 10)))
+                for _ in range(HLG_SENTENCES)], vocab=words, order=2)
+    t0 = time.perf_counter()
+    fst = build_hlg(os.path.join(d, 'units.txt'),
+                    os.path.join(d, 'lexicon.txt'),
+                    os.path.join(d, 'lm.arpa'), os.path.join(d, 'hlg'))
+    seconds = time.perf_counter() - t0
+    os.replace(os.path.join(d, 'hlg', 'TLG.txt'),
+               os.path.join(d, 'hlg', 'HLG.txt'))
+    return dict(words=len(words), chars=len(chars),
+                arcs=sum(len(a) for a in fst.arcs.values()),
+                states=len(fst.arcs.keys() | fst.finals.keys()),
+                build_s=seconds)
+
+
+def hlg_explained(model, cpu_model, feats, lens, hlg, word, what):
+    """A row whose text differs card vs CPU must be a tie the two
+    log-prob rows explain (`tlg_decode_check`'s rule): its best search
+    costs on the two devices' rows within the summed per-frame largest
+    row differences -> the rows' readings."""
+    from wenet_tpu_torch.models.k2.model import hlg_search
+    searches = []
+    for m, dev in ((model, 'cuda'), (cpu_model, 'cpu')):
+        x = torch.from_numpy(feats).to(dev)
+        ls = torch.from_numpy(lens).to(dev)
+        with torch.no_grad():
+            eo, em = m.forward_encoder(x, ls)
+            logp = m.ctc_activation(eo).float().cpu()
+        searches.append((hlg_search(m, x, ls, hlg, word), logp))
+    (card, card_lp), (cpu, cpu_lp) = searches
+    out = []
+    for b in range(len(lens)):
+        n = int(cpu.enc_lens[b])
+        bound = float((card_lp[b, :n] - cpu_lp[b, :n]).abs().amax(-1).sum())
+        c0 = card.nbest[b][0][0] if card.nbest[b] else 0.0
+        c1 = cpu.nbest[b][0][0] if cpu.nbest[b] else 0.0
+        if abs(c0 - c1) > bound + 1e-5 * abs(c1):
+            raise RuntimeError(f'{what}: row {b}: best costs card {c0} cpu '
+                               f'{c1} beyond the rows\' {bound:.3g}')
+        out.append((abs(c0 - c1), bound))
+    return out
+
+
+def hlg_recognize_check(d, model, configs, smi):
+    """17c: 17b's model (the CTC head shaped, 13's rule) through
+    bin/recognize.py in hlg_onebest, hlg_rescore and attention_rescoring
+    over HLG_UTTS speech-like wavs of 5-15 s and a small HLG.txt built by
+    the port's build_hlg, on the card and on the CPU: texts equal up to the
+    ties the two log-prob sets explain; 12 K1 launches an encoder pass
+    (24 a batch: the hlg modes share one, attention rescoring has its own)
+    -> (K1 launches, readings)."""
+    phase('17c HLG decoding through bin/recognize.py, card vs CPU')
+    import yaml
+    from wenet_tpu_torch.bin import recognize
+    from wenet_tpu_torch.dataset.audio import write_wav
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.runtime.feature_pipeline import (
+        FeaturePipeline, FeaturePipelineConfig)
+    tokenizer = flagship_tokenizer()
+    scale, blank_share, unit_share = shape_ctc_head(model)
+    n, shortest, longest = HLG_UTTS
+    rng = np.random.RandomState(SEED + 75)
+    chars = [s for s, i in tokenizer.symbol_table.items() if i >= 3]
+    entries, wavs = [], []
+    for i in range(n):
+        s = longest if i == 0 else rng.uniform(shortest, longest)
+        wav = speech_like(rng, s)
+        path = os.path.join(d, f'h{i}.wav')
+        write_wav(path, wav, SR)
+        wavs.append(wav)
+        entries.append({'key': f'h{i}', 'wav': path, 'txt': ''.join(
+            rng.choice(chars, size=int(3 * s)))})
+    data = os.path.join(d, 'hlg.list')
+    with open(data, 'w', encoding='utf-8') as f:
+        f.writelines(json.dumps(e, ensure_ascii=False) + '\n'
+                     for e in entries)
+    rows = [FeaturePipeline(FeaturePipelineConfig(
+        num_mel_bins=80)).accept_waveform(w) for w in wavs]
+    lens = np.asarray([len(r) for r in rows], np.int64)
+    feats = np.zeros((n, lens.max(), 80), np.float32)
+    for i, r in enumerate(rows):
+        feats[i, :len(r)] = r
+    with torch.no_grad():
+        eo, em = model.forward_encoder(torch.from_numpy(feats).cuda(),
+                                       torch.from_numpy(lens).cuda())
+        logp = model.ctc_activation(eo).float().cpu()
+    lang = hlg_lang(d, tokenizer, logp, em[:, 0].sum(-1).cpu())
+    configs = copy.deepcopy(configs)
+    configs['tokenizer_conf']['symbol_table_path'] = os.path.join(
+        d, 'units.txt')
+    config = os.path.join(d, 'train.yaml')
+    with open(config, 'w') as f:
+        yaml.safe_dump(configs, f)
+    ckpt = os.path.join(d, 'final.pt')
+    torch.save(model.state_dict(), ckpt)
+    hlg, word = (os.path.join(d, 'hlg', 'HLG.txt'),
+                 os.path.join(d, 'hlg', 'words.txt'))
+    argv = ['--config', config, '--test_data', data, '--checkpoint', ckpt,
+            '--hlg', hlg, '--word', word, *HLG_ARGS, '--modes', *HLG_MODES]
+    texts, summaries = {}, {}
+    for dev in ('cuda', 'cpu'):
+        fa.reset_launches()
+        out = os.path.join(d, dev)
+        summaries[dev] = recognize.main(argv + ['--result_dir', out,
+                                                '--device', dev])
+        if dev == 'cuda':
+            k1 = fa.LAUNCHES['relpos_attention_fwd']
+        texts[dev] = {}
+        for mode in HLG_MODES:
+            with open(os.path.join(out, mode, 'text'),
+                      encoding='utf-8') as f:
+                texts[dev][mode] = dict((line.split(' ', 1) + [''])[:2]
+                                        for line in f.read().splitlines())
+    batches = -(-n // 8)
+    n_blocks = configs['encoder_conf']['num_blocks']
+    if k1 != 2 * n_blocks * batches:
+        raise RuntimeError(f'17c: K1 launched {k1} times over {batches} '
+                           f'batches, expected {n_blocks} an encoder pass, '
+                           'two passes a batch')
+    differ = {m: [k for k in texts['cpu'][m]
+                  if texts['cuda'][m].get(k) != texts['cpu'][m][k]]
+              for m in HLG_MODES}
+    ties = []
+    if any(differ.values()):
+        cpu_model = copy.deepcopy(model).cpu()
+        ties = hlg_explained(model, cpu_model, feats, lens, hlg, word, '17c')
+        del cpu_model
+    empty = sum(not t for t in texts['cuda']['hlg_onebest'].values())
+    words = [len(t) for t in texts['cuda']['hlg_rescore'].values()]
+    print(f'  CTC head x{scale:.2f}, blank leads on {100 * blank_share:.0f}% '
+          f'of frames; HLG of {lang["words"]} words ({lang["chars"]} chars '
+          f'the head ranks most, the rest of two), a bigram over '
+          f'{HLG_SENTENCES} sentences: {lang["states"]} states, '
+          f'{lang["arcs"]} arcs, built in {lang["build_s"]:.1f} s', flush=True)
+    for dev in ('cuda', 'cpu'):
+        s = summaries[dev]
+        print(f'  recognize {dev}: {n} wavs in {s["seconds"]:.2f} s, '
+              f'{s["audio_seconds"] / s["seconds"]:.1f} audio-sec/s over '
+              f'{len(HLG_MODES)} modes ({smi})', flush=True)
+    print(f'    card == CPU: differing rows {differ} (explained: {ties}); '
+          f'{empty} empty one-best hypotheses of {n}; rescored lengths '
+          f'{words}; K1 {k1} launches', flush=True)
+    return k1, dict(lang=lang, differ={m: len(v) for m, v in
+                                       differ.items()},
+                    audio_sec_per_s={dev: s['audio_seconds'] / s['seconds']
+                                     for dev, s in summaries.items()})
+
+
+def ssl_k2_check(smi):
+    """Phase 17 -> ({kernel: {'ssl': launches, 'k2': launches}}, readings)."""
+    phase('17 SSL (examples/librispeech/ssl BEST-RQ) and k2 (LF-MMI, HLG)')
+    import shutil
+    t0 = time.perf_counter()
+    fit, step = bestrq_step_check(smi)
+    entry, train = bestrq_train_check(smi)
+    d = tempfile.mkdtemp(prefix='chip_smoke_k2_')
+    model, configs, k2_launches, k2 = k2_step_check(d, smi)
+    k1_hlg, hlg = hlg_recognize_check(d, model, configs, smi)
+    shutil.rmtree(d)
+    del model
+    torch.cuda.empty_cache()
+    names = ['relpos_attention_fwd', *TRAIN_KERNELS]
+    launches = {k: {'ssl': fit.get(k, 0) + entry.get(k, 0),
+                    'k2': k2_launches.get(k, 0)} for k in names}
+    launches['relpos_attention_fwd']['k2'] += k1_hlg
+    print(f'  phase 17 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return launches, dict(bestrq_step=step, bestrq_train=train, k2=k2,
+                          hlg=hlg)
+
+
 def main():
     smi = device()
     build()
@@ -6763,6 +7539,9 @@ def main():
     rnnt_launches, rnnt_readings = transducer_check(smi)
     whisper_launches, whisper_readings = whisper_recipe_check(smi)
     para_launches, para_kernels, para_readings = paraformer_check(smi)
+    ssl_k2_launches, ssl_k2_readings = ssl_k2_check(smi)
+    ssl, k2 = ({k: v[part] for k, v in ssl_k2_launches.items()}
+               for part in ('ssl', 'k2'))
     foreign = [m for m in sys.modules
                if m == 'jax' or m.startswith('jax.') or m == 'wenet_tpu'
                or m.startswith('wenet_tpu.')]
@@ -6775,7 +7554,8 @@ def main():
         'launches': launches + stream_launches + batched_launches +
         recognize_launches + zoo_launches['relpos_attention_fwd'] +
         stage67_launches['wfst'] + stage67_launches['export'] +
-        rnnt_launches['relpos_attention_fwd'], **report,
+        rnnt_launches['relpos_attention_fwd'] +
+        ssl['relpos_attention_fwd'] + k2['relpos_attention_fwd'], **report,
         'launches_zoo': zoo_launches['relpos_attention_fwd'],
         'zoo_decode': zoo_readings,
         'launches_decode': launches, 'launches_streaming': stream_launches,
@@ -6788,15 +7568,20 @@ def main():
         'launches_export': stage67_launches['export'],
         'stage67': stage67_readings,
         'launches_transducer': rnnt_launches['relpos_attention_fwd'],
-        'transducer': rnnt_readings}]
+        'transducer': rnnt_readings,
+        'launches_ssl': ssl['relpos_attention_fwd'],
+        'launches_k2': k2['relpos_attention_fwd'],
+        'ssl_k2': ssl_k2_readings}]
     for name, (source, replaces) in TRAIN_KERNELS.items():
         kernels.append(dict(name=name, route='cuda', source=source,
                             replaces=replaces,
                             launches=train_launches[name] +
-                            zoo_launches[name] + rnnt_launches[name],
+                            zoo_launches[name] + rnnt_launches[name] +
+                            ssl[name] + k2[name],
                             launches_train_entry=entry_launches[name],
                             launches_zoo=zoo_launches[name],
                             launches_transducer=rnnt_launches[name],
+                            launches_ssl=ssl[name], launches_k2=k2[name],
                             **train_report[name]))
     kernels.append(dict(name='flash_attention_fwd', route='cuda',
                         source='wenet_tpu_torch/csrc/flash_attention.cu',

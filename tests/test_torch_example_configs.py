@@ -1,11 +1,12 @@
 """The registry sweep on the PyTorch port: every shipped recipe config
 builds with `init_model(..., device='meta')` (shapes only, no weights
-drawn), but for the model families the port does not have yet, which
-raise NotImplementedError naming their ROADMAP.md queue 1 item.  For the
-encoder zoo's, the transducers' and the paraformer's yamls, shrunk as
-tests/test_example_configs.py shrinks them, the port's state dict has the
-keys and shapes of the JAX package's variables carried across by
-`state_dict_from_jax`."""
+drawn); a model family the port did not have would raise
+NotImplementedError naming its ROADMAP.md queue 1 item (none is left).
+For the encoder zoo's, the transducers', the paraformer's and BEST-RQ's
+yamls, shrunk as tests/test_example_configs.py shrinks them, the port's
+state dict has the keys and shapes of the JAX package's variables
+carried across by `state_dict_from_jax` (BEST-RQ's `bestrq` collection
+too)."""
 
 import copy
 import glob
@@ -20,9 +21,7 @@ from wenet_tpu_torch.utils.init_model import init_model
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.relpath(p, REPO) for p in glob.glob(
     os.path.join(REPO, 'examples/**/conf/*.yaml'), recursive=True))
-UNPORTED = {  # yaml -> its ROADMAP.md queue 1 item
-    'examples/librispeech/ssl/conf/train_bestrq.yaml': 11,
-}
+UNPORTED = {}  # yaml -> its ROADMAP.md queue 1 item
 ZOO = ['examples/aishell/s0/conf/train_transformer.yaml',
        'examples/timit/s0/conf/train_transformer.yaml',
        'examples/openasr2021/s0/conf/train_conformer_large_10h.yaml',
@@ -32,6 +31,7 @@ ZOO = ['examples/aishell/s0/conf/train_transformer.yaml',
 TRANSDUCERS = ['examples/aishell/rnnt/conf/train_u2pp_transducer.yaml',
                'examples/librispeech/rnnt/conf/conformer_rnnt.yaml']
 PARAFORMER = ['examples/aishell/paraformer/conf/train_paraformer.yaml']
+SSL = ['examples/librispeech/ssl/conf/train_bestrq.yaml']
 _SHRINK = {'num_blocks': 2, 'r_num_blocks': 1, 'linear_units': 64,
            'cgmlp_linear_units': 64, 'reduce_idx': 0, 'recover_idx': 1,
            'att_layer_num': 2}
@@ -40,7 +40,8 @@ _SHRINK = {'num_blocks': 2, 'r_num_blocks': 1, 'linear_units': 64,
 def _configs(path, shrink=False):
     configs = load_config(os.path.join(REPO, path))
     if shrink:
-        for conf in (configs['encoder_conf'], configs['decoder_conf']):
+        for conf in (configs['encoder_conf'],
+                     configs.get('decoder_conf', {})):
             conf.update({k: v for k, v in _SHRINK.items() if k in conf})
     dataset_conf = configs.get('dataset_conf', {})
     configs['input_dim'] = dataset_conf.get('fbank_conf', dataset_conf.get(
@@ -54,8 +55,8 @@ def _configs(path, shrink=False):
 def test_sweep_counts():
     assert len(CONFIGS) == 23
     assert set(UNPORTED) | set(ZOO) | set(TRANSDUCERS) | set(
-        PARAFORMER) <= set(CONFIGS)
-    assert len(CONFIGS) - len(UNPORTED) == 22
+        PARAFORMER) | set(SSL) <= set(CONFIGS)
+    assert not UNPORTED  # all 23 build
 
 
 @pytest.mark.parametrize('path', CONFIGS)
@@ -72,12 +73,13 @@ def test_config_builds_or_names_its_item(path):
         configs['encoder_conf']['output_size']
 
 
-@pytest.mark.parametrize('path', ZOO + TRANSDUCERS + PARAFORMER)
+@pytest.mark.parametrize('path', ZOO + TRANSDUCERS + PARAFORMER + SSL)
 def test_zoo_state_dict_matches_jax(path):
     """Keys and shapes of the port's state dict == the JAX package's
     variables (abstract, `jax.eval_shape`) carried across (a transducer's
     predictor and joint too, a paraformer's CIF predictor and sampler
-    embedding, fed features of the width before LFR)."""
+    embedding, fed features of the width before LFR; BEST-RQ's head and
+    its quantizer's buffers)."""
     import jax
     import jax.numpy as jnp
     from wenet_tpu.utils.init_model import init_model as jax_init_model

@@ -262,7 +262,8 @@ def test_recognize_raises_for_what_is_not_ported(recipe, tmp_path,
             str(recipe / 'data.list'), '--checkpoint',
             str(recipe / 'final.pt'), '--result_dir', str(tmp_path),
             '--device', 'cpu']
-    with pytest.raises(NotImplementedError, match='item 11'):
+    # the hlg modes are ported, and need their graph and words
+    with pytest.raises(ValueError, match='needs --hlg and --word'):
         recognize.main(base + ['--modes', 'hlg_onebest'])
     # the rnnt and paraformer modes are ported, and need their models
     with pytest.raises(ValueError, match='need a transducer'):
@@ -277,9 +278,11 @@ def test_recognize_raises_for_what_is_not_ported(recipe, tmp_path,
         _jax_recognize(monkeypatch, [a for a in base if a != 'cpu' and
                                      a != '--device'] + ['--timestamps'])
     assert str(got.value) == str(want.value) and 'whisper' in str(got.value)
-    # the hlg modes' own options are not accepted
-    with pytest.raises(SystemExit):
-        recognize.get_parser().parse_args(base + ['--hlg', 'HLG.txt'])
+    # the hlg modes' own options are accepted
+    args = recognize.get_parser().parse_args(base + [
+        '--hlg', 'HLG.txt', '--word', 'words.txt', '--lm_scale', '0.7'])
+    assert (args.hlg, args.word, args.lm_scale) == ('HLG.txt', 'words.txt',
+                                                    0.7)
     with pytest.raises(ValueError, match='batch_size 1'):
         recognize.main(base + ['--simulate_streaming',
                                '--decoding_chunk_size', '4'])

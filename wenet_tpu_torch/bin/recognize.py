@@ -11,7 +11,18 @@ wenet_tpu/bin/recognize.py, on --device (default cuda):
 (a transducer's train.yaml also takes rnnt_greedy_search and
 rnnt_beam_search, whose beam is --beam_size; a paraformer's takes
 paraformer_greedy_search, paraformer_beam_search and, with a CTC head,
-the two CTC modes)
+the two CTC modes; a model with a CTC head and an attention decoder, as
+the k2 model has, takes hlg_onebest and hlg_rescore over an HLG.txt:
+
+    python -m wenet_tpu_torch.bin.recognize --config exp/k2/train.yaml \
+        --test_data data/test/data.list --checkpoint exp/k2/avg_5.pt \
+        --result_dir exp/k2/test --hlg data/local/hlg/HLG.txt \
+        --word data/local/hlg/words.txt --lm_scale 0.7 \
+        --decoder_scale 0.1 --r_decoder_scale 0.7 \
+        --modes hlg_onebest hlg_rescore
+
+which run beside the runner's modes, through `models/k2/model.py`, both
+over one encoder pass and search a batch)
 
 writes `<result_dir>/<mode>/text` (`key text` lines) for each mode.  The
 test set goes through the port's `Dataset` without augmentation,
@@ -28,13 +39,9 @@ timestamp_begin) ends the decode prompt with <|0.00|>, so that the beam
 applies the timestamp grammar, and writes `<result_dir>/<mode>/segments`
 (`key start end text` lines, end '-' for a segment the decode ended
 inside) beside each text file.  The checkpoint is the port's `.pt` (as
-bin/average_model writes it).
-
-Not ported, and raising NotImplementedError: the hlg_* modes (ROADMAP.md
-queue 1 item 11).  Their own options (--hlg, --word, --lm_scale,
---decoder_scale, --r_decoder_scale) are not accepted.  A config with an
-`lfr_conf` (paraformer, SenseVoice) has an input_dim of the mel bins
-times lfr_m, as in the JAX package."""
+bin/average_model writes it).  A config with an `lfr_conf` (paraformer,
+SenseVoice) has an input_dim of the mel bins times lfr_m, as in the JAX
+package."""
 
 import argparse
 import dataclasses
@@ -42,16 +49,20 @@ import logging
 import os
 import time
 
+import torch
+
 from wenet_tpu_torch.dataset.dataset import Dataset
+from wenet_tpu_torch.models.k2.model import (hlg_onebest, hlg_rescore,
+                                             hlg_search)
 from wenet_tpu_torch.models.runner import MODES, AsrRunner
+from wenet_tpu_torch.models.transformer.search import DecodeResult
 from wenet_tpu_torch.models.whisper.tokens import whisper_tokens_to_segments
 from wenet_tpu_torch.utils.checkpoint import load_model
 from wenet_tpu_torch.utils.config import load_config
 from wenet_tpu_torch.utils.ctc_utils import get_blank_id
 from wenet_tpu_torch.utils.init_tokenizer import init_tokenizer
 
-# mode prefix -> the ROADMAP.md queue 1 item that ports it
-_NOT_PORTED = {'hlg_': 11}
+HLG_MODES = ('hlg_onebest', 'hlg_rescore')
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -85,18 +96,25 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument('--lm_path', default=None,
                         help='ARPA n-gram for n-best rescoring')
     parser.add_argument('--lm_weight', type=float, default=0.5)
+    # the hlg modes: an HLG.txt (lm/build_graph.py build_hlg, or the JAX
+    # package's tools/k2/make_hlg.sh) and its words.txt
+    parser.add_argument('--hlg', default='',
+                        help='HLG.txt, only used for hlg decode')
+    parser.add_argument('--word', default='',
+                        help='words.txt, only used for hlg decode')
+    parser.add_argument('--lm_scale', type=float, default=0.0)
+    parser.add_argument('--decoder_scale', type=float, default=0.0)
+    parser.add_argument('--r_decoder_scale', type=float, default=0.0)
     parser.add_argument('--device', default='cuda')
     return parser
 
 
-def _check_ported(args) -> None:
+def _check_modes(args) -> None:
     for mode in args.modes:
-        for prefix, item in _NOT_PORTED.items():
-            if mode.startswith(prefix):
-                raise NotImplementedError(
-                    f'mode {mode} is not ported (ROADMAP.md, queue 1 item '
-                    f'{item})')
-        if mode not in MODES:
+        if mode in HLG_MODES:
+            if not (args.hlg and args.word):
+                raise ValueError(f'mode {mode} needs --hlg and --word')
+        elif mode not in MODES:
             raise ValueError(f'unknown mode {mode}')
     if args.simulate_streaming and args.decoding_chunk_size > 0 and \
             args.batch_size != 1:
@@ -138,11 +156,34 @@ def _lm_rescore(result, lm, lm_weight, id2sym):
                                score=best_score, times=times)
 
 
+def hlg_decode(runner: AsrRunner, modes, batch: dict, args,
+               symbol_table: dict) -> dict:
+    """One batch in the hlg `modes` on the runner's model and device, over
+    one encoder pass and search -> {mode: each row's unit ids}."""
+    if not modes:
+        return {}
+    speech = torch.as_tensor(batch['feats']).to(runner.device)
+    lengths = torch.as_tensor(batch['feats_lengths']).to(runner.device)
+    search = hlg_search(runner.model, speech, lengths, args.hlg, args.word)
+    out = {}
+    for mode in modes:
+        if mode == 'hlg_onebest':
+            out[mode] = hlg_onebest(runner.model, speech, lengths, args.hlg,
+                                    args.word, symbol_table, search)
+        else:
+            out[mode] = hlg_rescore(
+                runner.model, speech, lengths, args.hlg, args.word,
+                symbol_table, lm_scale=args.lm_scale,
+                decoder_scale=args.decoder_scale,
+                r_decoder_scale=args.r_decoder_scale, search=search)
+    return out
+
+
 def build(args):
     """-> (configs, tokenizer, blank id, test Dataset, AsrRunner over the
     checkpoint's model on args.device)."""
     configs = load_config(args.config, args.override_config)
-    _check_ported(args)
+    _check_modes(args)
     test_conf = decode_dataset_conf(configs, args.batch_size)
     tokenizer = init_tokenizer(configs)
     configs['input_dim'] = test_conf.get(
@@ -216,12 +257,20 @@ def main(argv=None):
             files[mode].write(line + '\n')
             counts[mode] += 1
 
+    hlg_modes = [m for m in args.modes if m in HLG_MODES]
+    runner_modes = [m for m in args.modes if m not in HLG_MODES]
     frames = 0
     try:
         for batch in dataset:
             frames += int(batch['feats_lengths'].sum())
+            for mode, hyps in hlg_decode(runner, hlg_modes, batch, args,
+                                         tokenizer.symbol_table).items():
+                write_results(batch['keys'], mode,
+                              [DecodeResult(h) for h in hyps])
+            if not runner_modes:
+                continue
             results = runner.decode(
-                args.modes, batch['feats'], batch['feats_lengths'],
+                runner_modes, batch['feats'], batch['feats_lengths'],
                 beam_size=args.beam_size,
                 decoding_chunk_size=args.decoding_chunk_size,
                 num_decoding_left_chunks=args.num_decoding_left_chunks,

@@ -15,6 +15,10 @@ yaml such as examples/aishell/whisper/conf/finetune_whisper_largev3.yaml)
 leaves them at their initial values.  `dtype: bf16` trains under bf16
 autocast.
 
+`dataset: ssl` (the BEST-RQ, wav2vec 2.0 and W2V-BERT yamls, e.g.
+examples/librispeech/ssl/conf/train_bestrq.yaml) pretrains on a
+wav-only data list: no tokenizer, entries without `txt`, output_dim 1.
+
 Beside the JAX trainer's flags it takes --device.  --tensorboard_dir has
 no default: a SummaryWriter is made only when it is given and tensorboard
 imports.  --prng_impl (a TPU workaround) and --no_flash_train (rel-pos
@@ -103,10 +107,12 @@ def build(args) -> types.SimpleNamespace:
     configs = load_config(args.config, args.override_config)
     _check_single_device(args, configs)
     configs['seed'] = args.seed
-    if configs.get('dataset', 'asr') != 'asr':
-        raise NotImplementedError(f'dataset: {configs["dataset"]} is not '
-                                  'ported (ROADMAP.md, queue 1 item 11)')
-    tokenizer = init_tokenizer(configs)
+    dataset_type = configs.get('dataset', 'asr')
+    if dataset_type not in ('asr', 'ssl'):
+        raise ValueError(f'unknown dataset: {dataset_type}')
+    # `dataset: ssl` pretrains on untranscribed audio: no tokenizer, data
+    # list entries with no txt
+    tokenizer = None if dataset_type == 'ssl' else init_tokenizer(configs)
     dc = configs['dataset_conf']
     configs['input_dim'] = dc.get('fbank_conf', dc.get(
         'mfcc_conf', dc.get('log_mel_spectrogram_conf', {}))).get(
@@ -114,7 +120,10 @@ def build(args) -> types.SimpleNamespace:
     if 'lfr_conf' in configs:
         # the model's input is the LFR features: mel bins x lfr_m
         configs['input_dim'] *= configs['lfr_conf'].get('lfr_m', 7)
-    configs['output_dim'] = tokenizer.vocab_size()
+    if tokenizer is not None:
+        configs['output_dim'] = tokenizer.vocab_size()
+    else:
+        configs.setdefault('output_dim', 1)  # the SSL heads do not read it
     train_dataset, cv_dataset = datasets(args, configs, tokenizer)
 
     device = torch.device(args.device)

@@ -1,6 +1,8 @@
 """TLG graph building in plain Python (no openfst).  Counterpart of
 wenet_tpu/lm/build_graph.py (the CTC token FST, the lexicon, G from an
-ARPA n-gram, composition and connect, `build_tlg`).
+ARPA n-gram, composition and connect, `build_tlg` and its alias
+`build_hlg`; the LF-MMI denominator graph `build_den_graph` over a
+token bigram, `build_token_bigram_fst`).
 
     T (CTC topology)  o  L (lexicon)  o  G (ARPA n-gram)  ->  TLG.txt
 
@@ -16,11 +18,17 @@ tokens.txt has <eps>=0, <blank>=1 and the units from 2; words.txt has
     from wenet_tpu_torch.lm.build_graph import build_tlg
     build_tlg('units.txt', 'lexicon.txt', 'lm.arpa', 'lang_test')
     # -> lang_test/{tokens.txt, words.txt, TLG.txt}
+
+HLG.txt (the k2 model's decode graph) is the same composition, written
+as TLG.txt; den.txt comes from `build_den_graph(seqs, num_units,
+outdir)`.  Both equal what the JAX package's tools/k2/make_hlg.sh and
+tools/k2/prepare_mmi.py write.
 """
 
+import math
 import os
 from collections import deque
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from wenet_tpu_torch.lm.arpa import NgramLM, read_arpa
 from wenet_tpu_torch.lm.fst import Arc, TextFst
@@ -155,6 +163,17 @@ def compose(fa: TextFst, fb: TextFst) -> TextFst:
             state_of[key] = len(state_of)
         return state_of[key]
 
+    # b's arcs of each state by input label, in arc order (built once a
+    # state: a unigram state with one arc a unit meets every unit state)
+    by_il: Dict[int, Dict[int, List[Arc]]] = {}
+
+    def b_arcs_by_il(qb):
+        if qb not in by_il:
+            table = by_il[qb] = {}
+            for arc in fb.state_arcs(qb):
+                table.setdefault(arc.ilabel, []).append(arc)
+        return by_il[qb]
+
     start = (fa.start, fb.start, 0)
     out.start = get_state(start)
     queue = deque([start])
@@ -170,11 +189,8 @@ def compose(fa: TextFst, fb: TextFst) -> TextFst:
         if fca != NEG_COST and fcb != NEG_COST:
             out.finals[src] = fca + fcb
         a_arcs = fa.state_arcs(qa)
-        b_arcs = fb.state_arcs(qb)
         # matched moves (olabel of a == ilabel of b, nonzero)
-        b_by_il: Dict[int, List[Arc]] = {}
-        for arc in b_arcs:
-            b_by_il.setdefault(arc.ilabel, []).append(arc)
+        b_by_il = b_arcs_by_il(qb)
         for aa in a_arcs:
             if aa.olabel != 0:
                 for bb in b_by_il.get(aa.olabel, ()):
@@ -330,3 +346,81 @@ def build_tlg(units_path: str, lexicon_path: str, arpa_path: str,
     tlg = compose(t_fst, lg)
     write_text(tlg, os.path.join(outdir, 'TLG.txt'))
     return tlg
+
+
+# The k2 model's HLG is the same composition, the CTC topology playing H.
+build_hlg = build_tlg
+
+
+def build_token_bigram_fst(token_seqs: Sequence[Sequence[int]],
+                           num_units: int,
+                           interp: float = 0.8) -> TextFst:
+    """An interpolated backoff bigram over the units (tokens.txt ids, units
+    at 2..num_units+1) as a token acceptor.  Each seen bigram's arc costs
+    -log(interp * p_ML(v|u)), and an eps backoff arc -log(1 - interp) to
+    the unigram state, whose arcs cost -log of add-one unigram
+    probabilities: in the log semiring the two paths sum to the
+    interpolated probability."""
+    uni_counts: Dict[int, float] = {}
+    bi_counts: Dict[Tuple[int, int], float] = {}
+    ctx_totals: Dict[int, float] = {}
+    EOS = -1
+    total = 0.0
+    for seq in token_seqs:
+        prev = None
+        for tok in seq:
+            uni_counts[tok] = uni_counts.get(tok, 0.0) + 1
+            total += 1
+            if prev is not None:
+                bi_counts[(prev, tok)] = bi_counts.get((prev, tok),
+                                                       0.0) + 1
+                ctx_totals[prev] = ctx_totals.get(prev, 0.0) + 1
+            prev = tok
+        if prev is not None:
+            bi_counts[(prev, EOS)] = bi_counts.get((prev, EOS), 0.0) + 1
+            ctx_totals[prev] = ctx_totals.get(prev, 0.0) + 1
+    uni_counts[EOS] = uni_counts.get(EOS, 0.0) + max(len(token_seqs), 1)
+    total += uni_counts[EOS]
+
+    fst = TextFst()
+    UNI = 0  # the unigram (backoff) state
+    fst.start = UNI
+    V = num_units + 1  # the units and eos
+    by_ctx: Dict[int, List[Tuple[int, float]]] = {}
+    for (u, v), c in bi_counts.items():
+        by_ctx.setdefault(u, []).append((v, c))
+
+    def p_uni(tok):
+        return (uni_counts.get(tok, 0.0) + 1.0) / (total + V)
+
+    ctx_states = {u: i + 1
+                  for i, u in enumerate(sorted({k[0] for k in bi_counts}))}
+    # unigram arcs: UNI -> the context state of v (UNI if v has none)
+    for v in range(2, num_units + 2):
+        _add_arc(fst, UNI, ctx_states.get(v, UNI), v, v, -math.log(p_uni(v)))
+    fst.finals[UNI] = -math.log(p_uni(EOS))
+    for u, src in ctx_states.items():
+        for v, c in by_ctx.get(u, ()):
+            p = interp * (c / ctx_totals[u])
+            if v == EOS:
+                fst.finals[src] = -math.log(p)
+            else:
+                _add_arc(fst, src, ctx_states.get(v, UNI), v, v,
+                         -math.log(p))
+        _add_arc(fst, src, UNI, 0, 0, -math.log(1.0 - interp))
+    return fst
+
+
+def build_den_graph(token_seqs: Sequence[Sequence[int]], num_units: int,
+                    outdir: Optional[str] = None,
+                    interp: float = 0.8) -> TextFst:
+    """The LF-MMI denominator graph: the CTC topology composed with the
+    token bigram of `token_seqs` (CTC unit ids >= 1, shifted here to
+    tokens.txt ids).  Writes `outdir`/den.txt when `outdir` is given."""
+    shifted = [[t + 1 for t in seq] for seq in token_seqs]
+    den = compose(build_token_fst(num_units),
+                  build_token_bigram_fst(shifted, num_units, interp))
+    if outdir:
+        os.makedirs(outdir, exist_ok=True)
+        write_text(den, os.path.join(outdir, 'den.txt'))
+    return den

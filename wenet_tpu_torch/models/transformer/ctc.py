@@ -32,6 +32,18 @@ class CTC(nn.Module):
         False (zero-length dummies) leave numerator and denominator.  Both
         kinds enter F.ctc_loss with an empty target, so their loss and its
         gradient stay finite before they are zeroed."""
+        per_seq, logprobs = self.loss_per_sequence(hs_pad, hlens, ys_pad,
+                                                   ys_lens, row_valid)
+        denom = (hs_pad.shape[0] if row_valid is None else
+                 row_valid.sum().clamp(min=1))
+        return per_seq.sum() / denom, logprobs
+
+    def loss_per_sequence(self, hs_pad: torch.Tensor, hlens: torch.Tensor,
+                          ys_pad: torch.Tensor, ys_lens: torch.Tensor,
+                          row_valid: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> (the CTC loss of each row (B,), 0 for infeasible and invalid
+        rows, as `forward` counts them; fp32 log-probs (B, T, V))."""
         logprobs = F.log_softmax(self.ctc_lo(hs_pad).float(), dim=-1)
         label_pad = make_pad_mask(ys_lens, ys_pad.shape[1])
         labels = ys_pad.masked_fill(label_pad, self.blank_id).long()
@@ -45,9 +57,7 @@ class CTC(nn.Module):
             torch.where(use, ys_lens, 0).long(), blank=self.blank_id,
             reduction='none', zero_infinity=False)
         per_seq = torch.where(use & torch.isfinite(per_seq), per_seq, 0.0)
-        denom = (hs_pad.shape[0] if row_valid is None else
-                 row_valid.sum().clamp(min=1))
-        return per_seq.sum() / denom, logprobs
+        return per_seq, logprobs
 
     def logits(self, hs_pad: torch.Tensor, blank_penalty: float = 0.0,
                blank_id: int = 0) -> torch.Tensor:

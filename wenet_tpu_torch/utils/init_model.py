@@ -1,18 +1,23 @@
-"""Config-driven model construction.  Counterpart of the `asr_model`,
-`transducer`, `whisper`, `paraformer`, `sensevoice_small` and `firered`
-entries of wenet_tpu/utils/init_model.py: an encoder of the zoo
-(conformer, transformer, branchformer, E-Branchformer, Squeezeformer,
-efficient conformer, the SAN-M encoders, FireRed's conformer), a
-(bi)transformer or SAN-M decoder (none for SenseVoice) and a CTC head, a
-transducer's predictor (rnn, embedding, conv) and joint, and a
-paraformer's CIF predictor (`predictor_conf`, the JAX package's
-defaults; `cif_predictor_conf` is not read, as there), from the same
-train.yaml schema: `input_dim` is the LFR features' width where the
+"""Config-driven model construction.  Counterpart of
+wenet_tpu/utils/init_model.py (`asr_model`, `transducer`, `whisper`,
+`paraformer`, `sensevoice_small`, `firered`, `k2_model` and the SSL
+models `bestrq_model`, `wav2vec_model` and `w2vbert_model`): an encoder
+of the zoo (conformer, transformer, branchformer, E-Branchformer,
+Squeezeformer, efficient conformer, the SAN-M encoders, FireRed's
+conformer), a (bi)transformer or SAN-M decoder (none for SenseVoice)
+and a CTC head, a transducer's predictor (rnn, embedding, conv) and
+joint, and a paraformer's CIF predictor (`predictor_conf`, the JAX
+package's defaults; `cif_predictor_conf` is not read, as there), from
+the same train.yaml schema: `input_dim` is the LFR features' width where the
 config has an `lfr_conf`, and the efficient conformer's `efficient_conf`
 section is merged into its encoder_conf, as the JAX package does; with
 LoRA attention projections when `lora_conf.use_lora` is set (the
 conformer's and transformer's encoder always, the decoder's with
 `lora_decoder`).
+
+An SSL model is its encoder and its own heads (no decoder, no CTC head),
+its options read from `model_conf` as the JAX package reads them: the
+ones its constructor takes, the rest ignored.
 
 `gradient_checkpointing` (activation recomputation, which trades memory
 and changes no result) and `use_sdpa` are accepted and ignored.  Options
@@ -43,11 +48,13 @@ from wenet_tpu_torch.models.efficient_conformer.encoder import (
     EfficientConformerEncoder)
 from wenet_tpu_torch.models.firered.model import (FireRedConformerEncoder,
                                                   FireRedModel)
+from wenet_tpu_torch.models.k2.model import K2Model
 from wenet_tpu_torch.models.paraformer.layers import SanmDecoder, SanmEncoder
 from wenet_tpu_torch.models.paraformer.paraformer import Paraformer, Predictor
 from wenet_tpu_torch.models.sensevoice.sensevoice_small_model import (
     SanmEncoderWithTp, SenseVoiceSmall)
 from wenet_tpu_torch.models.squeezeformer.encoder import SqueezeformerEncoder
+from wenet_tpu_torch.models.ssl.w2vbert_model import SSL_MODEL_CLASSES
 from wenet_tpu_torch.models.transducer.joint import JOINT_CLASSES
 from wenet_tpu_torch.models.transducer.predictor import PREDICTOR_CLASSES
 from wenet_tpu_torch.models.transducer.transducer import Transducer
@@ -79,11 +86,8 @@ DECODER_CLASSES = {'transformer': TransformerDecoder,
 MODEL_CLASSES = {'asr_model': ASRModel, 'whisper': Whisper,
                  'transducer': Transducer, 'paraformer': Paraformer,
                  'sensevoice_small': SenseVoiceSmall,
-                 'firered': FireRedModel}
-# the ROADMAP.md queue 1 item of each model family not ported (item 8,
-# the rest of the encoder zoo, for any other name)
-UNPORTED_ITEM = {'k2_model': 11, 'bestrq_model': 11, 'w2vbert_model': 11,
-                 'wav2vec2_model': 11}
+                 'firered': FireRedModel, 'k2_model': K2Model,
+                 **SSL_MODEL_CLASSES}
 # accepted and ignored (remat is not ported; it changes no result)
 _IGNORED = {'gradient_checkpointing', 'use_sdpa'}
 # options each encoder implements at one value only (the value every
@@ -175,15 +179,15 @@ def init_model(configs: dict, generator: Optional[torch.Generator] = None,
                                ('encoder', encoder_type, ENCODER_CLASSES),
                                ('ctc', configs.get('ctc', 'ctc'), ('ctc',))):
         if value not in ported:
-            item = UNPORTED_ITEM.get(value, 8)
             raise NotImplementedError(f'{key}={value!r} is not ported '
-                                      f'(ROADMAP.md, queue 1 item {item})')
+                                      '(ROADMAP.md, queue 1 item 8)')
     lora_conf = lora_conf_of(configs)
     dec_lora = (lora_conf if (configs.get('lora_conf') or {}).get(
         'lora_decoder', False) else None)
     enc_cls = ENCODER_CLASSES[encoder_type]
     vocab_size = configs['output_dim']
-    decoder_type = configs.get('decoder', 'bitransformer')
+    ssl = model_type in SSL_MODEL_CLASSES
+    decoder_type = None if ssl else configs.get('decoder', 'bitransformer')
     if decoder_type is not None and decoder_type not in DECODER_CLASSES:
         raise NotImplementedError(f'decoder={decoder_type!r} is not ported')
     dec_cls = DECODER_CLASSES.get(decoder_type)
@@ -233,28 +237,38 @@ def init_model(configs: dict, generator: Optional[torch.Generator] = None,
             **_conf(enc_conf, _params(enc_cls.__init__), 'encoder', fixed))
         decoder = (dec_cls(vocab_size, encoder.output_size(), **dec_kw,
                            **dec_conf) if dec_cls is not None else None)
-        ctc = CTC(vocab_size, encoder.output_size(),
-                  configs.get('ctc_conf', {}).get('ctc_blank_id', 0))
         model_cls = MODEL_CLASSES[model_type]
-        extra = {}
-        if model_type == 'transducer':
-            extra = _transducer_parts(configs, vocab_size,
-                                      encoder.output_size())
-        elif model_type == 'paraformer':
-            extra = {'predictor': _cif_predictor(configs,
-                                                 encoder.output_size())}
-            if model_conf.get('ctc_weight', 0.5) == 0.0:
-                ctc = None  # no CTC parameters, as in the JAX package
-        model = model_cls(
-            vocab_size, encoder, decoder, ctc,
-            special_tokens=special_tokens, **extra,
-            **_conf(model_conf,
-                    _params(ASRModel.__init__) | _params(model_cls.__init__),
-                    'model'))
+        if ssl:
+            params = _params(model_cls.__init__)
+            model = model_cls(encoder, **{k: v for k, v in model_conf.items()
+                                          if k in params})
+        else:
+            model = _asr_model(configs, model_cls, model_conf, vocab_size,
+                               encoder, decoder, special_tokens)
     if torch.device(device).type != 'meta':
         model.to_empty(device=device)
         init_weights(model, generator)
     return model
+
+
+def _asr_model(configs: dict, model_cls, model_conf: dict, vocab_size: int,
+               encoder: nn.Module, decoder: Optional[nn.Module],
+               special_tokens: Optional[dict]) -> nn.Module:
+    """A model of the ASRModel family around `encoder` and `decoder`: the
+    CTC head, the transducer's or paraformer's own parts, model_conf."""
+    ctc = CTC(vocab_size, encoder.output_size(),
+              configs.get('ctc_conf', {}).get('ctc_blank_id', 0))
+    extra = {}
+    if model_cls is Transducer:
+        extra = _transducer_parts(configs, vocab_size, encoder.output_size())
+    elif model_cls is Paraformer:
+        extra = {'predictor': _cif_predictor(configs, encoder.output_size())}
+        if model_conf.get('ctc_weight', 0.5) == 0.0:
+            ctc = None  # no CTC parameters, as in the JAX package
+    return model_cls(
+        vocab_size, encoder, decoder, ctc, special_tokens=special_tokens,
+        **extra, **_conf(model_conf, _params(ASRModel.__init__) |
+                         _params(model_cls.__init__), 'model'))
 
 
 def _cif_predictor(configs: dict, enc_output_size: int) -> Predictor:
@@ -306,8 +320,9 @@ def init_weights(model: nn.Module,
     N(0, 1) embeddings, N(0, 0.02) learnable positions, zero tied-output
     biases, Xavier-uniform rel-pos biases, identity norms and cmvn; LoRA
     lora_A kaiming-uniform (fan-in uniform, torch's `a=sqrt(5)`) and
-    lora_B zero, so a fresh LoRA layer adds nothing.  Raises if a tensor
-    is left unset."""
+    lora_B zero, so a fresh LoRA layer adds nothing; a module with an
+    `init_own(generator)` method (the SSL heads and quantizers) fills its
+    own tensors and returns them.  Raises if a tensor is left unset."""
     done = set()
 
     def fill(t, fn):
@@ -356,6 +371,10 @@ def init_weights(model: nn.Module,
         if isinstance(getattr(m, 'ada_scale', None), nn.Parameter):
             fill(m.ada_scale, nn.init.ones_)  # Squeezeformer's
             fill(m.ada_bias, nn.init.zeros_)
+        own = getattr(m, 'init_own', None)
+        if own is not None:  # a model's own parameters and buffers
+            for t in own(generator):
+                done.add(id(t))
     missed = [n for n, t in list(model.named_parameters()) +
               list(model.named_buffers()) if id(t) not in done]
     if missed:

@@ -152,9 +152,10 @@ def make_train_step(model: torch.nn.Module,
     draw and the rel-pos attention dropout seeds) from (seed, epoch,
     state.step).  dtype=torch.bfloat16 runs forward and backward under
     autocast; params, grads and optimizer state stay fp32.  metrics:
-    the model's losses that are not None (loss, loss_att, loss_ctc and a
-    transducer's loss_rnnt), th_accuracy and grad_norm as device tensors
-    (no host sync), and lr as a float."""
+    every value of the model's dict that is not None (loss, loss_att,
+    loss_ctc, a transducer's loss_rnnt, an SSL model's codes_acc,
+    features_l2, ...), th_accuracy and grad_norm as device tensors (no
+    host sync), and lr as a float."""
     device_type = next(model.parameters()).device.type
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
