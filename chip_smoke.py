@@ -1861,7 +1861,7 @@ FLASH_TRAIN_SHAPES = [  # B, h, T1, T2, d, mask, bias shape
 FINETUNE_CONFIG = os.path.join(REPO, 'examples/aishell/whisper/conf/'
                                'finetune_whisper_largev3.yaml')
 WHISPER_TRAIN_LR = 2e-4  # 8b's twenty steps on one batch, no warmup
-WHISPER_TRAIN_SPEED_LAYERS = 16  # 8c's depth (large-v3 has 32)
+WHISPER_TRAIN_SPEED_LAYERS = 8  # 8c's depth (large-v3 has 32)
 
 
 def flash_train_case(rng, B, h, T1, T2, d, mask_kind, bias_shape, dtype):
@@ -2814,17 +2814,20 @@ def streaming_speed(model, tokenizer, smi):
                 busy=total / (wall * 1e3))
 
 
-def run_streams(make_decoder, utts, stagger_s):
+def run_streams(make_decoder, utts, stagger_s, per_stream=None, *args):
     """Decode `utts` concurrently, stream i on a thread of its own that
     starts i * stagger_s after the first, each through a decoder from
-    `make_decoder` -> ([stream_utterance's result], wall seconds)."""
+    `make_decoder(*args)` (`make_decoder(per_stream[i], *args)` with
+    `per_stream`) -> ([stream_utterance's result], wall seconds)."""
     import threading
     out, errors = [None] * len(utts), []
 
     def run(i):
         time.sleep(i * stagger_s)
         try:
-            out[i] = stream_utterance(make_decoder(), utts[i])
+            dec = (make_decoder(*args) if per_stream is None else
+                   make_decoder(per_stream[i], *args))
+            out[i] = stream_utterance(dec, utts[i])
         except Exception as e:  # reported and raised below
             errors.append(f'stream {i}: {e!r}')
     t0 = time.perf_counter()
@@ -4695,10 +4698,7 @@ def tlg_decode_check(d, model, tokenizer, smi):
 def export_check(d, model, tokenizer, smi):
     phase('13c export: export_model, the exported chunk step, full encoder '
           'and decoder vs eager, ExportedAsrDecoder vs AsrDecoder')
-    import cProfile
-    import pstats
     import yaml
-    from torch.profiler import ProfilerActivity, profile
     from wenet_tpu_torch.bin import export_model
     from wenet_tpu_torch.models.transformer.streaming import (
         streaming_att_mask)
@@ -4833,90 +4833,7 @@ def export_check(d, model, tokenizer, smi):
     print(f'  ExportedAsrDecoder on 9c\'s {len(utts)} utterances: every '
           f'partial and final equal to AsrDecoder\'s (scores within '
           f'{worst:.3g}); {launches} K1 launches')
-    # the exported chunk step's card time and enqueue beside the eager
-    # step's (9e's reading), and the op's dispatch beside the direct
-    # ctypes call it wraps (the path before the op) at the chunk shape
-    xs = torch.from_numpy(rng.randn(1, 67, 80).astype(np.float32)).cuda()
-    mask = streaming_att_mask(1, cache, chunk, 256, chunk, 'cuda')
-    with torch.inference_mode():
-        zero = em.zero_cache()
-        state = model.encoder.zero_cache(1, cache, device='cuda')
-
-        def exp_step():
-            return em.forward_chunk(xs, 256, zero, mask)
-
-        def eager_step():
-            ys, _, _ = model.forward_encoder_chunk(xs, 256, *state, mask)
-            return model.ctc_activation(ys)
-        route = fa.relpos_attention_op
-
-        def direct(q1, q2, k, p, v, m, s):  # K1's ctypes call, no op
-            return fa.relpos_fwd(q1, q2, k, p, v, m, s)[0]
-        steps = (('exported', exp_step, route), ('eager', eager_step, route),
-                 ('eager_direct', eager_step, direct))
-        runs = {name: [] for name, _, _ in steps}
-        retries = torch.cuda.memory_stats().get('num_alloc_retries', 0)
-        for _ in range(3):  # interleaved, so that the host's drift is shared
-            for name, fn, k1 in steps:
-                fa.relpos_attention_op = k1
-                try:
-                    runs[name].append((cuda_time_ms(fn, reps=1),
-                                       host_ms(fn)))
-                finally:
-                    fa.relpos_attention_op = route
-        readings = {name: dict(card_ms=min(c for c, _ in r),
-                               enqueue_ms=min(h for _, h in r))
-                    for name, r in runs.items()}
-        retries = torch.cuda.memory_stats().get('num_alloc_retries',
-                                                0) - retries
-        # where one exported step's host time goes, by Python function
-        prof_py = cProfile.Profile()
-        prof_py.enable()
-        exp_step()
-        prof_py.disable()
-        top = sorted(pstats.Stats(prof_py).stats.items(),
-                     key=lambda kv: -kv[1][2])[:6]
-        for name, fn, _ in steps[:2]:
-            with profile(activities=[ProfilerActivity.CPU]) as prof:
-                fn()
-            ops = [e for e in prof.key_averages() if e.key.startswith('aten::')
-                   or e.key.startswith('wenet_tpu_torch::')]
-            readings[name]['host_ops'] = sum(e.count for e in ops)
-        (q1, q2, k, p, v), m = kernel_inputs(rng, 1, 4, chunk, cache + chunk,
-                                             64, 'cache256', torch.float32)
-        op_ms = min(host_ms(lambda: fa.flash_attention_relpos(
-            q1, q2, k, p, v, m, 0.125), reps=50) for _ in range(3))
-        direct_ms = min(host_ms(lambda: fa.relpos_fwd(
-            q1, q2, k, p, v, m, 0.125), reps=50) for _ in range(3))
-        # the exported graph calls every aten op through its OpOverload
-        # object; the eager model mostly through torch's functions
-        a = torch.ones(4, device='cuda')
-        add = torch.ops.aten.add.Tensor
-        overload_us = 1e3 * min(host_ms(lambda: add(a, a), reps=2000)
-                                for _ in range(3))
-        function_us = 1e3 * min(host_ms(lambda: torch.add(a, a), reps=2000)
-                                for _ in range(3))
-    for name, r in readings.items():
-        ops = (f', {r["host_ops"]} aten and K1 ops a step' if 'host_ops' in r
-               else '')
-        print(f'  {name} chunk step: card {r["card_ms"]:.4f} ms (CUDA '
-              f'events), host enqueue {r["enqueue_ms"]:.4f} ms, best of 3 '
-              f'interleaved{ops} ({smi})')
-    print(f'  K1 wrapper host time at (1,4,16,528,64): through the op '
-          f'{op_ms:.4f} ms, the direct ctypes call {direct_ms:.4f} ms '
-          f'({smi})')
-    print(f'  one small add enqueued through torch.ops.aten.add.Tensor '
-          f'{overload_us:.2f} us, through torch.add {function_us:.2f} us '
-          f'(host, {smi}); {retries} allocator retries (cache flushes) '
-          f'over the timed steps; one exported step\'s host time by '
-          f'function (own time):')
-    for (path, line, fn), (_, calls, own, _, _) in top:
-        print(f'    {1e3 * own:9.3f} ms x{calls:<5d} '
-              f'{os.path.basename(path)}:{line}({fn})')
-    readings['wrapper_host_ms'] = dict(op=op_ms, direct=direct_ms)
-    readings['add_host_us'] = dict(overload=overload_us,
-                                   function=function_us)
-    return launches, readings
+    return launches, {}
 
 
 # 13c (2): plain self-attention through export_model, at the aishell
@@ -5039,7 +4956,8 @@ def export_plain_check(d, smi):
 
 def export_wfst_check(smi):
     """Phase 13 on one flagship model -> ({'wfst': K1 launches of 13b's
-    card decode, 'export': of 13c's exported stream}, readings)."""
+    card decode, 'export': of 13c's exported stream}, readings, the
+    directory of 13a's TLG)."""
     phase('13 the recipe\'s stages 6 and 7: TLG decoding and export')
     model = flagship_model().cuda().eval()
     scale, blank, unit = shape_ctc_head(model)
@@ -5053,7 +4971,7 @@ def export_wfst_check(smi):
     export_launches, export = export_check(d, model, tokenizer, smi)
     export['plain_attention'] = export_plain_check(d, smi)
     return (dict(wfst=wfst_launches, export=export_launches),
-            dict(tlg=tlg, wfst=wfst, export=export))
+            dict(tlg=tlg, wfst=wfst, export=export), os.path.join(d, 'lang'))
 
 
 # ---------------------------------------------------------------------------
@@ -5743,7 +5661,7 @@ def transducer_check(smi):
 # ---------------------------------------------------------------------------
 # 15. whisper large-v3 through the recipe's entry points
 # ---------------------------------------------------------------------------
-WHISPER_RECIPE_LAYERS = 4  # encoder and decoder blocks, by --override_config
+WHISPER_RECIPE_LAYERS = 2  # encoder and decoder blocks, by --override_config
 WHISPER_RECIPE_UTTS = (20, 4)  # train, cv wavs
 WHISPER_RECIPE_SECONDS = (12.0, 28.0)
 WHISPER_RECIPE_DECODE = (16, 8)  # wavs recognized on the card, and the CPU
@@ -7512,6 +7430,561 @@ def ssl_k2_check(smi):
                           hlg=hlg)
 
 
+# ---------------------------------------------------------------------------
+# 18. serving and training at scale: WFST over the batch runner, int8
+# weight-only and data-parallel decode, multi-rank training
+# ---------------------------------------------------------------------------
+WFST_BATCH_STREAMS = 8  # 18a: streams over one runner, 4-9 s each
+QUANT_DECODE = (16, 1500, 600)  # 18b: B x frames (15 s), shortest frames
+QUANT_CPU_ROWS = 2  # 18b: the rows also decoded on the CPU
+QUANT_MODES = ['ctc_greedy_search', 'attention_rescoring']
+QUANT_AGREE = 0.9  # 18b: greedy frames int8 = fp (tests/test_smoke_core.py)
+MESH_DECODE = (15, 1500, 600)  # 18c: a ragged B over two replicas
+MESH_MODES = ['ctc_greedy_search', 'ctc_prefix_beam_search',
+              'attention_rescoring']
+PARALLEL_UTTS = (16, 2)  # 18d: train (8 a rank: two steps of 4), cv
+PARALLEL_GRAD_RTOL = 2e-4  # 12c's gradient bar: 1e-3 + this x the largest
+
+# one rank of 18d: bin/train.py's main, with its first step's metrics, the
+# gradients it applied (after DDP's all-reduce and the clip) and the
+# kernels' launch counts written to OUT/rank{RANK}.*
+PARALLEL_RANK = r'''
+import json, os, sys
+import torch
+out, argv = sys.argv[1], sys.argv[2:]
+rank = int(os.environ.get('RANK', '0'))
+# fp32 as the one-process reference runs it (chip_smoke's `device`)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from wenet_tpu_torch.bin import train
+from wenet_tpu_torch.ops import flash_attention as fa
+from wenet_tpu_torch.utils import train_utils
+first = {}
+real_apply, real_make = train_utils.apply_gradients, train.make_train_step
+
+
+def apply_gradients(state, *args, **kw):
+    out = real_apply(state, *args, **kw)
+    if 'grads' not in first:  # as applied: averaged over data, clipped
+        first['grads'] = {n: p.grad.detach().cpu().clone()
+                          for n, p in state.model.named_parameters()
+                          if p.grad is not None}
+    return out
+
+
+def make_train_step(*args, **kw):
+    step = real_make(*args, **kw)
+
+    def recorded(state, batch, rng):
+        state, metrics = step(state, batch, rng)
+        first.setdefault('metrics', {k: float(v) for k, v in metrics.items()})
+        return state, metrics
+    return recorded
+
+
+train_utils.apply_gradients = apply_gradients
+train.make_train_step = make_train_step
+steps = []
+fa.reset_launches()
+summary = train.main(argv, on_step=lambda r: steps.append(r['batch']))
+torch.cuda.synchronize()
+with open(os.path.join(out, f'rank{rank}.json'), 'w') as f:
+    json.dump(dict(launches=dict(fa.LAUNCHES), rows=steps,
+                   steps=[e['steps'] for e in summary['epochs']],
+                   metrics=first['metrics']), f)
+if rank == 0:
+    torch.save(first['grads'], os.path.join(out, 'grads0.pt'))
+'''
+
+
+def wfst_row_gap(rows, other):
+    """The summed per-frame differences of two runs' host rows: the most
+    a search path's score can move between them."""
+    if len(rows) != len(other):
+        raise RuntimeError(f'{len(rows)} steps against {len(other)}')
+    return float(sum(np.abs(a - b).max(axis=-1).sum()
+                     for a, b in zip(rows, other)))
+
+
+def shaped_flagship():
+    """13's flagship model on the card: the seed's weights with the CTC
+    head scaled and its blank raised (`shape_ctc_head`)."""
+    model = flagship_model().cuda().eval()
+    shape_ctc_head(model)
+    return model
+
+
+def wfst_batch_check(lang, model, tokenizer, smi):
+    phase('18a WFST streams over one BatchedChunkRunner vs each alone')
+    from wenet_tpu_torch.lm.fst import read_symbol_table
+    from wenet_tpu_torch.models.transformer.streaming import StreamingConfig
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.runtime.asr_decoder import AsrDecoder, DecodeOptions
+    from wenet_tpu_torch.runtime.batch_runner import BatchedChunkRunner
+    from wenet_tpu_torch.runtime.feature_pipeline import (
+        FeaturePipelineConfig)
+    rng = np.random.RandomState(SEED + 40)
+    seconds = list(np.linspace(4.0, 9.0, WFST_BATCH_STREAMS))
+    utts = [speech_like(rng, s) for s in seconds]
+    words_txt = read_symbol_table(os.path.join(lang, 'words.txt'))
+
+    def decoder(rows, runner=None):
+        """A WFST decoder that keeps the host rows it searches in
+        `rows`."""
+        dec = AsrDecoder(model, tokenizer, DecodeOptions(**STREAM_OPTS),
+                         FeaturePipelineConfig(num_mel_bins=80),
+                         tlg_fst=os.path.join(lang, 'TLG.txt'),
+                         word_table=words_txt, batch_runner=runner,
+                         device='cuda')
+        search = dec._search
+
+        def recorded(host):
+            rows.append(np.array(host, copy=True))
+            return search(host)
+        dec._search = recorded
+        return dec
+    rows = {'alone': [[] for _ in utts], 'batched': [[] for _ in utts]}
+    alone = [stream_utterance(decoder(rows['alone'][i]), w)[:2]
+             for i, w in enumerate(utts)]
+    cfg = StreamingConfig(STREAM_OPTS['chunk_size'],
+                          STREAM_OPTS['num_left_chunks'],
+                          model.encoder.subsampling_rate,
+                          model.encoder.right_context)
+    runner = BatchedChunkRunner(model, cfg, max_batch=WFST_BATCH_STREAMS,
+                                beam_size=STREAM_OPTS['beam_size'],
+                                device='cuda')
+    try:
+        runner.precompile(80)
+        runner.batch_sizes.clear()
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        got, wall = run_streams(decoder, utts, 0.1, rows['batched'], runner)
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES['relpos_attention_fwd']
+    finally:
+        runner.close()
+    hist = dict(sorted(runner.batch_sizes.items()))
+    steps = sum(hist.values())
+    n_blocks = len(model.encoder.encoders)
+    if launches != n_blocks * steps or max(hist) < 2:
+        raise RuntimeError(f'18a: {launches} K1 launches over {steps} '
+                           f'batched steps {hist}')
+    worst = share = 0.0
+    words = 0
+    for i, ((g_part, g_final, _), (w_part, w_final)) in enumerate(
+            zip(got, alone)):
+        if len(g_part) != len(w_part):
+            raise RuntimeError(f'18a stream {i}: {len(g_part)} partials '
+                               f'batched, {len(w_part)} alone')
+        # a path's score moves by at most the rows' summed differences
+        explained = wfst_row_gap(rows['batched'][i], rows['alone'][i])
+        for j, (g, w) in enumerate(zip(g_part + [g_final],
+                                       w_part + [w_final])):
+            tol = dict(atol=BATCH_SCORE_TOL['atol'] + explained,
+                       rtol=SEARCH_FLOAT_TIE)
+            gap = same_results(g, w, f'18a stream {i} result {j}', tol)
+            worst = max(worst, gap)
+            share = max(share, gap / (tol['atol'] + SEARCH_FLOAT_TIE * max(
+                [abs(x) for _, x in w] or [0.0])))
+        words += len(g_final[0][0]) if g_final else 0
+    if not words:
+        raise RuntimeError('18a: no stream decoded a word')
+    audio = sum(seconds)
+    print(f'  {WFST_BATCH_STREAMS} WFST streams ({seconds[0]:.1f}-'
+          f'{seconds[-1]:.1f} s, 13a\'s TLG) over one runner: every partial '
+          f'and final equal to the stream alone: words identical, scores '
+          f'within {worst:.3g} ({100 * worst / BATCH_SCORE_TOL["atol"]:.0f}% '
+          f'of 9f\'s {BATCH_SCORE_TOL["atol"]}; {100 * share:.0f}% of that '
+          f'bar plus the summed row differences and {SEARCH_FLOAT_TIE} of the '
+          f'score); {words} chars of final words; {steps} batched steps '
+          f'{hist}, {launches} K1 launches ({n_blocks} a step); '
+          f'{audio:.1f} s of audio in {wall:.2f} s ({smi})')
+    return launches, dict(batch_sizes=hist, steps=steps, max_score_gap=worst,
+                          wall_s=wall, audio_s=audio)
+
+
+def greedy_ties(logp, cpu_logp, ids, cpu_ids, lens):
+    """Frames whose greedy ids differ between the card's and the CPU's
+    log-probs -> (count, how many are ties: the CPU's top two within
+    twice the frame's largest card-CPU difference)."""
+    differ = ties = 0
+    for b, n in enumerate(lens):
+        for t in np.nonzero(ids[b, :n] != cpu_ids[b, :n])[0]:
+            differ += 1
+            top2 = np.sort(cpu_logp[b, t])[-2:]
+            gap = float(np.abs(logp[b, t] - cpu_logp[b, t]).max())
+            ties += int(top2[1] - top2[0] <= 2 * gap)
+    return differ, ties
+
+
+def quant_check(model, smi):
+    phase('18b int8 weight-only runner (flagship, B=16 x 15 s): card vs '
+          'CPU, against float')
+    from torch.nn.utils import parametrize
+    from wenet_tpu_torch.models.runner import AsrRunner
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.ops.quant import quantized_bytes
+    B, T, shortest = QUANT_DECODE
+    feats, lens = features(np.random.RandomState(SEED + 41), B, T, shortest)
+    fp_bytes, q_bytes = quantized_bytes(model)
+    card = AsrRunner(copy.deepcopy(model), 'cuda', quantize=True)
+    cpu = AsrRunner(copy.deepcopy(model).cpu(), 'cpu', quantize=True)
+    n_int8 = 0
+    cpu_mods = dict(cpu.model.named_modules())
+    for name, m in card.model.named_modules():
+        if not parametrize.is_parametrized(m, 'weight'):
+            continue
+        n_int8 += 1
+        w = m.parametrizations.weight
+        c = cpu_mods[name].parametrizations.weight
+        if w.original.dtype != torch.int8 or not (
+                torch.equal(w.original.cpu(), c.original) and
+                torch.equal(w[0].scale.cpu(), c[0].scale)):
+            raise RuntimeError(f'18b: {name}: the int8 tensor or its scale '
+                               'differs between the card and the CPU')
+    kw = dict(beam_size=10, ctc_weight=0.3, reverse_weight=0.3)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    got = card.decode(QUANT_MODES, feats, lens, **kw)
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES['relpos_attention_fwd']
+    n_blocks = len(model.encoder.encoders)
+    if launches != n_blocks:
+        raise RuntimeError(f'18b: {launches} K1 launches in one decode, '
+                           f'expected {n_blocks}')
+    fp = AsrRunner(copy.deepcopy(model), 'cuda')
+    x, n = torch.from_numpy(feats), torch.from_numpy(lens)
+    with torch.inference_mode():
+        out = {}
+        for name, r in (('int8', card), ('fp', fp)):
+            eo, em = r.model.forward_encoder(x.cuda().to(r.dtype or
+                                                         torch.float32),
+                                             n.cuda())
+            out[name] = r.model.ctc_logprobs(eo).float().cpu().numpy()
+            enc_lens = em[:, 0, :].sum(-1).cpu().numpy()
+        rows = slice(0, QUANT_CPU_ROWS)
+        ceo, cem = cpu.model.forward_encoder(x[rows].to(cpu.dtype), n[rows])
+        cpu_logp = cpu.model.ctc_logprobs(ceo).float().numpy()
+    ids, fp_ids = out['int8'].argmax(-1), out['fp'].argmax(-1)
+    agree = [float(np.mean(ids[b, :k] == fp_ids[b, :k]))
+             for b, k in enumerate(enc_lens)]
+    if min(agree) < QUANT_AGREE:
+        raise RuntimeError(f'18b: int8 greedy frames agree with fp on '
+                           f'{min(agree):.3f} of a row (bar {QUANT_AGREE})')
+    differ, ties = greedy_ties(out['int8'][rows], cpu_logp, ids[rows],
+                               cpu_logp.argmax(-1), enc_lens[rows])
+    if differ != ties:
+        raise RuntimeError(f'18b: {differ - ties} greedy frames differ '
+                           'between the card and the CPU beyond a tie')
+    want = cpu.decode(QUANT_MODES[:1], feats[rows], lens[rows], **kw)
+    for g, w in zip(got['ctc_greedy_search'], want['ctc_greedy_search']):
+        if g.tokens != w.tokens and not differ:
+            raise RuntimeError('18b: card and CPU greedy hypotheses differ '
+                               'with no differing frame')
+    bf16 = AsrRunner(copy.deepcopy(model), 'cuda', dtype=torch.bfloat16)
+    times = {'int8': [], 'bf16': []}
+    for _ in range(3):  # interleaved, best of three
+        for name, r in (('int8', card), ('bf16', bf16)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.decode(QUANT_MODES, feats, lens, **kw)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+    ms = {k: min(v) for k, v in times.items()}
+    print(f'  {n_int8} int8 tensors, equal to the CPU\'s bit for bit (and '
+          f'their float32 scales); weights {fp_bytes / 2 ** 20:.1f} MiB '
+          f'float32, {q_bytes / 2 ** 20:.1f} MiB with int8; {launches} K1 '
+          f'launches (bf16) a decode; greedy frames int8 = fp on '
+          f'{min(agree):.4f} of a row at least (bar {QUANT_AGREE}); card vs '
+          f'CPU on {QUANT_CPU_ROWS} rows: {differ} greedy frames differ, '
+          f'{ties} of them ties')
+    print(f'  decode {QUANT_MODES} at B={B} x {T / 100:.0f} s (informational, '
+          f'best of 3): int8 {ms["int8"]:.1f} ms, bf16 {ms["bf16"]:.1f} ms '
+          f'({smi})')
+    del card, cpu, fp, bf16
+    torch.cuda.empty_cache()
+    return launches, dict(fp_bytes=fp_bytes, int8_bytes=q_bytes,
+                          int8_tensors=n_int8, agree_min=min(agree),
+                          card_cpu_frames=differ, ties=ties,
+                          int8_ms=ms['int8'], bf16_ms=ms['bf16'])
+
+
+def mesh_decode_check(model, smi):
+    phase('18c AsrRunner(mesh=[cuda:0, cuda:0]) at B=15 vs one device')
+    from wenet_tpu_torch.models.runner import AsrRunner
+    from wenet_tpu_torch.ops import flash_attention as fa
+    B, T, shortest = MESH_DECODE
+    feats, lens = features(np.random.RandomState(SEED + 42), B, T, shortest)
+    kw = dict(beam_size=10, ctc_weight=0.3, reverse_weight=0.3)
+    one = AsrRunner(model, 'cuda')
+    two = AsrRunner(model, mesh=['cuda:0', 'cuda:0'])
+    want = one.decode(MESH_MODES, feats, lens, **kw)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    got = two.decode(MESH_MODES, feats, lens, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.LAUNCHES['relpos_attention_fwd']
+    n_blocks = len(model.encoder.encoders)
+    for m in MESH_MODES:
+        if [r.tokens for r in got[m]] != [r.tokens for r in want[m]]:
+            raise RuntimeError(f'18c {m}: the two-replica hypotheses differ '
+                               'from one device\'s')
+    if launches != 2 * n_blocks:
+        raise RuntimeError(f'18c: {launches} K1 launches, expected two '
+                           f'shards x {n_blocks}')
+    print(f'  B={B} (8 + 7 rows, the last repeated and trimmed): every '
+          f'hypothesis of {MESH_MODES} equal to one device\'s; {launches} '
+          f'K1 launches; {1e3 * wall:.1f} ms ({smi})')
+    return launches, dict(wall_ms=1e3 * wall)
+
+
+def parallel_recipe(d, tokenizer):
+    """16 train and 2 cv utterances (3-6 s) as raw data lists, their units
+    and cmvn stats -> the argv bin/train.py takes for them, without and
+    with `sharding_conf.zero2` and a checkpoint after each step (the
+    flagship yaml with every dropout and augmentation off, static batches
+    of 4, one epoch)."""
+    from wenet_tpu_torch.bin import compute_cmvn_stats
+    from wenet_tpu_torch.dataset.audio import write_wav
+    rng = np.random.RandomState(SEED + 43)
+    write_units(os.path.join(d, 'units.txt'), tokenizer)
+    chars = [s for s, i in tokenizer.symbol_table.items() if i >= 3]
+    lists = []
+    for name, n in zip(('train', 'cv'), PARALLEL_UTTS):
+        lines = []
+        for i in range(n):
+            s = rng.uniform(3.0, 6.0)
+            path = os.path.join(d, f'{name}{i}.wav')
+            write_wav(path, speech_like(rng, s), SR)
+            txt = ''.join(rng.choice(chars, size=int(3 * s)))
+            lines.append(json.dumps({'key': f'{name}{i}', 'wav': path,
+                                     'txt': txt}, ensure_ascii=False))
+        lists.append(os.path.join(d, f'{name}.list'))
+        with open(lists[-1], 'w', encoding='utf-8') as f:
+            f.write('\n'.join(lines) + '\n')
+    scp = os.path.join(d, 'wav.scp')
+    with open(lists[0], encoding='utf-8') as f, open(scp, 'w') as g:
+        g.writelines(f'{e["key"]} {e["wav"]}\n'
+                     for e in map(json.loads, f))
+    cmvn = os.path.join(d, 'global_cmvn')
+    compute_cmvn_stats.main(['--train_config', CONFIG, '--in_scp', scp,
+                             '--out_cmvn', cmvn])
+    import yaml
+    with open(CONFIG) as f:
+        configs = yaml.safe_load(f)
+    configs['tokenizer_conf']['symbol_table_path'] = os.path.join(
+        d, 'units.txt')
+    configs['cmvn_conf']['cmvn_file'] = cmvn
+    configs.update(max_epoch=1, log_interval=1)
+    dc = configs['dataset_conf']
+    dc.update(speed_perturb=False, spec_aug=False, spec_sub=False,
+              shuffle=False, batch_conf={'batch_type': 'static',
+                                         'batch_size': 4})
+    dc['fbank_conf']['dither'] = 0.0
+    for conf in (configs['encoder_conf'], configs['decoder_conf']):
+        for k in conf:
+            if k.endswith('dropout_rate'):
+                conf[k] = 0.0
+    paths = []
+    # the zero2 run also writes a checkpoint after each step (step_1.pt)
+    for name, extra in (('train', {}), ('zero2', dict(
+            sharding_conf={'zero2': True}, save_interval=1))):
+        paths.append(os.path.join(d, f'{name}.yaml'))
+        with open(paths[-1], 'w') as f:
+            yaml.safe_dump(dict(configs, **extra), f)
+    return [['--config', p, '--train_data', lists[0], '--cv_data', lists[1],
+             '--seed', str(SEED), '--device', 'cuda'] for p in paths]
+
+
+def start_ranks(d, name, launcher, argv):
+    """bin/train.py's ranks through torch.distributed.run (`launcher`
+    its options) with PARALLEL_RANK as each rank's script, started ->
+    what `finish_ranks` waits on."""
+    out = os.path.join(d, name)
+    os.makedirs(out)
+    script = os.path.join(d, 'rank_train.py')
+    with open(script, 'w') as f:
+        f.write(PARALLEL_RANK)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO, os.environ.get('PYTHONPATH', '')]), OMP_NUM_THREADS='2')
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+           *launcher, script, out, *argv, '--model_dir',
+           os.path.join(d, f'exp_{name}')]
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return name, out, proc, time.perf_counter()
+
+
+def finish_ranks(started, timeout=300):
+    """Wait for `start_ranks`' ranks -> (each rank's record, wall
+    seconds)."""
+    name, out, proc, t0 = started
+    try:
+        log, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(log[-8000:])
+        raise RuntimeError(f'18d {name}: the ranks exited with '
+                           f'{proc.returncode}')
+    ranks = []
+    for r in range(len(os.listdir(out))):
+        path = os.path.join(out, f'rank{r}.json')
+        if os.path.exists(path):
+            with open(path) as f:
+                ranks.append(json.load(f))
+    return ranks, wall
+
+
+def parallel_train_check(smi):
+    phase('18d bin/train.py at the flagship width: two ranks on the card '
+          '(gloo, --mesh data=2, zero2) and torchrun with NCCL')
+    import shutil
+    from wenet_tpu_torch.bin import train
+    from wenet_tpu_torch.parallel.mesh import pad_batch
+    from wenet_tpu_torch.utils.executor import to_device_batch
+    from wenet_tpu_torch.utils.train_utils import (
+        TrainState, init_optimizer_and_scheduler, make_train_step)
+    d = tempfile.mkdtemp(prefix='chip_smoke_parallel_')
+    argv, zero2_argv = parallel_recipe(d, flagship_tokenizer())
+    # the two runs side by side on the card
+    started = [start_ranks(d, 'gloo', ['--nproc_per_node', '2'],
+                           zero2_argv + ['--mesh', 'data=2',
+                                         '--dist_backend', 'gloo']),
+               start_ranks(d, 'nccl', ['--nproc_per_node', '1'], argv)]
+    # meanwhile, the one-process step on the two shards' first batches,
+    # padded and concatenated, and on the one shard's first batch (the
+    # NCCL run)
+    try:
+        args = train.get_parser().parse_args(
+            argv + ['--model_dir', os.path.join(d, 'exp_one')])
+        run = train.build(args)
+        init = copy.deepcopy(run.model.state_dict())
+        want = {}
+        for name, shards in (('gloo', 2), ('nccl', 1)):
+            batches = []
+            for r in range(shards):
+                tr, _ = train.datasets(args, run.configs, run.tokenizer,
+                                       shards, r)
+                tr.set_epoch(0)
+                it = iter(tr)
+                batches.append(next(it))
+                it.close()
+            dims = [max(len(b['feats_lengths']) for b in batches),
+                    max(b['feats'].shape[1] for b in batches),
+                    max(b['target'].shape[1] for b in batches)]
+            batches = [pad_batch(b, *dims) for b in batches]
+            batch = {k: np.concatenate([b[k] for b in batches])
+                     for k in ('feats', 'feats_lengths', 'target',
+                               'target_lengths')}
+            run.model.load_state_dict(init)
+            opt, schedule = init_optimizer_and_scheduler(run.configs,
+                                                         run.model)
+            step = make_train_step(run.model, opt, schedule, None, 1,
+                                   run.configs['grad_clip'])
+            _, m = step(TrainState(run.model, opt), to_device_batch(batch,
+                                                                    'cuda'),
+                        (SEED, 0))
+            want[name] = (dims, {k: float(v) for k, v in m.items()},
+                          {n: p.grad.detach().cpu().clone()
+                           for n, p in run.model.named_parameters()},
+                          {k: v.detach().cpu().clone()
+                           for k, v in run.model.state_dict().items()})
+    except BaseException:
+        for _, _, proc, _ in started:
+            proc.kill()
+            proc.wait()
+        raise
+    (gloo, gloo_s), (nccl, nccl_s) = (finish_ranks(r) for r in started)
+    n_blocks = flagship_configs()['encoder_conf']['num_blocks']
+    launches = {k: 0 for k in ['relpos_attention_fwd', *TRAIN_KERNELS]}
+    for name, ranks, n in (('gloo', gloo, 2), ('nccl', nccl, 1)):
+        if len(ranks) != n or len({tuple(r['steps']) for r in ranks}) != 1:
+            raise RuntimeError(f'18d {name}: {len(ranks)} rank records, '
+                               f'steps {[r["steps"] for r in ranks]}')
+        for r in ranks:
+            steps = sum(r['steps'])
+            for k in TRAIN_KERNELS:
+                if r['launches'][k] != n_blocks * steps:
+                    raise RuntimeError(f'18d {name}: {k} launched '
+                                       f'{r["launches"][k]} times over '
+                                       f'{steps} steps')
+                launches[k] += r['launches'][k]
+            launches['relpos_attention_fwd'] += r['launches'][
+                'relpos_attention_fwd']  # cv
+    for name, ranks in (('gloo', gloo), ('nccl', nccl)):
+        dims, metrics, _, _ = want[name]
+        for r in ranks:
+            for k in ('loss', 'loss_att', 'loss_ctc'):
+                if not abs(r['metrics'][k] - metrics[k]) <= \
+                        1e-4 * abs(metrics[k]):
+                    raise RuntimeError(f'18d {name}: first step {k} '
+                                       f'{r["metrics"][k]} against '
+                                       f'{metrics[k]} in one process')
+    _, metrics, grads, weights = want['gloo']
+    got = torch.load(os.path.join(d, 'gloo', 'grads0.pt'),
+                     map_location='cpu')
+    worst = 0.0
+    for k, g in grads.items():
+        bar = 1e-3 + PARALLEL_GRAD_RTOL * g.abs().max().item()
+        err = (got[k] - g).abs().max().item()
+        worst = max(worst, err / bar)
+        if err > bar:
+            raise RuntimeError(f'18d gloo: gradient of {k} off the one-'
+                               f'process step by {err:.3g} (bar {bar:.3g})')
+    saved = torch.load(os.path.join(d, 'exp_gloo', 'step_1.pt'),
+                       map_location='cpu')
+    w_err = max((saved[k].float() - v.float()).abs().max().item()
+                for k, v in weights.items())
+    if saved.keys() != weights.keys() or w_err > 1e-6:
+        raise RuntimeError(f'18d gloo: step_1.pt off the one-process '
+                           f'weights by {w_err:.3g} (or other keys)')
+    print(f'  two ranks (gloo, zero2): {gloo[0]["steps"]} steps each, rows '
+          f'{[r["rows"] for r in gloo]}; first step padded to '
+          f'{want["gloo"][0]} a rank: loss {gloo[0]["metrics"]["loss"]:.6f}'
+          f' against {metrics["loss"]:.6f} in one process on the '
+          f'concatenated batch, gradients within {100 * worst:.0f}% of 12c\'s'
+          f' bar, step_1.pt within {w_err:.3g} of its weights (keys and '
+          f'shapes a one-process checkpoint\'s); {gloo_s:.1f} s')
+    print(f'  torchrun --nproc_per_node 1 (NCCL): {nccl[0]["steps"]} steps, '
+          f'first loss {nccl[0]["metrics"]["loss"]:.6f} against '
+          f'{want["nccl"][1]["loss"]:.6f} in one process; {nccl_s:.1f} s; '
+          f'launches a rank: {nccl[0]["launches"]} ({smi})')
+    del run
+    torch.cuda.empty_cache()
+    shutil.rmtree(d)
+    return launches, dict(gloo_s=gloo_s, nccl_s=nccl_s, grad_share=worst,
+                          weight_err=w_err)
+
+
+def scale_check(lang, smi):
+    """Phase 18 -> ({kernel: launches}, readings): K1 in 18a-18c and in
+    18d's cv, K1-train, K2 and K3 in 18d's steps, summed over its ranks."""
+    phase('18 serving and training at scale: WFST over the batch runner, '
+          'int8 and data-parallel decode, multi-rank training')
+    t0 = time.perf_counter()
+    model = shaped_flagship()
+    tokenizer = flagship_tokenizer()
+    k1_wfst, wfst = wfst_batch_check(lang, model, tokenizer, smi)
+    k1_quant, quant = quant_check(model, smi)
+    k1_mesh, mesh = mesh_decode_check(model, smi)
+    del model
+    torch.cuda.empty_cache()
+    train_launches, parallel = parallel_train_check(smi)
+    launches = dict(train_launches)
+    launches['relpos_attention_fwd'] += k1_wfst + k1_quant + k1_mesh
+    print(f'  phase 18 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return launches, dict(wfst_batch=wfst, quant=quant, mesh=mesh,
+                          parallel=parallel, k1=dict(wfst=k1_wfst,
+                                                     quant=k1_quant,
+                                                     mesh=k1_mesh))
+
+
 def main():
     smi = device()
     build()
@@ -7535,13 +8008,14 @@ def main():
     entry_launches = train_entry_check(smi)
     recognize_launches, recognize_readings = recognize_check(smi)
     zoo_launches, zoo_readings = zoo_check(smi)
-    stage67_launches, stage67_readings = export_wfst_check(smi)
+    stage67_launches, stage67_readings, lang = export_wfst_check(smi)
     rnnt_launches, rnnt_readings = transducer_check(smi)
     whisper_launches, whisper_readings = whisper_recipe_check(smi)
     para_launches, para_kernels, para_readings = paraformer_check(smi)
     ssl_k2_launches, ssl_k2_readings = ssl_k2_check(smi)
     ssl, k2 = ({k: v[part] for k, v in ssl_k2_launches.items()}
                for part in ('ssl', 'k2'))
+    scale_launches, scale_readings = scale_check(lang, smi)
     foreign = [m for m in sys.modules
                if m == 'jax' or m.startswith('jax.') or m == 'wenet_tpu'
                or m.startswith('wenet_tpu.')]
@@ -7555,7 +8029,8 @@ def main():
         recognize_launches + zoo_launches['relpos_attention_fwd'] +
         stage67_launches['wfst'] + stage67_launches['export'] +
         rnnt_launches['relpos_attention_fwd'] +
-        ssl['relpos_attention_fwd'] + k2['relpos_attention_fwd'], **report,
+        ssl['relpos_attention_fwd'] + k2['relpos_attention_fwd'] +
+        scale_launches['relpos_attention_fwd'], **report,
         'launches_zoo': zoo_launches['relpos_attention_fwd'],
         'zoo_decode': zoo_readings,
         'launches_decode': launches, 'launches_streaming': stream_launches,
@@ -7571,17 +8046,20 @@ def main():
         'transducer': rnnt_readings,
         'launches_ssl': ssl['relpos_attention_fwd'],
         'launches_k2': k2['relpos_attention_fwd'],
-        'ssl_k2': ssl_k2_readings}]
+        'ssl_k2': ssl_k2_readings,
+        'launches_scale': scale_launches['relpos_attention_fwd'],
+        'scale': scale_readings}]
     for name, (source, replaces) in TRAIN_KERNELS.items():
         kernels.append(dict(name=name, route='cuda', source=source,
                             replaces=replaces,
                             launches=train_launches[name] +
                             zoo_launches[name] + rnnt_launches[name] +
-                            ssl[name] + k2[name],
+                            ssl[name] + k2[name] + scale_launches[name],
                             launches_train_entry=entry_launches[name],
                             launches_zoo=zoo_launches[name],
                             launches_transducer=rnnt_launches[name],
                             launches_ssl=ssl[name], launches_k2=k2[name],
+                            launches_scale=scale_launches[name],
                             **train_report[name]))
     kernels.append(dict(name='flash_attention_fwd', route='cuda',
                         source='wenet_tpu_torch/csrc/flash_attention.cu',

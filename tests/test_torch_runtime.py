@@ -307,15 +307,20 @@ def test_asr_decoder_endpoint_matches_jax(pair):
 
 
 def test_asr_decoder_raises_for_what_is_not_ported(pair):
-    """WFST decoding over a batch runner still raises (ROADMAP.md queue 1
-    item 13); WFST decoding itself (tests/test_torch_wfst.py), the LM and
-    the context graph (tests/test_torch_recognize.py) are ported."""
-    from wenet_tpu_torch.runtime.asr_decoder import AsrDecoder
+    """What the decoder refuses: a batch runner that is not a
+    BatchedChunkRunner, and a rescoring_weight other than 1 (which the
+    JAX decoder accepts and ignores).  WFST decoding over a batch runner
+    (tests/test_torch_batch_wfst.py), WFST decoding itself
+    (tests/test_torch_wfst.py), the LM and the context graph
+    (tests/test_torch_recognize.py) are ported."""
+    from wenet_tpu_torch.runtime.asr_decoder import AsrDecoder, DecodeOptions
     from wenet_tpu_torch.text.char_tokenizer import CharTokenizer
     _, _, tmodel = pair
-    with pytest.raises(NotImplementedError, match='item 13'):
+    with pytest.raises(TypeError, match='BatchedChunkRunner'):
         AsrDecoder(tmodel, CharTokenizer(SYMS), device='cpu',
                    tlg_fst='TLG.fst', batch_runner=object())
+    with pytest.raises(NotImplementedError, match='rescoring_weight'):
+        DecodeOptions(rescoring_weight=0.5)
 
 
 def test_http_round_trip(pair, tmp_path):

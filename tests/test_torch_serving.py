@@ -257,11 +257,15 @@ def test_batch_runner_three_session_flush(pair):
         _same_topk(g, j)
 
 
-def test_batch_runner_rejects_a_mesh(pair):
+@pytest.mark.parametrize('mesh', [object(), [], 'cpu'])
+def test_batch_runner_rejects_a_mesh(pair, mesh):
+    """A mesh is a list of local devices along data (the data-parallel
+    runner itself: tests/test_torch_batch_wfst.py); anything else
+    raises."""
     from wenet_tpu_torch.runtime.batch_runner import BatchedChunkRunner
     _, _, tmodel = pair
-    with pytest.raises(NotImplementedError):
-        BatchedChunkRunner(tmodel, _cfg(tmodel.encoder), mesh=object(),
+    with pytest.raises(ValueError, match='mesh'):
+        BatchedChunkRunner(tmodel, _cfg(tmodel.encoder), mesh=mesh,
                            device='cpu')
 
 

@@ -487,13 +487,22 @@ def test_cv_pipeline_turns_augmentation_off(recipe):
 @pytest.mark.parametrize('case', ['mesh', 'sharding_conf', 'world_size'])
 def test_train_raises_for_what_is_not_ported(recipe, tmp_path, monkeypatch,
                                              case):
+    """A mesh that does not span WORLD_SIZE, a sharding_conf key that is no
+    layout and a multi-rank environment that torchrun did not set up
+    raise (the layouts themselves: tests/test_torch_parallel.py)."""
     argv = _train_args(recipe, tmp_path / 'exp')
+    for k in ('WORLD_SIZE', 'RANK', 'LOCAL_RANK', 'MASTER_ADDR',
+              'MASTER_PORT'):
+        monkeypatch.delenv(k, raising=False)
     if case == 'mesh':
         argv += ['--mesh', 'data=2']
+        match = 'WORLD_SIZE is 1'
     elif case == 'sharding_conf':
-        argv += ['--override_config', 'sharding_conf.zero2 true']
+        argv += ['--override_config', 'sharding_conf.fsdp true']
+        match = 'fsdp'
     else:
         monkeypatch.setenv('WORLD_SIZE', '4')
-    with pytest.raises(NotImplementedError, match='queue 1 item 12'):
+        match = 'torchrun'
+    with pytest.raises(ValueError, match=match):
         _port_train(argv)
 

@@ -377,14 +377,25 @@ def test_asr_decoder_tlg_matches_jax(pair, lang, seed, seconds,
 
 
 def test_asr_decoder_tlg_over_a_batch_runner_raises(pair, lang):
-    """WFST decoding over a batch runner is not ported (ROADMAP.md queue 1
-    item 13)."""
-    from wenet_tpu_torch.runtime.asr_decoder import AsrDecoder
+    """A WFST decoder over a batch runner that steps another streaming
+    config, top-k or blank raises, as a beam decoder does (WFST streams
+    over a matching runner: tests/test_torch_batch_wfst.py)."""
+    from wenet_tpu_torch.models.transformer.streaming import StreamingConfig
+    from wenet_tpu_torch.runtime.asr_decoder import AsrDecoder, DecodeOptions
+    from wenet_tpu_torch.runtime.batch_runner import BatchedChunkRunner
     from wenet_tpu_torch.text.char_tokenizer import CharTokenizer
-    with pytest.raises(NotImplementedError, match='item 13'):
-        AsrDecoder(pair[2], CharTokenizer(SYMS), device='cpu',
-                   tlg_fst=str(lang / 'port' / 'TLG.txt'),
-                   batch_runner=object())
+    enc = pair[2].encoder
+    runner = BatchedChunkRunner(
+        pair[2], StreamingConfig(OPTS['chunk_size'], OPTS['num_left_chunks'],
+                                 enc.subsampling_rate, enc.right_context),
+        beam_size=OPTS.get('beam_size', 10) + 1, device='cpu')
+    try:
+        with pytest.raises(ValueError, match='batch runner steps'):
+            AsrDecoder(pair[2], CharTokenizer(SYMS), DecodeOptions(**OPTS),
+                       device='cpu', tlg_fst=str(lang / 'port' / 'TLG.txt'),
+                       batch_runner=runner)
+    finally:
+        runner.close()
 
 
 def test_decoder_main_tlg_matches_jax(pair, lang, tmp_path):

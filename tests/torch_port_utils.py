@@ -265,3 +265,22 @@ def stub_sentencepiece_module():
     mod = types.ModuleType('sentencepiece')
     mod.SentencePieceProcessor = StubSentencePiece
     return mod
+
+
+# --- the multi-process tests' batches --------------------------------------
+def rank_batch(data_rank, step, seed=0):
+    """The numpy batch that data rank `data_rank` trains on at `step` in
+    tests/test_torch_parallel.py: rows, frames and label length differ
+    between the ranks (3 x 67 x 9 on even ranks, 2 x 51 x 6 on odd)."""
+    rng = np.random.RandomState(1000 * seed + 10 * step + data_rank)
+    B, T, L = ((3, 67, 9), (2, 51, 6))[data_rank % 2]
+    x = rng.randn(B, T, IDIM).astype(np.float32)
+    lens = np.asarray([T] + list(rng.randint(T // 2, T, size=B - 1)),
+                      np.int64)
+    tl = rng.randint(2, L + 1, size=B)
+    tl[0] = L
+    tgt = np.full((B, L), -1, np.int64)
+    for i, n in enumerate(tl):
+        tgt[i, :n] = rng.randint(3, VOCAB, size=n)
+    return dict(feats=x, feats_lengths=lens, target=tgt,
+                target_lengths=tl.astype(np.int64))

@@ -26,6 +26,7 @@ import torch
 
 from wenet_tpu_torch.lm.fst import TextFst, read_symbol_table
 from wenet_tpu_torch.models.transformer.asr_model import ASRModel
+from wenet_tpu_torch.parallel.mesh import data_denominator
 from wenet_tpu_torch.ops.fsa import (DenseFsa, fsa_forward_score,
                                      fst_to_dense_arcs)
 
@@ -67,7 +68,7 @@ class K2Model(ASRModel):
         den = fsa_forward_score(logprobs, encoder_out_lens,
                                 load_den_fsa(self.lfmmi_dir))
         per_utt = torch.where(row_valid, num + self.den_scale * den, 0.0)
-        return per_utt.sum() / row_valid.sum().clamp(min=1)
+        return per_utt.sum() / data_denominator(row_valid.sum())
 
     def forward(self, feats: torch.Tensor, feats_lengths: torch.Tensor,
                 target: torch.Tensor, target_lengths: torch.Tensor,

@@ -1,4 +1,4 @@
-"""AsrRunner: offline batch decode on one device.  Counterpart of
+"""AsrRunner: offline batch decode.  Counterpart of
 wenet_tpu/models/runner.py `AsrRunner.decode` for the CTC greedy, CTC
 prefix beam (with context biasing), attention-rescoring and attention
 (beam search) modes, a transducer's greedy and beam searches and a
@@ -8,8 +8,17 @@ fbank on the device) and `transcribe`.
 
 CTC prefix beam search runs in the port's C++ trie searcher
 (wenet_tpu_torch/runtime/native_beam.py, built with g++ at first use),
-fed with the per-frame top-k that `torch.topk` computes on the device."""
+fed with the per-frame top-k that `torch.topk` computes on the device.
 
+`quantize=True` stores the int8 weight-only model of ops/quant.py and
+computes in `dtype` (bfloat16 unless given); `mesh`, a list of local
+devices along `data`, decodes data-parallel: one replica per device, each
+batch's rows split over them in order (a ragged batch padded by
+repeating its last row, the pad rows trimmed from every result), the
+replicas run side by side in threads."""
+
+import copy
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 import torch
@@ -128,16 +137,61 @@ def rnnt_decode(model, encoder_out: torch.Tensor,
 class AsrRunner:
     """A model bound to a device, in eval mode.  `dtype` (e.g.
     torch.bfloat16) casts the floating weights, and the features with
-    them, as the JAX runner's `dtype` does."""
+    them, as the JAX runner's `dtype` does.  `quantize` and `mesh`: see
+    the module's docstring; with `mesh`, `device` is ignored and the
+    model's first replica is on the mesh's first device."""
 
     def __init__(self, model: torch.nn.Module, device='cuda',
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 quantize: bool = False, mesh=None):
+        self._replicas: List['AsrRunner'] = []
+        if mesh is not None:
+            from wenet_tpu_torch.parallel.mesh import decode_devices
+            devices = decode_devices(mesh)
+            distinct = list(dict.fromkeys(devices))
+            # the copies are taken before the first replica moves `model`
+            models = [model] + [copy.deepcopy(model) for _ in distinct[1:]]
+            own = {d: AsrRunner(m, d, dtype, quantize)
+                   for d, m in zip(distinct, models)}
+            self._replicas = [own[d] for d in devices]
+            first = self._replicas[0]
+            self.device, self.dtype, self.model = (first.device, first.dtype,
+                                                   first.model)
+            self._pool = ThreadPoolExecutor(len(devices))
+            return
         self.device = torch.device(device)
         model = model.to(self.device).eval()
-        if dtype is not None:
+        if quantize:
+            from wenet_tpu_torch.ops.quant import quantize_model
+            dtype = dtype or torch.bfloat16
+            model = quantize_model(model, dtype)
+        elif dtype is not None:
             model = model.to(dtype)
         self.dtype = dtype
         self.model = model
+
+    def _decode_sharded(self, methods, feats, feats_lengths, **kw):
+        """`decode` with the batch's rows split over the replicas."""
+        n = len(self._replicas)
+        feats = torch.as_tensor(feats)
+        lens = torch.as_tensor(feats_lengths)
+        B = feats.shape[0]
+        pad = -B % n
+        if pad:
+            feats = torch.cat([feats, feats[-1:].expand(pad,
+                                                        *feats.shape[1:])])
+            lens = torch.cat([lens, lens[-1:].expand(pad)])
+        rows = (B + pad) // n
+        infos = kw.pop('infos', None) or {}
+        infos = {k: list(v) + [v[-1]] * pad for k, v in infos.items()}
+        futs = [self._pool.submit(
+            r.decode, methods, feats[i * rows:(i + 1) * rows],
+            lens[i * rows:(i + 1) * rows],
+            infos={k: v[i * rows:(i + 1) * rows] for k, v in infos.items()}
+            or None, **kw)
+            for i, r in enumerate(self._replicas)]
+        parts = [f.result() for f in futs]
+        return {m: [x for p in parts for x in p[m]][:B] for m in parts[0]}
 
     @torch.inference_mode()
     def decode(self, methods: List[str], feats, feats_lengths,
@@ -162,6 +216,16 @@ class AsrRunner:
         `rnnt_beam_search` with `beam_size` hypotheses and the model's CTC
         fusion defaults.  Returns {mode: one DecodeResult per
         utterance}."""
+        if self._replicas:
+            return self._decode_sharded(
+                methods, feats, feats_lengths, beam_size=beam_size,
+                decoding_chunk_size=decoding_chunk_size,
+                num_decoding_left_chunks=num_decoding_left_chunks,
+                ctc_weight=ctc_weight, simulate_streaming=simulate_streaming,
+                reverse_weight=reverse_weight, blank_id=blank_id,
+                blank_penalty=blank_penalty, length_penalty=length_penalty,
+                infos=infos, context_graph=context_graph,
+                rnnt_n_steps=rnnt_n_steps)
         unknown = [m for m in methods if m not in MODES]
         if unknown:
             raise NotImplementedError(f'decode modes not ported: {unknown}')

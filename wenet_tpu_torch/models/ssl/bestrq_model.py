@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from wenet_tpu_torch.models.ssl.mask import (compute_mask_indices,
                                              mask_uniforms)
+from wenet_tpu_torch.parallel.mesh import data_denominator
 from wenet_tpu_torch.utils.mask import make_pad_mask
 
 # flax's truncated_normal(stddev): a unit normal cut at +-2, scaled by
@@ -166,12 +167,12 @@ class BestRQModel(nn.Module):
         logp = F.log_softmax(logits.float(), dim=-1)
         true_lp = torch.gather(logp, -1, tgt[..., None])[..., 0]
         num_codes = masks.sum() * self.num_codebooks
-        loss = (-true_lp * masks[:, None, :]).sum() / num_codes.clamp(min=1)
+        loss = (-true_lp * masks[:, None, :]).sum() / data_denominator(num_codes)
         if self.features_regularization_weight != 0.0:
             loss = loss + self.features_regularization_weight * features_pen
         ids_corr = logits.argmax(-1) == tgt
-        codes_acc = (ids_corr * masks[:, None, :]).sum() / num_codes.clamp(
-            min=1)
+        codes_acc = (ids_corr * masks[:, None, :]).sum() / data_denominator(
+            num_codes)
         return {'loss': loss, 'codes_acc': codes_acc,
                 'features_l2': features_pen, 'num_codes': num_codes,
                 'th_accuracy': codes_acc}

@@ -20,6 +20,7 @@ from wenet_tpu_torch.models.ssl.mask import (compute_mask_indices,
                                              sample_negative_indices)
 from wenet_tpu_torch.models.ssl.wav2vec2_model import (
     Wav2vec2Model, compute_contrastive_loss)
+from wenet_tpu_torch.parallel.mesh import data_denominator
 
 
 class W2VBERTModel(Wav2vec2Model):
@@ -115,7 +116,7 @@ class W2VBERTModel(Wav2vec2Model):
             draws['gumbel'])
         neg_idx = sample_negative_indices(span_mask, self.num_negatives,
                                           draws['negatives'])
-        sample_size = span_mask.sum().clamp(min=1)
+        sample_size = data_denominator(span_mask.sum())
         loss_contrastive = compute_contrastive_loss(
             quantized, contrastive_out, neg_idx, span_mask,
             self.contrastive_logits_temperature,

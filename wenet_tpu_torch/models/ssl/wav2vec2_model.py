@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from wenet_tpu_torch.models.ssl.mask import (compute_mask_indices,
                                              mask_uniforms, negative_uniforms,
                                              sample_negative_indices)
+from wenet_tpu_torch.parallel.mesh import data_denominator
 
 
 def gumbel_uniforms(shape, generator: Optional[torch.Generator] = None
@@ -212,7 +213,7 @@ class Wav2vec2Model(nn.Module):
             quantized, out, neg_idx, span_mask,
             self.contrastive_logits_temperature, self.num_negatives)
         loss = loss_contrastive
-        sample_size = span_mask.sum().clamp(min=1)
+        sample_size = data_denominator(span_mask.sum())
         loss_diversity = None
         if self.diversity_weight != 0.0:
             n = self.num_codebooks * self.num_embeddings

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from wenet_tpu_torch.models.transformer.asr_model import ASRModel
 from wenet_tpu_torch.ops.rnnt_loss import NEG_INF, rnnt_loss_logits
+from wenet_tpu_torch.parallel.mesh import data_denominator
 from wenet_tpu_torch.utils.common import IGNORE_ID, add_blank
 
 _HASH_MUL = 1000003
@@ -100,7 +101,7 @@ class Transducer(ASRModel):
             torch.where(row_valid, target_lengths, 0), blank=self.blank,
             reduction='none')
         per = torch.where(row_valid, per, 0.0)
-        return per.sum() / row_valid.sum().clamp(min=1)
+        return per.sum() / data_denominator(row_valid.sum())
 
     def _init_predictor(self, rows: int, like: torch.Tensor):
         """The predictor's state and output after the leading blank, for

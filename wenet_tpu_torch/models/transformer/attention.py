@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from wenet_tpu_torch.models.finetune.lora import make_attention_linear
+from wenet_tpu_torch.parallel.mesh import rank_seed
 from wenet_tpu_torch.ops.flash_attention import (NEG_INF, flash_attention,
                                                  flash_attention_relpos)
 
@@ -238,7 +239,8 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
 
         In training with attention dropout, each call draws a uint32
         dropout seed from `generator` (a host generator, so no device
-        sync; None takes torch's default CPU generator).
+        sync; None takes torch's default CPU generator), the data rank's
+        own in a data-parallel step (`rank_seed`).
 
         With `cache`, a streaming chunk step: the cached (k, v), each
         (B, h, cache_t, d), go in front of this chunk's, so T2 = cache_t
@@ -248,7 +250,8 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         rate = self.dropout.p if self.training else 0.0
         seed = None
         if rate > 0.0:
-            seed = int(torch.randint(0, 1 << 32, (), generator=generator))
+            seed = rank_seed(int(torch.randint(0, 1 << 32, (),
+                                               generator=generator)))
         q = self.project_q(query)
         k, v = self.project_kv(key, value)
         if cache is not None:

@@ -10,6 +10,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from wenet_tpu_torch.utils.mask import make_pad_mask
+from wenet_tpu_torch.parallel.mesh import data_denominator
 
 
 class CTC(nn.Module):
@@ -35,7 +36,7 @@ class CTC(nn.Module):
         per_seq, logprobs = self.loss_per_sequence(hs_pad, hlens, ys_pad,
                                                    ys_lens, row_valid)
         denom = (hs_pad.shape[0] if row_valid is None else
-                 row_valid.sum().clamp(min=1))
+                 data_denominator(row_valid.sum()))
         return per_seq.sum() / denom, logprobs
 
     def loss_per_sequence(self, hs_pad: torch.Tensor, hlens: torch.Tensor,

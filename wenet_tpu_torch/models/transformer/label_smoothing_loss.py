@@ -9,6 +9,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from wenet_tpu_torch.parallel.mesh import data_denominator
+
 
 def label_smoothing_loss(logits: torch.Tensor, target: torch.Tensor,
                          size: int, padding_idx: int, smoothing: float,
@@ -20,7 +22,8 @@ def label_smoothing_loss(logits: torch.Tensor, target: torch.Tensor,
     Sum of KL(p || q) over the non-padded positions, p the smoothed
     one-hot (the constant entropy of p included, as torch's KLDivLoss
     has it), divided by the number of tokens (normalize_length), or by
-    num_valid (the count of real rows) when given, or by B."""
+    num_valid (the count of real rows) when given, or by B; a count
+    summed over `data` in a data-parallel step (`data_denominator`)."""
     confidence = 1.0 - smoothing
     low = smoothing / (size - 1)
     logp = F.log_softmax(logits.float(), dim=-1)
@@ -32,9 +35,9 @@ def label_smoothing_loss(logits: torch.Tensor, target: torch.Tensor,
     ent += (size - 1) * low * math.log(low) if low > 0 else 0.0
     kl = (cross + ent).masked_fill(ignore, 0.0)
     if normalize_length:
-        denom = (~ignore).sum().clamp(min=1)
+        denom = data_denominator((~ignore).sum())
     elif num_valid is not None:
-        denom = num_valid.clamp(min=1)
+        denom = data_denominator(num_valid)
     else:
         denom = logits.shape[0]
     return kl.sum() / denom

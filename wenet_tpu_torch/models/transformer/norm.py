@@ -7,16 +7,32 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wenet_tpu_torch.parallel.mesh import data_batch_stats
+
 
 class BatchNorm1d(nn.BatchNorm1d):
     """nn.BatchNorm1d whose running variance follows the batch's biased
     variance, as flax's BatchNorm (the JAX package's conv module,
     convolution.py:78) updates it; torch's own takes the unbiased one.
-    Normalization and parameters are nn.BatchNorm1d's."""
+    Normalization and parameters are nn.BatchNorm1d's.  In a
+    data-parallel train step the statistics are those of the global batch
+    (summed over every rank on `data`), as GSPMD computes the JAX
+    package's."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        stats = data_batch_stats(x, (0, 2))
+        if stats is not None:
+            mean, var = stats
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach(), self.momentum)
+                self.num_batches_tracked += 1
+            y = (x.float() - mean[:, None]) * torch.rsqrt(
+                var[:, None] + self.eps)
+            return (y * self.weight[:, None] + self.bias[:, None]).to(
+                x.dtype)
         with torch.no_grad():
             xf = x.float()
             self.running_mean.lerp_(xf.mean(dim=(0, 2)), self.momentum)

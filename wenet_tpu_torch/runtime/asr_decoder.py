@@ -27,9 +27,9 @@ the C++ lattice WFST decoder (runtime/native_wfst.py) takes the prefix
 beam's place: the step then copies the whole CTC log-prob rows to the
 host (chunk x vocabulary float32), results are words of `word_table`
 ({id: word}, words.txt) with their times, and `rescoring` closes the
-search without attention rescoring, as in the JAX package.  WFST
-decoding over a `batch_runner` is not ported and raises
-NotImplementedError (ROADMAP.md, queue 1 item 13).
+search without attention rescoring, as in the JAX package.  Over a
+`batch_runner` a WFST decoder asks the runner for its whole rows, which
+the runner copies for such sessions alone.
 
 Runs on `device` ('cuda' unless the caller asks for the CPU)."""
 
@@ -101,10 +101,6 @@ class AsrDecoder:
                  context_graph=None, lm=None, lm_weight: float = 0.5,
                  tlg_fst=None, word_table=None, post_processor=None,
                  batch_runner=None, device='cuda'):
-        if tlg_fst is not None and batch_runner is not None:
-            raise NotImplementedError(
-                'WFST decoding over a batch runner is not ported '
-                '(ROADMAP.md, queue 1 item 13)')
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         opts = opts or DecodeOptions()
@@ -117,6 +113,12 @@ class AsrDecoder:
                         right_context=encoder.right_context),
                     encoder.output_downsampling_factor, post_processor)
         if batch_runner is not None:
+            from wenet_tpu_torch.runtime.batch_runner import (
+                BatchedChunkRunner)
+            if not isinstance(batch_runner, BatchedChunkRunner):
+                raise TypeError(f'batch_runner is a '
+                                f'{type(batch_runner).__name__}, not a '
+                                'BatchedChunkRunner')
             theirs = (batch_runner.cfg, batch_runner.beam_size,
                       batch_runner.blank_id, batch_runner.device)
             ours = (self.cfg, self.opts.beam_size,
@@ -234,7 +236,7 @@ class AsrDecoder:
         if self.batch_runner is not None:
             ys, host, self.state = self.batch_runner.submit(
                 chunk, self.state, self.offset, self.valid_cache,
-                real_out).result()
+                real_out, whole_rows=self.is_wfst).result()
             ys, host = ys[0, :real_out], host[:real_out]
         else:
             ys, logp = self._chunk_step(chunk, real_base, real_out)

@@ -15,7 +15,10 @@ builds one cache-mask row per session, runs `forward_encoder_chunk` with
 a vector of offsets (so the rel-pos encoding and K1's p are per row) and
 the CTC top-k once for the batch, copies the top-k and the blank column
 to the host once, and hands each session its rows: its encoder outputs
-and new caches stay on the device, views of the batch's tensors.
+and new caches stay on the device, views of the batch's tensors.  A
+session that asks for whole rows (`submit(..., whole_rows=True)`, a WFST
+search) also gets its (chunk_out, V) CTC log-probs: one more copy a step,
+of those sessions' rows only.
 
 The JAX runner pads each batch to a power of two, only to bound the
 number of XLA programs it compiles.  Eager PyTorch compiles nothing, so
@@ -24,16 +27,21 @@ that runs each batch size once (the first calls' allocations and
 library handles) and returns the sizes it ran.
 
 Runs on `device` ('cuda' unless the caller asks for the CPU), under its
-own `torch.inference_mode()`, which is per thread.  One card: `mesh=`
-(data-parallel serving over several) raises NotImplementedError, and so
-does a model whose encoder is not the conformer (the rest of the zoo is
+own `torch.inference_mode()`, which is per thread.  `mesh`, a list of
+local devices along `data`, splits each coalesced step over them: one
+replica per device, the rows in order, a ragged batch padded by
+repeating its final row (the pad rows discarded), the shards run side by
+side in threads; a session's caches move to the device of its shard and
+its encoder rows come back to the first device.  A model whose encoder
+is not the conformer raises NotImplementedError (the rest of the zoo is
 served one stream per `AsrDecoder`)."""
 
 import collections
+import copy
 import queue
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, List, Optional
 
@@ -43,6 +51,7 @@ import torch
 from wenet_tpu_torch.models.transformer.encoder import ConformerEncoder
 from wenet_tpu_torch.models.transformer.streaming import (StreamingConfig,
                                                           streaming_att_mask)
+from wenet_tpu_torch.utils.ctc_utils import topk_host_rows
 
 
 @dataclass
@@ -53,27 +62,35 @@ class _Request:
     valid_cache: int
     real_out: int
     future: Future
+    whole_rows: bool = False
 
 
 class BatchedChunkRunner:
     """submit() -> Future of (ys (1, chunk_out, D) on the device, the host
-    rows (chunk_out, 2 * beam_size + 1) of `model.ctc_host_rows`, the new
-    caches of the row).  `batch_sizes` counts the coalesced steps by
-    their batch size."""
+    rows (chunk_out, 2 * beam_size + 1) of `model.ctc_host_rows`, or with
+    `whole_rows` the (chunk_out, V) CTC log-probs, the new caches of the
+    row).  `batch_sizes` counts the coalesced steps by their batch size."""
 
     def __init__(self, model, cfg: StreamingConfig, max_batch: int = 8,
                  flush_ms: float = 5.0, mesh=None, beam_size: int = 10,
                  blank_id: int = 0, device='cuda'):
-        if mesh is not None:
-            raise NotImplementedError('data-parallel serving over a mesh is '
-                                      'not ported (one card)')
         if type(model.encoder) is not ConformerEncoder:
             raise NotImplementedError(
                 f'batched serving of {type(model.encoder).__name__} is not '
                 'ported (ROADMAP.md, queue 1 item 8): the batched chunk '
                 'step is the conformer\'s')
-        self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
+        devices = [torch.device(device)]
+        if mesh is not None:
+            from wenet_tpu_torch.parallel.mesh import decode_devices
+            devices = decode_devices(mesh)
+        distinct = list(dict.fromkeys(devices))
+        models = [model] + [copy.deepcopy(model) for _ in distinct[1:]]
+        own = {d: m.to(d).eval() for d, m in zip(distinct, models)}
+        # (device, replica) per shard of a step
+        self.shards = [(d, own[d]) for d in devices]
+        self._pool = (ThreadPoolExecutor(len(devices)) if len(devices) > 1
+                      else None)
+        self.device, self.model = self.shards[0]
         self.cfg = cfg
         self.max_batch = max_batch
         self.flush_ms = flush_ms
@@ -92,15 +109,18 @@ class BatchedChunkRunner:
             1, self.cfg.required_cache_size, device=self.device)
 
     def submit(self, chunk: np.ndarray, cache, offset: int,
-               valid_cache: int, real_out: int) -> Future:
+               valid_cache: int, real_out: int,
+               whole_rows: bool = False) -> Future:
         fut: Future = Future()
         self._q.put(_Request(chunk, cache, offset, valid_cache, real_out,
-                             fut))
+                             fut, whole_rows))
         return fut
 
     def close(self):
         self._q.put(None)
         self._thread.join(timeout=5)
+        if self._pool is not None:
+            self._pool.shutdown()
 
     def precompile(self, idim: int = 80) -> List[int]:
         """Run one step at every batch size in [1, max_batch] before
@@ -143,9 +163,38 @@ class BatchedChunkRunner:
                     if not r.future.done():
                         r.future.set_exception(e)
 
-    @torch.inference_mode()
     def _run(self, batch: List[_Request]):
-        dev = self.device
+        """One coalesced step: the rows split over the shards (the final
+        row repeated up to a multiple of them), each session given its
+        rows."""
+        n = len(self.shards)
+        n_real = len(batch)
+        batch = batch + [batch[-1]] * (-n_real % n)
+        rows = len(batch) // n
+        parts = [batch[i * rows:(i + 1) * rows] for i in range(n)]
+        if self._pool is None:
+            outs = [self._step(*self.shards[0], parts[0])]
+        else:
+            outs = list(self._pool.map(self._step, *zip(*self.shards),
+                                       parts))
+        done = 0
+        for part, (ys, host, whole, (k, v), cnn) in zip(parts, outs):
+            for i, r in enumerate(part):
+                if done == n_real:
+                    return
+                done += 1
+                row = slice(i, i + 1)
+                r.future.set_result((
+                    ys[row].to(self.device),
+                    whole[i] if r.whole_rows else host[i],
+                    ((k[:, row], v[:, row]),
+                     None if cnn is None else cnn[:, row])))
+
+    @torch.inference_mode()
+    def _step(self, dev, model, batch: List[_Request]):
+        """The chunk step of `batch` on `dev` with `model` -> (ys, the
+        top-k host rows, {row: whole log-prob rows} of the sessions that
+        asked for them, the new (k, v) and cnn caches)."""
         cache_size = self.cfg.required_cache_size
         xs = torch.from_numpy(np.stack([r.chunk for r in batch])).to(dev)
         ints = torch.tensor([[r.offset, r.valid_cache, r.real_out]
@@ -154,17 +203,23 @@ class BatchedChunkRunner:
                                       ints[:, 1], ints[:, 2], dev)
         if len(batch) == 1:
             (k, v), cnn = batch[0].cache
+            k, v = k.to(dev), v.to(dev)
+            cnn = None if cnn is None else cnn.to(dev)
         else:
-            k = torch.cat([r.cache[0][0] for r in batch], dim=1)
-            v = torch.cat([r.cache[0][1] for r in batch], dim=1)
+            k = torch.cat([r.cache[0][0].to(dev) for r in batch], dim=1)
+            v = torch.cat([r.cache[0][1].to(dev) for r in batch], dim=1)
             cnn = None if batch[0].cache[1] is None else torch.cat(
-                [r.cache[1] for r in batch], dim=1)
-        ys, (k, v), cnn = self.model.forward_encoder_chunk(
+                [r.cache[1].to(dev) for r in batch], dim=1)
+        ys, (k, v), cnn = model.forward_encoder_chunk(
             xs, ints[:, 0], (k, v), cnn, att_mask)
+        logp = model.ctc_activation(ys)
         # one device-to-host copy for every session of the step
-        host = self.model.ctc_host_rows(ys, self.beam_size,
-                                        self.blank_id).cpu().numpy()
-        for i, r in enumerate(batch):
-            row = slice(i, i + 1)
-            r.future.set_result((ys[row], host[i], (
-                (k[:, row], v[:, row]), None if cnn is None else cnn[:, row])))
+        host = topk_host_rows(logp, self.beam_size,
+                              self.blank_id).cpu().numpy()
+        wanted = [i for i, r in enumerate(batch) if r.whole_rows]
+        whole = {}
+        if wanted:
+            # and one of the whole rows, for the sessions that asked
+            rows = logp[wanted].float().cpu().numpy()
+            whole = dict(zip(wanted, rows))
+        return ys, host, whole, (k, v), cnn

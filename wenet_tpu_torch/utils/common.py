@@ -7,6 +7,8 @@ from typing import Tuple
 
 import torch
 
+from wenet_tpu_torch.parallel.mesh import data_denominator
+
 IGNORE_ID = -1
 
 
@@ -44,7 +46,7 @@ def th_accuracy(pad_outputs: torch.Tensor, pad_targets: torch.Tensor,
     pred = pad_outputs.argmax(dim=-1)
     mask = pad_targets != ignore_label
     num = ((pred == pad_targets) & mask).sum()
-    return num / mask.sum().clamp(min=1)
+    return num / data_denominator(mask.sum())
 
 
 def add_blank(ys_pad: torch.Tensor, blank: int,

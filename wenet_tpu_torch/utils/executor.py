@@ -1,13 +1,16 @@
-"""Epoch train/cv loops on one device.  Counterpart of
-wenet_tpu/utils/executor.py: host orchestration around the train step
-(skip empty batches, feed the device, log, step-interval cv and
-checkpoint, a profiler window).
+"""Epoch train/cv loops.  Counterpart of wenet_tpu/utils/executor.py:
+host orchestration around the train step (skip empty batches, feed the
+device, log, step-interval cv and checkpoint, a profiler window).
 
 Batches are the `Dataset`'s dicts (numpy feats, feats_lengths, target
-IGNORE_ID padded, target_lengths).  The ragged-tail dummy rows that the
-JAX executor pads a batch with to shard it evenly over devices belong to
-the multi-device path, which is not ported; the model excludes
-zero-length rows from every loss, so the losses are the same.
+IGNORE_ID padded, target_lengths).  Over several ranks (`layout`, a
+parallel/mesh.py `TrainLayout`) each step starts with the ranks'
+agreement (`TrainLayout.agree`): every rank ends the epoch as soon as one
+has run out of data, and each pads its batch to the most rows, frames and
+label length of any rank, with zero-length dummy rows as the JAX
+executor's `_pad_rows` (the model excludes them from every loss).  Rank 0
+alone logs, writes summaries and writes checkpoints (whose shards every
+rank gathers first); cv runs on every rank over the whole cv list.
 
 `Executor.totals` sums the last epoch: steps, frames of audio, the
 host's wait on the data pipeline, the steps' own wall time (which holds
@@ -41,10 +44,12 @@ def to_device_batch(batch: dict, device) -> Dict[str, torch.Tensor]:
 class Executor:
 
     def __init__(self, global_step: int = 0, device='cuda',
-                 on_step: Optional[Callable[[dict], None]] = None):
+                 on_step: Optional[Callable[[dict], None]] = None,
+                 layout=None):
         self.step = global_step
         self.device = torch.device(device)
         self.on_step = on_step
+        self.layout = layout
         self.totals: Dict[str, float] = {}
         self.profile_trace: Optional[str] = None  # the last trace written
         self._timer = None  # (wall time, step) of the last log line
@@ -110,6 +115,8 @@ class Executor:
             batch = next(data_iter, None)
             while batch is not None and len(batch['target_lengths']) == 0:
                 batch = next(data_iter, None)
+            if self.layout is not None:
+                batch = self.layout.agree(batch)
             if batch is None:
                 break
             wait = time.perf_counter() - t0
@@ -117,7 +124,7 @@ class Executor:
             state, metrics = train_step_fn(
                 state, to_device_batch(batch, self.device), rng)
             self.step += 1
-            if self.step % log_interval == 0:
+            if self.step % log_interval == 0 and self.is_main:
                 values = {k: float(v) for k, v in metrics.items()}
                 logging.info('TRAIN | epoch %d step %d | %s | %.2f steps/s',
                              epoch, self.step,
@@ -143,11 +150,12 @@ class Executor:
                 loss_dict = self.cv(cv_step_fn, state, cv_data_loader)
                 logging.info('CV @step %d: %s', self.step, loss_dict)
                 if model_dir is not None:
-                    save_checkpoint(
-                        state.model,
-                        os.path.join(model_dir, f'step_{self.step}.pt'),
-                        dict(tag=f'step_{self.step}', step=self.step,
-                             epoch=epoch, cv_loss=loss_dict.get('loss')))
+                    self.save(state.model,
+                              os.path.join(model_dir,
+                                           f'step_{self.step}.pt'),
+                              dict(tag=f'step_{self.step}', step=self.step,
+                                   epoch=epoch,
+                                   cv_loss=loss_dict.get('loss')))
                 if writer is not None:
                     for k, v in loss_dict.items():
                         writer.add_scalar(f'cv/{k}', v, self.step)
@@ -157,6 +165,19 @@ class Executor:
             self._stop_profile(prof_conf)
             totals['profile_seconds'] += time.perf_counter() - t0
         return state
+
+    @property
+    def is_main(self) -> bool:
+        """The rank that logs and writes."""
+        return self.layout is None or self.layout.is_main
+
+    def save(self, model, path: str, infos: dict) -> None:
+        """Write `model`'s checkpoint with `infos`: over several ranks each
+        gathers its shards and rank 0 writes the full tensors."""
+        state = (model if self.layout is None
+                 else self.layout.full_state_dict())
+        if self.is_main:
+            save_checkpoint(state, path, infos)
 
     def cv(self, cv_step_fn, state, cv_data_loader) -> Dict[str, float]:
         """Utterance-weighted mean of each loss over the cv set."""

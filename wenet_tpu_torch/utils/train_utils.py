@@ -1,18 +1,28 @@
 """Training layer: optimizer, schedule, train and cv steps.  Counterpart of
-wenet_tpu/utils/train_utils.py on one device.
+wenet_tpu/utils/train_utils.py.
 
 The JAX package's optax chain, MultiSteps(clip_by_global_norm(grad_clip),
 adam/adamw/sgd scaled by the schedule), becomes a torch optimizer plus
 `apply_gradients`, which keeps its order: accumulate micro-step gradients
 as a running mean, clip their global norm, set the lr of this update,
 step.  The schedule advances once per update, so with accum_grad > 1 the
-step count (micro-steps) and the update count differ, as there."""
+step count (micro-steps) and the update count differ, as there.
 
+Over several ranks the step takes a `TrainLayout` (parallel/mesh.py): it
+calls the layout's DDP module, which averages the gradients over `data`
+after every micro-step's backward (so the running mean of an
+accumulation window is the global one), clips by the whole model's norm
+(a sharded tensor's squares summed over `model`), and reports the
+losses' mean over `data`; `zero2` builds the optimizer as a
+ZeroRedundancyOptimizer over `data`."""
+
+import contextlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from wenet_tpu_torch.parallel.mesh import rank_seed
 from wenet_tpu_torch.utils.scheduler import build_schedule
 
 
@@ -35,12 +45,16 @@ class TrainState:
         self.acc_grads: Optional[List[torch.Tensor]] = None
 
 
-def init_optimizer_and_scheduler(configs: dict, model: torch.nn.Module
+def init_optimizer_and_scheduler(configs: dict, model: torch.nn.Module,
+                                 zero_group=None
                                  ) -> Tuple[torch.optim.Optimizer,
                                             Callable[[int], float]]:
     """From train.yaml optim/optim_conf/scheduler/scheduler_conf.  adam
     folds weight decay into the gradient (L2, as optax's
-    add_decayed_weights before scale_by_adam); adamw decouples it."""
+    add_decayed_weights before scale_by_adam); adamw decouples it.  With
+    `zero_group` (a layout's `zero_group()`), the optimizer is a
+    ZeroRedundancyOptimizer over that group: each rank keeps the moments
+    of its part of the parameters (zero2)."""
     optim_conf = dict(configs.get('optim_conf', {'lr': 0.001}))
     lr = optim_conf.get('lr', 0.001)
     schedule = build_schedule(configs.get('scheduler', 'warmuplr'),
@@ -50,18 +64,19 @@ def init_optimizer_and_scheduler(configs: dict, model: torch.nn.Module
     betas = tuple(optim_conf.get('betas', (0.9, 0.999)))
     eps = optim_conf.get('eps', 1e-8)
     params = [p for p in model.parameters() if p.requires_grad]
-    if optim == 'adam':
-        opt = torch.optim.Adam(params, lr=lr, betas=betas, eps=eps,
-                               weight_decay=wd)
-    elif optim == 'adamw':
-        opt = torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps,
-                                weight_decay=wd)
+    if optim in ('adam', 'adamw'):
+        cls = torch.optim.Adam if optim == 'adam' else torch.optim.AdamW
+        kw = dict(lr=lr, betas=betas, eps=eps, weight_decay=wd)
     elif optim == 'sgd':
-        opt = torch.optim.SGD(params, lr=lr,
-                              momentum=optim_conf.get('momentum', 0.9))
+        cls = torch.optim.SGD
+        kw = dict(lr=lr, momentum=optim_conf.get('momentum', 0.9))
     else:
         raise ValueError(f'unknown optim: {optim}')
-    return opt, schedule
+    if zero_group is None:
+        return cls(params, **kw), schedule
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+    return ZeroRedundancyOptimizer(params, optimizer_class=cls,
+                                   process_group=zero_group, **kw), schedule
 
 
 def restore_optimizer_step(state: TrainState, step: int,
@@ -89,18 +104,24 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def apply_gradients(state: TrainState, schedule: Callable[[int], float],
-                    grad_clip: float = 0.0, accum_grad: int = 1
-                    ) -> Tuple[torch.Tensor, float]:
+                    grad_clip: float = 0.0, accum_grad: int = 1,
+                    layout=None) -> Tuple[torch.Tensor, float]:
     """One micro-step of the update from each parameter's `.grad` (None
     counts as zero).  Every `accum_grad`-th call clips the mean gradient
     of the window to global norm `grad_clip` (no epsilon, as optax),
     sets the lr to schedule(`state.updates`) and steps the optimizer.
+    The norms are `layout`'s (the whole model's) when given.
     -> (global norm of this micro-step's gradients, lr)."""
     opt = state.optimizer
     params = [p for group in opt.param_groups for p in group['params']]
     grads = [torch.zeros_like(p) if p.grad is None else p.grad
              for p in params]
-    grad_norm = global_norm(grads)
+
+    def norm(gs):
+        return global_norm(gs) if layout is None else \
+            layout.global_norm(params, gs)
+
+    grad_norm = norm(grads)
     lr = schedule(state.updates)
     micro = state.micro
     state.step += 1
@@ -116,8 +137,8 @@ def apply_gradients(state: TrainState, schedule: Callable[[int], float],
     state.micro = 0
     state.updates += 1
     if grad_clip > 0:
-        norm = grad_norm if accum_grad == 1 else global_norm(grads)
-        scale = torch.where(norm < grad_clip, 1.0, grad_clip / norm)
+        total = grad_norm if accum_grad == 1 else norm(grads)
+        scale = torch.where(total < grad_clip, 1.0, grad_clip / total)
         for g in grads:
             g.mul_(scale)
     for p, g in zip(params, grads):
@@ -142,7 +163,8 @@ def make_train_step(model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
                     schedule: Callable[[int], float],
                     dtype: Optional[torch.dtype] = None,
-                    accum_grad: int = 1, grad_clip: float = 0.0):
+                    accum_grad: int = 1, grad_clip: float = 0.0,
+                    layout=None):
     """Build the train step: (state, batch, (seed, epoch)) -> (state,
     metrics).
 
@@ -155,25 +177,38 @@ def make_train_step(model: torch.nn.Module,
     every value of the model's dict that is not None (loss, loss_att,
     loss_ctc, a transducer's loss_rnnt, an SSL model's codes_acc,
     features_l2, ...), th_accuracy and grad_norm as device tensors (no
-    host sync), and lr as a float."""
+    host sync), and lr as a float.
+
+    With `layout` (parallel/mesh.py `TrainLayout`) the step runs the
+    layout's module inside its context: the host generator is seeded
+    alike on every rank (one dynamic-chunk draw for the global batch, as
+    the JAX package draws), the device seed and the attention-dropout
+    seeds are each data rank's own (`rank_seed`), and the losses in the
+    metrics are their mean over `data`."""
     device_type = next(model.parameters()).device.type
+    net = model if layout is None else layout.module
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                 rng: Tuple[int, int]):
         device_seed, host_seed = step_seeds(*rng, state.step)
-        torch.manual_seed(device_seed)
         generator = torch.Generator().manual_seed(host_seed)
-        model.train()
+        net.train()
         optimizer.zero_grad(set_to_none=True)
-        with torch.autocast(device_type, dtype=dtype,
-                            enabled=dtype is not None):
-            out = model(batch['feats'], batch['feats_lengths'],
-                        batch['target'], batch['target_lengths'],
-                        generator=generator)
-        out['loss'].backward()
+        with contextlib.ExitStack() as stack:
+            if layout is not None:
+                stack.enter_context(layout.context())
+            torch.manual_seed(rank_seed(device_seed))
+            with torch.autocast(device_type, dtype=dtype,
+                                enabled=dtype is not None):
+                out = net(batch['feats'], batch['feats_lengths'],
+                          batch['target'], batch['target_lengths'],
+                          generator=generator)
+            out['loss'].backward()
         grad_norm, lr = apply_gradients(state, schedule, grad_clip,
-                                        accum_grad)
+                                        accum_grad, layout)
         metrics = {k: v.detach() for k, v in out.items() if v is not None}
+        if layout is not None:
+            metrics = layout.mean_over_data(metrics)
         metrics.update(grad_norm=grad_norm, lr=lr)
         return state, metrics
 
