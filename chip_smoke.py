@@ -334,11 +334,41 @@ Phases, each of which raises on failure (non-zero exit):
               ranks most as words, 20 two-char words, a bigram): card ==
               CPU up to ties the log-prob rows explain, K1 12 an encoder
               pass
+  18. serving and training at scale: 18a eight WFST streams over one
+              BatchedChunkRunner, 18b the int8 weight-only runner, 18c
+              data-parallel decode over two replicas, 18d bin/train.py
+              under torch.distributed.run (two gloo ranks with data=2 and
+              zero2, one NCCL rank) against one process
+  19. the rest of the encoder and attention zoo, fp32 with TF32 off,
+              random weights from the seed.  19a: the flagship yaml at full
+              width with MoE in every FFN (8 experts, top 2), 2 kv heads
+              of 4, RMSNorm and no FFN biases in encoder and decoder:
+              decode B=16 x 15 s card == CPU on 2 rows (12 K1), an
+              AsrDecoder stream card == CPU partial by partial, four
+              streams over BatchedChunkRunner each equal to itself alone
+              within 2e-4, a train step at B=2 x 8 s card == CPU with K1's
+              hash dropout (12c's bars; K1-train, K2, K3 12 each), B=16 x
+              12 s timed on the card.  19b: train_transformer.yaml with
+              RoPE, one kv head and gated FFNs: decode B=64 x 15 s (12 K4
+              in the encoder), a stream, a step at B=2 x 24 s (T' = 599:
+              K4-train, K5, K6 12 each; a gradient past 12c's bar is held
+              to float64 within the bar plus the CPU's own error, see
+              `ctc_grad_precision`), B=8 x 24 s timed.  19c: the same
+              yaml with Shaw's attention and no positions: decode (K4 with
+              the full bias), the step (K5's full dbias; rel_k_embed's
+              gradient printed), K4 at (64,4,374,374,64) and K4-train / K5
+              / K6 at (2,4,599,599,64) with the full bias against their
+              plain versions, SDPA with the bias as a float mask.  19d: the
+              flagship as ctl_model (dual_conformer, static chunk 16, 10
+              negatives): a step card == CPU (24 launches of K1-train, K2,
+              K3).  19e: the linear, conv2d2 and stack_n_frames front ends
+              at 2 + 1 + 1 blocks: decode card == CPU (2 K1)
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX
 package (wenet_tpu), and checks so at the end.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -3989,18 +4019,30 @@ def zoo_same_hypotheses(name, got, want, logp, clogp, lens):
 
 
 def zoo_decode_check(name, B, seconds, k1, k4, smi):
-    """12a/b: AsrRunner.decode in MODES on the card against the CPU.  The
-    encoder must launch K1 `k1` times and K4 `k4` times; the decode, those
-    and the K4 launches the gate admits in the rescoring decoder (long
+    """12a/b: `decode_against_cpu` of the zoo yaml `name` on the first
+    half of the rows."""
+    configs = zoo_configs(name)
+    return decode_against_cpu(f'{name} ({ZOO[name][0].split("/")[1]})',
+                              configs, zoo_model(configs), B, seconds, k1,
+                              k4, smi, B // 2)
+
+
+def decode_against_cpu(label, configs, model, B, seconds, k1, k4, smi,
+                       cpu_rows, seed=SEED + 30):
+    """AsrRunner.decode in MODES of B rows of `seconds` on the card
+    against the CPU on the first `cpu_rows` rows (the batch's first row
+    is its longest, so their padded length is the card's).  The encoder
+    must launch K1 `k1` times and K4 `k4` times; the decode, those and
+    the K4 launches the gate admits in the rescoring decoder (long
     hypotheses of random weights put its attention above the gate).
-    -> (launches, audio-sec/s of the card's rescoring decode)."""
+    `model` is on the CPU; it is copied to the card and dropped.
+    -> (launches, audio-sec/s of the card's rescoring decode, the
+    hypotheses that differ at ties)."""
     from wenet_tpu_torch.models.runner import AsrRunner
     from wenet_tpu_torch.ops import flash_attention as fa
-    configs = zoo_configs(name)
-    model = zoo_model(configs)
     cpu_model = copy.deepcopy(model)
     runner = AsrRunner(model, 'cuda')
-    feats, lens = zoo_features(np.random.RandomState(SEED + 30), B, seconds,
+    feats, lens = zoo_features(np.random.RandomState(seed), B, seconds,
                                configs['input_dim'])
     # a right decoder's weight where the yaml has one (the reference reads
     # no right-to-left scores from a unidirectional decoder)
@@ -4011,9 +4053,7 @@ def zoo_decode_check(name, B, seconds, k1, k4, smi):
     torch.cuda.synchronize()
     counted = {'K1': fa.LAUNCHES['relpos_attention_fwd'],
                'K4': fa.LAUNCHES['flash_attention_fwd']}
-    # the CPU decodes the first half of the rows (its first row is the
-    # batch's longest, so its padded length is the card's)
-    h = B // 2
+    h = cpu_rows
     want = AsrRunner(cpu_model, 'cpu').decode(MODES, feats[:h], lens[:h],
                                               **kw)
     with torch.inference_mode():
@@ -4031,7 +4071,7 @@ def zoo_decode_check(name, B, seconds, k1, k4, smi):
     if encoder != {'K1': k1, 'K4': k4} or counted != {'K1': k1,
                                                       'K4': k4 + dec_k4}:
         raise RuntimeError(
-            f'{name} B={B}: launches {encoder} in the encoder, {counted} in '
+            f'{label} B={B}: launches {encoder} in the encoder, {counted} in '
             f'one decode; expected K1 {k1}, K4 {k4} in the encoder and '
             f'{dec_k4} more K4 in the rescoring decoder (hypotheses of '
             f'{L - 1} slots)')
@@ -4039,13 +4079,13 @@ def zoo_decode_check(name, B, seconds, k1, k4, smi):
     for what, a, b in (('encoder_out', eo, ceo), ('ctc log-probs', logp,
                                                    clogp)):
         if not torch.isfinite(a).all():
-            raise RuntimeError(f'{name}: {what} on the card is not finite')
+            raise RuntimeError(f'{label}: {what} on the card is not finite')
         errs.append((a[:h].cpu() - b).abs().max().item())
         torch.testing.assert_close(a[:h].cpu(), b, atol=1e-3, rtol=0,
-                                   msg=f'{name}: {what}')
+                                   msg=f'{label}: {what}')
     if not torch.equal(em[:h].cpu(), cem):
-        raise RuntimeError(f'{name}: encoder masks differ')
-    flips = zoo_same_hypotheses(name, {m: r[:h] for m, r in got.items()},
+        raise RuntimeError(f'{label}: encoder masks differ')
+    flips = zoo_same_hypotheses(label, {m: r[:h] for m, r in got.items()},
                                 want, logp[:h], clogp, cem[:, 0].sum(-1))
     # the rescoring decode's speed, after the checked run
     torch.cuda.synchronize()
@@ -4054,7 +4094,7 @@ def zoo_decode_check(name, B, seconds, k1, k4, smi):
     torch.cuda.synchronize()
     rate = lens.sum() / 100 / (time.perf_counter() - t0)
     chars = sum(len(r.tokens) for r in got['attention_rescoring'])
-    print(f'  {name} ({ZOO[name][0].split("/")[1]}; '
+    print(f'  {label}; '
           f'{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, '
           f'{len(model.encoder.encoders)} blocks) B={B} x {seconds:.0f} s: '
           f'encoder_out {tuple(eo.shape)}, on the {h} rows the CPU '
@@ -4073,58 +4113,74 @@ def zoo_decode_check(name, B, seconds, k1, k4, smi):
 
 
 def zoo_step_check(name):
-    """12c: one forward + backward, card against CPU, every dropout 0."""
-    from wenet_tpu_torch.utils.executor import to_device_batch
+    """12c: `step_against_cpu` of the zoo yaml `name`, every dropout 0."""
     configs = zoo_configs(name, dropout=False)
-    model = zoo_model(configs)
+    step_against_cpu(name, configs, zoo_model(configs), *ZOO_TRAIN_STEP)
+
+
+def step_against_cpu(label, configs, model, B, seconds, seed=SEED + 31,
+                     watch=(), exact=False):
+    """One forward + backward of the loss on the card against the CPU
+    (`model` on the CPU, copied to the card and dropped): every loss term
+    within rtol 1e-4, every gradient within 1e-3 + 2e-4 of its tensor's
+    largest (`hold_gradients`; with `exact`, a tensor past that bar is
+    held to the float64 gradient within the bar plus the CPU's own
+    error); the gradients of the parameters named in `watch` printed.
+    -> (the card's kernel launches, the largest share of the gradient
+    bar)."""
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.utils.executor import to_device_batch
     cpu_model = copy.deepcopy(model)
     model.cuda()
-    B, seconds = ZOO_TRAIN_STEP
-    b = zoo_train_batch(np.random.RandomState(SEED + 31), B, seconds,
+    b = zoo_train_batch(np.random.RandomState(seed), B, seconds,
                         configs['input_dim'], configs['output_dim'])
-    outs = []
-    for m, dev in ((model, 'cuda'), (cpu_model, 'cpu')):
+
+    def step(m, dev):
         m.train()
+        m.zero_grad(set_to_none=True)
         tb = to_device_batch(b, dev)
-        out = m(tb['feats'], tb['feats_lengths'], tb['target'],
-                tb['target_lengths'],
+        out = m(tb['feats'].to(next(m.parameters()).dtype),
+                tb['feats_lengths'], tb['target'], tb['target_lengths'],
                 generator=torch.Generator().manual_seed(SEED))
         out['loss'].backward()
-        outs.append(out)
-    for k in ('loss', 'loss_att', 'loss_ctc'):
+        return out
+
+    fa.reset_launches()
+    outs = [step(model, 'cuda')]
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    outs.append(step(cpu_model, 'cpu'))
+    for k in outs[1]:
+        if outs[1][k] is None or k == 'th_accuracy':
+            continue
         a, w = outs[0][k].item(), outs[1][k].item()
         if not abs(a - w) <= 1e-4 * abs(w) + 1e-6:
-            raise RuntimeError(f'{name}: {k} card {a} cpu {w} beyond rtol '
+            raise RuntimeError(f'{label}: {k} card {a} cpu {w} beyond rtol '
                                '1e-4')
-    # 6c's bar, 1e-3, plus 2e-4 of the tensor's largest gradient: at full
-    # depth and B=4 x 8 s the largest gradients (printed below) sum float32
-    # terms that cancel over 3200 frames, so 1e-3 is below float32's
-    # resolution of their sums
-    worst, worst_of_bar, largest = 0.0, 0.0, (0.0, '')
-    # the tensors past a flat 1e-3, each with its share of its largest
-    # (a share over all tensors would be led by the key biases, whose
-    # gradients are 0 but for rounding: softmax ignores a shift)
-    above = []
+    worst, worst_of_bar, largest, held = hold_gradients(
+        label, model, cpu_model, exact=(lambda: float64_grads(
+            cpu_model, lambda m: step(m, 'cpu'))) if exact else None)
     cpu_params = dict(cpu_model.named_parameters())
-    for pname, p in model.named_parameters():
-        if p.grad is None or not torch.isfinite(p.grad).all():
-            raise RuntimeError(f'{name}: {pname} has no finite gradient')
-        want = cpu_params[pname].grad
-        err = (p.grad.cpu() - want).abs().max().item()
-        bar = 1e-3 + ZOO_GRAD_RTOL * want.abs().max().item()
-        if err > bar:
-            raise RuntimeError(f'{name}: {pname} grad differs from the CPU '
-                               f'by {err} (bar {bar:.3g})')
-        worst, worst_of_bar = max(worst, err), max(worst_of_bar, err / bar)
-        largest = max(largest, (want.abs().max().item(), pname))
-    print(f'  {name} train step B={B} x {seconds:.0f} s, dropout 0: loss '
+    watched = [
+        f'{n} {(p.grad.cpu() - cpu_params[n].grad).abs().max().item():.3g}'
+        for n, p in model.named_parameters() if any(w in n for w in watch)]
+    print(f'  {label} train step B={B} x {seconds:.0f} s: loss '
           f'card {outs[0]["loss"].item():.6f} cpu {outs[1]["loss"].item():.6f}'
           f' (rtol 1e-4); {len(cpu_params)} grads, max |card - cpu| '
-          f'{worst:.3g}, at most {100 * worst_of_bar:.0f}% of the bar '
-          f'(1e-3 + {ZOO_GRAD_RTOL:g} x the largest |grad| of the tensor); '
-          f'the largest |grad| {largest[0]:.3g} ({largest[1]})', flush=True)
+          f'{worst:.3g}, at most {100 * worst_of_bar:.0f}% of the bar (1e-3 '
+          f'+ {GRAD_SHARE:g} x the largest |grad| of the tensor'
+          + (', or of it plus the CPU\'s own error from float64' if exact
+             else '') +
+          f'); the largest |grad| {largest[0]:.3g} ({largest[1]})'
+          + (f'; held to float64: ' + '; '.join(
+              f'{n} |card - cpu| {e:.3g}, |card - f64| {c64:.3g}, '
+              f'|cpu - f64| {p64:.3g} (bar {bar:.3g})'
+              for n, e, c64, p64, bar in held) if held else '')
+          + (f'; watched |card - cpu|: {", ".join(watched)}' if watched
+             else ''), flush=True)
     del model, cpu_model
     torch.cuda.empty_cache()
+    return launches, worst_of_bar
 
 
 def zoo_executor_check(name, smi):
@@ -6786,19 +6842,26 @@ def bestrq_step_pair(model, cpu_model, feats, lens):
     return outs, code_band(model, cpu_model, x, ls)
 
 
-def float64_grads(model, run):
-    """The parameter gradients of `run(m)` (a forward and backward on the
-    CPU) on a float64 copy of `model`, with the losses' float32 casts
-    (`Tensor.float`) left in float64: the exact gradients a float32 one is
-    held to."""
-    m = copy.deepcopy(model).double()
+@contextlib.contextmanager
+def float64_casts():
+    """Within: `Tensor.float` leaves a float64 tensor in float64 (the
+    losses' and the attention's float32 casts), for float64 references."""
     to_float = torch.Tensor.float
     torch.Tensor.float = (lambda t, *a, **k: t if t.dtype == torch.float64
                           else to_float(t, *a, **k))
     try:
-        run(m)
+        yield
     finally:
         torch.Tensor.float = to_float
+
+
+def float64_grads(model, run):
+    """The parameter gradients of `run(m)` (a forward and backward on the
+    CPU) on a float64 copy of `model` under `float64_casts`: the exact
+    gradients a float32 one is held to."""
+    m = copy.deepcopy(model).double()
+    with float64_casts():
+        run(m)
     return {n: p.grad for n, p in m.named_parameters() if p.grad is not None}
 
 
@@ -7985,6 +8048,443 @@ def scale_check(lang, smi):
                                                      mesh=k1_mesh))
 
 
+# ---------------------------------------------------------------------------
+# 19. the rest of the encoder and attention zoo
+# ---------------------------------------------------------------------------
+TRANSFORMER_CONFIG = os.path.join(REPO, 'examples/aishell/s0/conf/'
+                                  'train_transformer.yaml')
+# U2++-MoE: MoE in place of every FFN (the JAX package's 8 experts, top
+# 2), GQA, RMSNorm, no FFN biases, in encoder and decoder
+MOE_OPTIONS = dict(n_kv_head=2, mlp_type='moe', n_expert=8,
+                   n_expert_activated=2, mlp_bias=False,
+                   layer_norm_type='rms_norm')
+OPTIONS = {  # 19a-19d: yaml, encoder_conf, decoder_conf, top-level overrides
+    'moe_gqa_conformer': (CONFIG, MOE_OPTIONS, MOE_OPTIONS, {}),
+    'rope_mqa_transformer': (TRANSFORMER_CONFIG, dict(
+        pos_enc_layer_type='rope_pos',
+        selfattention_layer_type='rope_abs_selfattn', n_kv_head=1,
+        mlp_type='gated'), {}, {}),
+    'shaw_transformer': (TRANSFORMER_CONFIG, dict(
+        pos_enc_layer_type='no_pos',
+        selfattention_layer_type='shaw_rel_selfattn'), {}, {}),
+    'ctl': (CONFIG, dict(static_chunk_size=16, use_dynamic_chunk=False), {},
+            dict(model='ctl_model', encoder='dual_conformer')),
+}
+OPTIONS_DECODE = {  # B x seconds on the card, rows decoded on the CPU too
+    'moe_gqa_conformer': (16, 15.0, 2),
+    'rope_mqa_transformer': (64, 15.0, 2),  # T' = 374: K4 by the 24M gate
+    'shaw_transformer': (64, 15.0, 2),
+}
+# the card-against-CPU train step (MoE runs 8x the FFN work on the host),
+# then the larger batch on the card alone; 24 s: T' = 599 >= 512, K4-train
+OPTIONS_STEP = {'moe_gqa_conformer': ((2, 8.0), (16, 12.0)),
+                'rope_mqa_transformer': ((2, 24.0), (8, 24.0)),
+                'shaw_transformer': ((2, 24.0), (8, 24.0)),
+                'ctl': ((2, 8.0), None)}
+CTL_NEGATIVES = 10
+INPUT_LAYERS = {  # 19e: the flagship at 2 + 1 layers with each front end
+    'linear': {}, 'conv2d2': {},
+    # stacked frames need output_size = 2 x 80 (heads of d = 32)
+    'stack_n_frames': dict(output_size=160, attention_heads=5)}
+INPUT_LAYER_DECODE = (4, 6.0, 2)  # B x seconds, rows on the CPU
+SHAW_K4_SHAPE = (64, 4, 374, 374, 64)  # 19c's decode: K4 with a full bias
+SHAW_K5_SHAPE = (2, 4, 599, 599, 64)  # 19c's step: K5's full dbias
+OPTIONS_STREAM_SECONDS = 4.0
+
+
+def options_configs(name, dropout=True):
+    """19a-19d's yaml with its overrides, input 80-d fbank, 4233 chars.
+    dropout: True, the yaml's; False, every rate 0; 'hash', only the
+    encoder's attention dropout (K1's counter hash, the same draw on the
+    card and the CPU), nn.Dropout at 0."""
+    import yaml
+    path, enc, dec, top = OPTIONS[name]
+    with open(path) as f:
+        configs = yaml.safe_load(f)
+    configs['input_dim'], configs['output_dim'] = 80, 4233
+    configs['encoder_conf'].update(enc)
+    configs['decoder_conf'].update(dec)
+    configs.update(top)
+    if name == 'ctl':
+        configs['model_conf']['n_negatives'] = CTL_NEGATIVES
+    if dropout is not True:
+        for conf in (configs['encoder_conf'], configs['decoder_conf']):
+            for key in conf:
+                if key.endswith('dropout_rate') and not (
+                        dropout == 'hash' and conf is configs['encoder_conf']
+                        and key == 'attention_dropout_rate'):
+                    conf[key] = 0.0
+    return configs
+
+
+def input_layer_configs(layer):
+    """19e: the flagship at 2 + 1 + 1 blocks with front end `layer`."""
+    configs = flagship_configs()
+    configs['encoder_conf'].update(num_blocks=2, input_layer=layer,
+                                   **INPUT_LAYERS[layer])
+    heads = configs['encoder_conf']['attention_heads']
+    configs['decoder_conf'].update(num_blocks=1, r_num_blocks=1,
+                                   attention_heads=heads)
+    return configs
+
+
+def options_step_speed(label, configs, B, seconds, smi):
+    """Three train steps (forward + backward, no update) at B x seconds
+    on the card only: ms a step (the second and third, synchronized) ->
+    (ms, the kernels' launches over the three steps)."""
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.utils.executor import to_device_batch
+    model = zoo_model(configs).cuda().train()
+    b = to_device_batch(zoo_train_batch(np.random.RandomState(SEED + 93), B,
+                                        seconds, 80, 4233), 'cuda')
+    times = []
+    fa.reset_launches()
+    for _ in range(3):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(b['feats'], b['feats_lengths'], b['target'],
+                    b['target_lengths'],
+                    generator=torch.Generator().manual_seed(SEED))
+        out['loss'].backward()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        if not torch.isfinite(out['loss']):
+            raise RuntimeError(f'{label}: the loss is not finite')
+    launches = dict(fa.LAUNCHES)
+    ms = float(np.mean(times[1:]))
+    per_step = {k: v // 3 for k, v in launches.items() if v}
+    print(f'  {label} train step B={B} x {seconds:.0f} s on the card: '
+          f'{ms:.1f} ms (steps 2-3; forward + backward), '
+          f'{B * seconds / ms * 1e3:.1f} audio-sec/s, peak '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; '
+          f'launches a step {per_step} '
+          f'({smi})', flush=True)
+    del model, b, out
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return ms, launches
+
+
+def sdpa_bias_train(q, k, v, mask, bias, scale, do):
+    """SDPA forward and backward with where(mask, bias·scale, -inf) as a
+    float attn_mask that requires grad (its gradient is dbias·scale):
+    the one PyTorch call that computes K4-train, K5 with dbias and K6
+    together -> (forward ms, backward ms), or None where SDPA refuses a
+    gradient of its mask."""
+    import torch.nn.functional as F
+    x = [t.detach().requires_grad_() for t in (q, k, v)]
+    m = torch.where(mask, bias * scale, -float('inf')).detach()
+    m.requires_grad_()
+    try:
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(*x, attn_mask=m, scale=scale)
+            torch.autograd.grad(o, x + [m], do, retain_graph=True)
+    except RuntimeError as e:
+        print(f'    SDPA refused a float mask with a gradient: {e}'[:200])
+        return None
+
+    def forward():
+        with torch.enable_grad():
+            return F.scaled_dot_product_attention(*x, attn_mask=m,
+                                                  scale=scale)
+    return (cuda_time_ms(forward),
+            cuda_time_ms(lambda: torch.autograd.grad(o, x + [m], do,
+                                                     retain_graph=True)))
+
+
+def shaw_kernel_check():
+    """19c's kernel shapes against the plain versions, fp32: K4 with the
+    full (B, h, T1, T2) bias at the decode's shape, K4-train, K5 (its
+    full dbias) and K6 at the train step's; SDPA with the bias as a float
+    attn_mask beside them -> {kernel: readings}."""
+    rng = np.random.RandomState(SEED + 90)
+    B, h, T, _, d = SHAW_K4_SHAPE
+    k4 = k4_case(rng, B, h, T, T, d, 'pad', (B, h, T, T), torch.float32)
+    B, h, T, _, d = SHAW_K5_SHAPE
+    errs, shares, t, bounds, _, tflops, _ = flash_train_case(
+        rng, B, h, T, T, d, 'pad', (B, h, T, T), torch.float32)
+    q, k, v, mask, bias = flash_inputs(rng, B, h, T, T, d, 'pad',
+                                       (B, h, T, T), torch.float32)
+    do = torch.randn_like(q)
+    sdpa = sdpa_bias_train(q, k, v, mask, bias, 1.0 / d ** 0.5, do)
+    if sdpa is not None:
+        print(f'    SDPA with the bias as a float attn_mask (its gradient '
+              f'too): forward {sdpa[0]:.4f} ms, backward (dq, dk, dv, '
+              f'dmask together) {sdpa[1]:.4f} ms', flush=True)
+    out = {'flash_attention_fwd': dict(k4, shape=SHAW_K4_SHAPE)}
+    for i, name in enumerate(FLASH_TRAIN_KERNELS):
+        out[name] = dict(
+            shape=SHAW_K5_SHAPE, max_abs_err=errs[name],
+            share_of_bar=shares[name], ms=t[name][0], plain_ms=t[name][1],
+            bound_ms=bounds[name][0], bound_by=bounds[name][1],
+            tflops=tflops[i],
+            library_ms=None if sdpa is None else sdpa[i > 0])
+    return out
+
+
+def options_stream_check(label, model, cpu_model, reverse_weight, k1):
+    """One AsrDecoder stream (200 ms pieces) on the card against the CPU,
+    partial by partial; `k1` K1 launches a chunk step -> (K1 launches,
+    chunk steps)."""
+    from wenet_tpu_torch.ops import flash_attention as fa
+    tokenizer = flagship_tokenizer()
+    wav = speech_like(np.random.RandomState(SEED + 94),
+                      OPTIONS_STREAM_SECONDS)
+    want = stream_utterance(streaming_decoder(
+        cpu_model, 'cpu', tokenizer, reverse_weight=reverse_weight), wav)
+    dec = streaming_decoder(model, 'cuda', tokenizer,
+                            reverse_weight=reverse_weight)
+    steps = [0]
+    advance = dec._advance_one_chunk
+
+    def counted(chunk):
+        steps[0] += 1
+        return advance(chunk)
+    dec._advance_one_chunk = counted
+    fa.reset_launches()
+    got = stream_utterance(dec, wav)
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES['relpos_attention_fwd']
+    if launches != k1 * steps[0] or not steps[0]:
+        raise RuntimeError(f'{label} stream: {launches} K1 launches over '
+                           f'{steps[0]} chunk steps, expected {k1} a step')
+    if len(got[0]) != len(want[0]):
+        raise RuntimeError(f'{label} stream: {len(got[0])} partials on the '
+                           f'card, {len(want[0])} on the CPU')
+    worst = max(same_results(g, w, f'{label} partial {j}')
+                for j, (g, w) in enumerate(zip(got[0], want[0])))
+    worst = max(worst, same_results(got[1], want[1], f'{label} final'))
+    print(f'  {label} AsrDecoder, {OPTIONS_STREAM_SECONDS} s in 200 ms '
+          f'pieces: {steps[0]} chunk steps, {launches} K1 launches; '
+          f'{len(got[0])} partials and the final equal to the CPU\'s '
+          f'(scores within {worst:.3g}); RTF '
+          f'{got[2]["wall_s"] / OPTIONS_STREAM_SECONDS:.4f}', flush=True)
+    return launches, steps[0]
+
+
+def options_batched_check(label, model, n_streams=4):
+    """`n_streams` AsrDecoders over one BatchedChunkRunner on the card,
+    each partial and final equal to the stream alone within 2e-4 ->
+    (K1 launches, batched steps, the coalesced batch sizes)."""
+    from wenet_tpu_torch.models.transformer.streaming import StreamingConfig
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.runtime.batch_runner import BatchedChunkRunner
+    tokenizer = flagship_tokenizer()
+    rng = np.random.RandomState(SEED + 95)
+    utts = [speech_like(rng, s) for s in (3.0, 4.0, 5.0, 3.5)[:n_streams]]
+    alone = [stream_utterance(streaming_decoder(model, 'cuda', tokenizer),
+                              w)[:2] for w in utts]
+    cfg = StreamingConfig(STREAM_OPTS['chunk_size'],
+                          STREAM_OPTS['num_left_chunks'],
+                          model.encoder.subsampling_rate,
+                          model.encoder.right_context)
+    runner = BatchedChunkRunner(model, cfg, max_batch=n_streams,
+                                beam_size=STREAM_OPTS['beam_size'],
+                                device='cuda')
+    try:
+        runner.precompile(80)
+        fa.reset_launches()
+        got, wall = run_streams(lambda: streaming_decoder(
+            model, 'cuda', tokenizer, runner), utts, 0.1)
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES['relpos_attention_fwd']
+        hist = dict(sorted(runner.batch_sizes.items()))
+    finally:
+        runner.close()
+    steps = sum(hist.values())
+    n_blocks = len(model.encoder.encoders)
+    if launches != n_blocks * steps or not steps or max(hist) < 2:
+        raise RuntimeError(f'{label} batched: {launches} K1 launches over '
+                           f'{steps} steps of sizes {hist}')
+    worst = 0.0
+    for i, ((g_part, g_final, _), (w_part, w_final)) in enumerate(
+            zip(got, alone)):
+        if len(g_part) != len(w_part):
+            raise RuntimeError(f'{label} stream {i}: {len(g_part)} partials '
+                               f'batched, {len(w_part)} alone')
+        for j, (g, w) in enumerate(zip(g_part, w_part)):
+            worst = max(worst, same_results(g, w, f'stream {i} partial {j}',
+                                            BATCH_SCORE_TOL))
+        worst = max(worst, same_results(g_final, w_final,
+                                        f'stream {i} final', BATCH_SCORE_TOL))
+    print(f'  {label} batched serving: {n_streams} streams, {steps} batched '
+          f'steps of sizes {hist}, {launches} K1 launches; every partial and '
+          f'final equal to the stream alone (scores within {worst:.3g}, bar '
+          f'{BATCH_SCORE_TOL["atol"]}); {wall:.2f} s', flush=True)
+    return launches, steps, hist
+
+
+def k4_fp32_error(smi):
+    """Not run by `main`: K4's fp32 forward and its plain version on the
+    card against float64, at 19b's step shape (2,4,599,599,64), randn q,
+    k, v, no mask."""
+    from wenet_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device='cuda').manual_seed(SEED)
+    q, k, v = (torch.randn(2, 4, 599, 64, device='cuda', generator=g)
+               for _ in range(3))
+    with float64_casts():
+        exact = fa.flash_fwd_reference(q.double(), k.double(), v.double(),
+                                       scale=0.125)[0]
+    line = []
+    for label, fn in (('K4', fa.flash_fwd), ('plain', fa.flash_fwd_reference)):
+        err = (fn(q, k, v, scale=0.125)[0].double() - exact).abs()
+        line.append(f'{label} max {err.max().item():.3g} rms '
+                    f'{err.pow(2).mean().sqrt().item():.3g}')
+    print(f'  attention forward (2,4,599,599,64) fp32 against float64: '
+          + '; '.join(line) + f' ({smi})', flush=True)
+
+
+def ctc_grad_precision(smi, draws=4):
+    """Not run by `main`: 19b's step (B=2 x 24 s, T' = 599) over `draws`
+    data draws (the first is 19b's own), the whole loss's gradients of
+    the CPU and of the card in float32, the card with K4-train, K5 and K6
+    and with the plain attention path, against `float64_grads`: each
+    one's largest share of 12c's bar, and of that bar plus the CPU's own
+    error (`hold_gradients`' float64 test); and `k4_fp32_error`."""
+    import wenet_tpu_torch.models.transformer.attention as A
+    from wenet_tpu_torch.utils.executor import to_device_batch
+    k4_fp32_error(smi)
+    configs = options_configs('rope_mqa_transformer', 'hash')
+    base = zoo_model(configs)
+
+    def step(m, b, dev):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        tb = to_device_batch(b, dev)
+        out = m(tb['feats'].to(next(m.parameters()).dtype),
+                tb['feats_lengths'], tb['target'], tb['target_lengths'],
+                generator=torch.Generator().manual_seed(SEED))
+        out['loss'].backward()
+
+    def grads(b, dev):
+        m = copy.deepcopy(base).to(dev)
+        step(m, b, dev)
+        return {n: p.grad.double().cpu() for n, p in m.named_parameters()}
+
+    gate = dict(A.FLASH_GATE)
+    for seed in range(SEED + 92, SEED + 92 + draws):
+        b = zoo_train_batch(np.random.RandomState(seed), 2, 24.0, 80, 4233)
+        ref = float64_grads(base, lambda m: step(m, b, 'cpu'))
+        runs = {'cpu': grads(b, 'cpu'), 'card, K4-train/K5/K6': grads(
+            b, 'cuda')}
+        A.FLASH_GATE.update(min_len=10 ** 9, score_elems=10 ** 18)
+        try:
+            runs['card, plain attention'] = grads(b, 'cuda')
+        finally:
+            A.FLASH_GATE.update(gate)
+        line = []
+        for label, gr in runs.items():
+            bar = {n: 1e-3 + GRAD_SHARE * r.abs().max().item()
+                   for n, r in ref.items()}
+            own = {n: (runs['cpu'][n] - r).abs().max().item()
+                   for n, r in ref.items()}
+            gap = {n: (gr[n] - r).abs().max().item() for n, r in ref.items()}
+            share, name = max((gap[n] / bar[n], n) for n in ref)
+            held, hname = max((gap[n] / (bar[n] + own[n]), n) for n in ref)
+            line.append(f'{label} {share:.2f} ({name}), of the bar + the '
+                        f'CPU\'s own {held:.2f} ({hname})')
+        print(f'  19b step, draw {seed - SEED - 92}, the whole loss against '
+              f'float64, the largest share of 12c\'s bar: ' + '; '.join(line)
+              + f' ({smi})', flush=True)
+
+
+def zoo_options_check(smi):
+    """Phase 19 -> ({kernel: launches on phase 19's paths}, readings)."""
+    phase('19 the rest of the encoder and attention zoo: MoE + GQA, RoPE + '
+          'MQA, Shaw, CTL, input layers')
+    t0 = time.perf_counter()
+    launches = {name: 0 for name in ('relpos_attention_fwd',
+                                     'flash_attention_fwd',
+                                     *TRAIN_KERNELS, *FLASH_TRAIN_KERNELS)}
+    readings = {}
+
+    def add(counted):
+        for k in launches:
+            launches[k] += counted.get(k, 0)
+
+    for name in ('moe_gqa_conformer', 'rope_mqa_transformer',
+                 'shaw_transformer', 'ctl'):
+        sub = {'moe_gqa_conformer': '19a', 'rope_mqa_transformer': '19b',
+               'shaw_transformer': '19c', 'ctl': '19d'}[name]
+        phase(f'{sub} {name}')
+        configs = options_configs(name)
+        n_blocks = configs['encoder_conf']['num_blocks']
+        conformer = configs['encoder'] in ('conformer', 'dual_conformer')
+        r = readings[name] = {}
+        if name in OPTIONS_DECODE:
+            B, seconds, rows = OPTIONS_DECODE[name]
+            model = zoo_model(configs)
+            cpu_model = copy.deepcopy(model)
+            k1, k4 = (n_blocks, 0) if conformer else (0, n_blocks)
+            counted, rate, ties = decode_against_cpu(
+                f'{sub} {name} ({os.path.basename(OPTIONS[name][0])} + '
+                'overrides', configs, model, B, seconds, k1, k4, smi, rows,
+                seed=SEED + 91)
+            launches['relpos_attention_fwd'] += counted['K1']
+            launches['flash_attention_fwd'] += counted['K4']
+            r.update(decode_launches=counted, decode_audio_sec_per_s=rate,
+                     hypotheses_at_ties=ties)
+            if name != 'shaw_transformer':
+                # `model` is on the card since the decode
+                reverse = 0.3 if conformer else 0.0
+                k1s, steps = options_stream_check(
+                    f'{sub} {name}', model, cpu_model, reverse,
+                    n_blocks if conformer else 0)
+                launches['relpos_attention_fwd'] += k1s
+                r['stream_steps'] = steps
+                if conformer:
+                    k1b, steps, hist = options_batched_check(
+                        f'{sub} {name}', model)
+                    launches['relpos_attention_fwd'] += k1b
+                    r.update(batched_steps=steps, batch_sizes=hist)
+            del model, cpu_model
+            torch.cuda.empty_cache()
+        (B, seconds), speed = OPTIONS_STEP[name]
+        step_configs = options_configs(name, 'hash')
+        # at T' = 599 the CTC term's float32 gradient, the CPU's too, sits
+        # past 12c's bar from float64 (`ctc_grad_precision`): the
+        # transformers' tensors past it are held to float64
+        counted, share = step_against_cpu(
+            f'{sub} {name}', step_configs, zoo_model(step_configs), B,
+            seconds, seed=SEED + 92, watch=('rel_k_embed',),
+            exact=not conformer)
+        per_pass = n_blocks * (2 if name == 'ctl' else 1)
+        kernels = TRAIN_KERNELS if conformer else FLASH_TRAIN_KERNELS
+        if any(counted[k] != per_pass for k in kernels):
+            raise RuntimeError(f'{sub} {name}: train step launches '
+                               f'{counted}, expected {per_pass} of each of '
+                               f'{list(kernels)}')
+        add(counted)
+        r.update(step_launches={k: counted[k] for k in kernels},
+                 step_grad_share=share)
+        if speed is not None:
+            ms, counted = options_step_speed(f'{sub} {name}', step_configs,
+                                             *speed, smi)
+            add(counted)
+            r.update(step_ms=ms, step_shape=speed)
+    phase('19c kernels at the Shaw transformer\'s shapes, fp32')
+    kernel_readings = shaw_kernel_check()
+    phase('19e input layers: linear, conv2d2, stack_n_frames')
+    for layer in INPUT_LAYERS:
+        configs = input_layer_configs(layer)
+        counted, rate, ties = decode_against_cpu(
+            f'19e {layer} (flagship at 2 + 1 + 1 blocks', configs,
+            zoo_model(configs), *INPUT_LAYER_DECODE[:2], 2, 0, smi,
+            INPUT_LAYER_DECODE[2], seed=SEED + 96)
+        launches['relpos_attention_fwd'] += counted['K1']
+        launches['flash_attention_fwd'] += counted['K4']
+        readings[layer] = dict(decode_launches=counted,
+                               hypotheses_at_ties=ties)
+    missing = [k for k, n in launches.items() if not n]
+    if missing:
+        raise RuntimeError(f'phase 19 launched no {missing}')
+    took = time.perf_counter() - t0
+    print(f'  phase 19 launches: {launches}; took {took:.1f} s', flush=True)
+    readings['seconds'] = took
+    return launches, kernel_readings, readings
+
+
 def main():
     smi = device()
     build()
@@ -8016,6 +8516,7 @@ def main():
     ssl, k2 = ({k: v[part] for k, v in ssl_k2_launches.items()}
                for part in ('ssl', 'k2'))
     scale_launches, scale_readings = scale_check(lang, smi)
+    opt_launches, opt_kernels, opt_readings = zoo_options_check(smi)
     foreign = [m for m in sys.modules
                if m == 'jax' or m.startswith('jax.') or m == 'wenet_tpu'
                or m.startswith('wenet_tpu.')]
@@ -8030,7 +8531,8 @@ def main():
         stage67_launches['wfst'] + stage67_launches['export'] +
         rnnt_launches['relpos_attention_fwd'] +
         ssl['relpos_attention_fwd'] + k2['relpos_attention_fwd'] +
-        scale_launches['relpos_attention_fwd'], **report,
+        scale_launches['relpos_attention_fwd'] +
+        opt_launches['relpos_attention_fwd'], **report,
         'launches_zoo': zoo_launches['relpos_attention_fwd'],
         'zoo_decode': zoo_readings,
         'launches_decode': launches, 'launches_streaming': stream_launches,
@@ -8048,18 +8550,22 @@ def main():
         'launches_k2': k2['relpos_attention_fwd'],
         'ssl_k2': ssl_k2_readings,
         'launches_scale': scale_launches['relpos_attention_fwd'],
-        'scale': scale_readings}]
+        'scale': scale_readings,
+        'launches_zoo_options': opt_launches['relpos_attention_fwd'],
+        'zoo_options': opt_readings}]
     for name, (source, replaces) in TRAIN_KERNELS.items():
         kernels.append(dict(name=name, route='cuda', source=source,
                             replaces=replaces,
                             launches=train_launches[name] +
                             zoo_launches[name] + rnnt_launches[name] +
-                            ssl[name] + k2[name] + scale_launches[name],
+                            ssl[name] + k2[name] + scale_launches[name] +
+                            opt_launches[name],
                             launches_train_entry=entry_launches[name],
                             launches_zoo=zoo_launches[name],
                             launches_transducer=rnnt_launches[name],
                             launches_ssl=ssl[name], launches_k2=k2[name],
                             launches_scale=scale_launches[name],
+                            launches_zoo_options=opt_launches[name],
                             **train_report[name]))
     kernels.append(dict(name='flash_attention_fwd', route='cuda',
                         source='wenet_tpu_torch/csrc/flash_attention.cu',
@@ -8067,7 +8573,11 @@ def main():
                         launches=flash_launches +
                         zoo_launches['flash_attention_fwd'] +
                         whisper_launches['flash_attention_fwd'] +
-                        para_launches['flash_attention_fwd'],
+                        para_launches['flash_attention_fwd'] +
+                        opt_launches['flash_attention_fwd'],
+                        launches_zoo_options=opt_launches[
+                            'flash_attention_fwd'],
+                        shaw=opt_kernels['flash_attention_fwd'],
                         launches_zoo=zoo_launches['flash_attention_fwd'],
                         launches_whisper_recipe=whisper_launches[
                             'flash_attention_fwd'],
@@ -8083,7 +8593,9 @@ def main():
                             replaces=replaces,
                             launches=flash_train_launches[name] +
                             zoo_launches[name] + whisper_launches[name] +
-                            para_launches[name],
+                            para_launches[name] + opt_launches[name],
+                            launches_zoo_options=opt_launches[name],
+                            shaw=opt_kernels[name],
                             launches_zoo=zoo_launches[name],
                             launches_whisper_recipe=whisper_launches[name],
                             launches_paraformer=para_launches[name],

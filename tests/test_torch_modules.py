@@ -166,9 +166,9 @@ def test_cross_attention_beam_expansion(pair):
 
 @pytest.mark.parametrize('section,key,value', [
     (None, 'encoder', 'transformer'),
-    ('encoder_conf', 'normalize_before', False),
-    ('encoder_conf', 'cnn_module_norm', 'rms_norm'),
-    ('encoder_conf', 'n_kv_head', 1),
+    ('encoder_conf', 'macaron_style', False),
+    ('encoder_conf', 'use_cnn_module', False),
+    ('encoder_conf', 'conv_inner_factor', 4),
     ('decoder_conf', 'src_attention', False),
 ])
 def test_init_model_rejects_unported_options(section, key, value):

@@ -1,5 +1,6 @@
-"""One rank of tests/test_torch_parallel.py's multi-process checks, on the
-CPU over gloo; imports no JAX:
+"""One rank of the multi-process checks of tests/test_torch_parallel.py
+and tests/test_torch_zoo_slice.py (`moe_model2`), on the CPU over gloo;
+imports no JAX:
 
     python tests/torch_parallel_worker.py SCENARIO RANK WORLD INIT_FILE DIR
 
@@ -196,7 +197,20 @@ def data2_model2(ranks, work):
             'model_rank': run.mesh.model_rank}
 
 
-SCENARIOS = {'data2': data2, 'model2': model2, 'data2_model2': data2_model2}
+def moe_model2(ranks, work):
+    """model=2 over the MoE conformer of tests/test_torch_zoo_slice.py:
+    what was cut, each parameter's local shape, the first step."""
+    run = Run(ranks, work, 'moe', {'model': 2},
+              {'model_axis': True, 'min_dim': 64})
+    return {'sharded': dict(run.layout.sharded),
+            'local_shapes': {n: tuple(p.shape) for n, p in
+                             run.model.named_parameters()},
+            'step': dict(metrics=run.step(0), grads=run.grads(),
+                         weights=run.weights())}
+
+
+SCENARIOS = {'data2': data2, 'model2': model2, 'data2_model2': data2_model2,
+             'moe_model2': moe_model2}
 
 
 def main():

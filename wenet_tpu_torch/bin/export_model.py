@@ -36,7 +36,8 @@ plain matmul-softmax-matmul path, whatever the lengths: the flash gate
 length, as the JAX package's export (wenet_tpu/bin/export_model.py)
 never turns its `_FLASH` switch on.  So an exported transformer encoder,
 or a decoder at any max_hyp_len, holds no K4: eager above the gate runs
-K4, the exported program the plain path."""
+K4, the exported program the plain path.  Shaw and RoPE self-attention
+and GQA/MQA caches of `n_kv_head` heads export the same way."""
 
 import argparse
 import json

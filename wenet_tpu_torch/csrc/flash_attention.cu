@@ -52,7 +52,13 @@
 //     hi + lo keeps it at 43%.
 //   * fp32 (no plain tf32, which keeps 3 digits): 3xTF32.  Each operand
 //     is split x = hi + lo, both rounded to tf32, and hi.hi + hi.lo +
-//     lo.hi is accumulated in fp32 by wgmma m64nNk8.  tf32 takes both
+//     lo.hi is accumulated in fp32 by wgmma m64nNk8.  wgmma does not
+//     round its fp32 sums to nearest, so an O added to over the whole key
+//     loop drifts from float64 several times further than cuBLAS's fp32
+//     (chip_smoke `k4_fp32_error`).  Each key tile's P . V therefore goes
+//     into a zeroed fragment that FFMA adds to O; d = 128 has no
+//     registers for the fragment and accumulates in place.  tf32 takes
+//     both
 //     operands K-major, so V is stored transposed as it lands, with its
 //     keys permuted within each group of 8 so that S's accumulator is
 //     P's A fragment without shuffles.
@@ -222,6 +228,26 @@ constexpr size_t tf32_smem() {
   return 1024 + 2 * 4 * D * (BQ + 2 * BK);  // hi and lo of Q, K, V^T
 }
 
+// acc += P . V in 3xTF32, P's hi and lo fragments from registers, V's
+// from shared memory.
+template <int D>
+__device__ __forceinline__ void pv_tf32(float (&acc)[D / 2],
+                                        const uint32_t (&ph)[8][4],
+                                        const uint32_t (&pl)[8][4],
+                                        uint32_t svh, uint32_t svl) {
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {  // the small terms first
+    mma_tf32_rs(acc, pl[ks], desc_k(svh, D, ks));
+    mma_tf32_rs(acc, ph[ks], desc_k(svl, D, ks));
+  }
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) mma_tf32_rs(acc, ph[ks], desc_k(svh, D, ks));
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(acc);
+}
+
 template <int D, bool LSE>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
@@ -296,17 +322,17 @@ __global__ void __launch_bounds__(THREADS)
 
     uint32_t ph[8][4], pl[8][4];  // P's A fragments in split_cols's order
     frag_tf32(s, ph, pl);
-    wgmma_fence();
+    if constexpr (D <= 64) {
+      // the tile's P . V into a zeroed fragment, added to O in FFMA
+      float po[D / 2];
 #pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
-      mma_tf32_rs(o, pl[ks], desc_k(svh, D, ks));
-      mma_tf32_rs(o, ph[ks], desc_k(svl, D, ks));
+      for (int i = 0; i < D / 2; ++i) po[i] = 0.f;
+      pv_tf32<D>(po, ph, pl, svh, svl);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] += po[i];
+    } else {
+      pv_tf32<D>(o, ph, pl, svh, svl);
     }
-#pragma unroll
-    for (int ks = 0; ks < 8; ++ks) mma_tf32_rs(o, ph[ks], desc_k(svh, D, ks));
-    wgmma_commit();
-    wgmma_wait_all();
-    pin(o);
     pin(ph);
     pin(pl);
     kt = walk.next(bits);

@@ -13,6 +13,8 @@ from wenet_tpu_torch.models.transformer.norm import channel_norm, get_norm
 
 class ConvolutionModule(nn.Module):
     """pointwise conv -> GLU -> depthwise conv -> norm -> swish -> pointwise.
+    The norm is `batch_norm`, `layer_norm`, or for any other name
+    RMSNorm, as the JAX module reads it.
 
     Causal: the input is left-padded by kernel_size - 1 zeros BEFORE the
     first pointwise conv (its bias reaches the pad frames, as in the
@@ -27,7 +29,9 @@ class ConvolutionModule(nn.Module):
         self.depthwise_conv = nn.Conv1d(
             channels, channels, kernel_size, groups=channels,
             padding=0 if causal else kernel_size // 2)
-        self.norm = get_norm(norm, channels, norm_eps)
+        self.norm = get_norm(
+            norm if norm in ('batch_norm', 'layer_norm') else 'rms_norm',
+            channels, norm_eps)
         self.pointwise_conv2 = nn.Conv1d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor,

@@ -10,12 +10,15 @@ import torch.nn.functional as F
 
 from wenet_tpu_torch.models.transformer.attention import T_CACHE
 from wenet_tpu_torch.models.transformer.decoder_layer import DecoderLayer
+from wenet_tpu_torch.models.transformer.encoder_layer import (
+    layer_options as layer_options_of)
 from wenet_tpu_torch.models.transformer.embedding import (
     LearnablePositionalEncoding, PositionalEncoding)
+from wenet_tpu_torch.models.transformer.norm import get_norm
 from wenet_tpu_torch.utils.mask import make_pad_mask, subsequent_mask
 
 # the beam search's state: per-layer self (k, v) buffers of
-# (R, h, L_max, d), written in place, and per-layer encoder (k, v)
+# (R, h_kv, L_max, d), written in place, and per-layer encoder (k, v)
 DecodeState = Tuple[List[T_CACHE], List[T_CACHE]]
 
 
@@ -36,7 +39,9 @@ class TransformerDecoder(nn.Module):
     (whisper: a learned table of `learnable_pe_max_len` rows);
     tie_word_embedding: logits = x·Eᵀ + an own bias; lora_conf makes the
     attention projections LoRA layers (init_model passes it with
-    `lora_decoder`)."""
+    `lora_decoder`).  `layer_options`: the layers' options
+    (`LAYER_OPTIONS`); a post-norm decoder (`normalize_before` False) has
+    no after_norm, as the JAX decoder has none then."""
 
     def __init__(self, vocab_size: int, encoder_output_size: int,
                  attention_heads: int = 4, linear_units: int = 2048,
@@ -47,11 +52,9 @@ class TransformerDecoder(nn.Module):
                  norm_eps: float = 1e-5, input_layer: str = 'embed',
                  learnable_pe_max_len: int = 448,
                  tie_word_embedding: bool = False,
-                 activation_type: str = 'relu', query_bias: bool = True,
-                 key_bias: bool = True, value_bias: bool = True,
-                 src_query_bias: bool = True, src_key_bias: bool = True,
-                 src_value_bias: bool = True,
-                 lora_conf: Optional[dict] = None):
+                 activation_type: str = 'relu', src_query_bias: bool = True,
+                 src_key_bias: bool = True, src_value_bias: bool = True,
+                 lora_conf: Optional[dict] = None, **layer_options):
         super().__init__()
         dim = encoder_output_size
         if input_layer == 'embed':
@@ -63,7 +66,10 @@ class TransformerDecoder(nn.Module):
             raise NotImplementedError(f'decoder input_layer={input_layer!r} '
                                       'is not ported')
         self.embed = nn.Sequential(nn.Embedding(vocab_size, dim), pos_enc)
-        self.after_norm = nn.LayerNorm(dim, eps=norm_eps)
+        options = layer_options_of(layer_options)
+        self.after_norm = (get_norm(options['layer_norm_type'], dim,
+                                    norm_eps)
+                           if options['normalize_before'] else None)
         self.tie_word_embedding = tie_word_embedding
         self.output_layer = (_OutputBias(vocab_size) if tie_word_embedding
                              else nn.Linear(dim, vocab_size))
@@ -71,14 +77,14 @@ class TransformerDecoder(nn.Module):
             DecoderLayer(dim, attention_heads, linear_units, dropout_rate,
                          self_attention_dropout_rate,
                          src_attention_dropout_rate, norm_eps,
-                         activation_type, query_bias, key_bias, value_bias,
-                         src_query_bias, src_key_bias, src_value_bias,
-                         lora_conf)
+                         activation_type, src_query_bias, src_key_bias,
+                         src_value_bias, lora_conf, **options)
             for _ in range(num_blocks)
         ])
 
     def _output(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.after_norm(x)
+        if self.after_norm is not None:
+            x = self.after_norm(x)
         if self.tie_word_embedding:
             return self.output_layer(
                 torch.matmul(x, self.embed[0].weight.to(x.dtype).t()))
@@ -102,14 +108,14 @@ class TransformerDecoder(nn.Module):
 
     def init_state(self, memory: torch.Tensor, max_len: int,
                    beam_size: int = 1) -> DecodeState:
-        """Zeroed self buffers of (B·beam_size, h, max_len, d) in the
+        """Zeroed self buffers of (B·beam_size, h_kv, max_len, d) in the
         memory's dtype, and each layer's encoder (k, v) over the B rows
         of `memory` (computed once, not per beam)."""
         B = memory.shape[0]
         self_caches, cross_kv = [], []
         for layer in self.decoders:
             attn = layer.self_attn
-            shape = (B * beam_size, attn.h, max_len, attn.d_k)
+            shape = (B * beam_size, attn.h_kv, max_len, attn.d_k)
             self_caches.append((memory.new_zeros(shape),
                                 memory.new_zeros(shape)))
             cross_kv.append(layer.precompute_cross_kv(memory))

@@ -5,43 +5,43 @@ wenet_tpu/models/transformer/decoder_layer.py `DecoderLayer`."""
 from typing import Optional
 
 import torch
-from torch import nn
 
 from wenet_tpu_torch.models.transformer.attention import (
-    T_CACHE, MultiHeadedAttention, MultiHeadedCrossAttention)
-from wenet_tpu_torch.models.transformer.positionwise_feed_forward import (
-    PositionwiseFeedForward, get_activation)
+    T_CACHE, MultiHeadedCrossAttention)
+from wenet_tpu_torch.models.transformer.encoder_layer import ResidualLayer
 
 
-class DecoderLayer(nn.Module):
+class DecoderLayer(ResidualLayer):
     """Self-attention, cross-attention to the encoder, FFN; each a
-    pre-norm residual block."""
+    residual block of the encoder layers' kind (`layer_options`: the
+    norm type and order, the FFN, `n_kv_head` key/value heads of
+    `head_dim`)."""
 
     def __init__(self, size: int, attention_heads: int, linear_units: int,
                  dropout_rate: float = 0.1,
                  self_attention_dropout_rate: float = 0.0,
                  src_attention_dropout_rate: float = 0.0,
                  norm_eps: float = 1e-5, activation_type: str = 'relu',
-                 query_bias: bool = True, key_bias: bool = True,
-                 value_bias: bool = True, src_query_bias: bool = True,
-                 src_key_bias: bool = True, src_value_bias: bool = True,
-                 lora_conf: Optional[dict] = None):
+                 src_query_bias: bool = True, src_key_bias: bool = True,
+                 src_value_bias: bool = True,
+                 lora_conf: Optional[dict] = None, **layer_options):
         super().__init__()
-        self.self_attn = MultiHeadedAttention(
-            attention_heads, size, self_attention_dropout_rate, query_bias,
-            key_bias, value_bias, lora_conf)
+        self._setup(size, linear_units, norm_eps, dropout_rate,
+                    layer_options)
+        self.self_attn = self._attention(
+            'selfattn', attention_heads, self_attention_dropout_rate,
+            lora_conf)
         self.src_attn = MultiHeadedCrossAttention(
             attention_heads, size, src_attention_dropout_rate,
-            src_query_bias, src_key_bias, src_value_bias, lora_conf)
-        self.feed_forward = PositionwiseFeedForward(
-            size, linear_units, dropout_rate, get_activation(activation_type))
-        self.norm1 = nn.LayerNorm(size, eps=norm_eps)
-        self.norm2 = nn.LayerNorm(size, eps=norm_eps)
-        self.norm3 = nn.LayerNorm(size, eps=norm_eps)
-        self.dropout = nn.Dropout(dropout_rate)
+            src_query_bias, src_key_bias, src_value_bias, lora_conf,
+            self._options['n_kv_head'], self._options['head_dim'])
+        self.feed_forward = self._mlp(activation_type)
+        self.norm1 = self._norm()
+        self.norm2 = self._norm()
+        self.norm3 = self._norm()
 
     def _residual(self, x, norm, fn):
-        return x + self.dropout(fn(norm(x)))
+        return self._block(x, norm, lambda y: (fn(y), None))[0]
 
     def forward(self, tgt: torch.Tensor, tgt_mask: torch.Tensor,
                 memory: torch.Tensor, memory_mask: torch.Tensor
@@ -56,16 +56,18 @@ class DecoderLayer(nn.Module):
         return self._residual(x, self.norm3, self.feed_forward)
 
     def precompute_cross_kv(self, memory: torch.Tensor) -> T_CACHE:
-        """The encoder's projected (k, v), each (B, h, T, d)."""
+        """The encoder's projected (k, v), each (B, h_kv, T, d)."""
         return self.src_attn.project_kv(memory, memory)
 
     def step(self, x: torch.Tensor, step: int, self_cache: T_CACHE,
              cross_kv: T_CACHE, memory_mask: Optional[torch.Tensor]
              ) -> torch.Tensor:
         """One token: x (R, 1, D) at position `step`.  The self cache
-        (R, h, L_max, d) is written in place; cross_kv may hold B = R / N
-        rows (queries are beam-expanded against it)."""
-        x = x + self.self_attn.decode_step(self.norm1(x), self_cache, step)
-        x = x + self.src_attn(self.norm2(x), None, None, memory_mask,
-                              cache=cross_kv)
-        return x + self.feed_forward(self.norm3(x))
+        (R, h_kv, L_max, d) is written in place; cross_kv may hold B = R / N
+        rows (queries are beam-expanded against it).  The beam search runs
+        in eval mode: no dropout."""
+        x = self._residual(x, self.norm1, lambda y: self.self_attn.decode_step(
+            y, self_cache, step))
+        x = self._residual(x, self.norm2, lambda y: self.src_attn(
+            y, None, None, memory_mask, cache=cross_kv))
+        return self._residual(x, self.norm3, self.feed_forward)

@@ -1,42 +1,104 @@
 """Encoder layers.  Counterpart of
 wenet_tpu/models/transformer/encoder_layer.py `TransformerEncoderLayer`
-and `ConformerEncoderLayer`."""
+and `ConformerEncoderLayer`: pre-norm (`normalize_before`) or post-norm
+residual blocks, LayerNorm or RMSNorm (`layer_norm_type`), any
+`ATTENTION_CLASSES` self-attention and any `MLP_CLASSES` FFN."""
 
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
-import torch.nn.functional as F
 
 from wenet_tpu_torch.models.transformer.attention import (
-    T_CACHE, RelPositionMultiHeadedAttention, make_self_attention)
+    T_CACHE, make_self_attention)
 from wenet_tpu_torch.models.transformer.convolution import ConvolutionModule
+from wenet_tpu_torch.models.transformer.norm import get_norm
 from wenet_tpu_torch.models.transformer.positionwise_feed_forward import (
-    PositionwiseFeedForward, make_mlp)
+    make_mlp)
 
 
-class TransformerEncoderLayer(nn.Module):
-    """Pre-norm self-attention + FFN, each a residual block (whisper's
-    encoder block, and the conv2d transformer's)."""
+# The options every encoder and decoder layer takes, at the JAX layers'
+# defaults.  The encoders and decoders take them by name and pass them on
+# to each layer as `**layer_options`.
+LAYER_OPTIONS = {'layer_norm_type': 'layer_norm', 'normalize_before': True,
+                 'mlp_type': 'position_wise_feed_forward', 'mlp_bias': True,
+                 'n_expert': 8, 'n_expert_activated': 2, 'query_bias': True,
+                 'key_bias': True, 'value_bias': True, 'n_kv_head': None,
+                 'head_dim': None}
+
+
+def layer_options(options: dict) -> dict:
+    """`LAYER_OPTIONS` with `options` over them; an unknown name raises."""
+    unknown = set(options) - set(LAYER_OPTIONS)
+    if unknown:
+        raise TypeError(f'unknown layer options {sorted(unknown)}')
+    return {**LAYER_OPTIONS, **options}
+
+
+class ResidualLayer(nn.Module):
+    """What every layer shares: the residual blocks (the norm type and
+    order, the dropout on each block's output), and its norms,
+    attentions and FFNs built from the layer options."""
+
+    def _setup(self, size, linear_units, norm_eps, dropout_rate,
+               options: dict):
+        self._options = layer_options(options)
+        self._size, self._units = size, linear_units
+        self._eps, self._dropout_rate = norm_eps, dropout_rate
+        self.normalize_before = self._options['normalize_before']
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def _norm(self) -> nn.Module:
+        return get_norm(self._options['layer_norm_type'], self._size,
+                        self._eps)
+
+    def _attention(self, kind, heads, dropout_rate, lora_conf) -> nn.Module:
+        """`kind` self-attention of `n_kv_head` key/value heads of
+        `head_dim`."""
+        o = self._options
+        return make_self_attention(
+            kind, heads, self._size, dropout_rate, lora_conf,
+            o['n_kv_head'], o['head_dim'], query_bias=o['query_bias'],
+            key_bias=o['key_bias'], value_bias=o['value_bias'])
+
+    def _mlp(self, activation_type) -> nn.Module:
+        o = self._options
+        return make_mlp(o['mlp_type'], self._size, self._units,
+                        self._dropout_rate, activation_type, o['mlp_bias'],
+                        o['n_expert'], o['n_expert_activated'])
+
+    def _block(self, x, norm, fn, scale=1.0):
+        """x + scale * dropout(fn(norm(x))) pre-norm, norm(x + scale *
+        dropout(fn(x))) post-norm; fn -> (y, extra) -> (x, extra)."""
+        y, extra = fn(norm(x) if self.normalize_before else x)
+        x = x + scale * self.dropout(y)
+        return (x if self.normalize_before else norm(x)), extra
+
+
+def _no_extra(fn):
+    return lambda x: (fn(x), None)
+
+
+class TransformerEncoderLayer(ResidualLayer):
+    """Self-attention + FFN, each a residual block (whisper's encoder
+    block, the conv2d transformers', the RoPE and Shaw transformers)."""
 
     def __init__(self, size: int, attention_heads: int, linear_units: int,
                  dropout_rate: float = 0.1,
                  attention_dropout_rate: float = 0.0, norm_eps: float = 1e-5,
-                 activation_type: str = 'relu', query_bias: bool = True,
-                 key_bias: bool = True, value_bias: bool = True,
+                 activation_type: str = 'relu',
                  lora_conf: Optional[dict] = None,
                  selfattention_layer_type: str = 'selfattn',
-                 mlp_type: str = 'position_wise_feed_forward'):
+                 **layer_options):
         super().__init__()
-        self.self_attn = make_self_attention(
-            selfattention_layer_type, attention_heads, size,
-            attention_dropout_rate, lora_conf, query_bias=query_bias,
-            key_bias=key_bias, value_bias=value_bias)
-        self.feed_forward = make_mlp(mlp_type, size, linear_units,
-                                     dropout_rate, activation_type)
-        self.norm1 = nn.LayerNorm(size, eps=norm_eps)
-        self.norm2 = nn.LayerNorm(size, eps=norm_eps)
-        self.dropout = nn.Dropout(dropout_rate)
+        self._setup(size, linear_units, norm_eps, dropout_rate,
+                    layer_options)
+        self.self_attn = self._attention(
+            selfattention_layer_type, attention_heads,
+            attention_dropout_rate, lora_conf)
+        self.feed_forward = self._mlp(activation_type)
+        self.norm1 = self._norm()
+        self.norm2 = self._norm()
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 pos_emb: Optional[torch.Tensor] = None,
@@ -48,17 +110,17 @@ class TransformerEncoderLayer(nn.Module):
         """x: (B, T, D); mask: (B, T|1, T2) attention mask -> (x, new att
         cache, None), the call of every encoder layer (see
         `ConformerEncoderLayer`); there is no conv, so no cnn cache."""
-        y, new_att = self.self_attn.forward_self(self.norm1(x), mask,
-                                                 pos_emb, generator,
-                                                 att_cache)
-        x = x + self.dropout(y)
-        return x + self.dropout(self.feed_forward(self.norm2(x))), \
-            new_att, None
+        x, new_att = self._block(x, self.norm1, lambda y: (
+            self.self_attn.forward_self(y, mask, pos_emb, generator,
+                                        att_cache)))
+        x, _ = self._block(x, self.norm2, _no_extra(self.feed_forward))
+        return x, new_att, None
 
 
-class ConformerEncoderLayer(nn.Module):
-    """Macaron FFN (x 1/2) + rel-pos MHSA + conv module + FFN (x 1/2),
-    each a pre-norm residual block, then a final norm.  Swish activation."""
+class ConformerEncoderLayer(ResidualLayer):
+    """Macaron FFN (x 1/2) + MHSA (rel-pos unless the config names
+    another) + conv module + FFN (x 1/2), each a residual block, then a
+    final norm.  Swish activation."""
 
     def __init__(self, size: int, attention_heads: int, linear_units: int,
                  dropout_rate: float = 0.1,
@@ -66,25 +128,24 @@ class ConformerEncoderLayer(nn.Module):
                  cnn_module_kernel: int = 15, causal: bool = False,
                  cnn_module_norm: str = 'batch_norm',
                  conv_norm_eps: float = 1e-5,
-                 lora_conf: Optional[dict] = None):
+                 lora_conf: Optional[dict] = None,
+                 selfattention_layer_type: str = 'rel_selfattn',
+                 **layer_options):
         super().__init__()
-        self.self_attn = RelPositionMultiHeadedAttention(
-            attention_heads, size, attention_dropout_rate, lora_conf)
-        self.feed_forward = PositionwiseFeedForward(
-            size, linear_units, dropout_rate, F.silu)
-        self.feed_forward_macaron = PositionwiseFeedForward(
-            size, linear_units, dropout_rate, F.silu)
+        self._setup(size, linear_units, norm_eps, dropout_rate,
+                    layer_options)
+        self.self_attn = self._attention(
+            selfattention_layer_type, attention_heads,
+            attention_dropout_rate, lora_conf)
+        self.feed_forward = self._mlp('swish')
+        self.feed_forward_macaron = self._mlp('swish')
         self.conv_module = ConvolutionModule(
             size, cnn_module_kernel, cnn_module_norm, causal, conv_norm_eps)
-        self.norm_ff_macaron = nn.LayerNorm(size, eps=norm_eps)
-        self.norm_mha = nn.LayerNorm(size, eps=norm_eps)
-        self.norm_conv = nn.LayerNorm(size, eps=norm_eps)
-        self.norm_ff = nn.LayerNorm(size, eps=norm_eps)
-        self.norm_final = nn.LayerNorm(size, eps=norm_eps)
-        self.dropout = nn.Dropout(dropout_rate)
-
-    def _residual(self, x, norm, fn, scale=1.0):
-        return x + scale * self.dropout(fn(norm(x)))
+        self.norm_ff_macaron = self._norm()
+        self.norm_mha = self._norm()
+        self.norm_conv = self._norm()
+        self.norm_ff = self._norm()
+        self.norm_final = self._norm()
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 pos_emb: torch.Tensor,
@@ -99,17 +160,17 @@ class ConformerEncoderLayer(nn.Module):
         generator for the attention-dropout seeds (training).
 
         Returns (x, new att cache, new cnn cache).  A streaming chunk step
-        passes `att_cache` (k, v) of (B, h, cache_t, d) and, with a causal
-        conv module, `cnn_cache` (B, lorder, D); it gets back (k, v) with
-        cache_t + T keys and the new cnn cache.  A cache not passed comes
-        back as None."""
-        x = self._residual(x, self.norm_ff_macaron,
-                           self.feed_forward_macaron, 0.5)
-        y = self.norm_mha(x)
-        y, new_att = self.self_attn(y, y, y, mask, pos_emb, generator,
-                                    att_cache)
-        x = x + self.dropout(y)
-        y, new_cnn = self.conv_module(self.norm_conv(x), mask_pad, cnn_cache)
-        x = x + self.dropout(y)
-        x = self._residual(x, self.norm_ff, self.feed_forward, 0.5)
+        passes `att_cache` (k, v) of (B, h_kv, cache_t, d) and, with a
+        causal conv module, `cnn_cache` (B, lorder, D); it gets back (k,
+        v) with cache_t + T keys and the new cnn cache.  A cache not
+        passed comes back as None."""
+        x, _ = self._block(x, self.norm_ff_macaron,
+                           _no_extra(self.feed_forward_macaron), 0.5)
+        x, new_att = self._block(x, self.norm_mha, lambda y: (
+            self.self_attn.forward_self(y, mask, pos_emb, generator,
+                                        att_cache)))
+        x, new_cnn = self._block(x, self.norm_conv, lambda y: (
+            self.conv_module(y, mask_pad, cnn_cache)))
+        x, _ = self._block(x, self.norm_ff, _no_extra(self.feed_forward),
+                           0.5)
         return self.norm_final(x), new_att, new_cnn

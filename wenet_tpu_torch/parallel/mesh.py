@@ -31,8 +31,10 @@ size + model rank), and the JAX layouts (`state_shardings`) become:
   only through the private `_pre_dp_module_transform`, which swaps each
   sharded parameter for a new nn.Parameter after every forward, and
   ZeroRedundancyOptimizer and the checkpoint would then read its private
-  shard records.  The JAX 3-D rule (stacked MoE weights) has nothing to
-  shard here: MoE is not ported.
+  shard records.  The stacked MoE experts (E, D, H) stay whole on every
+  rank: they are parameters, not linear maps, where the JAX 3-D rule
+  cuts them over `model` (expert parallelism, ROADMAP.md queue 1); the
+  router's `gate` is a linear map like any other.
 
 A checkpoint holds full tensors under the reference key names whatever
 the layout: `TrainLayout.full_state_dict` gathers the shards (every rank

@@ -32,9 +32,13 @@ local devices along `data`, splits each coalesced step over them: one
 replica per device, the rows in order, a ragged batch padded by
 repeating its final row (the pad rows discarded), the shards run side by
 side in threads; a session's caches move to the device of its shard and
-its encoder rows come back to the first device.  A model whose encoder
-is not the conformer raises NotImplementedError (the rest of the zoo is
-served one stream per `AsrDecoder`)."""
+its encoder rows come back to the first device.  The encoder is the
+conformer's or the transformer's, with any of their attentions
+(rel-pos, plain, Shaw, RoPE: its angles per row), pre- or post-norm,
+and GQA/MQA caches of `n_kv_head` heads.  Branchformer, E-Branchformer,
+Squeezeformer and the efficient conformer raise NotImplementedError
+(ROADMAP.md, queue 1 item 8): they are served one stream per
+`AsrDecoder`."""
 
 import collections
 import copy
@@ -48,7 +52,8 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-from wenet_tpu_torch.models.transformer.encoder import ConformerEncoder
+from wenet_tpu_torch.models.transformer.encoder import (ConformerEncoder,
+                                                        TransformerEncoder)
 from wenet_tpu_torch.models.transformer.streaming import (StreamingConfig,
                                                           streaming_att_mask)
 from wenet_tpu_torch.utils.ctc_utils import topk_host_rows
@@ -74,11 +79,11 @@ class BatchedChunkRunner:
     def __init__(self, model, cfg: StreamingConfig, max_batch: int = 8,
                  flush_ms: float = 5.0, mesh=None, beam_size: int = 10,
                  blank_id: int = 0, device='cuda'):
-        if type(model.encoder) is not ConformerEncoder:
+        if type(model.encoder) not in (ConformerEncoder, TransformerEncoder):
             raise NotImplementedError(
                 f'batched serving of {type(model.encoder).__name__} is not '
                 'ported (ROADMAP.md, queue 1 item 8): the batched chunk '
-                'step is the conformer\'s')
+                'step is the conformer\'s and the transformer\'s')
         devices = [torch.device(device)]
         if mesh is not None:
             from wenet_tpu_torch.parallel.mesh import decode_devices

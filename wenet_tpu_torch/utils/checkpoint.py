@@ -65,6 +65,9 @@ def torch_key(path: Tuple[str, ...]) -> str:
             out += ['conv', str(2 * int(seg.split('_')[1]))]
         elif seg == 'out' and out[-1:] == ['embed']:
             out += ['out', '0']
+        elif seg == 'norm' and out[-1:] == ['embed']:
+            # the LayerNorm of the linear and stacked-frames front ends
+            out += ['out', '1']
         elif seg in ('input_proj', 'channel_proj1'):
             # Sequential(Linear, act) in the reference (Squeezeformer's
             # front end, cgMLP)

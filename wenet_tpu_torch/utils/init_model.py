@@ -1,7 +1,7 @@
 """Config-driven model construction.  Counterpart of
-wenet_tpu/utils/init_model.py (`asr_model`, `transducer`, `whisper`,
-`paraformer`, `sensevoice_small`, `firered`, `k2_model` and the SSL
-models `bestrq_model`, `wav2vec_model` and `w2vbert_model`): an encoder
+wenet_tpu/utils/init_model.py (`asr_model`, `ctl_model`, `transducer`,
+`whisper`, `paraformer`, `sensevoice_small`, `firered`, `k2_model` and the
+SSL models `bestrq_model`, `wav2vec_model` and `w2vbert_model`): an encoder
 of the zoo (conformer, transformer, branchformer, E-Branchformer,
 Squeezeformer, efficient conformer, the SAN-M encoders, FireRed's
 conformer), a (bi)transformer or SAN-M decoder (none for SenseVoice)
@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from wenet_tpu_torch.models.ctl_model.asr_model_ctl import CTLModel
 from wenet_tpu_torch.models.finetune.lora import LoRALinear
 from wenet_tpu_torch.models.transformer.asr_model import ASRModel
 from wenet_tpu_torch.models.transformer.cmvn import GlobalCMVN
@@ -60,6 +61,7 @@ from wenet_tpu_torch.models.transducer.predictor import PREDICTOR_CLASSES
 from wenet_tpu_torch.models.transducer.transducer import Transducer
 from wenet_tpu_torch.models.transformer.encoder import (ConformerEncoder,
                                                         TransformerEncoder)
+from wenet_tpu_torch.models.transformer.encoder_layer import LAYER_OPTIONS
 from wenet_tpu_torch.models.whisper.convert import default_special_tokens
 from wenet_tpu_torch.models.whisper.whisper import Whisper
 
@@ -70,8 +72,8 @@ ENCODER_CLASSES = {
     'e_branchformer': EBranchformerEncoder,
     'squeezeformer': SqueezeformerEncoder,
     'efficientConformer': EfficientConformerEncoder,
-    # the reference's aliases (ctl_model's encoders, built here as the
-    # plain ones for an asr_model)
+    # the reference's aliases: ctl_model's encoders, the plain ones here
+    # (the CTL model calls them with full_context for the full pass)
     'dual_transformer': TransformerEncoder,
     'dual_conformer': ConformerEncoder,
     'sanm_encoder': SanmEncoder,
@@ -83,15 +85,17 @@ ENCODER_TYPE_OF = {'dual_transformer': 'transformer',
 DECODER_CLASSES = {'transformer': TransformerDecoder,
                    'bitransformer': BiTransformerDecoder,
                    'sanm_decoder': SanmDecoder}
-MODEL_CLASSES = {'asr_model': ASRModel, 'whisper': Whisper,
+MODEL_CLASSES = {'asr_model': ASRModel, 'ctl_model': CTLModel,
+                 'whisper': Whisper,
                  'transducer': Transducer, 'paraformer': Paraformer,
                  'sensevoice_small': SenseVoiceSmall,
                  'firered': FireRedModel, 'k2_model': K2Model,
                  **SSL_MODEL_CLASSES}
 # accepted and ignored (remat is not ported; it changes no result)
 _IGNORED = {'gradient_checkpointing', 'use_sdpa'}
-# options each encoder implements at one value only (the value every
-# example config uses): another value raises
+# options that the conformer and transformer take and the rest of the
+# zoo implements at one value only (the value every example config
+# uses): another value raises
 _FIXED_ALL = {'cmvn_norm_var': True, 'static_chunk_size': 0,
               'layer_norm_type': 'layer_norm', 'final_norm': True,
               'normalize_before': True, 'query_bias': True,
@@ -100,9 +104,7 @@ _FIXED_ALL = {'cmvn_norm_var': True, 'static_chunk_size': 0,
 _SANM_FIXED = {'input_layer': 'paraformer_dummy',
                'pos_enc_layer_type': 'abs_pos_paraformer',
                'use_dynamic_chunk': False}
-_CONFORMER_FIXED = {'pos_enc_layer_type': 'rel_pos',
-                    'selfattention_layer_type': 'rel_selfattn',
-                    'activation_type': 'swish', 'macaron_style': True,
+_CONFORMER_FIXED = {'activation_type': 'swish', 'macaron_style': True,
                     'use_cnn_module': True, 'conv_bias': True,
                     'conv_inner_factor': 2}
 _ENCODER_FIXED_BY_TYPE = {
@@ -129,9 +131,15 @@ _DECODER_FIXED = {'normalize_before': True, 'use_output_layer': True,
 
 
 def _params(fn) -> set:
-    """The constructor's options a config section may set (the LoRA
-    settings come from `lora_conf`, not from a section)."""
-    return set(inspect.signature(fn).parameters) - {'lora_conf'}
+    """The constructor's options a config section may set: its named
+    parameters and, where it takes `**layer_options`, `LAYER_OPTIONS`
+    (the LoRA settings come from `lora_conf`, not from a section)."""
+    params = inspect.signature(fn).parameters
+    names = {name for name, p in params.items()
+             if p.kind is not p.VAR_KEYWORD}
+    if 'layer_options' in params:
+        names |= set(LAYER_OPTIONS)
+    return names - {'lora_conf'}
 
 
 def _conf(conf: dict, accepted: set, what: str, fixed=None) -> dict:
@@ -145,8 +153,7 @@ def _conf(conf: dict, accepted: set, what: str, fixed=None) -> dict:
             out[key] = value
         elif not (key in _IGNORED or key in fixed and fixed[key] == value):
             raise NotImplementedError(f'{what} option {key}={value!r} is '
-                                      'not ported (ROADMAP.md, queue 1 '
-                                      'item 8)')
+                                      'not ported')
     return out
 
 
@@ -179,8 +186,7 @@ def init_model(configs: dict, generator: Optional[torch.Generator] = None,
                                ('encoder', encoder_type, ENCODER_CLASSES),
                                ('ctc', configs.get('ctc', 'ctc'), ('ctc',))):
         if value not in ported:
-            raise NotImplementedError(f'{key}={value!r} is not ported '
-                                      '(ROADMAP.md, queue 1 item 8)')
+            raise NotImplementedError(f'{key}={value!r} is not ported')
     lora_conf = lora_conf_of(configs)
     dec_lora = (lora_conf if (configs.get('lora_conf') or {}).get(
         'lora_decoder', False) else None)

@@ -61,22 +61,29 @@ def add_optional_chunk_mask(masks: torch.Tensor, use_dynamic_chunk: bool,
                             num_decoding_left_chunks: int,
                             generator: Optional[torch.Generator] = None,
                             dynamic_chunk: Optional[Tuple[int, int]] = None,
-                            max_chunk_size: int = 25) -> torch.Tensor:
-    """Combine the (B, 1, L) pad mask with the chunk mask of a
-    dynamic-chunk model.
+                            max_chunk_size: int = 25,
+                            static_chunk_size: int = 0) -> torch.Tensor:
+    """Combine the (B, 1, L) pad mask with the chunk mask of a chunked
+    model.
 
-    Decoding with `decoding_chunk_size` > 0 uses that chunk; training
-    (`decoding_chunk_size` == 0) uses `dynamic_chunk` = (chunk_size,
-    num_left_chunks) when given, else draws it from `generator`
-    (`draw_dynamic_chunk`).  A chunked case gets the (B, L, L) mask; full
-    context (no dynamic chunk, decoding_chunk_size < 0, no draw, or a
-    draw of the full length) gets the (B, 1, L) pad mask itself (the JAX
-    package broadcasts it to (B, L, L); attention reads both the same).
-    The encoder option `static_chunk_size` is the constant 0."""
+    A dynamic-chunk model decoding with `decoding_chunk_size` > 0 uses
+    that chunk; training (`decoding_chunk_size` == 0) uses `dynamic_chunk`
+    = (chunk_size, num_left_chunks) when given, else draws it from
+    `generator` (`draw_dynamic_chunk`).  A model that is not dynamic and
+    has a `static_chunk_size` > 0 always uses that chunk, with
+    `num_decoding_left_chunks`, as the JAX package does (mask.py:117).  A
+    chunked case gets the (B, L, L) mask; full context (no chunk,
+    decoding_chunk_size < 0 of a dynamic model, no draw, or a draw of the
+    full length) gets the (B, 1, L) pad mask itself (the JAX package
+    broadcasts it to (B, L, L); attention reads both the same)."""
     L = masks.shape[-1]
-    if not use_dynamic_chunk or decoding_chunk_size < 0:
+    if not use_dynamic_chunk:
+        if static_chunk_size <= 0:
+            return masks
+        chunk, left = static_chunk_size, num_decoding_left_chunks
+    elif decoding_chunk_size < 0:
         return masks
-    if decoding_chunk_size > 0:
+    elif decoding_chunk_size > 0:
         chunk, left = decoding_chunk_size, num_decoding_left_chunks
     elif dynamic_chunk is not None:
         chunk, left = dynamic_chunk
