@@ -108,7 +108,7 @@ def _same_stream(got, want, rows, other):
 
 def test_whole_rows_are_the_ctc_log_probs(tmodel):
     """One step of two sessions, one asking for whole rows: it gets the
-    step's (chunk_out, V) CTC log-probs, the other the top-k rows of the
+    step's (chunk frames, V) CTC log-probs, the other the top-k rows of the
     same log-probs."""
     from wenet_tpu_torch.utils.ctc_utils import topk_host_rows
     runner = _runner(tmodel, max_batch=2, flush_ms=200.0)
@@ -117,7 +117,7 @@ def test_whole_rows_are_the_ctc_log_probs(tmodel):
         chunks = [rng.randn(runner.cfg.decoding_window, IDIM).astype(
             np.float32) for _ in range(2)]
         futs = [runner.submit(c, runner.zero_cache(), 0, 0,
-                              runner.chunk_out, whole_rows=w)
+                              runner.chunk_base, whole_rows=w)
                 for c, w in zip(chunks, (True, False))]
         (ys0, whole, _), (ys1, top, _) = (f.result(timeout=60)
                                           for f in futs)
@@ -126,7 +126,7 @@ def test_whole_rows_are_the_ctc_log_probs(tmodel):
     assert dict(runner.batch_sizes) == {2: 1}
     with torch.inference_mode():
         logp = tmodel.ctc_activation(torch.cat([ys0, ys1]))
-    assert whole.shape == (runner.chunk_out, len(SYMS))
+    assert whole.shape == (runner.chunk_base, len(SYMS))
     np.testing.assert_array_equal(whole, logp[0].numpy())
     np.testing.assert_array_equal(
         top, topk_host_rows(logp[1], OPTS['beam_size'], 0).numpy())

@@ -14,7 +14,8 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_port_utils import feats, jax_model, tiny_config, torch_model
+from torch_port_utils import (feats, jax_model, tiny_config, torch_model,
+                             zoo_config)
 
 ATOL = 2e-4
 
@@ -164,16 +165,24 @@ def test_cross_attention_beam_expansion(pair):
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize('section,key,value', [
-    (None, 'encoder', 'transformer'),
-    ('encoder_conf', 'macaron_style', False),
-    ('encoder_conf', 'use_cnn_module', False),
-    ('encoder_conf', 'conv_inner_factor', 4),
-    ('decoder_conf', 'src_attention', False),
+@pytest.mark.parametrize('zoo,section,key,value,why', [
+    # the conformer's options under a transformer, which takes none of them
+    # (the case's id as before the conformer's own options were ported)
+    pytest.param(None, None, 'encoder', 'transformer', 'not ported',
+                 id='None-encoder-transformer'),
+    # what the JAX encoders have no field for, or never read
+    ('squeezeformer', 'encoder_conf', 'time_reduction_layer_type', 'stream',
+     'squeezeformer/encoder.py:247'),
+    ('squeezeformer', 'encoder_conf', 'final_norm', False,
+     'squeezeformer/encoder.py:361-390'),
+    ('efficient_conformer', 'encoder_conf', 'layer_norm_type', 'rms_norm',
+     'efficient_conformer/encoder.py:284-312'),
+    ('e_branchformer', 'encoder_conf', 'stochastic_depth_rate', 0.1,
+     'e_branchformer/encoder.py:40'),
 ])
-def test_init_model_rejects_unported_options(section, key, value):
+def test_init_model_rejects_unported_options(zoo, section, key, value, why):
     from wenet_tpu_torch.utils.init_model import init_model
-    cfg = tiny_config()
+    cfg = tiny_config() if zoo is None else zoo_config(zoo)
     (cfg if section is None else cfg[section])[key] = value
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=why):
         init_model(cfg, device='cpu')

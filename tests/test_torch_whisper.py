@@ -309,9 +309,16 @@ def test_bf16_runner_decodes(models):
 
 def test_native_beam_matches_jax_package():
     """The port's C++ searcher (its own copy, built with g++) and the JAX
-    package's give the same hyps, times and scores on one top-k."""
+    package's give the same hyps and times on one top-k.  The port sums
+    its scores in float64: they equal the Python plain version's (float64)
+    bit for bit.  The JAX package sums in float32, rounding a hypothesis'
+    score in each frame's add and LogAdd, half a float32 step of the
+    score's magnitude at most each: its scores lie within one step of
+    |score| per frame of the port's."""
     from wenet_tpu.runtime import native_beam as jax_beam
     from wenet_tpu_torch.runtime import native_beam
+    from wenet_tpu_torch.utils.context_graph import (
+        ctc_prefix_beam_search_with_context)
     if not jax_beam.available():
         pytest.skip('the JAX package\'s native searcher did not build')
     rng = np.random.RandomState(9)
@@ -323,9 +330,15 @@ def test_native_beam_matches_jax_package():
     lens = np.asarray([50, 37, 12])
     got = native_beam.batch_search_topk(vals, ids, lens, K)
     want = jax_beam.batch_search_topk(vals, ids, lens, K)
-    for (gh, gt, gs), (wh, wt, ws) in zip(got, want):
-        assert gh == wh and gt == wt
-        np.testing.assert_array_equal(gs, ws)
+    full = np.full((B, T, V), -1e30, np.float32)
+    np.put_along_axis(full, ids, vals, -1)
+    plain = ctc_prefix_beam_search_with_context(full, lens, K)
+    for (gh, gt, gs), (wh, wt, ws), p, n in zip(got, want, plain, lens):
+        assert gh == wh and gt == wt and gh == p.nbest
+        np.testing.assert_array_equal(gs, p.nbest_scores)
+        ws = np.asarray(ws, np.float32)
+        assert np.all(np.abs(np.asarray(gs) - ws) <=
+                      n * np.spacing(np.abs(ws)))
 
 
 def test_whisper_decode_runs_without_jax():

@@ -23,6 +23,13 @@
 // ~10x faster per frame at beam=10, same token/time/score semantics
 // (tested identical to the reference python implementation).
 //
+// Scores are summed in double, where the JAX package's copy sums in
+// float: near |score| = 1500 a float sum moves in steps of 1.22e-4 (one
+// ulp), so two runs whose per-frame log-probs differ only in their last
+// bits (a stream stepped alone and in a batch) drift whole ulps apart
+// over an utterance.  The inputs (log-probs, bias and LM tables) stay
+// float; a hypothesis' score is returned in double.
+//
 // Build (done at first use by native_beam.build()):
 //   g++ -O2 -std=c++17 -shared -fPIC -o libctc_beam.so \
 //       ctc_prefix_beam_search.cc
@@ -37,12 +44,12 @@
 
 namespace {
 
-constexpr float kNegInf = -std::numeric_limits<float>::infinity();
+constexpr double kNegInf = -std::numeric_limits<double>::infinity();
 
-inline float LogAdd(float a, float b) {
+inline double LogAdd(double a, double b) {
   if (a == kNegInf) return b;
   if (b == kNegInf) return a;
-  const float m = std::max(a, b);
+  const double m = std::max(a, b);
   return m + std::log1p(std::exp(std::min(a, b) - m));
 }
 
@@ -69,16 +76,16 @@ struct Stamp {
 };
 
 struct Score {
-  float s = kNegInf;            // blank-ending score
-  float ns = kNegInf;           // non-blank-ending score
-  float v_s = kNegInf;          // viterbi blank-ending
-  float v_ns = kNegInf;         // viterbi non-blank-ending
-  float cur_token_prob = kNegInf;
+  double s = kNegInf;            // blank-ending score
+  double ns = kNegInf;           // non-blank-ending score
+  double v_s = kNegInf;          // viterbi blank-ending
+  double v_ns = kNegInf;         // viterbi non-blank-ending
+  double cur_token_prob = kNegInf;
   Stamp times_s;
   Stamp times_ns;
 
-  float Total() const { return LogAdd(s, ns); }
-  float Viterbi() const { return std::max(v_s, v_ns); }
+  double Total() const { return LogAdd(s, ns); }
+  double Viterbi() const { return std::max(v_s, v_ns); }
   const Stamp& Times() const { return v_s > v_ns ? times_s : times_ns; }
 };
 
@@ -163,11 +170,11 @@ struct CtxGraph {
   ChildMap trans;  // (node<<32|token) -> child
 
   // python ContextGraph.forward_one_step (context_graph.py:117-131)
-  std::pair<float, int32_t> Forward(int32_t state, int32_t tok) const {
+  std::pair<double, int32_t> Forward(int32_t state, int32_t tok) const {
     const int64_t key =
         (static_cast<int64_t>(state) << 32) | static_cast<uint32_t>(tok);
     if (const int32_t* v = const_cast<ChildMap&>(trans).Find(key)) {
-      return {token_score[*v] + output_score[*v], *v};
+      return {static_cast<double>(token_score[*v]) + output_score[*v], *v};
     }
     int32_t node = fail[state];
     for (;;) {
@@ -180,7 +187,8 @@ struct CtxGraph {
       if (node == 0) break;  // root (python: node.token == -1)
       node = fail[node];
     }
-    return {node_score[node] - node_score[state] + output_score[node],
+    return {static_cast<double>(node_score[node]) - node_score[state] +
+                output_score[node],
             node};
   }
 };
@@ -190,7 +198,6 @@ struct CtxGraph {
 struct NgramLm {
   bool active = false;
   int order = 0;
-  float weight = 0.0f;
   int32_t bos = -1, eos = -1;
   std::vector<int32_t> tok2word;  // token id -> lm word id (-1 = miss)
 
@@ -245,9 +252,9 @@ struct NgramLm {
 
   // python NgramLM.score_word/_score_backed (arpa.py:30-53); `ctx`
   // holds the last (order-1) word ids, earliest first.
-  float ScoreWord(const int32_t* ctx, int ctx_len, int32_t word) const {
-    if (word < 0) return -20.0f;  // not in LM vocab, no <unk>
-    float total = 0.0f;
+  double ScoreWord(const int32_t* ctx, int ctx_len, int32_t word) const {
+    if (word < 0) return -20.0;  // not in LM vocab, no <unk>
+    double total = 0.0;
     int start = 0, len = ctx_len;
     std::vector<int32_t> key(len + 1);
     for (;;) {
@@ -255,7 +262,7 @@ struct NgramLm {
       key[len] = word;
       const int32_t e = tables[len].Find(key.data());
       if (e >= 0) return total + tables[len].logp[e];
-      if (len == 0) return total - 20.0f;
+      if (len == 0) return total - 20.0;
       const int32_t b = tables[len - 1].Find(&key[0]);  // ctx alone
       if (b >= 0) total += tables[len - 1].backoff[b];
       ++start;
@@ -276,13 +283,13 @@ struct Searcher {
   // per-trie-node prefix-deterministic fusion state
   CtxGraph ctx;
   std::vector<int32_t> ctx_state;  // graph node per trie node
-  std::vector<float> ctx_cum;      // accumulated bias score
+  std::vector<double> ctx_cum;      // accumulated bias score
   const NgramLm* lm_ptr = nullptr;  // shared across searchers
-  float lm_weight = 0.0f;
-  std::vector<float> lm_cum;       // accumulated natural-log LM score
+  double lm_weight = 0.0;
+  std::vector<double> lm_cum;       // accumulated natural-log LM score
   bool LmActive() const { return lm_ptr && lm_ptr->active; }
   bool finalized = false;
-  std::vector<float> fin_extra;    // per-cur-hyp finalize adjustment
+  std::vector<double> fin_extra;    // per-cur-hyp finalize adjustment
   // per-frame accumulator: open-addressing table over trie ids with
   // generation stamps (no clear per frame, no rehash, ~3x faster than
   // unordered_map at beam*k scale)
@@ -328,8 +335,8 @@ struct Searcher {
     fin_extra.clear();
     trie.push_back(TrieNode{-1, -1, 0});  // root = empty prefix
     ctx_state.assign(1, 0);
-    ctx_cum.assign(1, 0.0f);
-    lm_cum.assign(1, 0.0f);
+    ctx_cum.assign(1, 0.0);
+    lm_cum.assign(1, 0.0);
     Hyp root;
     root.node = 0;
     root.sc.s = 0.0f;
@@ -352,7 +359,7 @@ struct Searcher {
       ctx_cum.push_back(ctx_cum[node] + delta);
     } else {
       ctx_state.push_back(0);
-      ctx_cum.push_back(0.0f);
+      ctx_cum.push_back(0.0);
     }
     if (LmActive()) {
       const NgramLm& lm = *lm_ptr;
@@ -367,11 +374,11 @@ struct Searcher {
       }
       if (p == 0 && len < cap) ctx_ids[len++] = lm.bos;
       std::reverse(ctx_ids, ctx_ids + len);
-      const float delta =
+      const double delta =
           lm.ScoreWord(ctx_ids, len, lm.tok2word[token]);
       lm_cum.push_back(lm_cum[node] + delta);
     } else {
-      lm_cum.push_back(0.0f);
+      lm_cum.push_back(0.0);
     }
     return id;
   }
@@ -379,8 +386,8 @@ struct Searcher {
   // pruning/reporting total: base + bias + weighted LM, mirroring the
   // python CtcPrefixBeamSearch sort key (ctc_prefix_beam_search.py:
   // 123-127) / _PrefixScore.total_score (context_graph.py:177-178)
-  float FusedTotal(const Hyp& h) const {
-    float t = h.sc.Total();
+  double FusedTotal(const Hyp& h) const {
+    double t = h.sc.Total();
     if (ctx.active) t += ctx_cum[h.node];
     if (LmActive()) t += lm_weight * lm_cum[h.node];
     return t;
@@ -467,7 +474,7 @@ struct Searcher {
   void Finalize() {
     if (finalized) return;
     finalized = true;
-    std::vector<float> lm_final(cur.size(), 0.0f);
+    std::vector<double> lm_final(cur.size(), 0.0);
     if (LmActive()) {
       const NgramLm& lm = *lm_ptr;
       for (size_t i = 0; i < cur.size(); ++i) {
@@ -490,7 +497,7 @@ struct Searcher {
                FusedTotal(cur[b]) + lm_weight * lm_final[b];
       });
       std::vector<Hyp> reord;
-      std::vector<float> lf;
+      std::vector<double> lf;
       reord.reserve(cur.size());
       for (int i : idx) {
         reord.push_back(cur[i]);
@@ -499,7 +506,7 @@ struct Searcher {
       cur = std::move(reord);
       lm_final = std::move(lf);
     }
-    fin_extra.assign(cur.size(), 0.0f);
+    fin_extra.assign(cur.size(), 0.0);
     for (size_t i = 0; i < cur.size(); ++i) {
       if (LmActive()) fin_extra[i] += lm_weight * lm_final[i];
       if (ctx.active) {
@@ -510,8 +517,8 @@ struct Searcher {
     }
   }
 
-  float HypScore(int i) const {
-    float s = FusedTotal(cur[i]);
+  double HypScore(int i) const {
+    double s = FusedTotal(cur[i]);
     if (finalized && i < static_cast<int>(fin_extra.size())) {
       s += fin_extra[i];
     }
@@ -587,7 +594,7 @@ int ctc_beam_hyp_len(void* h, int i) {
 }
 
 void ctc_beam_hyp(void* h, int i, int* out_tokens, int* out_times,
-                  float* out_score) {
+                  double* out_score) {
   Searcher* s = static_cast<Searcher*>(h);
   s->Tokens(i, out_tokens);
   s->Times(i, out_times);
@@ -644,7 +651,7 @@ void ctc_lm_add_table(void* lm_h, int n, int count, const int* ids,
 
 void ctc_lm_destroy(void* lm_h) { delete static_cast<NgramLm*>(lm_h); }
 
-void ctc_beam_attach_lm(void* h, void* lm_h, float weight) {
+void ctc_beam_attach_lm(void* h, void* lm_h, double weight) {
   Searcher* s = static_cast<Searcher*>(h);
   s->lm_ptr = static_cast<const NgramLm*>(lm_h);
   s->lm_weight = weight;

@@ -55,13 +55,12 @@
 //     lo.hi is accumulated in fp32 by wgmma m64nNk8.  wgmma does not
 //     round its fp32 sums to nearest, so an O added to over the whole key
 //     loop drifts from float64 several times further than cuBLAS's fp32
-//     (chip_smoke `k4_fp32_error`).  Each key tile's P . V therefore goes
-//     into a zeroed fragment that FFMA adds to O; d = 128 has no
-//     registers for the fragment and accumulates in place.  tf32 takes
-//     both
-//     operands K-major, so V is stored transposed as it lands, with its
-//     keys permuted within each group of 8 so that S's accumulator is
-//     P's A fragment without shuffles.
+//     (chip_smoke 2b).  Each key tile's P . V therefore goes into a
+//     zeroed fragment that FFMA adds to O; at d = 128, whose registers do
+//     not hold a whole fragment beside O, 64 output columns at a time.
+//     tf32 takes both operands K-major, so V is stored transposed as it
+//     lands, with its keys permuted within each group of 8 so that S's
+//     accumulator is P's A fragment without shuffles.
 //   * loads: bf16 tiles come by cp.async into a ring of two stages, the
 //     next tile's copy in flight while this one computes; fp32 tiles go
 //     through registers to be split.  Tiles use wgmma's 128-byte swizzle
@@ -228,10 +227,11 @@ constexpr size_t tf32_smem() {
   return 1024 + 2 * 4 * D * (BQ + 2 * BK);  // hi and lo of Q, K, V^T
 }
 
-// acc += P . V in 3xTF32, P's hi and lo fragments from registers, V's
-// from shared memory.
-template <int D>
-__device__ __forceinline__ void pv_tf32(float (&acc)[D / 2],
+// acc += P . V in 3xTF32 over N / 2 output columns (all of them at
+// d <= 64), P's hi and lo fragments from registers, V's from shared
+// memory: svh, svl address the split V^T tile's row of the first column.
+template <int D, int N>
+__device__ __forceinline__ void pv_tf32(float (&acc)[N],
                                         const uint32_t (&ph)[8][4],
                                         const uint32_t (&pl)[8][4],
                                         uint32_t svh, uint32_t svl) {
@@ -322,16 +322,14 @@ __global__ void __launch_bounds__(THREADS)
 
     uint32_t ph[8][4], pl[8][4];  // P's A fragments in split_cols's order
     frag_tf32(s, ph, pl);
-    if constexpr (D <= 64) {
-      // the tile's P . V into a zeroed fragment, added to O in FFMA
-      float po[D / 2];
+    // the tile's P . V into a zeroed fragment of 64 output columns at a
+    // time (d = 128 has no registers for a whole one), added to O in FFMA
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) po[i] = 0.f;
-      pv_tf32<D>(po, ph, pl, svh, svl);
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] += po[i];
-    } else {
-      pv_tf32<D>(o, ph, pl, svh, svl);
+    for (int c = 0; c < (D + 63) / 64; ++c) {
+      float po[D > 64 ? 32 : D / 2];
+      zero(po);
+      pv_tf32<D>(po, ph, pl, svh + c * 64 * 128, svl + c * 64 * 128);
+      add_frag(o + 32 * c, po);
     }
     pin(ph);
     pin(pl);

@@ -71,11 +71,16 @@
 // tests/test_torch_flash_bwd_precision.py), and with the halves 19%
 // (8a).  The other roundings stay single (15-20% on that shape).
 // fp32: 3xTF32, as K4.  Each operand is split x = hi + lo, both rounded to
-// tf32, and hi.hi + hi.lo + lo.hi is accumulated in fp32.  tf32 takes
-// both operands K-major, so the MN-major operands (K in K5, Q and dO in
-// K6) get a second, transposed copy, with rows permuted within each
-// group of 8 so that the accumulator is the A fragment without shuffles
-// (split_cols, flash_tiles.cuh).  The streamed fp32 tiles arrive raw by
+// tf32, and hi.hi + hi.lo + lo.hi is accumulated in fp32.  wgmma does
+// not round its fp32 sums to nearest, so dQ, dK and dV added to over the
+// whole tile loop drifted from float64 (chip_smoke 2b on an H100: 12-14x
+// the plain version's rms error); each tile's product goes into a zeroed
+// fragment that FFMA adds to the sum (K6: dV's, then dK's, one fragment
+// for both), 0.8-1.0x after.  tf32 takes both operands K-major, so the
+// MN-major operands (K in K5, Q and dO in K6) get a second, transposed
+// copy, with rows permuted within each group of 8 so that the
+// accumulator is the A fragment without shuffles (split_cols,
+// flash_tiles.cuh).  The streamed fp32 tiles arrive raw by
 // cp.async a tile ahead and are split from shared memory, so no global
 // load waits on the tile's critical path.  One block fills an SM's
 // shared memory (K5 193 KB, K6 226 KB at d = 64), so nothing else hides
@@ -418,19 +423,22 @@ __global__ void __launch_bounds__(THREADS)
     grad_rows(s, dp, bits, rows, bb, db, st, r0, tq, kt, T1, T2, scale);
     uint32_t dsh[8][4], dsl[8][4];
     frag_tf32(dp, dsh, dsl);
+    float f[D / 2];  // the tile's dS . K, added to dQ in FFMA
+    zero(f);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 8; ++ks) {
-      mma_tf32_rs(acc, dsl[ks], kmaj(KTH, D, ks));
-      mma_tf32_rs(acc, dsh[ks], kmaj(KTL, D, ks));
+      mma_tf32_rs(f, dsl[ks], kmaj(KTH, D, ks));
+      mma_tf32_rs(f, dsh[ks], kmaj(KTL, D, ks));
     }
 #pragma unroll
-    for (int ks = 0; ks < 8; ++ks) mma_tf32_rs(acc, dsh[ks], kmaj(KTH, D, ks));
+    for (int ks = 0; ks < 8; ++ks) mma_tf32_rs(f, dsh[ks], kmaj(KTH, D, ks));
     wgmma_commit();
     wgmma_wait_all();
-    pin(acc);
+    pin(f);
     pin(dsh);
     pin(dsl);
+    add_frag(acc, f);
     kt = kn;
     bits = bits_next;
   }
@@ -685,30 +693,41 @@ __global__ void __launch_bounds__(THREADS)
     pin(dp);
 
     grad_cols(s, dp, bits, cols_s[0], cols_s[1], bb, st, kr0, tq, qt, scale);
-    uint32_t ph[8][4], pl[8][4], dsh[8][4], dsl[8][4];
-    frag_tf32(s, ph, pl);
-    frag_tf32(dp, dsh, dsl);
-    wgmma_fence();
+    // P^T . dO, then dS^T . Q, each into the zeroed fragment f that FFMA
+    // adds to dV, dK (dS^T is split only after dV's product, so the two
+    // take no more registers than one product into dV and dK in place)
+    float f[D / 2];
+    auto product = [&](const uint32_t (&hi)[8][4], const uint32_t (&lo)[8][4],
+                       int th, int tl) {
+      zero(f);
+      wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
-      mma_tf32_rs(dva, pl[ks], kmaj(DOTH, D, ks));
-      mma_tf32_rs(dva, ph[ks], kmaj(DOTL, D, ks));
-      mma_tf32_rs(dka, dsl[ks], kmaj(QTH, D, ks));
-      mma_tf32_rs(dka, dsh[ks], kmaj(QTL, D, ks));
-    }
+      for (int ks = 0; ks < 8; ++ks) {
+        mma_tf32_rs(f, lo[ks], kmaj(th, D, ks));
+        mma_tf32_rs(f, hi[ks], kmaj(tl, D, ks));
+      }
 #pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
-      mma_tf32_rs(dva, ph[ks], kmaj(DOTH, D, ks));
-      mma_tf32_rs(dka, dsh[ks], kmaj(QTH, D, ks));
+      for (int ks = 0; ks < 8; ++ks) mma_tf32_rs(f, hi[ks], kmaj(th, D, ks));
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(f);
+    };
+    {
+      uint32_t ph[8][4], pl[8][4];
+      frag_tf32(s, ph, pl);
+      product(ph, pl, DOTH, DOTL);
+      pin(ph);
+      pin(pl);
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    pin(dva);
-    pin(dka);
-    pin(ph);
-    pin(pl);
-    pin(dsh);
-    pin(dsl);
+    add_frag(dva, f);
+    {
+      uint32_t dsh[8][4], dsl[8][4];
+      frag_tf32(dp, dsh, dsl);
+      product(dsh, dsl, QTH, QTL);
+      pin(dsh);
+      pin(dsl);
+    }
+    add_frag(dka, f);
     qt = qn;
     bits = bits_next;
   }

@@ -349,6 +349,21 @@ __device__ __forceinline__ void frag_tf32(const float (&x)[N],
   }
 }
 
+// A sum kept in wgmma's fp32 accumulator over a whole tile loop drifts:
+// wgmma does not round its sums to nearest.  So each tile's product goes
+// into a fragment that starts at zero (`zero`), and FFMA adds it to the
+// running sum (`add_frag`), which rounds to nearest.
+template <int N>
+__device__ __forceinline__ void zero(float (&f)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) f[i] = 0.f;
+}
+template <int N>
+__device__ __forceinline__ void add_frag(float* acc, const float (&f)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] += f[i];
+}
+
 // One online-softmax step on a tile's scores s (a product in the
 // accumulator layout above, any bias added; on return, the
 // probabilities): scale and mask (-inf where closed), the running max m

@@ -52,13 +52,18 @@
 //     stages, the next tile's copies in flight while this one computes.
 //   * fp32: 3xTF32.  Q1, Q2, K and P are split x = hi + lo, both rounded
 //     to tf32, and hi.hi + hi.lo + lo.hi is accumulated in fp32: six tf32
-//     products per pair of k-steps for S.  V is stored transposed and
-//     split, with its keys permuted within each group of 8 so that S's
-//     accumulator is P's A fragment (split_cols).  The streamed K, P and
-//     V tiles arrive raw by cp.async a tile ahead and are split from
-//     shared memory (208 KB at d = 64: one block per SM), and the wgmma
-//     descriptors are derived after each product issues (kstep), as in
-//     K5.
+//     products per pair of k-steps for S.  wgmma does not round its fp32
+//     sums to nearest, so a sum left in its accumulator drifts from
+//     float64 (chip_smoke 2b on an H100 read K1's output at 4.9x, its
+//     lse at 3.3x the plain version's rms error): q1 . k^T and q2 . p^T
+//     go into two fragments that FFMA adds, and each key tile's P . V
+//     into a zeroed fragment that FFMA adds to O, as in K4.  V is stored
+//     transposed and split, with its keys permuted within each group of 8
+//     so that S's accumulator is P's A fragment (split_cols).  The
+//     streamed K, P and V tiles arrive raw by cp.async a tile ahead and
+//     are split from shared memory (208 KB at d = 64: one block per SM),
+//     and the wgmma descriptors are derived after each product issues
+//     (kstep), as in K5.
 //   * dropout multiplies the probabilities on the accumulator fragment,
 //     after l took their undropped sum and before P is split; each
 //     element's (global row, global key) comes from the fragment layout.
@@ -277,43 +282,64 @@ __global__ void __launch_bounds__(THREADS)
     auto kmaj = [&](int i, int rows, int ks) {  // k-step ks of tile i
       return kstep(d0, i * TILE, rows, ks);
     };
-    float s[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    // q1 . k^T and q2 . p^T, each in two fragments (the hi . hi products
+    // of the second half of the k-steps in their own), summed in FFMA:
+    // wgmma truncates its fp32 sums, so the fewer products a fragment
+    // sums, the less its scores drift, and a softmax turns a drift of the
+    // scores into one of lse and of every P of the row
+    float s[32], s2[32], sb[32], s2b[32];
+    zero(s);
+    zero(s2);
+    zero(sb);
+    zero(s2b);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < D / 8; ++ks) {  // the small terms first
       mma_tf32_ss(s, kmaj(Q1L, BQ, ks), kmaj(KH, BK, ks));
       mma_tf32_ss(s, kmaj(Q1H, BQ, ks), kmaj(KL, BK, ks));
-      mma_tf32_ss(s, kmaj(Q2L, BQ, ks), kmaj(PH, BK, ks));
-      mma_tf32_ss(s, kmaj(Q2H, BQ, ks), kmaj(PL, BK, ks));
+      mma_tf32_ss(s2, kmaj(Q2L, BQ, ks), kmaj(PH, BK, ks));
+      mma_tf32_ss(s2, kmaj(Q2H, BQ, ks), kmaj(PL, BK, ks));
     }
 #pragma unroll
-    for (int ks = 0; ks < D / 8; ++ks) {
+    for (int ks = 0; ks < D / 16; ++ks) {
       mma_tf32_ss(s, kmaj(Q1H, BQ, ks), kmaj(KH, BK, ks));
-      mma_tf32_ss(s, kmaj(Q2H, BQ, ks), kmaj(PH, BK, ks));
+      mma_tf32_ss(s2, kmaj(Q2H, BQ, ks), kmaj(PH, BK, ks));
+    }
+#pragma unroll
+    for (int ks = D / 16; ks < D / 8; ++ks) {
+      mma_tf32_ss(sb, kmaj(Q1H, BQ, ks), kmaj(KH, BK, ks));
+      mma_tf32_ss(s2b, kmaj(Q2H, BQ, ks), kmaj(PH, BK, ks));
     }
     wgmma_commit();
     wgmma_wait_all();
     pin(s);
+    pin(s2);
+    pin(sb);
+    pin(s2b);
+    add_frag(s, sb);
+    add_frag(s2, s2b);
+    add_frag(s, s2);
 
     online_softmax(s, o, m, l, bits, scale);
     if constexpr (DROPOUT) drop(s, dp, bh, r0, kt + 2 * tq);
     uint32_t ph[8][4], pl[8][4];  // P's A fragments in split_cols's order
     frag_tf32(s, ph, pl);
+    float po[D / 2];  // the tile's P . V, added to O in FFMA
+    zero(po);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 8; ++ks) {
-      mma_tf32_rs(o, pl[ks], kmaj(VH, D, ks));
-      mma_tf32_rs(o, ph[ks], kmaj(VL, D, ks));
+      mma_tf32_rs(po, pl[ks], kmaj(VH, D, ks));
+      mma_tf32_rs(po, ph[ks], kmaj(VL, D, ks));
     }
 #pragma unroll
-    for (int ks = 0; ks < 8; ++ks) mma_tf32_rs(o, ph[ks], kmaj(VH, D, ks));
+    for (int ks = 0; ks < 8; ++ks) mma_tf32_rs(po, ph[ks], kmaj(VH, D, ks));
     wgmma_commit();
     wgmma_wait_all();
-    pin(o);
+    pin(po);
     pin(ph);
     pin(pl);
+    add_frag(o, po);
     kt = kn;
     bits = bits_next;
   }

@@ -93,9 +93,17 @@
 // instance, its mask drawn into one register of keep bits while the
 // score products run, and the wgmma descriptors are derived per product
 // (kstep), so that nothing holds registers where it is not used: ptxas
-// gives 139-255 registers and no spill to any of the sixteen instances
-// (build/relpos_attention_bwd.log; drawing the mask per element after the
-// products spilled 24 bytes in K3 bf16 with dropout).
+// gives 139-255 registers (build/relpos_attention_bwd.log; drawing the
+// mask per element after the products spilled 24 bytes in K3 bf16 with
+// dropout).
+// fp32 sums: wgmma does not round its fp32 sums to nearest, so a sum left
+// in its accumulator over the whole tile loop drifts from float64
+// (chip_smoke 2b on an H100: dq 4.1-5.2x, dk, dp, dv 6.0-6.9x the plain
+// version's rms error).  S's two products go into two fragments that
+// FFMA adds, and each half's dQ1 and dQ2 (K2) and dV, dK and dP (K3, 32
+// output columns at a time) into a zeroed fragment that FFMA adds to the
+// sum, one product after the other: 1.4-1.9x.  K3 fp32 at d = 64 then
+// spills 80 bytes and takes 12-15% longer (PERF.md).
 //
 // Skipped tiles.  K2 walks its key tiles with K1's Walker: a one-row mask
 // is voted a tile ahead by ballot, a per-row mask read per element.  K3
@@ -553,54 +561,79 @@ __global__ void __launch_bounds__(THREADS)
     auto kmaj = [&](int i, int rows, int ks) {  // k-step ks of tile i
       return kstep(d0, i * HALF, rows, ks);
     };
-    float s[16], g[16];  // 64 query rows x 32 keys
-#pragma unroll
-    for (int i = 0; i < 16; ++i) s[i] = g[i] = 0.f;
+    // 64 query rows x 32 keys: q1 . k^T and q2 . p^T, and dP, each in two
+    // fragments as K1's scores (the second half of the k-steps' hi . hi
+    // products in their own), summed in FFMA
+    float s[16], s2[16], g[16], sb[16], s2b[16], gb[16];
+    zero(s);
+    zero(s2);
+    zero(g);
+    zero(sb);
+    zero(s2b);
+    zero(gb);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < D / 8; ++ks) {  // the small terms first
       mma_tf32_ss(s, kmaj(Q1L, BQ, ks), kmaj(KH, 32, ks));
       mma_tf32_ss(s, kmaj(Q1H, BQ, ks), kmaj(KL, 32, ks));
-      mma_tf32_ss(s, kmaj(Q2L, BQ, ks), kmaj(PH, 32, ks));
-      mma_tf32_ss(s, kmaj(Q2H, BQ, ks), kmaj(PL, 32, ks));
+      mma_tf32_ss(s2, kmaj(Q2L, BQ, ks), kmaj(PH, 32, ks));
+      mma_tf32_ss(s2, kmaj(Q2H, BQ, ks), kmaj(PL, 32, ks));
       mma_tf32_ss(g, kmaj(DOL, BQ, ks), kmaj(VH, 32, ks));
       mma_tf32_ss(g, kmaj(DOH, BQ, ks), kmaj(VL, 32, ks));
     }
 #pragma unroll
-    for (int ks = 0; ks < D / 8; ++ks) {
+    for (int ks = 0; ks < D / 16; ++ks) {
       mma_tf32_ss(s, kmaj(Q1H, BQ, ks), kmaj(KH, 32, ks));
-      mma_tf32_ss(s, kmaj(Q2H, BQ, ks), kmaj(PH, 32, ks));
+      mma_tf32_ss(s2, kmaj(Q2H, BQ, ks), kmaj(PH, 32, ks));
       mma_tf32_ss(g, kmaj(DOH, BQ, ks), kmaj(VH, 32, ks));
+    }
+#pragma unroll
+    for (int ks = D / 16; ks < D / 8; ++ks) {
+      mma_tf32_ss(sb, kmaj(Q1H, BQ, ks), kmaj(KH, 32, ks));
+      mma_tf32_ss(s2b, kmaj(Q2H, BQ, ks), kmaj(PH, 32, ks));
+      mma_tf32_ss(gb, kmaj(DOH, BQ, ks), kmaj(VH, 32, ks));
     }
     wgmma_commit();
     const uint32_t keep =
         DROPOUT ? keep_bits<16>(dp, bh, r0, k0 + 2 * tq) : 0u;
     wgmma_wait_all();
     pin(s);
+    pin(s2);
     pin(g);
+    pin(sb);
+    pin(s2b);
+    pin(gb);
+    add_frag(s, sb);
+    add_frag(s2, s2b);
+    add_frag(g, gb);
+    add_frag(s, s2);
 
     dq_grad<DROPOUT>(s, g, hbits, rows, keep, dp, scale);
     uint32_t dsh[4][4], dsl[4][4];  // dS in split_cols's order
     frag_tf32(g, dsh, dsl);
-    wgmma_fence();
+    // dS . K, then dS . P, each into the zeroed fragment f that FFMA adds
+    // to dQ1, dQ2 (one fragment for both keeps the registers K2 had)
+    float f[D / 2];
+    auto product = [&](int th, int tl) {
+      zero(f);
+      wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      mma_tf32_rs(a1, dsl[ks], kmaj(KTH, D, ks));
-      mma_tf32_rs(a1, dsh[ks], kmaj(KTL, D, ks));
-      mma_tf32_rs(a2, dsl[ks], kmaj(PTH, D, ks));
-      mma_tf32_rs(a2, dsh[ks], kmaj(PTL, D, ks));
-    }
+      for (int ks = 0; ks < 4; ++ks) {
+        mma_tf32_rs(f, dsl[ks], kmaj(th, D, ks));
+        mma_tf32_rs(f, dsh[ks], kmaj(tl, D, ks));
+      }
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      mma_tf32_rs(a1, dsh[ks], kmaj(KTH, D, ks));
-      mma_tf32_rs(a2, dsh[ks], kmaj(PTH, D, ks));
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    pin(a1);
-    pin(a2);
-    pin(dsh);
-    pin(dsl);
+      for (int ks = 0; ks < 4; ++ks) mma_tf32_rs(f, dsh[ks], kmaj(th, D, ks));
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(f);
+      pin(dsh);
+      pin(dsl);
+    };
+    product(KTH, KTL);
+    add_frag(a1, f);
+    product(PTH, PTL);
+    add_frag(a2, f);
     kt = kn;
     half = hn;
     bits = bits_next;
@@ -704,60 +737,90 @@ __global__ void __launch_bounds__(THREADS)
     auto kmaj = [&](int i, int rows, int ks) {  // k-step ks of tile i
       return kstep(d0, i * HALF, rows, ks);
     };
-    float s[16], g[16];  // S^T, dP^T: 64 keys x 32 query rows
-#pragma unroll
-    for (int i = 0; i < 16; ++i) s[i] = g[i] = 0.f;
+    // S^T, dP^T: 64 keys x 32 query rows; S^T's two products and dP^T,
+    // each in two fragments as K2's, summed in FFMA
+    float s[16], s2[16], g[16], sb[16], s2b[16], gb[16];
+    zero(s);
+    zero(s2);
+    zero(g);
+    zero(sb);
+    zero(s2b);
+    zero(gb);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < D / 8; ++ks) {  // the small terms first
       mma_tf32_ss(s, kmaj(KL, BK, ks), kmaj(Q1H, 32, ks));
       mma_tf32_ss(s, kmaj(KH, BK, ks), kmaj(Q1L, 32, ks));
-      mma_tf32_ss(s, kmaj(PL, BK, ks), kmaj(Q2H, 32, ks));
-      mma_tf32_ss(s, kmaj(PH, BK, ks), kmaj(Q2L, 32, ks));
+      mma_tf32_ss(s2, kmaj(PL, BK, ks), kmaj(Q2H, 32, ks));
+      mma_tf32_ss(s2, kmaj(PH, BK, ks), kmaj(Q2L, 32, ks));
       mma_tf32_ss(g, kmaj(VL, BK, ks), kmaj(DOH, 32, ks));
       mma_tf32_ss(g, kmaj(VH, BK, ks), kmaj(DOL, 32, ks));
     }
 #pragma unroll
-    for (int ks = 0; ks < D / 8; ++ks) {
+    for (int ks = 0; ks < D / 16; ++ks) {
       mma_tf32_ss(s, kmaj(KH, BK, ks), kmaj(Q1H, 32, ks));
-      mma_tf32_ss(s, kmaj(PH, BK, ks), kmaj(Q2H, 32, ks));
+      mma_tf32_ss(s2, kmaj(PH, BK, ks), kmaj(Q2H, 32, ks));
       mma_tf32_ss(g, kmaj(VH, BK, ks), kmaj(DOH, 32, ks));
+    }
+#pragma unroll
+    for (int ks = D / 16; ks < D / 8; ++ks) {
+      mma_tf32_ss(sb, kmaj(KH, BK, ks), kmaj(Q1H, 32, ks));
+      mma_tf32_ss(s2b, kmaj(PH, BK, ks), kmaj(Q2H, 32, ks));
+      mma_tf32_ss(gb, kmaj(VH, BK, ks), kmaj(DOH, 32, ks));
     }
     wgmma_commit();
     const uint32_t keep =
         DROPOUT ? keep_bits<16, true>(dp, bh, kr0, q0 + 2 * tq) : 0u;
     wgmma_wait_all();
     pin(s);
+    pin(s2);
     pin(g);
+    pin(sb);
+    pin(s2b);
+    pin(gb);
+    add_frag(s, sb);
+    add_frag(s2, s2b);
+    add_frag(g, gb);
+    add_frag(s, s2);
 
     dkpv_grad<DROPOUT>(s, g, hbits, cols_s[0], cols_s[1], keep, dp, tq,
                        scale);
-    uint32_t ph[4][4], pl[4][4], dsh[4][4], dsl[4][4];
-    frag_tf32(s, ph, pl);
+    // (P D)^T . dO, dS^T . Q1 and dS^T . Q2 in turn, 32 of the D output
+    // columns at a time, each into the zeroed fragment f that FFMA adds
+    // to dV, dK, dP: one fragment of 16 values beside the three sums
+    // keeps the registers K3 had (dS^T is split only after dV's product)
+    float f[16];
+    auto product = [&](float* acc, const uint32_t (&hi)[4][4],
+                       const uint32_t (&lo)[4][4], int th, int tl) {
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c) {  // the B tile's rows 32c ..
+        zero(f);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          mma_tf32_rs(f, lo[ks], kmaj(th, D, ks) + 256 * c);
+          mma_tf32_rs(f, hi[ks], kmaj(tl, D, ks) + 256 * c);
+        }
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          mma_tf32_rs(f, hi[ks], kmaj(th, D, ks) + 256 * c);
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(f);
+        add_frag(acc + 16 * c, f);
+      }
+    };
+    {
+      uint32_t ph[4][4], pl[4][4];
+      frag_tf32(s, ph, pl);
+      product(dva, ph, pl, DOTH, DOTL);
+      pin(ph);
+      pin(pl);
+    }
+    uint32_t dsh[4][4], dsl[4][4];
     frag_tf32(g, dsh, dsl);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      mma_tf32_rs(dva, pl[ks], kmaj(DOTH, D, ks));
-      mma_tf32_rs(dva, ph[ks], kmaj(DOTL, D, ks));
-      mma_tf32_rs(dka, dsl[ks], kmaj(Q1TH, D, ks));
-      mma_tf32_rs(dka, dsh[ks], kmaj(Q1TL, D, ks));
-      mma_tf32_rs(dpa, dsl[ks], kmaj(Q2TH, D, ks));
-      mma_tf32_rs(dpa, dsh[ks], kmaj(Q2TL, D, ks));
-    }
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      mma_tf32_rs(dva, ph[ks], kmaj(DOTH, D, ks));
-      mma_tf32_rs(dka, dsh[ks], kmaj(Q1TH, D, ks));
-      mma_tf32_rs(dpa, dsh[ks], kmaj(Q2TH, D, ks));
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    pin(dva);
-    pin(dka);
-    pin(dpa);
-    pin(ph);
-    pin(pl);
+    product(dka, dsh, dsl, Q1TH, Q1TL);
+    product(dpa, dsh, dsl, Q2TH, Q2TL);
     pin(dsh);
     pin(dsl);
     qt = qn;

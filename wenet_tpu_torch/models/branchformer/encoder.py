@@ -128,7 +128,12 @@ class BranchformerEncoderLayer(nn.Module):
 
 
 class BranchformerEncoder(BaseEncoder):
-    """conv2d x4 front end, rel-pos encoding and Branchformer layers."""
+    """conv2d x4 front end, rel-pos encoding and Branchformer layers.
+    `cmvn_norm_var`, `final_norm` and the layer options (`LAYER_OPTIONS`)
+    are the JAX `BaseEncoder`'s fields: they set the cmvn, the after_norm
+    (none unless `normalize_before` and `final_norm`; `layer_norm_type`)
+    and the cache's heads, and the layers read none of them, as the JAX
+    layers take none."""
 
     def __init__(self, input_size: int, output_size: int = 256,
                  attention_heads: int = 4, num_blocks: int = 12,
@@ -148,12 +153,14 @@ class BranchformerEncoder(BaseEncoder):
                  use_dynamic_chunk: bool = False,
                  use_dynamic_left_chunk: bool = False,
                  static_chunk_size: int = 0, use_cmvn: bool = False,
-                 norm_eps: float = 1e-5):
+                 norm_eps: float = 1e-5, cmvn_norm_var: bool = True,
+                 final_norm: bool = True, **layer_options):
         super().__init__(input_size, output_size, attention_heads,
                          dropout_rate, positional_dropout_rate, input_layer,
                          pos_enc_layer_type, use_dynamic_chunk,
                          use_dynamic_left_chunk, static_chunk_size, use_cmvn,
-                         norm_eps)
+                         norm_eps, cmvn_norm_var, final_norm,
+                         **layer_options)
         self._lorder = cgmlp_conv_kernel - 1 if use_cgmlp and causal else 0
         self._cnn_channels = cgmlp_linear_units // 2
         self.encoders.extend(

@@ -29,7 +29,8 @@ class EBranchformerEncoderLayer(nn.Module):
                  dropout_rate: float = 0.1, merge_conv_kernel: int = 3,
                  use_ffn: bool = True, macaron_style: bool = True,
                  activation_type: str = 'swish',
-                 mlp_type: str = 'position_wise_feed_forward'):
+                 mlp_type: str = 'position_wise_feed_forward',
+                 mlp_bias: bool = True):
         super().__init__()
         self.attn = make_self_attention(selfattention_layer_type,
                                         attention_heads, size,
@@ -42,12 +43,13 @@ class EBranchformerEncoderLayer(nn.Module):
         self.ff_scale = 0.5 if macaron_style else 1.0
         if use_ffn:
             self.feed_forward = make_mlp(mlp_type, size, linear_units,
-                                         dropout_rate, activation_type)
+                                         dropout_rate, activation_type,
+                                         mlp_bias)
             self.norm_ff = nn.LayerNorm(size, eps=1e-5)
             if macaron_style:
                 self.feed_forward_macaron = make_mlp(
                     mlp_type, size, linear_units, dropout_rate,
-                    activation_type)
+                    activation_type, mlp_bias)
                 self.norm_ff_macaron = nn.LayerNorm(size, eps=1e-5)
         self.norm_mha = nn.LayerNorm(size, eps=1e-5)
         self.norm_mlp = nn.LayerNorm(size, eps=1e-5)
@@ -90,7 +92,12 @@ class EBranchformerEncoderLayer(nn.Module):
 
 
 class EBranchformerEncoder(BaseEncoder):
-    """conv2d x4 front end, rel-pos encoding and E-Branchformer layers."""
+    """conv2d x4 front end, rel-pos encoding and E-Branchformer layers.
+    `cmvn_norm_var`, `final_norm` and the layer options (`LAYER_OPTIONS`)
+    are the JAX `BaseEncoder`'s fields, as for Branchformer; the FFNs
+    also read `mlp_type` and `mlp_bias` (an MoE FFN with the JAX
+    module's default experts, 8 of which 2 are active, as the JAX layer
+    passes neither count)."""
 
     def __init__(self, input_size: int, output_size: int = 256,
                  attention_heads: int = 4, linear_units: int = 2048,
@@ -109,13 +116,15 @@ class EBranchformerEncoder(BaseEncoder):
                  use_dynamic_chunk: bool = False,
                  use_dynamic_left_chunk: bool = False,
                  static_chunk_size: int = 0, use_cmvn: bool = False,
-                 norm_eps: float = 1e-5,
-                 mlp_type: str = 'position_wise_feed_forward'):
+                 norm_eps: float = 1e-5, cmvn_norm_var: bool = True,
+                 final_norm: bool = True, **layer_options):
         super().__init__(input_size, output_size, attention_heads,
                          dropout_rate, positional_dropout_rate, input_layer,
                          pos_enc_layer_type, use_dynamic_chunk,
                          use_dynamic_left_chunk, static_chunk_size, use_cmvn,
-                         norm_eps)
+                         norm_eps, cmvn_norm_var, final_norm,
+                         **layer_options)
+        options = self.layer_options
         self._lorder = cgmlp_conv_kernel - 1 if causal else 0
         self._cnn_channels = cgmlp_linear_units // 2
         self.encoders.extend(
@@ -124,7 +133,8 @@ class EBranchformerEncoder(BaseEncoder):
                 attention_dropout_rate, selfattention_layer_type,
                 cgmlp_linear_units, cgmlp_conv_kernel, use_linear_after_conv,
                 gate_activation, causal, dropout_rate, merge_conv_kernel,
-                use_ffn, macaron_style, activation_type, mlp_type)
+                use_ffn, macaron_style, activation_type,
+                options['mlp_type'], options['mlp_bias'])
             for _ in range(num_blocks))
 
     @property

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from wenet_tpu_torch.models.transformer.activations import get_activation
 from wenet_tpu_torch.models.transformer.attention import (
-    T_CACHE, RelPositionMultiHeadedAttention)
+    T_CACHE, make_self_attention)
 from wenet_tpu_torch.models.transformer.convolution import ConvolutionModule
 from wenet_tpu_torch.models.transformer.encoder import BaseEncoder
 from wenet_tpu_torch.models.transformer.encoder_layer import (
@@ -173,26 +173,34 @@ def avg_pool_ceil(x: torch.Tensor, stride: int,
 
 
 class _ConformerLayerBase(nn.Module):
-    """Macaron FFN, self-attention, conv module and FFN, each a pre-norm
-    residual block, then norm_final; the subclasses choose the attention
-    and the conv, and the conv block's residual (`_residual_conv`)."""
+    """Macaron FFN, self-attention, conv module and FFN, each a residual
+    block, then norm_final; the subclasses choose the attention and the
+    conv, and the conv block's residual (`_residual_conv`).  With
+    `normalize_before` each block's input is normed first; without, the
+    blocks have no norm at all (only norm_final), as in the JAX layers,
+    which apply no post-norm."""
 
     def __init__(self, size: int, linear_units: int, dropout_rate: float,
-                 activation_type: str, macaron_style: bool):
+                 activation_type: str, macaron_style: bool,
+                 normalize_before: bool = True):
         super().__init__()
         self.feed_forward = make_mlp('position_wise_feed_forward', size,
                                      linear_units, dropout_rate,
                                      activation_type)
         self.macaron = macaron_style
         self.ff_scale = 0.5 if macaron_style else 1.0
+
+        def norm():
+            return (nn.LayerNorm(size, eps=1e-5) if normalize_before
+                    else nn.Identity())
         if macaron_style:
             self.feed_forward_macaron = make_mlp(
                 'position_wise_feed_forward', size, linear_units,
                 dropout_rate, activation_type)
-            self.norm_ff_macaron = nn.LayerNorm(size, eps=1e-5)
-        self.norm_ff = nn.LayerNorm(size, eps=1e-5)
-        self.norm_mha = nn.LayerNorm(size, eps=1e-5)
-        self.norm_conv = nn.LayerNorm(size, eps=1e-5)
+            self.norm_ff_macaron = norm()
+        self.norm_ff = norm()
+        self.norm_mha = norm()
+        self.norm_conv = norm()
         self.norm_final = nn.LayerNorm(size, eps=1e-5)
         self.dropout = nn.Dropout(dropout_rate)
 
@@ -226,13 +234,15 @@ class GroupedConformerLayer(_ConformerLayerBase):
                  dropout_rate: float = 0.1, group_size: int = 3,
                  cnn_module_kernel: int = 15,
                  cnn_module_norm: str = 'batch_norm', causal: bool = False,
-                 macaron_style: bool = True, activation_type: str = 'swish'):
+                 macaron_style: bool = True, activation_type: str = 'swish',
+                 normalize_before: bool = True):
         super().__init__(size, linear_units, dropout_rate, activation_type,
-                         macaron_style)
+                         macaron_style, normalize_before)
         self.self_attn = GroupedRelPosAttention(attention_heads, size,
                                                 group_size)
         self.conv_module = ConvolutionModule(size, cnn_module_kernel,
-                                             cnn_module_norm, causal)
+                                             cnn_module_norm, causal,
+                                             activation=activation_type)
 
     def _residual_conv(self, x, y, pool_mask=None):
         return x + self.dropout(y)
@@ -249,15 +259,17 @@ class StrideConformerEncoderLayer(_ConformerLayerBase):
                  cnn_module_kernel: int = 15,
                  cnn_module_norm: str = 'batch_norm', causal: bool = False,
                  stride: int = 2, macaron_style: bool = True,
-                 activation_type: str = 'swish'):
+                 activation_type: str = 'swish',
+                 normalize_before: bool = True,
+                 selfattention_layer_type: str = 'rel_selfattn'):
         super().__init__(size, linear_units, dropout_rate, activation_type,
-                         macaron_style)
+                         macaron_style, normalize_before)
         self.stride = stride
         self.self_attn = (
             GroupedRelPosAttention(attention_heads, size, group_size)
             if use_grouped_attn else
-            RelPositionMultiHeadedAttention(attention_heads, size,
-                                            attention_dropout_rate))
+            make_self_attention(selfattention_layer_type, attention_heads,
+                                size, attention_dropout_rate))
         self.conv_module = StrideConvModule(size, cnn_module_kernel,
                                             activation_type, cnn_module_norm,
                                             causal, stride)
@@ -275,7 +287,13 @@ class EfficientConformerEncoder(BaseEncoder):
     """Grouped-attention conformer layers (`group_layer_idx`), strided
     layers (`stride_layer_idx`, each halving the resolution by its
     `stride`) and plain rel-pos conformer layers; each stride divides the
-    conv kernel of the layers after it (`stride_kernel`)."""
+    conv kernel of the layers after it (`stride_kernel`).  The JAX
+    encoder's `normalize_before` (false: post-norm plain layers, the
+    grouped and strided ones with norm_final alone, no after_norm),
+    `static_chunk_size`, `cmvn_norm_var`, `pos_enc_layer_type` (rel_pos,
+    or no_pos: the layers that are not grouped attend without positions,
+    the grouped ones with a zero encoding, as the JAX layers do) and, for
+    the plain layers, `use_cnn_module`."""
 
     def __init__(self, input_size: int, output_size: int = 256,
                  attention_heads: int = 4, linear_units: int = 2048,
@@ -291,11 +309,21 @@ class EfficientConformerEncoder(BaseEncoder):
                  stride_layer_idx: Union[int, Sequence[int]] = 3,
                  stride: Union[int, Sequence[int]] = 2,
                  group_layer_idx: Union[int, Sequence[int]] = (0, 1, 2, 3),
-                 group_size: int = 3, stride_kernel: bool = True):
+                 group_size: int = 3, stride_kernel: bool = True,
+                 normalize_before: bool = True, static_chunk_size: int = 0,
+                 cmvn_norm_var: bool = True, use_cnn_module: bool = True,
+                 pos_enc_layer_type: str = 'rel_pos'):
+        if pos_enc_layer_type not in ('rel_pos', 'no_pos'):
+            raise ValueError(f'the efficient conformer takes rel_pos or '
+                             f'no_pos, not {pos_enc_layer_type!r}')
         super().__init__(input_size, output_size, attention_heads,
                          dropout_rate, positional_dropout_rate, input_layer,
-                         'rel_pos', use_dynamic_chunk, use_dynamic_left_chunk,
-                         0, use_cmvn, 1e-5)
+                         pos_enc_layer_type, use_dynamic_chunk,
+                         use_dynamic_left_chunk, static_chunk_size, use_cmvn,
+                         1e-5, cmvn_norm_var,
+                         normalize_before=normalize_before)
+        attention = ('rel_selfattn' if pos_enc_layer_type == 'rel_pos'
+                     else 'selfattn')
         self.strides = _as_list(stride)
         self.stride_layers = _as_list(stride_layer_idx)
         self.group_layers = _as_list(group_layer_idx)
@@ -315,19 +343,25 @@ class EfficientConformerEncoder(BaseEncoder):
                     output_size, attention_heads, linear_units, dropout_rate,
                     attention_dropout_rate, grouped, group_size,
                     kernels[index], cnn_module_norm, causal,
-                    self.strides[index], macaron_style, activation_type)
+                    self.strides[index], macaron_style, activation_type,
+                    normalize_before, attention)
                 index += 1
             elif grouped:
                 layer = GroupedConformerLayer(
                     output_size, attention_heads, linear_units, dropout_rate,
                     group_size, kernels[min(index, len(kernels) - 1)],
-                    cnn_module_norm, causal, macaron_style, activation_type)
+                    cnn_module_norm, causal, macaron_style, activation_type,
+                    normalize_before)
             else:
                 layer = ConformerEncoderLayer(
                     output_size, attention_heads, linear_units, dropout_rate,
                     attention_dropout_rate, 1e-5,
                     kernels[min(index, len(kernels) - 1)], causal,
-                    cnn_module_norm)
+                    cnn_module_norm, selfattention_layer_type=attention,
+                    activation_type=activation_type,
+                    macaron_style=macaron_style,
+                    use_cnn_module=use_cnn_module,
+                    normalize_before=normalize_before)
             self.encoders.append(layer)
 
     @property
@@ -361,7 +395,7 @@ class EfficientConformerEncoder(BaseEncoder):
         chunk_masks = add_optional_chunk_mask(
             masks, self.use_dynamic_chunk, self.use_dynamic_left_chunk,
             decoding_chunk_size, num_decoding_left_chunks, generator,
-            dynamic_chunk)
+            dynamic_chunk, static_chunk_size=self.static_chunk_size)
         # a dynamic-chunk model's full context is a (B, T, T) mask in the
         # JAX package, so its grouped attention zeroes nothing: the
         # grouped layers get the broadcast mask expanded
@@ -380,7 +414,7 @@ class EfficientConformerEncoder(BaseEncoder):
                 mask_pad = masks
                 pos_emb = pos_emb[:, ::s]
                 index += 1
-        return self.after_norm(xs), masks
+        return self._final(xs), masks
 
     def forward_chunk(self, xs: torch.Tensor,
                       offset: Union[int, torch.Tensor],
@@ -420,7 +454,8 @@ class EfficientConformerEncoder(BaseEncoder):
         new_cnn: List[torch.Tensor] = []
         for i, layer in enumerate(self.encoders):
             f = self._layer_factor(i)
-            lorder = layer.conv_module.lorder
+            conv = layer.conv_module
+            lorder = 0 if conv is None else conv.lorder
             layer_cnn = None
             if cnn_cache is not None and lorder:
                 layer_cnn = cnn_cache[i][:, cnn_cache.shape[2] - lorder:]
@@ -439,6 +474,6 @@ class EfficientConformerEncoder(BaseEncoder):
                     layer_cnn = xs.new_zeros(B, 0, self._output_size)
                 new_cnn.append(F.pad(layer_cnn, (0, 0, cnn_cache.shape[2] -
                                                  layer_cnn.shape[1], 0)))
-        xs = self.after_norm(xs)
+        xs = self._final(xs)
         return (xs, (torch.stack(new_k), torch.stack(new_v)),
                 None if cnn_cache is None else torch.stack(new_cnn))

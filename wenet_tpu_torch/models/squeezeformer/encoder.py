@@ -356,7 +356,8 @@ class SqueezeformerEncoder(nn.Module):
                  activation_type: str = 'swish', use_cmvn: bool = False,
                  normalize_before: bool = False,
                  use_dynamic_chunk: bool = False,
-                 use_dynamic_left_chunk: bool = False):
+                 use_dynamic_left_chunk: bool = False,
+                 static_chunk_size: int = 0, cmvn_norm_var: bool = True):
         super().__init__()
         # attention_dropout_rate is accepted and, as in the JAX package,
         # not applied
@@ -369,7 +370,9 @@ class SqueezeformerEncoder(nn.Module):
         self.cnn_module_kernel = cnn_module_kernel
         self.use_dynamic_chunk = use_dynamic_chunk
         self.use_dynamic_left_chunk = use_dynamic_left_chunk
-        self.global_cmvn = GlobalCMVN(input_size) if use_cmvn else None
+        self.static_chunk_size = static_chunk_size
+        self.global_cmvn = (GlobalCMVN(input_size, cmvn_norm_var)
+                            if use_cmvn else None)
         self.embed = DepthwiseConv2dSubsampling4(
             encoder_dim, input_size, dw_stride, input_dropout_rate,
             encoder_dim)
@@ -410,7 +413,7 @@ class SqueezeformerEncoder(nn.Module):
         chunk_masks = add_optional_chunk_mask(
             masks, self.use_dynamic_chunk, self.use_dynamic_left_chunk,
             decoding_chunk_size, num_decoding_left_chunks, generator,
-            dynamic_chunk)
+            dynamic_chunk, static_chunk_size=self.static_chunk_size)
         lens = mask_pad[:, 0, :].sum(-1)
         xs = self.preln(xs)
         recover: List[tuple] = []

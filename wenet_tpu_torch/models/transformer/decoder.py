@@ -13,13 +13,14 @@ from wenet_tpu_torch.models.transformer.decoder_layer import DecoderLayer
 from wenet_tpu_torch.models.transformer.encoder_layer import (
     layer_options as layer_options_of)
 from wenet_tpu_torch.models.transformer.embedding import (
-    LearnablePositionalEncoding, PositionalEncoding)
+    LearnablePositionalEncoding, NoPositionalEncoding, PositionalEncoding)
 from wenet_tpu_torch.models.transformer.norm import get_norm
 from wenet_tpu_torch.utils.mask import make_pad_mask, subsequent_mask
 
 # the beam search's state: per-layer self (k, v) buffers of
 # (R, h_kv, L_max, d), written in place, and per-layer encoder (k, v)
-DecodeState = Tuple[List[T_CACHE], List[T_CACHE]]
+# (None in a layer without cross attention)
+DecodeState = Tuple[List[T_CACHE], List[Optional[T_CACHE]]]
 
 
 class _OutputBias(nn.Module):
@@ -35,13 +36,19 @@ class _OutputBias(nn.Module):
 
 
 class TransformerDecoder(nn.Module):
-    """input_layer 'embed' (sinusoidal, x-scaled) or 'embed_learnable_pe'
-    (whisper: a learned table of `learnable_pe_max_len` rows);
-    tie_word_embedding: logits = x·Eᵀ + an own bias; lora_conf makes the
-    attention projections LoRA layers (init_model passes it with
-    `lora_decoder`).  `layer_options`: the layers' options
-    (`LAYER_OPTIONS`); a post-norm decoder (`normalize_before` False) has
-    no after_norm, as the JAX decoder has none then."""
+    """input_layer 'embed' (sinusoidal, x-scaled), 'embed_learnable_pe'
+    (whisper: a learned table of `learnable_pe_max_len` rows) or 'no_pos'
+    (no token embedding and no positions: the input is taken as (B, L, D)
+    embeddings, as the JAX decoder takes it, decoder.py:129;
+    token ids, which the ASR models hand it, raise, as they fail there);
+    tie_word_embedding: logits = x·Eᵀ + an own bias; without
+    `use_output_layer` the output is the decoder's last hidden state, as
+    the JAX decoder returns it; lora_conf makes the attention projections
+    LoRA layers (init_model passes it with `lora_decoder`).
+    `layer_options`: the layers' options (`LAYER_OPTIONS`); a post-norm
+    decoder (`normalize_before` False) has no after_norm, as the JAX
+    decoder has none then; `src_attention` False leaves the cross
+    attention out of every layer."""
 
     def __init__(self, vocab_size: int, encoder_output_size: int,
                  attention_heads: int = 4, linear_units: int = 2048,
@@ -54,37 +61,57 @@ class TransformerDecoder(nn.Module):
                  tie_word_embedding: bool = False,
                  activation_type: str = 'relu', src_query_bias: bool = True,
                  src_key_bias: bool = True, src_value_bias: bool = True,
+                 use_output_layer: bool = True, src_attention: bool = True,
                  lora_conf: Optional[dict] = None, **layer_options):
         super().__init__()
         dim = encoder_output_size
+        self.no_pos = input_layer == 'no_pos'
         if input_layer == 'embed':
             pos_enc = PositionalEncoding(dim, positional_dropout_rate)
         elif input_layer == 'embed_learnable_pe':
             pos_enc = LearnablePositionalEncoding(
                 dim, positional_dropout_rate, learnable_pe_max_len)
+        elif self.no_pos:
+            pos_enc = NoPositionalEncoding(dim, positional_dropout_rate)
         else:
-            raise NotImplementedError(f'decoder input_layer={input_layer!r} '
-                                      'is not ported')
-        self.embed = nn.Sequential(nn.Embedding(vocab_size, dim), pos_enc)
+            raise ValueError(f'decoder input_layer={input_layer!r}')
+        self.embed = nn.Sequential(
+            nn.Identity() if self.no_pos else nn.Embedding(vocab_size, dim),
+            pos_enc)
         options = layer_options_of(layer_options)
         self.after_norm = (get_norm(options['layer_norm_type'], dim,
                                     norm_eps)
                            if options['normalize_before'] else None)
         self.tie_word_embedding = tie_word_embedding
-        self.output_layer = (_OutputBias(vocab_size) if tie_word_embedding
-                             else nn.Linear(dim, vocab_size))
+        self.output_layer = None
+        if use_output_layer:
+            self.output_layer = (_OutputBias(vocab_size) if tie_word_embedding
+                                 else nn.Linear(dim, vocab_size))
         self.decoders = nn.ModuleList([
             DecoderLayer(dim, attention_heads, linear_units, dropout_rate,
                          self_attention_dropout_rate,
                          src_attention_dropout_rate, norm_eps,
                          activation_type, src_query_bias, src_key_bias,
-                         src_value_bias, lora_conf, **options)
+                         src_value_bias, lora_conf, src_attention,
+                         **options)
             for _ in range(num_blocks)
         ])
+
+    def _embed(self, tgt: torch.Tensor, offset=0) -> torch.Tensor:
+        if self.no_pos and not tgt.is_floating_point():
+            raise ValueError(
+                'the no_pos decoder takes (B, L, D) embeddings, not token '
+                'ids: it has no token embedding (the JAX decoder feeds '
+                'the ids on as they are and fails, '
+                'wenet_tpu/models/transformer/decoder.py:129)')
+        x, _ = self.embed[1](self.embed[0](tgt), offset)
+        return x
 
     def _output(self, x: torch.Tensor) -> torch.Tensor:
         if self.after_norm is not None:
             x = self.after_norm(x)
+        if self.output_layer is None:
+            return x
         if self.tie_word_embedding:
             return self.output_layer(
                 torch.matmul(x, self.embed[0].weight.to(x.dtype).t()))
@@ -101,7 +128,7 @@ class TransformerDecoder(nn.Module):
         maxlen = ys_in_pad.shape[1]
         tgt_mask = ((~make_pad_mask(ys_in_lens, maxlen))[:, None, :] &
                     subsequent_mask(maxlen, ys_in_pad.device)[None])
-        x, _ = self.embed(ys_in_pad)
+        x = self._embed(ys_in_pad)
         for layer in self.decoders:
             x = layer(x, tgt_mask, memory, memory_mask)
         return self._output(x), None
@@ -110,7 +137,8 @@ class TransformerDecoder(nn.Module):
                    beam_size: int = 1) -> DecodeState:
         """Zeroed self buffers of (B·beam_size, h_kv, max_len, d) in the
         memory's dtype, and each layer's encoder (k, v) over the B rows
-        of `memory` (computed once, not per beam)."""
+        of `memory` (computed once, not per beam; None without cross
+        attention)."""
         B = memory.shape[0]
         self_caches, cross_kv = [], []
         for layer in self.decoders:
@@ -128,8 +156,7 @@ class TransformerDecoder(nn.Module):
         """One step: tokens (R, 1) at 0-based position `step` -> (log-probs
         (R, V), state).  The self buffers are updated in place."""
         self_caches, cross_kv = state
-        x = self.embed[0](tokens)
-        x, _ = self.embed[1](x, step)
+        x = self._embed(tokens, step)
         for layer, cache, kv in zip(self.decoders, self_caches, cross_kv):
             x = layer.step(x, step, cache, kv, memory_mask)
         return F.log_softmax(self._output(x[:, -1]).float(), dim=-1), state

@@ -215,7 +215,9 @@ class BaseEncoder(nn.Module):
 class ConformerEncoder(BaseEncoder):
     """Conformer blocks: rel-pos attention unless the config names
     another (with its position encoding), conv2d x4 subsampling unless
-    it names another front end (openasr's conv2d6)."""
+    it names another front end (openasr's conv2d6); the JAX encoder's
+    `activation_type`, `macaron_style`, `use_cnn_module` (no conv module:
+    no cnn cache), `conv_bias` and `conv_inner_factor`."""
 
     def __init__(self, input_size: int, output_size: int = 256,
                  attention_heads: int = 4, linear_units: int = 2048,
@@ -232,6 +234,9 @@ class ConformerEncoder(BaseEncoder):
                  cnn_module_kernel: int = 15, causal: bool = False,
                  cnn_module_norm: str = 'batch_norm',
                  conv_norm_eps: float = 1e-5, final_norm: bool = True,
+                 activation_type: str = 'swish', macaron_style: bool = True,
+                 use_cnn_module: bool = True, conv_bias: bool = True,
+                 conv_inner_factor: int = 2,
                  lora_conf: Optional[dict] = None, **layer_options):
         super().__init__(input_size, output_size, attention_heads,
                          dropout_rate, positional_dropout_rate, input_layer,
@@ -239,13 +244,16 @@ class ConformerEncoder(BaseEncoder):
                          use_dynamic_left_chunk, static_chunk_size, use_cmvn,
                          norm_eps, cmvn_norm_var, final_norm,
                          **layer_options)
-        self._lorder = cnn_module_kernel - 1 if causal else 0
+        self._lorder = (cnn_module_kernel - 1
+                        if causal and use_cnn_module else 0)
         self.encoders.extend(
             ConformerEncoderLayer(
                 output_size, attention_heads, linear_units, dropout_rate,
                 attention_dropout_rate, norm_eps, cnn_module_kernel, causal,
                 cnn_module_norm, conv_norm_eps, lora_conf,
-                selfattention_layer_type, **self.layer_options)
+                selfattention_layer_type, activation_type, macaron_style,
+                use_cnn_module, conv_bias, conv_inner_factor,
+                **self.layer_options)
             for _ in range(num_blocks))
 
     @property

@@ -118,9 +118,11 @@ class TransformerEncoderLayer(ResidualLayer):
 
 
 class ConformerEncoderLayer(ResidualLayer):
-    """Macaron FFN (x 1/2) + MHSA (rel-pos unless the config names
-    another) + conv module + FFN (x 1/2), each a residual block, then a
-    final norm.  Swish activation."""
+    """Macaron FFN (x 1/2; `macaron_style`) + MHSA (rel-pos unless the
+    config names another) + conv module (`use_cnn_module`) + FFN (x 1/2
+    with the macaron FFN, else x 1), each a residual block, then a final
+    norm where there is a conv module, as in the JAX layer.  Swish unless
+    `activation_type` names another, in the FFNs and the conv module."""
 
     def __init__(self, size: int, attention_heads: int, linear_units: int,
                  dropout_rate: float = 0.1,
@@ -130,22 +132,30 @@ class ConformerEncoderLayer(ResidualLayer):
                  conv_norm_eps: float = 1e-5,
                  lora_conf: Optional[dict] = None,
                  selfattention_layer_type: str = 'rel_selfattn',
-                 **layer_options):
+                 activation_type: str = 'swish', macaron_style: bool = True,
+                 use_cnn_module: bool = True, conv_bias: bool = True,
+                 conv_inner_factor: int = 2, **layer_options):
         super().__init__()
         self._setup(size, linear_units, norm_eps, dropout_rate,
                     layer_options)
         self.self_attn = self._attention(
             selfattention_layer_type, attention_heads,
             attention_dropout_rate, lora_conf)
-        self.feed_forward = self._mlp('swish')
-        self.feed_forward_macaron = self._mlp('swish')
-        self.conv_module = ConvolutionModule(
-            size, cnn_module_kernel, cnn_module_norm, causal, conv_norm_eps)
-        self.norm_ff_macaron = self._norm()
+        self.ff_scale = 0.5 if macaron_style else 1.0
+        # built in the order of the flagship's modules, whose weights a
+        # generator draws in this order
+        self.feed_forward = self._mlp(activation_type)
+        self.feed_forward_macaron = (self._mlp(activation_type)
+                                     if macaron_style else None)
+        self.conv_module = (ConvolutionModule(
+            size, cnn_module_kernel, cnn_module_norm, causal, conv_norm_eps,
+            activation_type, conv_bias, conv_inner_factor)
+            if use_cnn_module else None)
+        self.norm_ff_macaron = self._norm() if macaron_style else None
         self.norm_mha = self._norm()
-        self.norm_conv = self._norm()
+        self.norm_conv = self._norm() if use_cnn_module else None
         self.norm_ff = self._norm()
-        self.norm_final = self._norm()
+        self.norm_final = self._norm() if use_cnn_module else None
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 pos_emb: torch.Tensor,
@@ -163,14 +173,19 @@ class ConformerEncoderLayer(ResidualLayer):
         passes `att_cache` (k, v) of (B, h_kv, cache_t, d) and, with a
         causal conv module, `cnn_cache` (B, lorder, D); it gets back (k,
         v) with cache_t + T keys and the new cnn cache.  A cache not
-        passed comes back as None."""
-        x, _ = self._block(x, self.norm_ff_macaron,
-                           _no_extra(self.feed_forward_macaron), 0.5)
+        passed, or a layer without a conv module, gives None."""
+        if self.feed_forward_macaron is not None:
+            x, _ = self._block(x, self.norm_ff_macaron,
+                               _no_extra(self.feed_forward_macaron),
+                               self.ff_scale)
         x, new_att = self._block(x, self.norm_mha, lambda y: (
             self.self_attn.forward_self(y, mask, pos_emb, generator,
                                         att_cache)))
-        x, new_cnn = self._block(x, self.norm_conv, lambda y: (
-            self.conv_module(y, mask_pad, cnn_cache)))
+        new_cnn = None
+        if self.conv_module is not None:
+            x, new_cnn = self._block(x, self.norm_conv, lambda y: (
+                self.conv_module(y, mask_pad, cnn_cache)))
         x, _ = self._block(x, self.norm_ff, _no_extra(self.feed_forward),
-                           0.5)
-        return self.norm_final(x), new_att, new_cnn
+                           self.ff_scale)
+        return (x if self.conv_module is None else self.norm_final(x),
+                new_att, new_cnn)

@@ -49,7 +49,9 @@ def attention_rescoring(model, ctc_prefix_results: List[DecodeResult],
     """Rescore each utterance's CTC nbest with the attention decoder(s),
     the whole (B, N) grid in one batched decoder pass behind the decode
     prompt ([sos], or whisper's from `infos`), and keep the best of
-    score + ctc_weight * ctc_score per utterance."""
+    score + ctc_weight * ctc_score per utterance.  The scores are summed
+    in float64 (the per-token log-probs stay float32), so that a score
+    near -1e3 is not rounded to float32's 6.1e-5 or 1.22e-4 steps."""
     device = encoder_outs.device
     B, T = encoder_outs.shape[:2]
     N = max(len(r.nbest) for r in ctc_prefix_results)
@@ -62,7 +64,7 @@ def attention_rescoring(model, ctc_prefix_results: List[DecodeResult],
     hyps_pad = np.full((B, N, L + P), model.eos, np.int64)
     hyps_pad[:, :, :P] = prefix[:, None, :]
     hyps_lens = np.zeros((B, N), np.int64)
-    ctc_scores = np.full((B, N), NEG_INF, np.float32)  # empty slots lose
+    ctc_scores = np.full((B, N), NEG_INF, np.float64)  # empty slots lose
     for b, r in enumerate(ctc_prefix_results):
         for i, h in enumerate(r.nbest):
             hyps_pad[b, i, P:P + len(h)] = h
@@ -87,7 +89,8 @@ def attention_rescoring(model, ctc_prefix_results: List[DecodeResult],
         logp = torch.gather(out[:, P - 1:P - 1 + L], 2,
                             tokens[..., None])[..., 0]
         logp = logp.masked_fill(~tok_mask, 0.0)
-        return logp, logp.sum(-1) + out[rows, flat_lens + P - 1, model.eos]
+        eos = out[rows, flat_lens + P - 1, model.eos]
+        return logp, logp.double().sum(-1) + eos.double()
 
     logp_tok, score = token_and_eos_scores(decoder_out, tok)
     tc = torch.exp(logp_tok)

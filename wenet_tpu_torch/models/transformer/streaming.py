@@ -63,7 +63,10 @@ def streaming_att_mask(batch_size: int, cache_size: int, chunk_out: int,
     `valid_chunk` (< chunk_out in a zero-padded tail chunk) so are the
     chunk's pad frames.  `valid_cache` and `valid_chunk` are ints, shared
     by every row, or (B,) tensors on `device`, one per row (the batch
-    runner's sessions).  Built on `device`, so ints cost no transfer."""
+    runner's sessions).  All three counts are at the encoder's base
+    resolution, after the front end, for every encoder of the zoo (the
+    efficient conformer's caches too, whose layers after a stride read
+    every f-th slot).  Built on `device`, so ints cost no transfer."""
     idx = torch.arange(cache_size + chunk_out, device=device)
     if isinstance(valid_cache, torch.Tensor):
         valid_cache = valid_cache.clamp(max=cache_size)[:, None]

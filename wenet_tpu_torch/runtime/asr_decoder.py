@@ -236,7 +236,7 @@ class AsrDecoder:
         if self.batch_runner is not None:
             ys, host, self.state = self.batch_runner.submit(
                 chunk, self.state, self.offset, self.valid_cache,
-                real_out, whole_rows=self.is_wfst).result()
+                real_base, whole_rows=self.is_wfst).result()
             ys, host = ys[0, :real_out], host[:real_out]
         else:
             ys, logp = self._chunk_step(chunk, real_base, real_out)

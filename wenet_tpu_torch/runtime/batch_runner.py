@@ -8,17 +8,32 @@ has caches of the same shape, so the chunks of many live sessions can be
 stacked on the batch axis and advanced by ONE chunk step.
 
 `BatchedChunkRunner` owns a worker thread.  Sessions `submit()` their
-chunk, caches, offset and number of valid cache slots and get a Future;
-the worker coalesces up to `max_batch` pending requests (waiting at most
-`flush_ms` for stragglers), stacks the row caches with `torch.cat`,
-builds one cache-mask row per session, runs `forward_encoder_chunk` with
-a vector of offsets (so the rel-pos encoding and K1's p are per row) and
-the CTC top-k once for the batch, copies the top-k and the blank column
-to the host once, and hands each session its rows: its encoder outputs
-and new caches stay on the device, views of the batch's tensors.  A
-session that asks for whole rows (`submit(..., whole_rows=True)`, a WFST
-search) also gets its (chunk_out, V) CTC log-probs: one more copy a step,
-of those sessions' rows only.
+chunk, caches, offset, number of valid cache slots and of valid chunk
+frames, and get a Future; the worker coalesces up to `max_batch` pending
+requests (waiting at most `flush_ms` for stragglers), stacks the row
+caches with `torch.cat` on their batch axis, builds one cache-mask row
+per session, runs `forward_encoder_chunk` with a vector of offsets (so
+the rel-pos encoding and K1's p are per row) and the CTC top-k once for
+the batch, copies the top-k and the blank column to the host once, and
+hands each session its rows: its encoder outputs and new caches stay on
+the device, views of the batch's tensors.  A session that asks for whole
+rows (`submit(..., whole_rows=True)`, a WFST search) also gets its
+CTC log-probs, a row for each output frame: one more copy a step, of
+those sessions' rows only.
+
+Every encoder of the zoo is served: the conformer and the transformer
+with any of their attentions (rel-pos, plain, Shaw, RoPE: its angles per
+row), pre- or post-norm, GQA/MQA caches of `n_kv_head` heads, with or
+without a conv module; Branchformer and E-Branchformer (the cgMLP
+conv's cache); Squeezeformer (its time reduction and recovery inside the
+step, each row's tail masked on its own); and the efficient conformer.
+Each keeps its caches as (num_blocks, B, ...) tensors or None, as
+`zero_cache` builds them, so one `torch.cat` on dim 1 stacks any of
+them.  The cache mask and the valid chunk frames a session submits are
+at the encoder's base resolution (after the front end's subsampling);
+the efficient conformer emits one frame per `output_downsampling_factor`
+base frames of a chunk, and its offsets count output frames, as its
+chunk step does.
 
 The JAX runner pads each batch to a power of two, only to bound the
 number of XLA programs it compiles.  Eager PyTorch compiles nothing, so
@@ -32,13 +47,7 @@ local devices along `data`, splits each coalesced step over them: one
 replica per device, the rows in order, a ragged batch padded by
 repeating its final row (the pad rows discarded), the shards run side by
 side in threads; a session's caches move to the device of its shard and
-its encoder rows come back to the first device.  The encoder is the
-conformer's or the transformer's, with any of their attentions
-(rel-pos, plain, Shaw, RoPE: its angles per row), pre- or post-norm,
-and GQA/MQA caches of `n_kv_head` heads.  Branchformer, E-Branchformer,
-Squeezeformer and the efficient conformer raise NotImplementedError
-(ROADMAP.md, queue 1 item 8): they are served one stream per
-`AsrDecoder`."""
+its encoder rows come back to the first device."""
 
 import collections
 import copy
@@ -52,8 +61,6 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-from wenet_tpu_torch.models.transformer.encoder import (ConformerEncoder,
-                                                        TransformerEncoder)
 from wenet_tpu_torch.models.transformer.streaming import (StreamingConfig,
                                                           streaming_att_mask)
 from wenet_tpu_torch.utils.ctc_utils import topk_host_rows
@@ -65,25 +72,22 @@ class _Request:
     cache: Any  # ((k, v), cnn) of one row, as `zero_cache` gives
     offset: int
     valid_cache: int
-    real_out: int
+    valid_chunk: int  # valid base-resolution frames (fewer in a tail)
     future: Future
     whole_rows: bool = False
 
 
 class BatchedChunkRunner:
-    """submit() -> Future of (ys (1, chunk_out, D) on the device, the host
-    rows (chunk_out, 2 * beam_size + 1) of `model.ctc_host_rows`, or with
-    `whole_rows` the (chunk_out, V) CTC log-probs, the new caches of the
-    row).  `batch_sizes` counts the coalesced steps by their batch size."""
+    """submit() -> Future of (ys (1, F, D) on the device, the host rows
+    (F, 2 * beam_size + 1) of `model.ctc_host_rows`, or with `whole_rows`
+    the (F, V) CTC log-probs, the new caches of the row), F the encoder's
+    output frames of a chunk: `chunk_base` over its
+    `output_downsampling_factor`.  `batch_sizes` counts the coalesced
+    steps by their batch size."""
 
     def __init__(self, model, cfg: StreamingConfig, max_batch: int = 8,
                  flush_ms: float = 5.0, mesh=None, beam_size: int = 10,
                  blank_id: int = 0, device='cuda'):
-        if type(model.encoder) not in (ConformerEncoder, TransformerEncoder):
-            raise NotImplementedError(
-                f'batched serving of {type(model.encoder).__name__} is not '
-                'ported (ROADMAP.md, queue 1 item 8): the batched chunk '
-                'step is the conformer\'s and the transformer\'s')
         devices = [torch.device(device)]
         if mesh is not None:
             from wenet_tpu_torch.parallel.mesh import decode_devices
@@ -101,7 +105,8 @@ class BatchedChunkRunner:
         self.flush_ms = flush_ms
         self.beam_size = beam_size
         self.blank_id = blank_id
-        self.chunk_out = (cfg.decoding_window - cfg.right_context - 1) \
+        # the chunk's frames at the cache mask's (base) resolution
+        self.chunk_base = (cfg.decoding_window - cfg.right_context - 1) \
             // cfg.subsampling_rate + 1
         self.batch_sizes: collections.Counter = collections.Counter()
         self._q: 'queue.Queue[Optional[_Request]]' = queue.Queue()
@@ -114,10 +119,13 @@ class BatchedChunkRunner:
             1, self.cfg.required_cache_size, device=self.device)
 
     def submit(self, chunk: np.ndarray, cache, offset: int,
-               valid_cache: int, real_out: int,
+               valid_cache: int, valid_chunk: int,
                whole_rows: bool = False) -> Future:
+        """chunk: (decoding_window, mel), zero padded; offset: the output
+        frames the session has emitted; valid_cache and valid_chunk: its
+        valid cache slots and chunk frames at the base resolution."""
         fut: Future = Future()
-        self._q.put(_Request(chunk, cache, offset, valid_cache, real_out,
+        self._q.put(_Request(chunk, cache, offset, valid_cache, valid_chunk,
                              fut, whole_rows))
         return fut
 
@@ -136,7 +144,7 @@ class BatchedChunkRunner:
         for b in sizes:
             self._run([_Request(
                 np.zeros((self.cfg.decoding_window, idim), np.float32),
-                cache, 0, 0, self.chunk_out, Future()) for _ in range(b)])
+                cache, 0, 0, self.chunk_base, Future()) for _ in range(b)])
         return sizes
 
     # -- worker ---------------------------------------------------------
@@ -202,10 +210,11 @@ class BatchedChunkRunner:
         asked for them, the new (k, v) and cnn caches)."""
         cache_size = self.cfg.required_cache_size
         xs = torch.from_numpy(np.stack([r.chunk for r in batch])).to(dev)
-        ints = torch.tensor([[r.offset, r.valid_cache, r.real_out]
+        ints = torch.tensor([[r.offset, r.valid_cache, r.valid_chunk]
                              for r in batch]).to(dev)
-        att_mask = streaming_att_mask(len(batch), cache_size, self.chunk_out,
-                                      ints[:, 1], ints[:, 2], dev)
+        att_mask = streaming_att_mask(len(batch), cache_size,
+                                      self.chunk_base, ints[:, 1],
+                                      ints[:, 2], dev)
         if len(batch) == 1:
             (k, v), cnn = batch[0].cache
             k, v = k.to(dev), v.to(dev)

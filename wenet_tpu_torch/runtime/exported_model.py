@@ -185,7 +185,7 @@ class ExportedAsrDecoder(AsrDecoder):
         def path_score(out, tgt):
             idx = torch.from_numpy(tgt).to(dev)[..., None]
             logp = torch.gather(out, 2, idx)
-            return logp[..., 0].masked_fill(~valid_t, 0.0).sum(-1)
+            return logp[..., 0].masked_fill(~valid_t, 0.0).double().sum(-1)
 
         score = path_score(dec, targets)
         rw = self.opts.reverse_weight

@@ -31,6 +31,7 @@ Hyps = Tuple[List[List[int]], List[List[int]], List[float]]
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     ip, fp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
+    dp = ctypes.POINTER(ctypes.c_double)
     lib.ctc_beam_create.restype = vp
     lib.ctc_beam_create.argtypes = [ci, ci]
     lib.ctc_beam_destroy.argtypes = [vp]
@@ -42,14 +43,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ctc_beam_num_hyps.argtypes = [vp]
     lib.ctc_beam_hyp_len.restype = ci
     lib.ctc_beam_hyp_len.argtypes = [vp, ci]
-    lib.ctc_beam_hyp.argtypes = [vp, ci, ip, ip, fp]
+    lib.ctc_beam_hyp.argtypes = [vp, ci, ip, ip, dp]
     lib.ctc_beam_set_context.argtypes = [vp, ci, ip, fp, fp, fp, ci, ip, ip,
                                          ip]
     lib.ctc_lm_create.restype = vp
     lib.ctc_lm_create.argtypes = [ci, ci, ip, ci, ci]
     lib.ctc_lm_add_table.argtypes = [vp, ci, ci, ip, fp, fp]
     lib.ctc_lm_destroy.argtypes = [vp]
-    lib.ctc_beam_attach_lm.argtypes = [vp, vp, ctypes.c_float]
+    lib.ctc_beam_attach_lm.argtypes = [vp, vp, ctypes.c_double]
 
 
 def build() -> ctypes.CDLL:
@@ -212,7 +213,7 @@ class NativeCtcPrefixBeamSearch:
         if lm is not None:
             self._native_lm = NativeLm.get(lm, symbol_table, lm_vocab_size)
             self._lib.ctc_beam_attach_lm(self._h, self._native_lm.handle,
-                                         ctypes.c_float(lm_weight))
+                                         ctypes.c_double(lm_weight))
 
     def __del__(self):
         if getattr(self, '_h', None):
@@ -266,7 +267,7 @@ class NativeCtcPrefixBeamSearch:
             n = self._lib.ctc_beam_hyp_len(self._h, i)
             toks = (ctypes.c_int * max(n, 1))()
             tms = (ctypes.c_int * max(n, 1))()
-            score = ctypes.c_float()
+            score = ctypes.c_double()
             self._lib.ctc_beam_hyp(self._h, i, toks, tms,
                                    ctypes.byref(score))
             hyps.append(list(toks[:n]))

@@ -93,41 +93,51 @@ MODEL_CLASSES = {'asr_model': ASRModel, 'ctl_model': CTLModel,
                  **SSL_MODEL_CLASSES}
 # accepted and ignored (remat is not ported; it changes no result)
 _IGNORED = {'gradient_checkpointing', 'use_sdpa'}
-# options that the conformer and transformer take and the rest of the
-# zoo implements at one value only (the value every example config
-# uses): another value raises
-_FIXED_ALL = {'cmvn_norm_var': True, 'static_chunk_size': 0,
-              'layer_norm_type': 'layer_norm', 'final_norm': True,
-              'normalize_before': True, 'query_bias': True,
-              'key_bias': True, 'value_bias': True, 'mlp_bias': True,
-              'mlp_type': 'position_wise_feed_forward'}
-_SANM_FIXED = {'input_layer': 'paraformer_dummy',
-               'pos_enc_layer_type': 'abs_pos_paraformer',
-               'use_dynamic_chunk': False}
-_CONFORMER_FIXED = {'activation_type': 'swish', 'macaron_style': True,
-                    'use_cnn_module': True, 'conv_bias': True,
-                    'conv_inner_factor': 2}
+# options ported at one value: another raises with the why given
+_ONE_VALUE = 'the port implements this model at that value only'
+_SANM_FIXED = {'input_layer': ('paraformer_dummy', _ONE_VALUE),
+               'pos_enc_layer_type': ('abs_pos_paraformer', _ONE_VALUE),
+               'use_dynamic_chunk': (False, _ONE_VALUE)}
+# options an encoder of the zoo does not take, at the value that changes
+# nothing: another value raises, naming the JAX code that has no such
+# option or never reads it (the JAX init_model drops the option or the
+# layer ignores it)
+_NO_FIELD = dict({k: v for k, v in LAYER_OPTIONS.items()
+                  if k != 'normalize_before'}, final_norm=True)
 _ENCODER_FIXED_BY_TYPE = {
-    'conformer': _CONFORMER_FIXED,
+    'conformer': {},
     'transformer': {},
     'branchformer': {},
-    'e_branchformer': {'stochastic_depth_rate': 0.0},
-    'efficientConformer': {'pos_enc_layer_type': 'rel_pos',
-                           'use_cnn_module': True},
-    'squeezeformer': {'pos_enc_layer_type': 'rel_pos',
-                      'time_reduction_layer_type': 'conv1d',
-                      'concat_after': False},
+    'e_branchformer': {'stochastic_depth_rate': (
+        0.0, 'the JAX E-Branchformer layer never reads it '
+        '(wenet_tpu/models/e_branchformer/encoder.py:40)')},
+    'efficientConformer': {k: (v, 'the JAX EfficientConformerEncoder has '
+                               'no such field (wenet_tpu/models/'
+                               'efficient_conformer/encoder.py:284-312)')
+                           for k, v in _NO_FIELD.items()},
+    'squeezeformer': dict(
+        {k: (v, 'the JAX SqueezeformerEncoder has no such field '
+             '(wenet_tpu/models/squeezeformer/encoder.py:361-390)')
+         for k, v in _NO_FIELD.items()},
+        pos_enc_layer_type=('rel_pos', 'the JAX encoder never reads it: '
+                            'its attention is rel-pos '
+                            '(wenet_tpu/models/squeezeformer/encoder.py:373)'),
+        time_reduction_layer_type=(
+            'conv1d', 'only TimeReductionLayer1D exists '
+            '(wenet_tpu/models/squeezeformer/encoder.py:247)'),
+        concat_after=(False, 'the JAX layer never reads it '
+                      '(wenet_tpu/models/squeezeformer/encoder.py:292)')),
     'sanm_encoder': _SANM_FIXED,
     'sanm_encoder_with_tp': _SANM_FIXED,
-    'firered_conformer': dict(
-        _CONFORMER_FIXED, input_layer='conv2d',
+    'firered_conformer': {k: (v, _ONE_VALUE) for k, v in dict(
+        activation_type='swish', macaron_style=True, use_cnn_module=True,
+        conv_bias=True, conv_inner_factor=2, input_layer='conv2d',
         pos_enc_layer_type='rel_pos_firered',
-        selfattention_layer_type='firered_rel_selfattn', causal=False),
+        selfattention_layer_type='firered_rel_selfattn',
+        causal=False).items()},
 }
 # model options implemented at one value only
 _MODEL_FIXED = {'paraformer': {'predictor_weight': 1.0, 'predictor_bias': 1}}
-_DECODER_FIXED = {'normalize_before': True, 'use_output_layer': True,
-                  'src_attention': True}
 
 
 def _params(fn) -> set:
@@ -144,16 +154,19 @@ def _params(fn) -> set:
 
 def _conf(conf: dict, accepted: set, what: str, fixed=None) -> dict:
     """The options of `conf` that the constructor takes (`accepted`);
-    ignored options and options at their `fixed` value are dropped,
-    anything else raises."""
+    ignored options and options at their `fixed` value (`fixed`: {key:
+    (value, why another value raises)}) are dropped, anything else
+    raises."""
     fixed = fixed or {}
     out = {}
     for key, value in conf.items():
+        want, why = fixed.get(key, (None, None))
         if key in accepted:
             out[key] = value
-        elif not (key in _IGNORED or key in fixed and fixed[key] == value):
-            raise NotImplementedError(f'{what} option {key}={value!r} is '
-                                      'not ported')
+        elif not (key in _IGNORED or key in fixed and want == value):
+            raise NotImplementedError(
+                f'{what} option {key}={value!r} is not ported' +
+                (f': {why}' if why else ''))
     return out
 
 
@@ -208,8 +221,7 @@ def init_model(configs: dict, generator: Optional[torch.Generator] = None,
         if dec_cls is BiTransformerDecoder:
             dec_params.add('r_num_blocks')
         dec_kw = {'lora_conf': dec_lora}
-    dec_conf = _conf(configs.get('decoder_conf', {}), dec_params, 'decoder',
-                     _DECODER_FIXED)
+    dec_conf = _conf(configs.get('decoder_conf', {}), dec_params, 'decoder')
 
     special_tokens = configs.get('tokenizer_conf', {}).get('special_tokens')
     if special_tokens is None and model_type == 'whisper':
@@ -222,8 +234,8 @@ def init_model(configs: dict, generator: Optional[torch.Generator] = None,
     if lora_conf is not None and not enc_kw:
         raise NotImplementedError(f'LoRA on the {encoder_type} encoder is '
                                   'not ported')
-    fixed = dict(_FIXED_ALL, **_ENCODER_FIXED_BY_TYPE[
-        ENCODER_TYPE_OF.get(encoder_type, encoder_type)])
+    fixed = _ENCODER_FIXED_BY_TYPE[ENCODER_TYPE_OF.get(encoder_type,
+                                                        encoder_type)]
     # SenseVoice's cmvn is the model's, after LFR (JAX init_model.py:131)
     use_cmvn = (configs.get('cmvn') == 'global_cmvn' and
                 model_type != 'sensevoice_small')
