@@ -4,8 +4,8 @@
     python3 chip_smoke.py --phases 20,13c # these units alone, after the build
 
 The units that time a kernel (16a and 19c's kernels too), the
-informational throughputs (5, 6d, 7c, 8c) and phase 20 run first, alone
-on the card (ALONE); the card-against-CPU phases then run in four child
+informational throughputs (5, 6d, 7c, 8c) and phases 20 and 21 run first,
+alone on the card (ALONE; 21d's two ranks beside 21a-21c); the card-against-CPU phases then run in four child
 processes side by side (LANES), their logs printed as each ends, and each
 child refuses jax and the JAX package as the parent does.  A throughput a
 lane's phase prints (9e, 9f, 11, 12, 14, 16b, 18b, 19a-c) is read beside
@@ -414,6 +414,40 @@ Phases, each of which raises on failure (non-zero exit):
               decode card == CPU (K1 once per rel-pos block in the
               encoder) and a train step card == CPU (K1-train, K2, K3
               once per rel-pos block; 12c's bars)
+  21. the rest of queue 1, fp32 with TF32 off, random weights from the
+              seed.  21a: the flagship yaml (12 blocks, its dropouts, K1's
+              hash dropout) and train_conformer.yaml's BatchNorm at 6
+              blocks, one train step each at B=16 x 12 s with
+              gradient_checkpointing false, true and 'selective': loss
+              and every gradient equal to false's (12c's bar the limit;
+              the gap printed), BatchNorm buffers and the host
+              generator's state equal; K1-train 24 launches a step with
+              true (the recompute), 12 otherwise, K2 and K3 12; peak
+              memory and step ms printed.  21b: bin/train.py on the
+              flagship with on_device_frontend (10's written wavs, one
+              shard; waveforms batched, fbank and SpecAugment / SpecSub
+              in the step), NoamHoldAnnealing by ratios and the encoder
+              recomputed: the first step card == CPU at dither 0 (6c's
+              bars) and the masks equal, each logged lr
+              build_schedule's, K1-train 24 and K2, K3 12 launches a
+              step, the cv on host fbank.  21c: LoRA-GA on whisper
+              large-v3 at 4 + 4 layers: estimate_gradient of one 30 s row
+              card == CPU (12c's bar), over two batches of B=2 x 30 s on
+              the card (K4-train, K5, K6 once per encoder layer a batch),
+              reinit_lora('gradient') on the card and, from the same
+              gradient, on the CPU: A's rows and B's columns the CPU's
+              up to each singular vector's sign (within 1e-3 + 1e-5
+              sigma_1 / its gap to the nearest singular value, relative;
+              a subspace where two lie within 1e-3) and the compensated
+              weights with the signs lined up, the loss unchanged (rtol
+              1e-4), the SVDs' seconds.  21d: bin/train.py under torch.distributed.run, two
+              gloo ranks on the card with --mesh data=1,model=2 over 19a's
+              MoE-GQA conformer (each rank 4 of the 8 experts), started
+              first and run beside 21a-21c: first-step losses and
+              gradients equal one process's (12c's bars), final.pt one
+              process's keys and shapes.  ZeRO-2 with the model axis needs
+              data >= 2 and model >= 2: it is held on the CPU only
+              (tests/test_torch_expert_parallel.py)
 The line before the last is the kernel report as JSON, the one before it
 every phase's seconds; the last line is {"ok": true, "device": {...}}.
 Imports nothing of jax or of the JAX package (wenet_tpu), and checks so
@@ -3232,17 +3266,20 @@ def write_recipe(d, tokenizer):
 
 def entry_first_step(args):
     """The entry point's first step (its first batch, initial weights,
-    cmvn and step seeds) on the card against the CPU, held to 6c's bars.
-    The decoder's and the feed-forward dropouts (nn.Dropout) draw from the
-    device's RNG, whose streams differ between the card and the CPU, so
-    they are set to 0 here; the rel-pos attention dropout (K1-train's
-    hash) and the dynamic chunk (a host draw) stay."""
+    cmvn and step seeds; the on-device front end where the yaml has it)
+    on the card against the CPU, held to 6c's bars -> (the run's configs,
+    the batch, the tokenizer).  The decoder's and the feed-forward
+    dropouts (nn.Dropout) draw from the device's RNG, whose streams
+    differ between the card and the CPU, so they are set to 0 here; the
+    rel-pos attention dropout (K1-train's hash) and the dynamic chunk (a
+    host draw) stay."""
     from wenet_tpu_torch.bin import train
     from wenet_tpu_torch.models.transformer.attention import (
         RelPositionMultiHeadedAttention)
     from wenet_tpu_torch.utils.executor import to_device_batch
     from wenet_tpu_torch.utils.train_utils import (
-        TrainState, init_optimizer_and_scheduler, make_train_step)
+        TrainState, frontend_conf_of, init_optimizer_and_scheduler,
+        make_train_step)
     run = train.build(args)
     it = iter(run.train_dataset)
     batch = next(it)
@@ -3261,7 +3298,9 @@ def entry_first_step(args):
                     m.p = 0.0
     opt, schedule = init_optimizer_and_scheduler(configs, cpu_model)
     cpu_step = make_train_step(cpu_model, opt, schedule, None,
-                               configs['accum_grad'], configs['grad_clip'])
+                               configs['accum_grad'], configs['grad_clip'],
+                               frontend_conf=frontend_conf_of(
+                                   configs['dataset_conf']))
     outs = []
     for step, model, dev, state in (
             (run.train_step, run.model, 'cuda', run.state),
@@ -3292,8 +3331,10 @@ def entry_first_step(args):
                            f'by {worst} (bar 1e-3) or are not finite')
     print(f'  first step: clipped grads of {len(cpu_grads)} parameters, '
           f'max |card - cpu| {worst:.3g} (bar 1e-3)')
+    tokenizer = run.tokenizer
     del run, cpu_model
     torch.cuda.empty_cache()
+    return configs, batch, tokenizer
 
 
 def logged_train(train, argv, on_step):
@@ -7640,16 +7681,27 @@ torch.backends.cudnn.allow_tf32 = False
 from wenet_tpu_torch.bin import train
 from wenet_tpu_torch.ops import flash_attention as fa
 from wenet_tpu_torch.utils import train_utils
-first = {}
+from wenet_tpu_torch.parallel.mesh import gather_model_shard
+first, runs = {}, []
 real_apply, real_make = train_utils.apply_gradients, train.make_train_step
+real_build = train.build
+
+
+def build(args):
+    runs.append(real_build(args))
+    return runs[-1]
 
 
 def apply_gradients(state, *args, **kw):
     out = real_apply(state, *args, **kw)
     if 'grads' not in first:  # as applied: averaged over data, clipped
-        first['grads'] = {n: p.grad.detach().cpu().clone()
-                          for n, p in state.model.named_parameters()
-                          if p.grad is not None}
+        layout = runs[0].layout  # shards gathered over `model`
+        mesh = layout.mesh
+        first['grads'] = {
+            n: (gather_model_shard(p.grad.detach(), layout.sharded[n],
+                                   mesh.model_group, mesh.model)
+                if n in layout.sharded else p.grad.detach()).cpu().clone()
+            for n, p in state.model.named_parameters() if p.grad is not None}
     return out
 
 
@@ -7665,6 +7717,7 @@ def make_train_step(*args, **kw):
 
 train_utils.apply_gradients = apply_gradients
 train.make_train_step = make_train_step
+train.build = build
 steps = []
 fa.reset_launches()
 summary = train.main(argv, on_step=lambda r: steps.append(r['batch']))
@@ -7993,9 +8046,23 @@ def start_ranks(d, name, launcher, argv):
     cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
            *launcher, script, out, *argv, '--model_dir',
            os.path.join(d, f'exp_{name}')]
+    # a session of its own: `stop_ranks` stops the launcher's ranks too
     proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
     return name, out, proc, time.perf_counter()
+
+
+def stop_ranks(started):
+    """Stop `start_ranks`' launcher and every rank it started (its
+    session), if any still runs."""
+    import signal
+    proc = started[2]
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
 
 
 def finish_ranks(started):
@@ -8006,15 +8073,13 @@ def finish_ranks(started):
         try:
             log, _ = proc.communicate(timeout=budget_left())
         except subprocess.TimeoutExpired:
-            over_budget(f'18d {name}: the ranks')
+            over_budget(f'{name}: the ranks')
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        stop_ranks(started)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         print(log[-8000:])
-        raise RuntimeError(f'18d {name}: the ranks exited with '
+        raise RuntimeError(f'{name}: the ranks exited with '
                            f'{proc.returncode}')
     ranks = []
     for r in range(len(os.listdir(out))):
@@ -8080,17 +8145,14 @@ def parallel_train_check(smi):
                           {k: v.detach().cpu().clone()
                            for k, v in run.model.state_dict().items()})
     except BaseException:
-        for _, _, proc, _ in started:
-            proc.kill()
-            proc.wait()
+        for r in started:
+            stop_ranks(r)
         raise
     try:
         (gloo, gloo_s), (nccl, nccl_s) = (finish_ranks(r) for r in started)
     finally:
-        for _, _, proc, _ in started:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        for r in started:
+            stop_ranks(r)
     n_blocks = flagship_configs()['encoder_conf']['num_blocks']
     launches = {k: 0 for k in ['relpos_attention_fwd', *TRAIN_KERNELS]}
     for name, ranks, n in (('gloo', gloo, 2), ('nccl', nccl, 1)):
@@ -8933,6 +8995,580 @@ def zoo_served_check(smi):
 
 
 # ---------------------------------------------------------------------------
+# 21. the rest of queue 1: recomputation, the on-device front end, LoRA-GA,
+# expert parallelism
+# ---------------------------------------------------------------------------
+BN_CONFIG = os.path.join(REPO, 'examples/aishell/s0/conf/'
+                         'train_conformer.yaml')
+REMAT_STEP = (16, 12.0, 6.0)  # 21a: B x seconds, the shortest row
+REMAT_BN_BLOCKS = 6  # 21a: train_conformer.yaml's BatchNorm, 6 of 12 blocks
+REMAT_MODES = (False, True, 'selective')
+FRONTEND_BATCH_SAMPLES = 320000  # 21b: 20 s of waveform a dynamic batch
+# 21b's schedule: warmup and hold as ratios of max_steps
+FRONTEND_SCHEDULE = ('NoamHoldAnnealing',
+                     {'warmup_ratio': 0.2, 'hold_ratio': 0.2,
+                      'max_steps': 10})
+LORA_GA_BATCH = (2, 3000, 2800)  # 21c: B x frames (30 s), the shortest
+SVD_GAP = 1e-3  # 21c: singular values closer (relative) span a subspace
+# 21c: a singular vector, card against CPU up to its sign, within
+# SVD_RTOL + SVD_NOISE x sigma_1 / its gap to the nearest singular value
+# (Wedin's bound on two float32 solvers' backward errors; the top vector
+# of a 1280 x 1280 gradient, well apart from the next, reads 1.3e-4
+# between cuSOLVER on an H100 and LAPACK)
+SVD_RTOL, SVD_NOISE = 1e-3, 1e-5
+
+
+def remat_configs(label, mode):
+    """21a's yaml (the flagship, or train_conformer.yaml's BatchNorm at
+    REMAT_BN_BLOCKS blocks), with `gradient_checkpointing` `mode` in the
+    encoder and the decoder."""
+    import yaml
+    if label == 'flagship':
+        configs = flagship_configs()
+    else:
+        with open(BN_CONFIG) as f:
+            configs = yaml.safe_load(f)
+        configs['input_dim'], configs['output_dim'] = 80, 4233
+        configs['encoder_conf']['num_blocks'] = REMAT_BN_BLOCKS
+    configs['encoder_conf']['gradient_checkpointing'] = mode
+    configs['decoder_conf']['gradient_checkpointing'] = bool(mode)
+    return configs
+
+
+def remat_step(model, b):
+    """One forward + backward of `model` on the card in train mode, torch's
+    and the host generator seeded with SEED -> (losses, the host
+    generator's state after it, kernel launches, peak GiB allocated,
+    ms)."""
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.utils.executor import to_device_batch
+    tb = to_device_batch(b, 'cuda')
+    model.train()
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    torch.manual_seed(SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    out = model(tb['feats'], tb['feats_lengths'], tb['target'],
+                tb['target_lengths'], generator=gen)
+    out['loss'].backward()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return ({k: v.item() for k, v in out.items() if v is not None},
+            gen.get_state(), dict(fa.LAUNCHES),
+            torch.cuda.max_memory_allocated() / 2 ** 30, ms)
+
+
+def recompute_check():
+    """21a -> (the K1-train, K2, K3 launches, readings)."""
+    phase('21a gradient_checkpointing at full width: the flagship and '
+          'train_conformer.yaml\'s BatchNorm, false / true / selective')
+    from wenet_tpu_torch.utils.init_model import init_model
+    B, seconds, shortest = REMAT_STEP
+    launches = {k: 0 for k in TRAIN_KERNELS}
+    readings = {}
+    for label in ('flagship', 'batch_norm'):
+        base = init_model(remat_configs(label, False),
+                          torch.Generator('cuda').manual_seed(SEED),
+                          device='cuda')
+        with torch.no_grad():  # a cmvn that is not the identity
+            g = torch.Generator('cuda').manual_seed(SEED)
+            base.encoder.global_cmvn.mean.normal_(generator=g)
+            base.encoder.global_cmvn.istd.uniform_(0.5, 1.5, generator=g)
+        state = base.state_dict()
+        n_blocks = len(base.encoder.encoders)
+        b = train_batch(np.random.RandomState(SEED + 70), B, seconds,
+                        shortest)
+        want, rows = None, {}
+        for mode in REMAT_MODES:
+            model = init_model(remat_configs(label, mode), device='meta')
+            model.to_empty(device='cuda')
+            model.load_state_dict(state, strict=True)
+            if mode is False:  # a step to warm the card up, not held
+                remat_step(model, b)
+                model.load_state_dict(state, strict=True)
+            losses, gen_state, counts, peak, ms = remat_step(model, b)
+            grads = {n: p.grad for n, p in model.named_parameters()}
+            buffers = {n: t.detach().clone()
+                       for n, t in model.named_buffers()}
+            k1 = 2 * n_blocks if mode is True else n_blocks
+            expect = dict.fromkeys(TRAIN_KERNELS, n_blocks)
+            expect['relpos_attention_fwd_train'] = k1
+            got = {k: counts[k] for k in TRAIN_KERNELS}
+            if got != expect:
+                raise RuntimeError(f'21a {label} {mode}: launches {got}, '
+                                   f'expected {expect}')
+            for k in TRAIN_KERNELS:
+                launches[k] += got[k]
+            row = dict(step_ms=ms, peak_gib=peak, launches=got)
+            if want is None:
+                want = (losses, gen_state, grads, buffers)
+            else:
+                gap = max(abs(losses[k] - v) for k, v in want[0].items())
+                errs = torch.stack([(grads[n] - g).abs().max()
+                                    for n, g in want[2].items()]).cpu()
+                bars = 1e-3 + GRAD_SHARE * torch.stack(
+                    [g.abs().max() for g in want[2].values()]).cpu()
+                worst = errs.max().item()
+                worst_share = (errs / bars).max().item()
+                if gap > 1e-4 * abs(want[0]['loss']) + 1e-6 or \
+                        worst_share > 1.0:
+                    raise RuntimeError(
+                        f'21a {label} {mode}: loss gap {gap}, gradient gap '
+                        f'{worst} ({100 * worst_share:.0f}% of 12c\'s bar) '
+                        'against the step without recomputation')
+                stats = [n for n in buffers if n.endswith(
+                    ('running_mean', 'running_var', 'num_batches_tracked'))]
+                if label == 'batch_norm' and not stats:
+                    raise RuntimeError('21a: no BatchNorm buffers')
+                off = [n for n in stats
+                       if not torch.equal(buffers[n], want[3][n])]
+                if off:
+                    raise RuntimeError(f'21a {label} {mode}: BatchNorm '
+                                       f'buffers {off[:3]} differ from the '
+                                       'step without recomputation')
+                if not torch.equal(gen_state, want[1]):
+                    raise RuntimeError(f'21a {label} {mode}: the host '
+                                       'generator moved otherwise')
+                row.update(loss_gap=gap, grad_gap=worst,
+                           grad_share=worst_share,
+                           bn_buffers_equal=len(stats))
+            rows[str(mode)] = row
+            print(f'  {label} ({n_blocks} blocks), B={B} x {seconds:.0f} s, '
+                  f'gradient_checkpointing {mode}: step {ms:.1f} ms, peak '
+                  f'{peak:.2f} GiB allocated, launches '
+                  + ' '.join(f'{k[17:]}={v}' for k, v in got.items())
+                  + ('' if 'loss_gap' not in row else
+                     f'; against false: loss gap {row["loss_gap"]:.3g}, '
+                     f'largest gradient gap {row["grad_gap"]:.3g} '
+                     f'({100 * row["grad_share"]:.1f}% of 12c\'s bar), '
+                     f'{row["bn_buffers_equal"]} BatchNorm buffers equal, '
+                     'the host generator where false leaves it'),
+                  flush=True)
+            del model, grads
+        readings[label] = rows
+        del want
+        torch.cuda.empty_cache()
+    return launches, readings
+
+
+def frontend_recipe(d):
+    """21b's recipe: 10's written wavs (`write_recipe`) and cmvn stats; the
+    flagship yaml with the on-device front end, the encoder recomputed,
+    FRONTEND_SCHEDULE, dynamic batches of FRONTEND_BATCH_SAMPLES samples,
+    one epoch over the first train shard -> (argv, argv with dither 0)."""
+    import yaml
+    from wenet_tpu_torch.bin import compute_cmvn_stats
+    units, train_list, cv_list, scp, _ = write_recipe(d, flagship_tokenizer())
+    with open(scp) as f:  # the first shard's wavs (`write_shards`)
+        lines = f.readlines()[::RECIPE_TRAIN_SHARDS]
+    scp = os.path.join(d, 'shard0.scp')
+    with open(scp, 'w') as f:
+        f.writelines(lines)
+    cmvn = os.path.join(d, 'global_cmvn')
+    compute_cmvn_stats.main(['--train_config', CONFIG, '--in_scp', scp,
+                             '--out_cmvn', cmvn])
+    with open(train_list) as f:
+        first_shard = f.readline()
+    small = os.path.join(d, 'train_shard0.list')
+    with open(small, 'w') as f:
+        f.write(first_shard)
+    with open(CONFIG) as f:
+        configs = yaml.safe_load(f)
+    configs['tokenizer_conf']['symbol_table_path'] = units
+    configs['cmvn_conf']['cmvn_file'] = cmvn
+    configs.update(max_epoch=1, log_interval=1,
+                   scheduler=FRONTEND_SCHEDULE[0],
+                   scheduler_conf=dict(FRONTEND_SCHEDULE[1]))
+    configs['encoder_conf']['gradient_checkpointing'] = True
+    dc = configs['dataset_conf']
+    dc['on_device_frontend'] = True
+    dc['batch_conf']['max_frames_in_batch'] = FRONTEND_BATCH_SAMPLES
+    argvs = []
+    for name, dither in (('frontend', dc['fbank_conf']['dither']),
+                         ('frontend_d0', 0.0)):
+        dc['fbank_conf']['dither'] = dither
+        path = os.path.join(d, f'{name}.yaml')
+        with open(path, 'w') as f:
+            yaml.safe_dump(configs, f)
+        argvs.append(['--config', path, '--train_data', small, '--cv_data',
+                      cv_list, '--data_type', 'shard', '--seed', str(SEED),
+                      '--device', 'cuda', '--model_dir',
+                      os.path.join(d, f'exp_{name}')])
+    return argvs
+
+
+def frontend_check(smi):
+    """21b -> (launches of K1 and the training kernels, readings)."""
+    phase('21b the on-device front end through bin/train.py: waveforms in '
+          'the batch, fbank and SpecAugment on the card')
+    import logging
+    import re
+    import shutil
+    from wenet_tpu_torch.bin import train
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.utils.executor import to_device_batch
+    from wenet_tpu_torch.utils.scheduler import build_schedule
+    from wenet_tpu_torch.utils.train_utils import (frontend_conf_of,
+                                                   frontend_seed,
+                                                   make_frontend)
+    d = tempfile.mkdtemp(prefix='chip_smoke_frontend_')
+    argv, argv_d0 = frontend_recipe(d)
+    # the first step, card against CPU, at dither 0
+    configs, batch, tokenizer = entry_first_step(
+        train.get_parser().parse_args(argv_d0))
+    if batch['feats'].shape[2] != 1:
+        raise RuntimeError(f'21b: the train batch is {batch["feats"].shape}'
+                           ', not waveforms')
+    fe = make_frontend(frontend_conf_of(configs['dataset_conf']))
+    feats = [fe(to_device_batch(batch, dev), torch.Generator().manual_seed(
+        frontend_seed(SEED, 0, 0)))['feats'].cpu() for dev in ('cuda', 'cpu')]
+    masked = [f == 0 for f in feats]
+    if not torch.equal(*masked) or not masked[0].any():
+        raise RuntimeError('21b: the SpecAugment / SpecSub masks differ '
+                           'between the card and the CPU')
+    fbank_gap = (feats[0] - feats[1]).abs().max().item()
+    print(f'  front end of the first batch {tuple(batch["feats"].shape)} -> '
+          f'{tuple(feats[0].shape)}: masks equal card / CPU '
+          f'({int(masked[0].sum())} zeros), features within {fbank_gap:.3g}')
+    # bin/train.py at the yaml's dither
+    lrs, records = [], []
+
+    class Lrs(logging.Handler):
+        def emit(self, record):
+            m = re.search(r'TRAIN \|.* lr (\S+) ', record.getMessage())
+            if m:
+                lrs.append(float(m.group(1)))
+
+    handler = Lrs()
+    logging.getLogger().addHandler(handler)
+    logging.getLogger().setLevel(logging.INFO)
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        summary = train.main(argv, on_step=records.append)
+    finally:
+        logging.getLogger().removeHandler(handler)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    n_steps = len(records)
+    n_blocks = flagship_configs()['encoder_conf']['num_blocks']
+    want = build_schedule(*FRONTEND_SCHEDULE,
+                          configs['optim_conf']['lr'])
+    expect = [want(s) for s in range(n_steps)]
+    # the log prints six decimals
+    if not n_steps or len(lrs) != n_steps or not np.allclose(
+            lrs, expect, rtol=0, atol=5e-7):
+        raise RuntimeError(f'21b: logged lr {lrs} against the schedule\'s '
+                           f'{expect}')
+    expect_launches = dict.fromkeys(TRAIN_KERNELS, n_blocks * n_steps)
+    expect_launches['relpos_attention_fwd_train'] *= 2
+    got = {k: launches[k] for k in TRAIN_KERNELS}
+    if got != expect_launches or not launches['relpos_attention_fwd']:
+        raise RuntimeError(f'21b: launches {launches} over {n_steps} steps, '
+                           f'expected {expect_launches} and K1 in cv')
+    cv = summary['epochs'][0]['cv']
+    train_set, cv_set = train.datasets(train.get_parser().parse_args(argv),
+                                       configs, tokenizer)
+    dims = []
+    for ds in (train_set, cv_set):
+        it = iter(ds)
+        dims.append(next(it)['feats'].shape[2])
+        it.close()
+    if dims != [1, 80] or not np.isfinite(cv['loss']):
+        raise RuntimeError(f'21b: train / cv feature dims {dims}, cv {cv}')
+    audio_s = sum(r['audio_frames'] for r in records) / SR
+    print(f'  bin/train.py, one epoch: {n_steps} steps of B='
+          f'{[r["batch"] for r in records]} waveforms, {audio_s:.1f} s of '
+          f'audio in {wall:.1f} s (init, cv and save included; {smi}); lr '
+          f'{[float(f"{x:.4g}") for x in lrs]} = {FRONTEND_SCHEDULE[0]}\'s; '
+          f'cv loss {cv["loss"]:.4f} on host fbank (80 bins; the train '
+          f'batches carry 1); launches {launches}', flush=True)
+    shutil.rmtree(d)
+    return launches, dict(steps=n_steps, fbank_gap=fbank_gap, wall_s=wall,
+                          lr=lrs)
+
+
+def svd_bars(G, r):
+    """The top 2r singular vectors' bars (`SVD_RTOL`, `SVD_NOISE`) and
+    relative gaps to their nearest neighbour (among the top 2r + 1
+    singular values of G)."""
+    s = torch.linalg.svdvals(G.float()).double().cpu()[:2 * r + 1]
+    step = s[:-1] - s[1:]  # sigma_i - sigma_(i+1)
+    near = torch.minimum(step, torch.cat([step[:1], step[:-1]]))[:2 * r]
+    return (SVD_RTOL + SVD_NOISE * s[0] / near.clamp(min=1e-30),
+            near / s[:2 * r])
+
+
+def lora_ga_check(smi):
+    """21c -> (the K4-train, K5, K6 launches, readings)."""
+    phase('21c LoRA-GA at whisper large-v3 width (4 + 4 layers): '
+          'estimate_gradient and reinit_lora on the card against the CPU')
+    from wenet_tpu_torch.models.finetune.lora import (LoRALinear,
+                                                      estimate_gradient,
+                                                      reinit_lora)
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.utils.executor import to_device_batch
+    configs = finetune_configs(4)
+    n_layers = configs['encoder_conf']['num_blocks']
+    B, frames, shortest = LORA_GA_BATCH
+    rng = np.random.RandomState(SEED + 71)
+    model = whisper_train_model(configs, torch.Generator().manual_seed(SEED),
+                                'cpu')
+    with torch.no_grad():  # LoRA-GA starts from B = 0
+        for name, p in model.named_parameters():
+            if name.endswith('lora_B'):
+                p.zero_()
+    cpu_model = copy.deepcopy(model)
+    model.cuda()
+    batches = [whisper_train_batch(rng, B, frames, shortest)
+               for _ in range(2)]
+    # (1) the probe of one row, card against CPU
+    one = {k: v[:1] for k, v in batches[0].items()}
+    got = estimate_gradient(model, [to_device_batch(one, 'cuda')])
+    t0 = time.perf_counter()
+    want = estimate_gradient(cpu_model, [to_device_batch(one, 'cpu')])
+    cpu_s = time.perf_counter() - t0
+    worst_grad = 0.0
+    for n, g in want.items():
+        err = (got[n].cpu() - g).abs().max().item()
+        share = err / (1e-3 + GRAD_SHARE * g.abs().max().item())
+        worst_grad = max(worst_grad, share)
+        if share > 1.0 or not torch.isfinite(got[n]).all():
+            raise RuntimeError(f'21c: the probe\'s {n} differs from the CPU '
+                               f'by {err:.3g}, {100 * share:.0f}% of 12c\'s '
+                               'bar')
+    del got
+    # (2) the probe over two batches on the card
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    grads = estimate_gradient(model, [to_device_batch(b, 'cuda')
+                                      for b in batches])
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    launches = {k: fa.LAUNCHES[k] for k in FLASH_TRAIN_KERNELS}
+    if any(n != 2 * n_layers for n in launches.values()) or \
+            fa.LAUNCHES['flash_attention_fwd']:
+        raise RuntimeError(f'21c: launches {dict(fa.LAUNCHES)}, expected '
+                           f'{n_layers} of each training kernel a batch')
+
+    def loss(m, dev):
+        m.eval()
+        tb = to_device_batch(batches[0], dev)
+        with torch.no_grad():
+            return m(tb['feats'], tb['feats_lengths'], tb['target'],
+                     tb['target_lengths'])['loss'].item()
+
+    before = loss(model, 'cuda')
+    # (3) the reinit on the card, and on the CPU from the same gradient
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reinit_lora(model, grads, 'gradient')
+    torch.cuda.synchronize()
+    svd_card_s = time.perf_counter() - t0
+    cpu_grads = {n: g.cpu() for n, g in grads.items()
+                 if n.endswith('.weight')}
+    t0 = time.perf_counter()
+    reinit_lora(cpu_model, cpu_grads, 'gradient')
+    svd_cpu_s = time.perf_counter() - t0
+    after = loss(model, 'cuda')
+    if not abs(after - before) <= 1e-4 * abs(before):
+        raise RuntimeError(f'21c: loss {before} before the reinit, {after} '
+                           'after it (rtol 1e-4)')
+    cpu_layers = dict(cpu_model.named_modules())
+    worst_share, worst_vec, smallest_gap = 0.0, 0.0, np.inf
+    subspaces, layers, worst_w = 0, 0, 0.0
+    for name, m in model.named_modules():
+        if not isinstance(m, LoRALinear):
+            continue
+        layers += 1
+        r = m.lora_A.shape[0]
+        c = cpu_layers[name]
+        A, Bm = m.lora_A.detach().cpu(), m.lora_B.detach().cpu()
+        cA, cB = c.lora_A.detach(), c.lora_B.detach()
+        bars, gaps = svd_bars(grads[name + '.weight'], r)
+        smallest_gap = min(smallest_gap, gaps.min().item())
+        if gaps[r - 1] < SVD_GAP or gaps[r] < SVD_GAP:
+            raise RuntimeError(f'21c {name}: singular values {r} and '
+                               f'{r + 1} within {SVD_GAP}: A and B are not '
+                               'defined')
+        if gaps.min() < SVD_GAP:  # hold the spanned subspaces
+            subspaces += 1
+            errs = torch.tensor(
+                [((x.T @ x) - (y.T @ y)).abs().max().item() /
+                 (y.T @ y).abs().max().item()
+                 for x, y in ((A, cA), (Bm.T, cB.T))])
+            bar = torch.full_like(errs, float(bars.max()))
+            sa = sb = None
+        else:
+            sa = torch.sign((A * cA).sum(1, keepdim=True))
+            sb = torch.sign((Bm * cB).sum(0, keepdim=True))
+            errs = torch.cat([(A * sa - cA).norm(dim=1) / cA.norm(dim=1),
+                              (Bm * sb - cB).norm(dim=0) / cB.norm(dim=0)])
+            bar = bars.float()
+        share = (errs / bar).max().item()
+        worst_share = max(worst_share, share)
+        worst_vec = max(worst_vec, errs.max().item())
+        if share > 1.0:
+            raise RuntimeError(f'21c {name}: A / B off the CPU\'s by '
+                               f'{errs.tolist()} (relative, up to sign; '
+                               f'bars {bar.tolist()})')
+        if sa is not None:  # the compensated weight, signs lined up
+            w0 = m.weight.detach().cpu() + m.scaling * (Bm @ A)
+            aligned = w0 - m.scaling * ((Bm * sb) @ (A * sa))
+            err_w = (aligned - c.weight.detach()).abs().max().item()
+            worst_w = max(worst_w, err_w)
+            bar_w = 1e-6 + m.scaling * (Bm @ A).abs().max().item() * \
+                bar.max().item()
+            if err_w > bar_w:
+                raise RuntimeError(f'21c {name}: the compensated weight '
+                                   f'differs from the CPU\'s by {err_w}')
+    print(f'  estimate_gradient of one 30 s row: card = CPU within '
+          f'{100 * worst_grad:.1f}% of 12c\'s bar (the CPU {cpu_s:.1f} s); '
+          f'over two batches of B={B} x 30 s on the card {probe_s:.2f} s, '
+          f'launches {launches} ({n_layers} a batch each)', flush=True)
+    print(f'  reinit_lora(\'gradient\') over {layers} layers: SVDs and '
+          f'compensation {svd_card_s:.3f} s on the card, {svd_cpu_s:.2f} s '
+          f'on the CPU (information; {smi}); A\'s rows and B\'s columns the '
+          f'CPU\'s up to sign within {worst_vec:.3g} relative, '
+          f'{100 * worst_share:.0f}% of their bars ({subspaces} layers held '
+          f'as subspaces; smallest relative gap of a top-2r singular value '
+          f'{smallest_gap:.3g}); the compensated weights within '
+          f'{worst_w:.3g}; loss {before:.6f} -> {after:.6f} across the '
+          f'reinit', flush=True)
+    del model, cpu_model, grads
+    torch.cuda.empty_cache()
+    return launches, dict(svd_card_s=svd_card_s, svd_cpu_s=svd_cpu_s,
+                          probe_s=probe_s, grad_share=worst_grad,
+                          vector_err=worst_vec, vector_share=worst_share,
+                          smallest_gap=smallest_gap)
+
+
+def expert_parallel_recipe(d):
+    """18d's recipe (`parallel_recipe`) with 19a's MoE-GQA options in
+    encoder and decoder and `model_axis` (min_dim 512: only the experts
+    are cut) -> the argv of bin/train.py."""
+    import yaml
+    argv, _ = parallel_recipe(d, flagship_tokenizer())
+    with open(argv[1]) as f:
+        configs = yaml.safe_load(f)
+    configs['encoder_conf'].update(MOE_OPTIONS)
+    configs['decoder_conf'].update(MOE_OPTIONS)
+    configs['sharding_conf'] = {'model_axis': True, 'min_dim': 512}
+    path = os.path.join(d, 'moe.yaml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(configs, f)
+    return ['--config', path] + argv[2:]
+
+
+def expert_parallel_start():
+    """21d's ranks, started: two gloo ranks of bin/train.py on the card
+    with --mesh data=1,model=2 -> (dir, argv, what `finish_ranks` waits
+    on)."""
+    d = tempfile.mkdtemp(prefix='chip_smoke_experts_')
+    argv = expert_parallel_recipe(d)
+    return d, argv, start_ranks(d, 'experts', ['--nproc_per_node', '2'],
+                                argv + ['--mesh', 'data=1,model=2',
+                                        '--dist_backend', 'gloo'])
+
+
+def expert_parallel_check(started):
+    """21d -> (the K1-train, K2, K3 launches of both ranks, readings)."""
+    phase('21d expert parallelism: two gloo ranks on the card, --mesh '
+          'data=1,model=2, 19a\'s MoE-GQA conformer (8 experts)')
+    import shutil
+    from wenet_tpu_torch.bin import train
+    from wenet_tpu_torch.utils.executor import to_device_batch
+    d, argv, ranks_started = started
+    try:
+        args = train.get_parser().parse_args(
+            argv + ['--model_dir', os.path.join(d, 'exp_one')])
+        run = train.build(args)
+        tr, _ = train.datasets(args, run.configs, run.tokenizer)
+        tr.set_epoch(0)
+        it = iter(tr)
+        batch = next(it)
+        it.close()
+        _, metrics = run.train_step(run.state, to_device_batch(batch,
+                                                               'cuda'),
+                                    (SEED, 0))
+        want = {k: float(v) for k, v in metrics.items()}
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in run.model.named_parameters()}
+        shapes = {k: tuple(v.shape) for k, v in
+                  run.model.state_dict().items()}
+        n_experts = sum('.experts_' in k for k in shapes)
+        n_blocks = len(run.model.encoder.encoders)
+        del run
+        torch.cuda.empty_cache()
+    except BaseException:
+        stop_ranks(ranks_started)
+        raise
+    ranks, wall = finish_ranks(ranks_started)
+    if len(ranks) != 2 or len({tuple(r['steps']) for r in ranks}) != 1:
+        raise RuntimeError(f'21d: {len(ranks)} rank records')
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    for r in ranks:
+        steps = sum(r['steps'])
+        for k in TRAIN_KERNELS:
+            if r['launches'][k] != n_blocks * steps:
+                raise RuntimeError(f'21d: {k} launched {r["launches"][k]} '
+                                   f'times over {steps} steps')
+            launches[k] += r['launches'][k]
+        for k in ('loss', 'loss_att', 'loss_ctc'):
+            if not abs(r['metrics'][k] - want[k]) <= 1e-4 * abs(want[k]):
+                raise RuntimeError(f'21d: first step {k} {r["metrics"][k]} '
+                                   f'against {want[k]} in one process')
+    got = torch.load(os.path.join(d, 'experts', 'grads0.pt'),
+                     map_location='cpu')
+    if got.keys() != grads.keys():
+        raise RuntimeError('21d: the ranks\' gradients have other keys')
+    worst = 0.0
+    for k, g in grads.items():
+        err = (got[k] - g).abs().max().item()
+        share = err / (1e-3 + GRAD_SHARE * g.abs().max().item())
+        worst = max(worst, share)
+        if share > 1.0:
+            raise RuntimeError(f'21d: gradient of {k} off the one-process '
+                               f'step by {err:.3g}')
+    final = torch.load(os.path.join(d, 'exp_experts', 'final.pt'),
+                       map_location='cpu')
+    got_shapes = {k: tuple(v.shape) for k, v in final.items()}
+    if got_shapes != shapes:
+        raise RuntimeError('21d: final.pt has other keys or shapes than one '
+                           'process\'s model')
+    print(f'  two ranks, each with 4 of the 8 experts of every MoE layer '
+          f'({n_experts} expert tensors cut): {ranks[0]["steps"]} steps each; '
+          f'first loss {ranks[0]["metrics"]["loss"]:.6f} / '
+          f'{ranks[1]["metrics"]["loss"]:.6f} against {want["loss"]:.6f} in '
+          f'one process, gradients (the experts gathered) within '
+          f'{100 * worst:.1f}% of 12c\'s bar; final.pt the one-process keys '
+          f'and shapes; {wall:.1f} s; launches a rank {ranks[0]["launches"]}',
+          flush=True)
+    shutil.rmtree(d)
+    return launches, dict(wall_s=wall, grad_share=worst,
+                          steps=ranks[0]['steps'])
+
+
+def queue1_check(smi):
+    """Phase 21: 21d's ranks start first and run beside 21a-21c -> ({21a,
+    21b, 21c, 21d: launches}, {...: readings})."""
+    started = expert_parallel_start()
+    try:
+        out = {'21a': recompute_check(), '21b': frontend_check(smi),
+               '21c': lora_ga_check(smi)}
+    except BaseException:
+        stop_ranks(started[2])
+        raise
+    out['21d'] = expert_parallel_check(started)
+    return ({k: v[0] for k, v in out.items()},
+            {k: v[1] for k, v in out.items()})
+
+
+# ---------------------------------------------------------------------------
 # The schedule: which process runs which phase, and each phase's budget
 # ---------------------------------------------------------------------------
 # Every top-level phase is one or more units: a function of the run's
@@ -8992,11 +9628,13 @@ UNITS = {  # unit: (top-level phase, fn(context), names of its results)
            ('opt_launches', 'opt_readings')),
     '20': ('20', lambda c: zoo_served_check(c['smi']),
            ('served_launches', 'served_readings')),
+    '21': ('21', lambda c: queue1_check(c['smi']),
+           ('q1_launches', 'q1_readings')),
 }
 # alone on the card, in this order: the kernels' times, the throughputs,
 # and this slice's phase, held to its own budget (PHASE_BUDGET_S)
 ALONE = ['2b', '3', '4', '5', '6a', '6b', '6d', '7a', '7c', '8a', '8c', '16a',
-         '19ck', '20']
+         '19ck', '20', '21']
 # then these side by side, each lane's units in order (18 reads 13a's
 # TLG), balanced by their seconds beside each other (PERF.md, chip_smoke's
 # phases)
@@ -9011,7 +9649,7 @@ LANES = [['12', '16be', '10', '7b'], ['14', '11', '8b'],
 PHASE_BUDGET_S = {'2b': 45, '3': 60, '4': 45, '5': 30, '6': 120, '7': 120,
                   '8': 120, '9': 240, '10': 150, '11': 240, '12': 300,
                   '13': 360, '14': 360, '15': 240, '16': 240, '17': 240,
-                  '18': 240, '19': 240, '20': 180}
+                  '18': 240, '19': 240, '20': 180, '21': 180}
 SCRIPT_BUDGET_S = 1150.0  # the lanes are stopped by then, whatever is left
 _BUDGET = {'phase': None, 'deadline': None}
 
@@ -9158,6 +9796,9 @@ def kernels_line(r):
     opt, served, para = (r['opt_launches'], r['served_launches'],
                          r['para_launches'])
     whisper, errors = r['whisper_launches'], r['fp32_errors']
+    q1 = r['q1_launches']
+    remat, frontend, lora_ga, experts = (q1[k] for k in ('21a', '21b', '21c',
+                                                         '21d'))
     ssl, k2 = ({k: v[part] for k, v in r['ssl_k2_launches'].items()}
                for part in ('ssl', 'k2'))
     k1 = 'relpos_attention_fwd'
@@ -9168,7 +9809,8 @@ def kernels_line(r):
         'launches': r['launches'] + r['stream_launches'] +
         r['batched_launches'] + r['recognize_launches'] + zoo[k1] +
         r['wfst_launches'] + r['export_launches'] + rnnt[k1] + ssl[k1] +
-        k2[k1] + scale[k1] + opt[k1] + served[k1], **r['report'],
+        k2[k1] + scale[k1] + opt[k1] + served[k1] + frontend[k1],
+        **r['report'], 'launches_frontend_cv': frontend[k1],
         'fp32_error': errors['K1'],
         'launches_zoo_served': served[k1], 'zoo_served': r['served_readings'],
         'launches_zoo': zoo[k1], 'zoo_decode': r['zoo_readings'],
@@ -9193,8 +9835,12 @@ def kernels_line(r):
                             replaces=replaces,
                             launches=r['train_launches'][name] + zoo[name] +
                             rnnt[name] + ssl[name] + k2[name] +
-                            scale[name] + opt[name] + served[name],
+                            scale[name] + opt[name] + served[name] +
+                            remat[name] + frontend[name] + experts[name],
                             launches_zoo_served=served[name],
+                            launches_remat=remat[name],
+                            launches_frontend=frontend[name],
+                            launches_expert_parallel=experts[name],
                             fp32_error=errors[FP32_ERROR_ID[name]],
                             launches_train_entry=r['entry_launches'][name],
                             launches_zoo=zoo[name],
@@ -9225,8 +9871,9 @@ def kernels_line(r):
                             replaces=replaces,
                             launches=r['flash_train_launches'][name] +
                             zoo[name] + whisper[name] + para[name] +
-                            opt[name],
+                            opt[name] + lora_ga[name],
                             launches_zoo_options=opt[name],
+                            launches_lora_ga=lora_ga[name],
                             fp32_error=errors[FP32_ERROR_ID[name]],
                             shaw=r['opt_kernels'][name],
                             launches_zoo=zoo[name],

@@ -166,10 +166,16 @@ def test_dataset_reads_flac_lists_as_wavs(data_dir, tmp_path):
 
 
 def test_on_device_frontend_raises(data_dir):
-    from wenet_tpu_torch.dataset.dataset import Dataset
-    with pytest.raises(NotImplementedError, match='queue 1 item 4'):
-        Dataset('raw', str(data_dir / 'data.list'), None,
-                _conf(BATCHES['static'], on_device_frontend=True))
+    """The port took `on_device_frontend` only to raise; now its batches
+    are the JAX Dataset's: (B, S, 1) waveforms, lengths in samples, the
+    host augmentations skipped (spec_aug, spec_sub and spec_trim on)."""
+    conf = _conf(BATCHES['static'], on_device_frontend=True, spec_aug=True,
+                 spec_sub=True, spec_trim=True)
+    got = _batches('port', 'raw', data_dir / 'data.list', conf)
+    assert all(b['feats'].ndim == 3 and b['feats'].shape[2] == 1
+               for b in got)
+    _assert_same_batches(got, _batches('jax', 'raw',
+                                       data_dir / 'data.list', conf))
 
 
 # ---------------------------------------------------------------------------

@@ -25,10 +25,11 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_utils import (IDIM, TINY_CONFIG, VOCAB, feats, jax_model,
+from torch_port_utils import (TINY_CONFIG, VOCAB, feats, jax_model,
                               torch_model, zoo_config)
 
 ATOL = 2e-4
+DECODERS = ['decoder_no_output_layer', 'decoder_post_norm_no_src']
 FULL_ATOL = 1e-4
 GRAD_SHARE = 2e-4  # 12c's bar: 1e-3 + this share of the largest gradient
 # name: (ZOO_ENCODERS entry or None for the tiny conformer, encoder_conf
@@ -163,191 +164,6 @@ def test_loss_and_grads_match_jax(name):
         np.testing.assert_allclose(
             p.grad.numpy(), w, rtol=0, err_msg=pname,
             atol=1e-3 + GRAD_SHARE * float(np.abs(w).max()))
-
-
-DECODERS = ['decoder_no_output_layer', 'decoder_post_norm_no_src']
-MODES = ['ctc_greedy_search', 'ctc_prefix_beam_search',
-         'attention_rescoring', 'attention']
-
-
-@pytest.mark.parametrize('name', sorted(FAMILIES))
-def test_decode_matches_jax(name):
-    """Every decode mode (for the decoder families: attention rescoring
-    and the attention beam search, the incremental step, with the
-    beam-folded cross attention where there is one) gives the JAX
-    package's hypotheses.  Without an output layer the decoder's log-probs
-    are over its D = 64 hidden units, not the 30 tokens, so the beam
-    search picks ids past the vocabulary, which the JAX package's
-    embedding clamps and the port's refuses (IndexError): there the
-    attention beam search is not held."""
-    from wenet_tpu.models.runner import AsrRunner as JaxRunner
-    from wenet_tpu_torch.models.runner import AsrRunner
-    cfg, model, variables, tmodel = models(name)
-    x, lens, _, _ = batch(3, B=4, T=91)
-    modes = [m for m in MODES
-             if not (name == 'decoder_no_output_layer' and m == 'attention')]
-    kw = dict(beam_size=3, ctc_weight=0.3,
-              reverse_weight=cfg['model_conf']['reverse_weight'])
-    want = JaxRunner(model, variables).decode(modes, x, lens, **kw)
-    got = AsrRunner(tmodel, 'cpu').decode(modes, x, lens, **kw)
-    for mode in modes:
-        assert [r.tokens for r in got[mode]] == \
-            [r.tokens for r in want[mode]], mode
-
-
-def test_no_pos_decoder_matches_jax():
-    """The `no_pos` decoder takes (B, L, D) embeddings, as the JAX one
-    does: its forward and two incremental steps on the same float inputs
-    within 2e-4; token ids raise, as they fail in the JAX package's
-    model."""
-    import jax
-    import jax.numpy as jnp
-    from wenet_tpu.models.transformer.decoder import (
-        TransformerDecoder as JaxDecoder)
-    from wenet_tpu_torch.models.transformer.decoder import TransformerDecoder
-    from wenet_tpu_torch.utils.checkpoint import state_dict_from_jax
-    from wenet_tpu_torch.utils.init_model import init_model
-    conf = dict(attention_heads=2, linear_units=128, num_blocks=2,
-                dropout_rate=0.0, positional_dropout_rate=0.0,
-                input_layer='no_pos')
-    rng = np.random.RandomState(6)
-    mem = rng.randn(2, 9, 64).astype(np.float32)
-    mem_mask = np.arange(9)[None, None, :] < np.asarray([9, 6])[:, None,
-                                                                None]
-    tgt = rng.randn(2, 5, 64).astype(np.float32)
-    lens = np.asarray([5, 3])
-    jd = JaxDecoder(vocab_size=VOCAB, encoder_output_size=64, **conf)
-    variables = jd.init(jax.random.PRNGKey(3), jnp.asarray(mem),
-                        jnp.asarray(mem_mask), jnp.asarray(tgt),
-                        jnp.asarray(lens))
-    td = TransformerDecoder(VOCAB, 64, **conf).eval()
-    td.load_state_dict(state_dict_from_jax(variables), strict=True)
-    want = jd.apply(variables, jnp.asarray(mem), jnp.asarray(mem_mask),
-                    jnp.asarray(tgt), jnp.asarray(lens))[0]
-    with torch.no_grad():
-        got, _ = td(torch.from_numpy(mem), torch.from_numpy(mem_mask),
-                    torch.from_numpy(tgt), torch.from_numpy(lens))
-    _close(got, want)
-    jstate = jd.apply(variables, jnp.asarray(mem), 4,
-                      method=jd.init_state)
-    with torch.no_grad():
-        tstate = td.init_state(torch.from_numpy(mem), 4)
-        for step in range(2):
-            tok = tgt[:, step:step + 1]
-            jlogp, jstate = jd.apply(variables, jnp.asarray(tok), step,
-                                     jstate, jnp.asarray(mem_mask),
-                                     method=jd.forward_step)
-            tlogp, tstate = td.forward_step(torch.from_numpy(tok), step,
-                                            tstate,
-                                            torch.from_numpy(mem_mask))
-            _close(tlogp, jlogp)
-    cfg = copy.deepcopy(TINY_CONFIG)
-    cfg['decoder_conf']['input_layer'] = 'no_pos'
-    with pytest.raises(ValueError, match='decoder.py:129'):
-        tmodel = init_model(cfg, device='cpu')
-        x, xl, t, tl = batch(4)
-        tmodel(*(torch.from_numpy(np.asarray(a)) for a in (x, xl, t, tl)))
-    with pytest.raises(ValueError):  # the JAX model fails on the ids too
-        jax_model(cfg)
-
-
-@pytest.mark.parametrize('name', sorted(n for n, f in FAMILIES.items()
-                                         if f[3] is not None))
-def test_streaming(name):
-    """Chunk 4 over a padded tail: the chunk loop equals the full forward
-    under the chunk mask (1e-4), or where the encoder does not stream so
-    (Squeezeformer's time reduction, the efficient conformer's strides)
-    the JAX package's chunk loop (2e-4)."""
-    import jax.numpy as jnp
-    from wenet_tpu.models.transformer.streaming import (
-        StreamingConfig as JaxConfig, forward_chunk_by_chunk as jax_fcc)
-    from wenet_tpu_torch.models.transformer.streaming import (
-        StreamingConfig, forward_chunk_by_chunk)
-    _, model, variables, tmodel = models(name)
-    how = FAMILIES[name][3]
-    frames = 143
-    x = np.random.RandomState(5).randn(1, frames, IDIM).astype(np.float32)
-    with torch.inference_mode():
-        ty, _ = forward_chunk_by_chunk(tmodel, torch.from_numpy(x),
-                                       StreamingConfig(4, -1))
-        if how == 'full':
-            want, _ = tmodel.forward_encoder(torch.from_numpy(x),
-                                             torch.tensor([frames]), 4, -1)
-            assert ty.shape == want.shape
-            _close(ty, want.numpy(), FULL_ATOL)
-            return
-    jy, _ = jax_fcc(model, variables, jnp.asarray(x), JaxConfig(4, -1))
-    assert tuple(ty.shape) == jy.shape
-    _close(ty, jy)
-
-
-EXPORTED = ['conformer_no_cnn_module', 'conformer_conv_bias_inner',
-            'decoder_no_output_layer', 'decoder_post_norm_no_src',
-            'efficient_post_norm_static']
-
-
-@pytest.mark.parametrize('name', EXPORTED)
-def test_export_equals_eager(name):
-    """bin/export_model's programs (the chunk step, the full encoder, the
-    rescoring decoder) equal eager within 1e-5; a decoder option's
-    encoder is the tiny conformer, whose programs
-    tests/test_torch_export.py holds, so only its decoder is exported."""
-    from wenet_tpu_torch.bin import export_model as E
-    from wenet_tpu_torch.models.transformer.streaming import StreamingConfig
-    _, _, _, tmodel = models(name)
-    enc = tmodel.encoder
-    outs, wants = [], []
-    if name not in DECODERS:
-        cfg = StreamingConfig(4, 2, enc.subsampling_rate, enc.right_context)
-        prog, args = E.export_encoder_chunk(tmodel, cfg, IDIM, device='cpu')
-        args = list(args)
-        args[1] = torch.tensor([6])
-        args[2] = torch.randn(args[2].shape, generator=torch.Generator()
-                              .manual_seed(1))
-        x, lens = (torch.from_numpy(a) for a in feats(9, B=3, T=4 * 20 + 7))
-        full, _ = E.export_encoder_full(tmodel, IDIM, device='cpu')
-        outs += [prog.module()(*args), full.module()(x, lens)]
-        with torch.no_grad():
-            wants += [E._ChunkStep(tmodel)(*args),
-                      E._FullEncoder(tmodel)(x, lens)]
-    dec = E.export_decoder(tmodel, 3, 8, enc.output_size(), 0.3, 'cpu')
-    hyps = torch.tensor([[2, 5, 6, 2, 2, 2, 2, 2]] * 3)
-    dec_args = (hyps, torch.tensor([3, 4, 1]), torch.randn(1, 13, 64))
-    outs.append(dec.module()(*dec_args))
-    with torch.no_grad():
-        wants.append(E._Rescore(tmodel, 0.3)(*dec_args))
-    for got, want in zip(outs, wants):
-        for g, w in zip(got, want):
-            if w is not None:
-                torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
-
-
-@pytest.mark.parametrize('name', ['conformer_conv_bias_inner',
-                                  'conformer_no_macaron_relu',
-                                  'decoder_no_output_layer',
-                                  'branchformer_post_norm',
-                                  'efficient_no_pos_no_cnn'])
-def test_jax_torch_checkpoint_loads_strict(tmp_path, name):
-    """The reference-layout .pt that the JAX package writes
-    (`save_torch_checkpoint`) loads strict into the port's model and gives
-    its outputs: no key missing or extra without the macaron FFN, the
-    conv bias, the output layer or the after_norm."""
-    from wenet_tpu.utils.checkpoint import save_torch_checkpoint
-    from wenet_tpu_torch.utils.checkpoint import load_checkpoint
-    from wenet_tpu_torch.utils.init_model import init_model
-    cfg, _, variables, tmodel = models(name)
-    path = str(tmp_path / 'final.pt')
-    save_torch_checkpoint(variables, path)
-    loaded = init_model(copy.deepcopy(cfg), device='cpu')
-    load_checkpoint(loaded, path)
-    loaded.eval()
-    x, lens, _, _ = batch(5)
-    with torch.no_grad():
-        got = loaded.forward_encoder(torch.from_numpy(x),
-                                     torch.from_numpy(lens))[0]
-        want = tmodel.forward_encoder(torch.from_numpy(x),
-                                      torch.from_numpy(lens))[0]
-    torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 # --- on the card ---------------------------------------------------------

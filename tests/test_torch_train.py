@@ -211,8 +211,8 @@ def test_warmup_schedule_matches_jax():
     want = jax_warmup(0.001, 25000)
     for step in (0, 1, 99, 24999, 25000, 10 ** 6):
         np.testing.assert_allclose(got(step), float(want(step)), rtol=1e-6)
-    with pytest.raises(NotImplementedError):
-        build_schedule('cosine_annealing', {}, 0.001)
+    with pytest.raises(ValueError, match='unknown scheduler'):
+        build_schedule('no_such_schedule', {}, 0.001)
 
 
 def test_dynamic_chunk_draw_statistics():

@@ -452,9 +452,10 @@ def _env():
 def test_moe_model2_step_equals_one_process(tmp_path):
     """Two gloo ranks, `model_axis` over model=2 (min_dim 64): the linear
     maps are cut as the JAX rule cuts them, the stacked experts (E, D, H)
-    stay whole (the JAX 3-D rule would cut them over experts), and the
-    step's losses, gradients and weights equal one process's (losses
-    rtol 1e-5, weights 1e-6, gradients 2e-4)."""
+    and their biases over the experts, two of the four on each rank (the
+    JAX 3-D rule), and the step's losses, gradients (the router's on each
+    rank too) and weights equal one process's (losses rtol 1e-5, weights
+    1e-6, gradients 2e-4)."""
     from wenet_tpu_torch.utils.executor import to_device_batch
     from wenet_tpu_torch.utils.init_model import init_model
     from wenet_tpu_torch.utils.train_utils import (
@@ -488,9 +489,10 @@ def test_moe_model2_step_equals_one_process(tmp_path):
     for r in range(2):
         got = torch.load(tmp_path / f'moe_model2_rank{r}.pt')
         sharded = got['sharded']
-        assert sharded and not any('experts' in k for k in sharded)
+        experts = [k for k in model.state_dict() if '.experts_' in k]
+        assert experts and all(sharded[k] == 0 for k in experts)
         assert got['local_shapes'][
-            'encoder.encoders.0.feed_forward.experts_w1'] == (4, 128, 128)
+            'encoder.encoders.0.feed_forward.experts_w1'] == (2, 128, 128)
         for k in ('loss', 'loss_att', 'loss_ctc', 'grad_norm'):
             np.testing.assert_allclose(got['step']['metrics'][k],
                                        float(metrics[k]), rtol=1e-5,

@@ -1,5 +1,7 @@
-"""One rank of the multi-process checks of tests/test_torch_parallel.py
-and tests/test_torch_zoo_slice.py (`moe_model2`), on the CPU over gloo;
+"""One rank of the multi-process checks of tests/test_torch_parallel.py,
+tests/test_torch_zoo_slice.py (`moe_model2`) and
+tests/test_torch_expert_parallel.py (`moe_data2_model2_zero2`), on the
+CPU over gloo;
 imports no JAX:
 
     python tests/torch_parallel_worker.py SCENARIO RANK WORLD INIT_FILE DIR
@@ -209,8 +211,29 @@ def moe_model2(ranks, work):
                          weights=run.weights())}
 
 
+def moe_data2_model2_zero2(ranks, work):
+    """data=2, model=2 with zero2 over the MoE config of
+    tests/test_torch_expert_parallel.py: the first step, the whole
+    optimizer state after the second, and the resume."""
+    shape = {'data': 2, 'model': 2}
+    sharding = {'model_axis': True, 'min_dim': 64, 'zero2': True}
+    run = Run(ranks, work, 'moe', shape, sharding)
+    out = {'sharded': dict(run.layout.sharded),
+           'local_shapes': {n: tuple(p.shape) for n, p in
+                            run.model.named_parameters()},
+           'data_rank': run.mesh.data_rank,
+           'model_rank': run.mesh.model_rank,
+           'step': dict(metrics=run.step(0), grads=run.grads(),
+                        weights=run.weights())}
+    run.step(1)
+    out['optimizer'] = run.layout.optimizer_state_dict(run.opt)
+    out['resume'] = resume(ranks, work, 'moe', shape, sharding, 'moe_zero2')
+    return out
+
+
 SCENARIOS = {'data2': data2, 'model2': model2, 'data2_model2': data2_model2,
-             'moe_model2': moe_model2}
+             'moe_model2': moe_model2,
+             'moe_data2_model2_zero2': moe_data2_model2_zero2}
 
 
 def main():

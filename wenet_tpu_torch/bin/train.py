@@ -27,7 +27,9 @@ resumes at the epoch after its `epoch`, at its `step`; a checkpoint
 without LoRA factors (models/whisper/convert.py's, for a `lora_conf`
 yaml such as examples/aishell/whisper/conf/finetune_whisper_largev3.yaml)
 leaves them at their initial values.  `dtype: bf16` trains under bf16
-autocast.
+autocast.  `dataset_conf.on_device_frontend` batches waveforms and computes
+fbank, SpecAugment and SpecSub in the train step on the card
+(`make_frontend`); cv reads host features.
 
 `dataset: ssl` (the BEST-RQ, wav2vec 2.0 and W2V-BERT yamls, e.g.
 examples/librispeech/ssl/conf/train_bestrq.yaml) pretrains on a
@@ -57,7 +59,7 @@ from wenet_tpu_torch.utils.config import load_config, save_config
 from wenet_tpu_torch.utils.executor import Executor
 from wenet_tpu_torch.utils.init_model import init_model
 from wenet_tpu_torch.utils.init_tokenizer import init_tokenizer
-from wenet_tpu_torch.utils.train_utils import (TrainState,
+from wenet_tpu_torch.utils.train_utils import (TrainState, frontend_conf_of,
                                                init_optimizer_and_scheduler,
                                                make_cv_step, make_train_step,
                                                restore_optimizer_step)
@@ -95,11 +97,12 @@ def get_parser() -> argparse.ArgumentParser:
 def datasets(args, configs, tokenizer, num_shards=1, shard_id=0):
     """(train, cv) pipelines: train sharded `num_shards` ways (this data
     rank's `shard_id`), cv without speed perturb, SpecAugment, SpecSub,
-    SpecTrim or shuffles, one cycle, replicated."""
+    SpecTrim or shuffles, one cycle, replicated, on host features also
+    where the train set carries waveforms (`on_device_frontend`)."""
     train_conf = dict(configs['dataset_conf'], prefetch=args.prefetch)
     cv_conf = dict(train_conf, speed_perturb=False, spec_aug=False,
                    spec_sub=False, spec_trim=False, shuffle=False,
-                   list_shuffle=False, cycle=1)
+                   list_shuffle=False, cycle=1, on_device_frontend=False)
     train = Dataset(args.data_type, args.train_data, tokenizer, train_conf,
                     partition=True, num_shards=num_shards,
                     shard_id=shard_id, seed=args.seed)
@@ -175,7 +178,8 @@ def build(args) -> types.SimpleNamespace:
         state = restore_optimizer_step(state, step, accum)
     dtype = {'bf16': torch.bfloat16}.get(configs.get('dtype', 'fp32'))
     train_step = make_train_step(model, optimizer, schedule, dtype, accum,
-                                 configs.get('grad_clip', 0.0), layout)
+                                 configs.get('grad_clip', 0.0), layout,
+                                 frontend_conf_of(dc))
     return types.SimpleNamespace(
         configs=configs, tokenizer=tokenizer, train_dataset=train_dataset,
         cv_dataset=cv_dataset, model=model, optimizer=optimizer,
@@ -196,11 +200,13 @@ def _summary_writer(tensorboard_dir, model_dir):
 
 
 def _frame_seconds(dataset_conf: dict) -> float:
-    """Seconds of audio per feature frame."""
+    """Seconds of audio per feature frame (per sample with the on-device
+    front end: the train batches' lengths are samples)."""
+    rate = dataset_conf.get('resample_conf', {}).get('resample_rate', 16000)
+    if dataset_conf.get('on_device_frontend', False):
+        return 1.0 / rate
     if dataset_conf.get('feats_type', 'fbank') == 'log_mel_spectrogram':
         conf = dataset_conf.get('log_mel_spectrogram_conf', {})
-        rate = dataset_conf.get('resample_conf', {}).get('resample_rate',
-                                                         16000)
         return conf.get('hop_length', 160) / rate
     conf = dataset_conf.get('fbank_conf', dataset_conf.get('mfcc_conf', {}))
     return conf.get('frame_shift', 10) / 1000

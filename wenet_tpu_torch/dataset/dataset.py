@@ -1,7 +1,11 @@
 """The data pipeline from train.yaml's `dataset_conf`.  Counterpart of
 wenet_tpu/dataset/dataset.py: the same stages in the same order, `raw`
 (JSON lines) and `shard` (tar) lists, `static`, `bucket` and `dynamic`
-batches, `pad_conf` and `speaker_conf`.
+batches, `pad_conf` and `speaker_conf`.  With `on_device_frontend` a
+batch's 'feats' are the waveforms, (B, S, 1) with lengths in samples
+(`processor.raw_wav_feats`), and the host computes no features and no
+SpecAugment, SpecSub or SpecTrim: the train step does (utils/
+train_utils.py `make_frontend`).
 
 Randomness: every random stage (the list shuffle, the speed choice,
 dither, SpecAugment, SpecSub, SpecTrim and the sample shuffle) draws
@@ -43,11 +47,6 @@ class Dataset(DataPipe):
             raise ValueError('Dataset needs a dataset_conf')
         if data_type not in ('raw', 'shard'):
             raise ValueError(f'data_type {data_type!r}: raw or shard')
-        if conf.get('on_device_frontend', False):
-            raise NotImplementedError(
-                'on_device_frontend (fbank and SpecAugment in the train '
-                'step, ops/spec_augment.py) is not ported (ROADMAP.md, '
-                'queue 1 item 4)')
         self.seed = conf.get('seed', 777) if seed is None else seed
         self.epoch = 0
         self.source = self._build(data_type, data_list_file, tokenizer,
@@ -105,25 +104,29 @@ class Dataset(DataPipe):
             dataset = dataset.map_random(processor.speed_perturb,
                                          partial(self._rng, _SPEED))
 
+        on_device_frontend = conf.get('on_device_frontend', False)
         feats_type = conf.get('feats_type', 'fbank')
         features = {'fbank': (processor.compute_fbank, 'fbank_conf'),
                     'mfcc': (processor.compute_mfcc, 'mfcc_conf')}
-        if feats_type in features:
+        if feats_type not in (*features, 'log_mel_spectrogram'):
+            raise ValueError(f'feats_type {feats_type!r}')
+        if on_device_frontend:
+            # fbank and the augmentations run in the train step
+            dataset = dataset.map(processor.raw_wav_feats)
+        elif feats_type in features:
             fn, key = features[feats_type]
             dataset = dataset.map_random(fn, partial(self._rng, _DITHER),
                                          **conf.get(key, {}))
-        elif feats_type == 'log_mel_spectrogram':
+        else:
             dataset = dataset.map(
                 partial(processor.compute_log_mel_spectrogram,
                         **conf.get('log_mel_spectrogram_conf', {})))
-        else:
-            raise ValueError(f'feats_type {feats_type!r}')
 
         for flag, default, fn, stage in (
                 ('spec_aug', True, processor.spec_aug, _SPEC_AUG),
                 ('spec_sub', False, processor.spec_sub, _SPEC_SUB),
                 ('spec_trim', False, processor.spec_trim, _SPEC_TRIM)):
-            if conf.get(flag, default):
+            if conf.get(flag, default) and not on_device_frontend:
                 dataset = dataset.map_random(fn, partial(self._rng, stage),
                                              **conf.get(f'{flag}_conf', {}))
 

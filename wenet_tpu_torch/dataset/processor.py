@@ -106,6 +106,16 @@ def compute_fbank(sample: dict, num_mel_bins: int = 23,
     return sample
 
 
+def raw_wav_feats(sample: dict) -> dict:
+    """The on-device front end's stage: the waveform itself as the
+    'feat', (S, 1) float32, so that sorting, batching and padding run
+    unchanged (a dynamic batch counts its samples as frames, as the JAX
+    package's does); the train step computes fbank and SpecAugment on
+    the card (utils/train_utils.py `make_frontend`)."""
+    sample['feat'] = np.asarray(sample['wav'][0], np.float32)[:, None]
+    return sample
+
+
 def compute_w2vbert_fbank(sample: dict, num_mel_bins: int = 23,
                           frame_length: int = 25, frame_shift: int = 10,
                           dither: float = 0.0, *,

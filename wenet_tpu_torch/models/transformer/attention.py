@@ -31,7 +31,11 @@ package sends every call with a dropout function to XLA
 (attention.py:115).
 
 The q/k/v/out projections are `LoRALinear` where a lora conf lists them
-(`make_attention_linear`, the JAX `make_attention_dense`).
+(`make_attention_linear`, the JAX `make_attention_dense`).  An encoder
+with `gradient_checkpointing: 'selective'` sets `recompute_scores` on its
+attention modules: in training the plain path then keeps no (T1, T2)
+tensor and recomputes the weights in the backward (the JAX policy's
+'attn_scores'); the flash kernels keep none anyway.
 """
 
 import math
@@ -39,6 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from wenet_tpu_torch.models.finetune.lora import make_attention_linear
 from wenet_tpu_torch.parallel.mesh import rank_seed
@@ -88,17 +93,29 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mask: Optional[torch.Tensor], scale: float,
                    dropout: Optional[nn.Module] = None,
-                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   bias: Optional[torch.Tensor] = None,
+                   recompute: bool = False) -> torch.Tensor:
     """softmax((q·kᵀ + bias)·scale, masked) · v with fp32 scores.
 
     q: (..., h, T1, d); k, v: (..., h, T2, d); mask: bool broadcastable
     to (..., 1|h, T1|1, T2), True == attend; bias: additive, added before
     the scale.  Fully masked rows give 0.  CUDA tensors above the gate
     with no active `dropout` run the flash kernels (with their backward
-    when autograd records); everything else the plain path."""
+    when autograd records); everything else the plain path.  `recompute`
+    (`gradient_checkpointing: 'selective'`): where autograd records, the
+    plain path keeps no (T1, T2) tensor for the backward and recomputes
+    the scores, softmax and dropout there (the flash kernels keep none
+    anyway)."""
     drop = dropout is not None and dropout.training and dropout.p > 0.0
     if not drop and flash_eligible(q, k):
         return flash_attention(q, k, v, mask, bias, scale)
+    if recompute and torch.is_grad_enabled():
+        return checkpoint(_plain_attention, q, k, v, mask, scale, dropout,
+                          bias, use_reentrant=False)
+    return _plain_attention(q, k, v, mask, scale, dropout, bias)
+
+
+def _plain_attention(q, k, v, mask, scale, dropout, bias) -> torch.Tensor:
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if bias is not None:
         scores = scores + bias.float()
@@ -141,6 +158,9 @@ class MultiHeadedAttention(nn.Module):
         self.linear_out = linear(inner, n_feat, query_bias, 'o')
         self.dropout = nn.Dropout(dropout_rate)
 
+    # set by an encoder with gradient_checkpointing 'selective'
+    recompute_scores = False
+
     @property
     def n_rep(self) -> int:
         return self.h // self.h_kv
@@ -164,7 +184,8 @@ class MultiHeadedAttention(nn.Module):
         return attention_core(q, repeat_kv(k, self.n_rep),
                               repeat_kv(v, self.n_rep), m,
                               1.0 / math.sqrt(self.d_k),
-                              self.dropout if dropout else None, bias)
+                              self.dropout if dropout else None, bias,
+                              self.recompute_scores and self.training)
 
     def _finish(self, ctx: torch.Tensor) -> torch.Tensor:
         B, _, T, _ = ctx.shape

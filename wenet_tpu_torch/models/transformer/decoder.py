@@ -15,6 +15,7 @@ from wenet_tpu_torch.models.transformer.encoder_layer import (
 from wenet_tpu_torch.models.transformer.embedding import (
     LearnablePositionalEncoding, NoPositionalEncoding, PositionalEncoding)
 from wenet_tpu_torch.models.transformer.norm import get_norm
+from wenet_tpu_torch.models.transformer.recompute import recompute
 from wenet_tpu_torch.utils.mask import make_pad_mask, subsequent_mask
 
 # the beam search's state: per-layer self (k, v) buffers of
@@ -48,7 +49,9 @@ class TransformerDecoder(nn.Module):
     `layer_options`: the layers' options (`LAYER_OPTIONS`); a post-norm
     decoder (`normalize_before` False) has no after_norm, as the JAX
     decoder has none then; `src_attention` False leaves the cross
-    attention out of every layer."""
+    attention out of every layer; `gradient_checkpointing` recomputes
+    each layer in the backward (the JAX decoder's remat, any true
+    value)."""
 
     def __init__(self, vocab_size: int, encoder_output_size: int,
                  attention_heads: int = 4, linear_units: int = 2048,
@@ -62,8 +65,10 @@ class TransformerDecoder(nn.Module):
                  activation_type: str = 'relu', src_query_bias: bool = True,
                  src_key_bias: bool = True, src_value_bias: bool = True,
                  use_output_layer: bool = True, src_attention: bool = True,
-                 lora_conf: Optional[dict] = None, **layer_options):
+                 lora_conf: Optional[dict] = None,
+                 gradient_checkpointing: bool = False, **layer_options):
         super().__init__()
+        self.gradient_checkpointing = gradient_checkpointing
         dim = encoder_output_size
         self.no_pos = input_layer == 'no_pos'
         if input_layer == 'embed':
@@ -130,7 +135,9 @@ class TransformerDecoder(nn.Module):
                     subsequent_mask(maxlen, ys_in_pad.device)[None])
         x = self._embed(ys_in_pad)
         for layer in self.decoders:
-            x = layer(x, tgt_mask, memory, memory_mask)
+            args = (x, tgt_mask, memory, memory_mask)
+            x = (recompute(layer, args) if self.gradient_checkpointing
+                 else layer(*args))
         return self._output(x), None
 
     def init_state(self, memory: torch.Tensor, max_len: int,

@@ -8,7 +8,10 @@ JAX encoders' options: the attention, position, norm and FFN types,
 `n_kv_head` / `head_dim`, pre- or post-norm, `static_chunk_size`,
 `cmvn_norm_var`, `final_norm`, and a full-context forward
 (`full_context`, the CTL model's).  `lora_conf` makes the attention
-projections LoRA layers, as the JAX encoders' field does.
+projections LoRA layers, as the JAX encoders' field does, and
+`gradient_checkpointing` (true: each layer recomputed in the backward;
+'selective': only the plain attention's weights) trades memory for
+compute and changes no result, as the JAX encoders' remat does.
 
 Every layer of a `BaseEncoder` is called as
 `layer(x, mask, pos_emb, mask_pad, generator, att_cache, cnn_cache)` and
@@ -20,12 +23,14 @@ from typing import List, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from wenet_tpu_torch.models.transformer.attention import MultiHeadedAttention
 from wenet_tpu_torch.models.transformer.cmvn import GlobalCMVN
 from wenet_tpu_torch.models.transformer.embedding import make_pos_enc
 from wenet_tpu_torch.models.transformer.encoder_layer import (
     ConformerEncoderLayer, TransformerEncoderLayer,
     layer_options as layer_options_of)
 from wenet_tpu_torch.models.transformer.norm import get_norm
+from wenet_tpu_torch.models.transformer.recompute import recompute
 from wenet_tpu_torch.models.transformer.subsampling import make_subsampling
 from wenet_tpu_torch.utils.mask import (add_optional_chunk_mask,
                                         make_pad_mask)
@@ -48,8 +53,11 @@ class BaseEncoder(nn.Module):
                  use_dynamic_left_chunk: bool = False,
                  static_chunk_size: int = 0, use_cmvn: bool = False,
                  norm_eps: float = 1e-5, cmvn_norm_var: bool = True,
-                 final_norm: bool = True, **layer_options):
+                 final_norm: bool = True,
+                 gradient_checkpointing: Union[bool, str] = False,
+                 **layer_options):
         super().__init__()
+        self.gradient_checkpointing = gradient_checkpointing
         self.layer_options = options = layer_options_of(layer_options)
         self._output_size = output_size
         self.attention_heads = attention_heads
@@ -71,6 +79,16 @@ class BaseEncoder(nn.Module):
                            if options['normalize_before'] and final_norm
                            else None)
         self.encoders = nn.ModuleList()
+
+    def _recompute_scores(self) -> None:
+        """`gradient_checkpointing: 'selective'`: the layers' plain
+        attention recomputes its (T1, T2) weights in the backward (the
+        JAX policy's 'attn_scores', attention.py:126-133); call once the
+        layers are built."""
+        if self.gradient_checkpointing == 'selective':
+            for m in self.encoders.modules():
+                if isinstance(m, MultiHeadedAttention):
+                    m.recompute_scores = True
 
     def _final(self, xs: torch.Tensor) -> torch.Tensor:
         return xs if self.after_norm is None else self.after_norm(xs)
@@ -119,6 +137,9 @@ class BaseEncoder(nn.Module):
 
         Training passes its host `generator`: the dynamic-chunk draw
         (once per forward) and the attention-dropout seeds come from it;
+        with `gradient_checkpointing` true each layer's activations are
+        recomputed in the backward (`recompute`), with 'selective' only
+        the plain attention's weights (`attention_core`);
         `dynamic_chunk` = (chunk_size, num_left_chunks) replaces the draw;
         the drawn chunk is at most 100 // subsampling_rate frames, as in
         the JAX package.  `full_context` attends every valid frame,
@@ -133,8 +154,11 @@ class BaseEncoder(nn.Module):
                 decoding_chunk_size, num_decoding_left_chunks, generator,
                 dynamic_chunk, 100 // self.subsampling_rate,
                 self.static_chunk_size)
+        whole = self.gradient_checkpointing not in (False, 'selective')
         for layer in self.encoders:
-            xs, _, _ = layer(xs, chunk_masks, pos_emb, masks, generator)
+            args = (xs, chunk_masks, pos_emb, masks, generator)
+            xs, _, _ = (recompute(layer, args, generator) if whole
+                        else layer(*args))
         return self._final(xs), masks
 
     def forward_chunk(self, xs: torch.Tensor,
@@ -237,13 +261,15 @@ class ConformerEncoder(BaseEncoder):
                  activation_type: str = 'swish', macaron_style: bool = True,
                  use_cnn_module: bool = True, conv_bias: bool = True,
                  conv_inner_factor: int = 2,
-                 lora_conf: Optional[dict] = None, **layer_options):
+                 lora_conf: Optional[dict] = None,
+                 gradient_checkpointing: Union[bool, str] = False,
+                 **layer_options):
         super().__init__(input_size, output_size, attention_heads,
                          dropout_rate, positional_dropout_rate, input_layer,
                          pos_enc_layer_type, use_dynamic_chunk,
                          use_dynamic_left_chunk, static_chunk_size, use_cmvn,
                          norm_eps, cmvn_norm_var, final_norm,
-                         **layer_options)
+                         gradient_checkpointing, **layer_options)
         self._lorder = (cnn_module_kernel - 1
                         if causal and use_cnn_module else 0)
         self.encoders.extend(
@@ -255,6 +281,7 @@ class ConformerEncoder(BaseEncoder):
                 use_cnn_module, conv_bias, conv_inner_factor,
                 **self.layer_options)
             for _ in range(num_blocks))
+        self._recompute_scores()
 
     @property
     def cnn_lorder(self) -> int:
@@ -281,13 +308,15 @@ class TransformerEncoder(BaseEncoder):
                  static_chunk_size: int = 0, use_cmvn: bool = False,
                  cmvn_norm_var: bool = True, norm_eps: float = 1e-5,
                  activation_type: str = 'relu', final_norm: bool = True,
-                 lora_conf: Optional[dict] = None, **layer_options):
+                 lora_conf: Optional[dict] = None,
+                 gradient_checkpointing: Union[bool, str] = False,
+                 **layer_options):
         super().__init__(input_size, output_size, attention_heads,
                          dropout_rate, positional_dropout_rate, input_layer,
                          pos_enc_layer_type, use_dynamic_chunk,
                          use_dynamic_left_chunk, static_chunk_size, use_cmvn,
                          norm_eps, cmvn_norm_var, final_norm,
-                         **layer_options)
+                         gradient_checkpointing, **layer_options)
         self.encoders.extend(
             TransformerEncoderLayer(
                 output_size, attention_heads, linear_units, dropout_rate,
@@ -296,3 +325,4 @@ class TransformerEncoder(BaseEncoder):
                 selfattention_layer_type=selfattention_layer_type,
                 **self.layer_options)
             for _ in range(num_blocks))
+        self._recompute_scores()

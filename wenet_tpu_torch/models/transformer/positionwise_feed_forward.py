@@ -8,16 +8,19 @@ every token through stacked (E, D, H) / (E, H, D) weights, and the top-k
 router weights combine the results.  Its parameters keep the names and
 layouts the JAX package's torch export writes (`gate.weight`,
 `experts_w1`, `experts_w2`, `experts_b1`, `experts_b2`), which differ
-from upstream wenet's `experts.{i}.w_1.weight`."""
+from upstream wenet's `experts.{i}.w_1.weight`.  Over a `model` axis
+(parallel/mesh.py) its experts may be split between the ranks
+(`shard_experts`: expert parallelism)."""
 
 import math
-from typing import Callable
+from typing import Callable, List
 
 import torch
 from torch import nn
 import torch.nn.functional as F
 
 from wenet_tpu_torch.models.transformer.activations import get_activation
+from wenet_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -72,6 +75,32 @@ class MoEFFNLayer(nn.Module):
         else:
             self.experts_b1 = self.experts_b2 = None
 
+    # set by `shard_experts`: the model group and the first local expert
+    expert_group = None
+    expert_offset = 0
+
+    def shard_experts(self, group, size: int, rank: int) -> List[str]:
+        """Keep model rank `rank`'s E/size experts of the stacked weights
+        and biases (cut on dim 0) -> the names of the parameters cut; none
+        where `size` does not divide the experts (they stay whole, as the
+        JAX rule leaves them).  The forward then runs this rank's experts
+        and sums the combined output over `group`."""
+        if self.n_expert % size:
+            return []
+        names = []
+        with torch.no_grad():
+            for name in ('experts_w1', 'experts_w2', 'experts_b1',
+                         'experts_b2'):
+                p = getattr(self, name)
+                if p is None:
+                    continue
+                local = p.detach().chunk(size, 0)[rank].clone()
+                setattr(self, name, nn.Parameter(local, p.requires_grad))
+                names.append(name)
+        self.expert_group = group
+        self.expert_offset = rank * (self.n_expert // size)
+        return names
+
     def init_own(self, generator=None):
         """The experts: fan-in uniform weights (the port's Linear init),
         zero biases."""
@@ -93,6 +122,15 @@ class MoEFFNLayer(nn.Module):
         weights = torch.softmax(top_v.float(), dim=-1).to(xs.dtype)
         combine = x.new_zeros(x.shape[0], self.n_expert).scatter(
             1, top_i, weights)  # (N, E)
+        group = self.expert_group
+        if group is not None:
+            # this rank's experts; the router's and the tokens' gradients
+            # are summed over `model` (each rank's reaches its experts'
+            # columns and tokens only), so every rank backpropagates the
+            # whole router
+            combine = copy_to_model(combine, group).narrow(
+                1, self.expert_offset, self.experts_w1.shape[0])
+            x = copy_to_model(x, group)
         h = torch.einsum('nd,edh->enh', x, self.experts_w1.to(x.dtype))
         if self.experts_b1 is not None:
             h = h + self.experts_b1[:, None, :].to(x.dtype)
@@ -100,7 +138,10 @@ class MoEFFNLayer(nn.Module):
                            self.experts_w2.to(x.dtype))
         if self.experts_b2 is not None:
             out = out + self.experts_b2[:, None, :].to(x.dtype)
-        return torch.einsum('end,ne->nd', out, combine).reshape(shape)
+        y = torch.einsum('end,ne->nd', out, combine)
+        if group is not None:
+            y = reduce_from_model(y, group)
+        return y.reshape(shape)
 
 
 class GatedVariantsMLP(nn.Module):

@@ -31,10 +31,16 @@ size + model rank), and the JAX layouts (`state_shardings`) become:
   only through the private `_pre_dp_module_transform`, which swaps each
   sharded parameter for a new nn.Parameter after every forward, and
   ZeroRedundancyOptimizer and the checkpoint would then read its private
-  shard records.  The stacked MoE experts (E, D, H) stay whole on every
-  rank: they are parameters, not linear maps, where the JAX 3-D rule
-  cuts them over `model` (expert parallelism, ROADMAP.md queue 1); the
-  router's `gate` is a linear map like any other.
+  shard records.
+- expert parallelism, the JAX 3-D rule (`_rule_single`'s (E, D, H)
+  case): where the model size divides an MoE layer's experts, each model
+  rank keeps E/M of its stacked experts (`experts_w1`, `experts_w2`, and
+  `experts_b1`, `experts_b2` with them) and runs its tokens through them
+  only; the router stays whole, so every rank computes the same top-k,
+  and the combined output is summed over `model`
+  (`MoEFFNLayer.shard_experts`, models/transformer/
+  positionwise_feed_forward.py).  Elsewhere the experts stay whole, as
+  the JAX rule leaves them.  DDP averages each shard over `data` only.
 
 A checkpoint holds full tensors under the reference key names whatever
 the layout: `TrainLayout.full_state_dict` gathers the shards (every rank
@@ -295,6 +301,31 @@ class _CopyToModel(torch.autograd.Function):
         return grad, None
 
 
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over `model` of every rank's part; the gradient passes to
+    each part unchanged (every rank reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """x as it is; in the backward its gradient is summed over `model`."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over `model`; the backward is the identity."""
+    return _ReduceFromModel.apply(x, group)
+
+
 class _GatherFromModel(torch.autograd.Function):
     """Concatenate every model rank's slice along `dim`; the gradient keeps
     this rank's slice (the layers after it run alike on every model
@@ -366,7 +397,9 @@ def shard_model_axis(model: nn.Module, group, size: int, rank: int,
                      min_dim: int = 512) -> Dict[str, int]:
     """Shard, in place, the modules that `_rule_single` puts column-parallel
     over `model` (out features divisible by `size` and at least `min_dim`)
-    -> {parameter name: the dim its shard was cut from}."""
+    and the stacked experts it cuts over `model` (an MoE layer's, where
+    `size` divides its experts) -> {parameter name: the dim its shard was
+    cut from}."""
     tied = {f'{n}.embed.0' for n, m in model.named_modules()
             if getattr(m, 'tie_word_embedding', False)}
     sharded: Dict[str, int] = {}
@@ -383,6 +416,11 @@ def shard_model_axis(model: nn.Module, group, size: int, rank: int,
                 sharded[f'{name}.{pname}'] = d
         m.__class__ = cls
         m.model_group, m.model_size, m.model_rank = group, size, rank
+    for name, m in model.named_modules():
+        shard_experts = getattr(m, 'shard_experts', None)
+        if shard_experts is not None:
+            for pname in shard_experts(group, size, rank):
+                sharded[f'{name}.{pname}'] = 0
     return sharded
 
 
@@ -514,27 +552,32 @@ class TrainLayout:
                 for p in g['params']]
 
     def optimizer_state_dict(self, optimizer) -> Optional[dict]:
-        """The optimizer's whole state on rank 0 (None elsewhere): ZeRO's
-        partitions gathered (`consolidate_state_dict`), the moments of
-        sharded tensors gathered over `model`.  Every rank calls it."""
-        if self.zero2 and self.sharded:
-            raise NotImplementedError('gathering the optimizer state of '
-                                      'zero2 together with model_axis')
+        """The optimizer's whole state on rank 0 (None elsewhere): under
+        zero2 each data group's partitions consolidated on its data rank
+        0 (`consolidate_state_dict`), then the moments of sharded tensors
+        (column-parallel maps, expert shards) gathered over `model`, by
+        the data rank 0's model group.  Every rank calls it."""
+        m = self.mesh
         if self.zero2:
-            optimizer.consolidate_state_dict(to=0)
-            return optimizer.state_dict() if self.is_main else None
+            optimizer.consolidate_state_dict(to=0)  # rank 0 of the group
+            if m.data_rank != 0:
+                return None
         state = optimizer.state_dict()
+        if not self.sharded:
+            return state if self.is_main else None
         # state_dict() hands out the live per-parameter dicts
         state['state'] = {i: dict(s) for i, s in state['state'].items()}
-        m = self.mesh
         for i, name in enumerate(self._param_names(optimizer)):
             if name not in self.sharded:
                 continue
             st = state['state'].get(i, {})
             for k, v in st.items():
                 if torch.is_tensor(v) and v.dim() > 0:
-                    st[k] = gather_model_shard(v, self.sharded[name],
-                                               m.model_group, m.model)
+                    # ZeRO consolidates on the CPU; NCCL gathers on the card
+                    full = gather_model_shard(
+                        v.to(m.comm_device) if self.zero2 else v,
+                        self.sharded[name], m.model_group, m.model)
+                    st[k] = full.to(v.device)
         return state if self.is_main else None
 
     def load_optimizer_state_dict(self, optimizer, state: dict) -> None:

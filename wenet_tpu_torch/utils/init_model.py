@@ -20,7 +20,11 @@ its options read from `model_conf` as the JAX package reads them: the
 ones its constructor takes, the rest ignored.
 
 `gradient_checkpointing` (activation recomputation, which trades memory
-and changes no result) and `use_sdpa` are accepted and ignored.  Options
+for compute and changes no result) recomputes each layer of the
+conformer and transformer encoders and of the (bi)transformer decoder in
+the backward ('selective': the encoders' plain attention weights only),
+as the JAX package does; the other encoders and the SAN-M decoder, which
+never read it there, refuse it.  `use_sdpa` is accepted and ignored.  Options
 this package implements at one value only (the value every example
 config uses) must have that value; any other option raises
 NotImplementedError."""
@@ -91,8 +95,8 @@ MODEL_CLASSES = {'asr_model': ASRModel, 'ctl_model': CTLModel,
                  'sensevoice_small': SenseVoiceSmall,
                  'firered': FireRedModel, 'k2_model': K2Model,
                  **SSL_MODEL_CLASSES}
-# accepted and ignored (remat is not ported; it changes no result)
-_IGNORED = {'gradient_checkpointing', 'use_sdpa'}
+# accepted and ignored (the attention is chosen by device and shape)
+_IGNORED = {'use_sdpa'}
 # options ported at one value: another raises with the why given
 _ONE_VALUE = 'the port implements this model at that value only'
 _SANM_FIXED = {'input_layer': ('paraformer_dummy', _ONE_VALUE),
@@ -103,14 +107,19 @@ _SANM_FIXED = {'input_layer': ('paraformer_dummy', _ONE_VALUE),
 # option or never reads it (the JAX init_model drops the option or the
 # layer ignores it)
 _NO_FIELD = dict({k: v for k, v in LAYER_OPTIONS.items()
-                  if k != 'normalize_before'}, final_norm=True)
+                  if k != 'normalize_before'}, final_norm=True,
+                 gradient_checkpointing=False)
+_NO_REMAT = 'the JAX encoder never reads it: only the transformer and ' \
+    'conformer encoders recompute their layers ' \
+    '(wenet_tpu/models/transformer/encoder.py:292, :339)'
 _ENCODER_FIXED_BY_TYPE = {
     'conformer': {},
     'transformer': {},
-    'branchformer': {},
+    'branchformer': {'gradient_checkpointing': (False, _NO_REMAT)},
     'e_branchformer': {'stochastic_depth_rate': (
         0.0, 'the JAX E-Branchformer layer never reads it '
-        '(wenet_tpu/models/e_branchformer/encoder.py:40)')},
+        '(wenet_tpu/models/e_branchformer/encoder.py:40)'),
+        'gradient_checkpointing': (False, _NO_REMAT)},
     'efficientConformer': {k: (v, 'the JAX EfficientConformerEncoder has '
                                'no such field (wenet_tpu/models/'
                                'efficient_conformer/encoder.py:284-312)')
@@ -127,15 +136,20 @@ _ENCODER_FIXED_BY_TYPE = {
             '(wenet_tpu/models/squeezeformer/encoder.py:247)'),
         concat_after=(False, 'the JAX layer never reads it '
                       '(wenet_tpu/models/squeezeformer/encoder.py:292)')),
-    'sanm_encoder': _SANM_FIXED,
-    'sanm_encoder_with_tp': _SANM_FIXED,
-    'firered_conformer': {k: (v, _ONE_VALUE) for k, v in dict(
+    'sanm_encoder': dict(_SANM_FIXED,
+                         gradient_checkpointing=(False, _NO_REMAT)),
+    'sanm_encoder_with_tp': dict(_SANM_FIXED,
+                                 gradient_checkpointing=(False, _NO_REMAT)),
+    'firered_conformer': dict({k: (v, _ONE_VALUE) for k, v in dict(
         activation_type='swish', macaron_style=True, use_cnn_module=True,
         conv_bias=True, conv_inner_factor=2, input_layer='conv2d',
         pos_enc_layer_type='rel_pos_firered',
         selfattention_layer_type='firered_rel_selfattn',
-        causal=False).items()},
+        causal=False).items()}, gradient_checkpointing=(False, _NO_REMAT)),
 }
+_SANM_DECODER_FIXED = {'gradient_checkpointing': (
+    False, 'the JAX SanmDecoder has no such field '
+    '(wenet_tpu/models/paraformer/layers.py:256-270)')}
 # model options implemented at one value only
 _MODEL_FIXED = {'paraformer': {'predictor_weight': 1.0, 'predictor_bias': 1}}
 
@@ -221,7 +235,8 @@ def init_model(configs: dict, generator: Optional[torch.Generator] = None,
         if dec_cls is BiTransformerDecoder:
             dec_params.add('r_num_blocks')
         dec_kw = {'lora_conf': dec_lora}
-    dec_conf = _conf(configs.get('decoder_conf', {}), dec_params, 'decoder')
+    dec_conf = _conf(configs.get('decoder_conf', {}), dec_params, 'decoder',
+                     _SANM_DECODER_FIXED if dec_cls is SanmDecoder else None)
 
     special_tokens = configs.get('tokenizer_conf', {}).get('special_tokens')
     if special_tokens is None and model_type == 'whisper':

@@ -14,7 +14,11 @@ after every micro-step's backward (so the running mean of an
 accumulation window is the global one), clips by the whole model's norm
 (a sharded tensor's squares summed over `model`), and reports the
 losses' mean over `data`; `zero2` builds the optimizer as a
-ZeroRedundancyOptimizer over `data`."""
+ZeroRedundancyOptimizer over `data`.
+
+With the on-device front end (`frontend_conf_of`, `make_frontend`) the
+batches carry waveforms and the step computes fbank, SpecAugment and
+SpecSub first, on the batch's device."""
 
 import contextlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -159,12 +163,96 @@ def step_seeds(seed: int, epoch: int, step: int) -> Tuple[int, int]:
     return int(device_seed), int(host_seed)
 
 
+# the keys of spec_aug_conf the on-device SpecAugment takes (no time warp)
+SPEC_AUG_KEYS = ('num_t_mask', 'num_f_mask', 'max_t', 'max_f')
+
+
+def frontend_conf_of(dataset_conf: dict) -> Optional[dict]:
+    """The on-device front end's settings from a yaml's `dataset_conf`, as
+    the JAX trainer reads them (bin/train.py:189-202): fbank_conf, the
+    resample rate, spec_aug / spec_sub with their confs (spec_aug_conf
+    without its time-warp keys); None without `on_device_frontend`."""
+    dc = dataset_conf
+    if not dc.get('on_device_frontend', False):
+        return None
+    return dict(dc.get('fbank_conf', {}),
+                sample_rate=dc.get('resample_conf', {}).get(
+                    'resample_rate', 16000),
+                spec_aug=dc.get('spec_aug', True),
+                spec_aug_conf={k: v for k, v in
+                               dc.get('spec_aug_conf', {}).items()
+                               if k in SPEC_AUG_KEYS},
+                spec_sub=dc.get('spec_sub', False),
+                spec_sub_conf=dict(dc.get('spec_sub_conf', {})))
+
+
+def make_frontend(frontend_conf: dict):
+    """The train step's front end (the JAX `_frontend`,
+    train_utils.py:142-173) -> frontend(batch, generator, dither_seed=None,
+    draws=None) -> batch with 'feats' the fbank (B, T, mel) and
+    'feats_lengths' in frames.
+
+    batch['feats'] holds the waveforms (B, S, 1) on the device and
+    'feats_lengths' their samples.  In this order: the waveform times
+    2^15, the kaldi fbank on its device (`ops/fbank.py`, fp32 out; dither
+    from a generator of that device seeded with `dither_seed`), lengths
+    max((n - frame_length) // frame_shift + 1, 0), then SpecAugment and
+    SpecSub with their draws from the host `generator` (or `draws`,
+    {'spec_aug': ..., 'spec_sub': ...}, which replace them)."""
+    from wenet_tpu_torch.ops.fbank import compute_fbank
+    from wenet_tpu_torch.ops.spec_augment import (spec_aug_apply,
+                                                  spec_aug_draws,
+                                                  spec_sub_apply,
+                                                  spec_sub_draws)
+    fc = frontend_conf
+    sr = fc.get('sample_rate', 16000)
+    shift = sr * fc.get('frame_shift', 10) // 1000
+    flen = sr * fc.get('frame_length', 25) // 1000
+    dither = fc.get('dither', 0.0)
+
+    def frontend(batch: Dict[str, torch.Tensor],
+                 generator: Optional[torch.Generator],
+                 dither_seed: Optional[int] = None,
+                 draws: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+        wav = batch['feats'][..., 0].float()
+        device_gen = None
+        if dither:
+            device_gen = torch.Generator(wav.device)
+            device_gen.manual_seed(0 if dither_seed is None else dither_seed)
+        feats = compute_fbank(
+            wav * (1 << 15), num_mel_bins=fc.get('num_mel_bins', 80),
+            frame_length_ms=fc.get('frame_length', 25),
+            frame_shift_ms=fc.get('frame_shift', 10), sample_rate=sr,
+            dither=dither, generator=device_gen)
+        lengths = torch.clamp((batch['feats_lengths'] - flen) // shift + 1,
+                              min=0)
+        B, T, F = feats.shape
+        if fc.get('spec_aug', True):
+            d = draws['spec_aug'] if draws else spec_aug_draws(
+                B, T, F, generator=generator, **fc.get('spec_aug_conf', {}))
+            feats = spec_aug_apply(feats, d)
+        if fc.get('spec_sub', False):
+            d = draws['spec_sub'] if draws else spec_sub_draws(
+                B, T, generator=generator, **fc.get('spec_sub_conf', {}))
+            feats = spec_sub_apply(feats, d)
+        return dict(batch, feats=feats, feats_lengths=lengths)
+
+    return frontend
+
+
+def frontend_seed(seed: int, epoch: int, step: int) -> int:
+    """The on-device front end's host seed of one step: the third word of
+    `step_seeds`' stream."""
+    return int(np.random.SeedSequence([seed, epoch, step]).generate_state(
+        3)[2])
+
+
 def make_train_step(model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
                     schedule: Callable[[int], float],
                     dtype: Optional[torch.dtype] = None,
                     accum_grad: int = 1, grad_clip: float = 0.0,
-                    layout=None):
+                    layout=None, frontend_conf: Optional[dict] = None):
     """Build the train step: (state, batch, (seed, epoch)) -> (state,
     metrics).
 
@@ -184,9 +272,16 @@ def make_train_step(model: torch.nn.Module,
     alike on every rank (one dynamic-chunk draw for the global batch, as
     the JAX package draws), the device seed and the attention-dropout
     seeds are each data rank's own (`rank_seed`), and the losses in the
-    metrics are their mean over `data`."""
+    metrics are their mean over `data`.
+
+    With `frontend_conf` (`frontend_conf_of`) the batch carries waveforms
+    and the step first runs `make_frontend`'s front end in fp32, outside
+    autocast, its draws from a host generator of its own (seeded from
+    (seed, epoch, state.step), the data rank's own) and its dither from
+    the device seed."""
     device_type = next(model.parameters()).device.type
     net = model if layout is None else layout.module
+    frontend = None if frontend_conf is None else make_frontend(frontend_conf)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                 rng: Tuple[int, int]):
@@ -198,6 +293,10 @@ def make_train_step(model: torch.nn.Module,
             if layout is not None:
                 stack.enter_context(layout.context())
             torch.manual_seed(rank_seed(device_seed))
+            if frontend is not None:
+                batch = frontend(batch, torch.Generator().manual_seed(
+                    rank_seed(frontend_seed(*rng, state.step))),
+                    rank_seed(device_seed))
             with torch.autocast(device_type, dtype=dtype,
                                 enabled=dtype is not None):
                 out = net(batch['feats'], batch['feats_lengths'],
