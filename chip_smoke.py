@@ -4,7 +4,7 @@
     python3 chip_smoke.py --phases 20,13c # these units alone, after the build
 
 The units that time a kernel (16a and 19c's kernels too), the
-informational throughputs (5, 6d, 7c, 8c) and phases 20 and 21 run first,
+informational throughputs (5, 6d, 7c, 8c) and phases 20-22 run first,
 alone on the card (ALONE; 21d's two ranks beside 21a-21c); the card-against-CPU phases then run in four child
 processes side by side (LANES), their logs printed as each ends, and each
 child refuses jax and the JAX package as the parent does.  A throughput a
@@ -23,8 +23,10 @@ Phases, each of which raises on failure (non-zero exit):
   2b. fp32 error: each kernel's fp32 output at its main shape (K1 at
               (16,4,375,375,64) and at the batched chunk step
               (8,4,16,528,64); K1-train, K2, K3 at (16,4,299,299,64)
-              with and without dropout 0.1; K4-train, K5, K6 at
-              (4,20,1500,1500,64); K4 and K4-train at (32,4,500,500,128))
+              with and without dropout 0.1, and at head dim 128,
+              (16,2,299,299,128); K4-train, K5, K6 at
+              (4,20,1500,1500,64) and (2,4,534,534,128); K4 and K4-train
+              at (32,4,500,500,128))
               and its plain version's, on the same randn inputs, against
               the plain version in float64: max and rms; a kernel whose
               rms error is more than 3x its plain version's fails (wgmma
@@ -329,7 +331,9 @@ Phases, each of which raises on failure (non-zero exit):
               float32 rounding of an integer total), the first step card
               == CPU (loss terms rtol 1e-4, grads 1e-3), average_model; a
               long-form step of B=2 x 32 s: K4-train, K5, K6 25 launches
-              each.  16d: bin/recognize.py in both paraformer modes over
+              each, and its loss and gradients with them equal to the
+              same step with the flash gate closed (plain attention on
+              the card; loss terms rtol 1e-4, grads 12c's bar).  16d: bin/recognize.py in both paraformer modes over
               16 wavs of 20-32 s, B=8, on the card (33 K4 launches a
               batch) and the first batch on the CPU: texts equal, or a
               row that differs explained by 16b's rule.  16e:
@@ -448,6 +452,21 @@ Phases, each of which raises on failure (non-zero exit):
               process's keys and shapes.  ZeRO-2 with the model axis needs
               data >= 2 and model >= 2: it is held on the CPU only
               (tests/test_torch_expert_parallel.py)
+  22. head dim 128 in rel-pos training: K1-train (lse, dropout), K2 and
+              K3 through the RelPosAttention Function at the flagship's
+              step with two heads, (16,2,299,299,128) with a chunk mask
+              and dropout 0.1 and at the pad mask without, fp32 and bf16,
+              against their plain versions (TRAIN_TOL; each output's share
+              of it), kernel and plain times, bounds, TFLOP/s, SDPA at the
+              pad mask; then the flagship yaml with
+              encoder_conf.attention_heads 2 (d_k = 128, 12 blocks, every
+              dropout 0): one step at B=4 x 12 s through K1-train, K2
+              and K3 (a launch of each a block) against the same step
+              with their plain versions on the card (loss terms rtol
+              1e-4, every gradient 12c's bar) and against the CPU (the
+              same bars, past 12c's the float64 hold of 17b, past that
+              only where the card's plain step misses as far: the
+              subsampling conv's weight, ROADMAP.md queue 3)
 The line before the last is the kernel report as JSON, the one before it
 every phase's seconds; the last line is {"ok": true, "device": {...}}.
 Imports nothing of jax or of the JAX package (wenet_tpu), and checks so
@@ -1067,7 +1086,6 @@ def speed(runner, smi):
 # ---------------------------------------------------------------------------
 def train_kernel_check():
     phase('6a training kernels vs plain: K1 (lse, dropout), K2, K3')
-    from wenet_tpu_torch.ops import flash_attention as fa
     rng = np.random.RandomState(SEED + 3)
     errs = {name: 0.0 for name in TRAIN_KERNELS}
     main = {}  # dtype -> (times, bounds, TFLOP/s) at the main shape
@@ -1075,142 +1093,18 @@ def train_kernel_check():
     zoo_main, zoo_pad = {}, {}  # the same at the zoo's d = 32 train shape
     for i, (B, h, T1, T2, d, mask_kind, rate) in enumerate(TRAIN_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
-            x, mask = kernel_inputs(rng, B, h, T1, T2, d, mask_kind, dtype)
-            do = torch.from_numpy(
-                rng.randn(B, h, T1, d).astype(np.float32)).cuda().to(dtype)
-            scale = 1.0 / d ** 0.5
-            seed = int(rng.randint(0, 1 << 32, dtype=np.int64))
-            # the kernels: K1-train forward, K2 and K3 in the Function's
-            # backward (dp summed over the batch: p is shared)
-            leaves = [t.detach().requires_grad_() for t in x]
-            out = fa.flash_attention_relpos(*leaves, mask, scale, rate, seed)
-            out.backward(do)
-            _, lse = fa.relpos_fwd(*x, mask, scale, True, rate, seed)
-            torch.cuda.synchronize()
-            # the plain versions chained as the Function chains them, in
-            # fp32 on the same inputs: the forward (K1's output and lse are
-            # held to it below), delta = rowsum(do·out) of the Function's
-            # own output, K1's (as the Function and the JAX package's
-            # `_relpos_vjp_bwd` take it), plain K2 and K3, and dp summed
-            # over the batch.  So K2 and K3 are held on the delta they were
-            # given: a delta from the reference's own rounded output would
-            # hold them to where K1's bf16 output rounds the other way,
-            # which alone reads up to 105% of the bar on a peaked softmax
-            # with exact kernels (tests/test_torch_relpos_bwd_precision.py).
-            x32 = [t.float() for t in x]
-            want, want_lse = fa.relpos_fwd_reference(*x32, mask, scale, True,
-                                                     rate, seed)
-
-            def chained(out_for_delta):
-                args = (mask, do.float(), want_lse,
-                        (do.float() * out_for_delta.float()).sum(-1), scale,
-                        rate, seed)
-                g = list(fa.relpos_bwd_dq_reference(*x32, *args) +
-                         fa.relpos_bwd_dkpv_reference(*x32, *args))
-                g[3] = g[3].sum(0, keepdim=True)
-                return g
-            want_grads = chained(out.detach())
-            grads = [t.grad for t in leaves]
-            if dtype == torch.bfloat16:
-                # before: delta from the reference's output rounded to bf16
-                old = chained(want.to(dtype))
-                print('    bf16 dk / dp share of the bar, delta from the '
-                      'rounded reference (before) -> from K1 (now): '
-                      + ', '.join(
-                          f'{n} {100 * share_of_bar(g, o, TRAIN_TOL[dtype]):.0f}%'
-                          f' -> {100 * share_of_bar(g, w, TRAIN_TOL[dtype]):.0f}%'
-                          for n, g, o, w in zip(('dk', 'dp'), grads[2:4],
-                                                old[2:4], want_grads[2:4])),
-                      flush=True)
-            pairs = {
-                'relpos_attention_fwd_train': [(out, want), (lse, want_lse)],
-                'relpos_attention_bwd_dq': list(zip(grads[:2],
-                                                    want_grads[:2])),
-                'relpos_attention_bwd_dkpv': list(zip(grads[2:],
-                                                      want_grads[2:])),
-            }
-            line = []
-            for name, checks in pairs.items():
-                err, shares = 0.0, []
-                for out_name, (got, w) in zip(TRAIN_OUTPUTS[name], checks):
-                    if not torch.isfinite(got).all():
-                        raise RuntimeError(f'{name}: {out_name} is not '
-                                           'finite')
-                    torch.testing.assert_close(got.float(), w.float(),
-                                               **TRAIN_TOL[dtype],
-                                               msg=f'{name}: {out_name}')
-                    err = max(err, (got.float() - w.float()).abs().max()
-                              .item())
-                    of_bar = share_of_bar(got, w, TRAIN_TOL[dtype])
-                    shares.append(f'{out_name} {100 * of_bar:.0f}%')
-                if dtype == torch.float32:
-                    errs[name] = max(errs[name], err)
-                line.append(f'{name[17:]} {err:.3g} ({", ".join(shares)} '
-                            'of the bar)')
-            if mask_kind == 'masked_row' and (out[0, :, 5].any() or
-                                              grads[0][0, :, 5].any()):
-                raise RuntimeError('fully masked row is not zero')
-            # CUDA-event times of each kernel and its plain version on the
-            # same lse and delta
-            delta = (do.float() * want).sum(-1)
-            args = (mask, do, want_lse, delta, scale, rate, seed)
-            t = {
-                'relpos_attention_fwd_train': (
-                    cuda_time_ms(lambda: fa.relpos_fwd(
-                        *x, mask, scale, True, rate, seed)),
-                    cuda_time_ms(lambda: fa.relpos_fwd_reference(
-                        *x, mask, scale, True, rate, seed))),
-                'relpos_attention_bwd_dq': (
-                    cuda_time_ms(lambda: fa.relpos_bwd_dq(*x, *args)),
-                    cuda_time_ms(lambda: fa.relpos_bwd_dq_reference(
-                        *x, *args))),
-                'relpos_attention_bwd_dkpv': (
-                    cuda_time_ms(lambda: fa.relpos_bwd_dkpv(*x, *args)),
-                    cuda_time_ms(lambda: fa.relpos_bwd_dkpv_reference(
-                        *x, *args))),
-            }
-            if i == 0 or (B, h, T1, T2, d) == ZOO_TRAIN_SHAPE:
-                # the main path's shape, and the zoo's at its dropout
-                n_pairs = attended_pairs(mask, B, h, T1, T2)
-                common = nbytes(*x, mask, do, want_lse, delta)
-                # 3, 5 and 6 products of 2*d FLOPs per attended pair; fp32
-                # runs as 3xTF32 (FFMA printed beside it)
-                work = {
-                    'relpos_attention_fwd_train': (
-                        6 * d * n_pairs, nbytes(*x, mask, out, lse)),
-                    'relpos_attention_bwd_dq': (
-                        10 * d * n_pairs, common + nbytes(*grads[:2])),
-                    'relpos_attention_bwd_dkpv': (
-                        12 * d * n_pairs, common + nbytes(*grads[2:])),
-                }
-                bounds = {n: bound(*w, dtype, tf32_split=True)
-                          for n, w in work.items()}
-                tflops = {n: w[0] / t[n][0] / 1e9 for n, w in work.items()}
-                ffma = {n: bound(*w)[0] for n, w in work.items()}
-                if i == 0:
-                    main[dtype] = t, bounds, tflops, ffma
-                elif rate > 0.0:
-                    zoo_main[dtype] = t, bounds, tflops
-                print('    bounds: ' + ', '.join(
-                    f'{n[17:]} {b[0]:.4f} ms ({b[1]}'
-                    + (f'; FFMA {ffma[n]:.4f}' if dtype == torch.float32
-                       else '') + ')' for n, b in bounds.items())
-                    + f'; {n_pairs / 1e6:.2f}M attended pairs; TFLOP/s: '
-                    + ', '.join(f'{n[17:]} {f:.1f}'
-                                for n, f in tflops.items()), flush=True)
-            if rate == 0.0 and mask_kind == 'pad':
-                readings = t, relpos_sdpa_train(x, mask, do, scale, out,
-                                                grads)
-                if (B, h, T1, T2, d) == ZOO_TRAIN_SHAPE:
-                    zoo_pad[dtype] = readings
-                else:
-                    pad[dtype] = readings
-            print(f'  ({B},{h},{T1},{T2},{d}) mask={mask_kind} '
-                  f'dropout={rate} {str(dtype)[6:]}: max_abs_err '
-                  + ', '.join(line), flush=True)
-            print('    kernel / plain ms: ' + ', '.join(
-                f'{n[17:]} {a:.4f} / {b:.4f}' for n, (a, b) in t.items()),
-                flush=True)
+            _, err, t, bounds, tflops, sdpa = relpos_train_case(
+                rng, (B, h, T1, T2, d), mask_kind, rate, dtype)
+            if dtype == torch.float32:
+                for name in TRAIN_KERNELS:
+                    errs[name] = max(errs[name], err[name])
+            is_zoo = (B, h, T1, T2, d) == ZOO_TRAIN_SHAPE
+            if i == 0:  # the main path's shape
+                main[dtype] = t, bounds, tflops
+            elif is_zoo and rate > 0.0:  # the zoo's, at its dropout
+                zoo_main[dtype] = t, bounds, tflops
+            if sdpa is not None:
+                (zoo_pad if is_zoo else pad)[dtype] = t, sdpa
     # the main shape's dropout has no library counterpart; K2's and K3's
     # library_ms is SDPA's backward at the pad shape, which computes both
     for dtype, (t, (_, sdpa_bwd)) in pad.items():
@@ -1223,7 +1117,7 @@ def train_kernel_check():
     for name in TRAIN_KERNELS:
         entry = dict(max_abs_err=errs[name])
         for dtype, key in ((torch.float32, ''), (torch.bfloat16, '_bf16')):
-            times, bounds, tflops, ffma = main[dtype]
+            times, bounds, tflops = main[dtype]
             pad_times, (sdpa_fwd, sdpa_bwd) = pad[dtype]
             entry.update({'ms' + key: times[name][0],
                           'bound_ms' + key: bounds[name][0],
@@ -1231,7 +1125,7 @@ def train_kernel_check():
                           'ms_pad' + key: pad_times[name][0]})
             if dtype == torch.float32:
                 entry.update(plain_ms=times[name][1], bound_by=bounds[name][1],
-                             bound_ms_ffma=ffma[name])
+                             bound_ms_ffma=bounds[name][2])
             if name == 'relpos_attention_fwd_train':
                 entry['library_ms' + key] = None
             else:
@@ -6614,10 +6508,80 @@ def paraformer_long_step(args, smi):
           f'frames): loss {loss:.4f}, {1e3 * wall:.1f} ms, '
           f'{audio / wall:.1f} audio-sec/s; K4-train, K5, K6 {blocks} '
           f'launches each ({smi})', flush=True)
+    of_bar = gate_off_hold(run.model, batch, args.seed, blocks)
     del run
     torch.cuda.empty_cache()
     return launches, dict(long_step_ms=1e3 * wall,
-                          long_step_audio_sec_per_s=audio / wall)
+                          long_step_audio_sec_per_s=audio / wall,
+                          long_step_grad_share_vs_plain=of_bar)
+
+
+def gate_off_hold(model, batch, seed, blocks):
+    """16c: the long-form batch's loss and gradients through K4-train, K5
+    and K6 (`blocks` launches each) against the same forward and backward
+    with the flash gate closed (plain attention on the card), the device
+    RNG and the host generator seeded alike: every loss term within rtol
+    1e-4, every gradient within 1e-3 + GRAD_SHARE x its largest (12c's
+    bar) -> the largest share of that bar."""
+    from wenet_tpu_torch.models.transformer import attention as A
+    from wenet_tpu_torch.ops import flash_attention as fa
+
+    def step(gate_open):
+        saved = dict(A.FLASH_GATE)
+        if not gate_open:
+            A.FLASH_GATE.update(min_len=1 << 40, score_elems=1 << 62)
+        try:
+            model.train()
+            model.zero_grad(set_to_none=True)
+            torch.manual_seed(seed)
+            out = model(batch['feats'], batch['feats_lengths'],
+                        batch['target'], batch['target_lengths'],
+                        generator=torch.Generator().manual_seed(seed))
+            out['loss'].backward()
+        finally:
+            A.FLASH_GATE.update(saved)
+        losses = {k: v.item() for k, v in out.items()
+                  if torch.is_tensor(v) and v.numel() == 1
+                  and k != 'th_accuracy'}
+        return losses, {n: p.grad.detach().clone()
+                        for n, p in model.named_parameters()
+                        if p.grad is not None}
+    fa.reset_launches()
+    losses, grads = step(True)
+    torch.cuda.synchronize()
+    for name in FLASH_TRAIN_KERNELS:
+        if fa.LAUNCHES[name] != blocks:
+            raise RuntimeError(f'16c hold: {name} launched '
+                               f'{fa.LAUNCHES[name]} times, expected '
+                               f'{blocks}')
+    plain_losses, plain_grads = step(False)
+    for k, w in plain_losses.items():
+        if not abs(losses[k] - w) <= 1e-4 * abs(w) + 1e-6:
+            raise RuntimeError(f'16c hold: {k} with the kernels '
+                               f'{losses[k]}, plain attention {w}, beyond '
+                               'rtol 1e-4')
+    if set(grads) != set(plain_grads):
+        raise RuntimeError('16c hold: the two steps reach different '
+                           'parameters')
+    worst, worst_name = 0.0, ''
+    for name, w in plain_grads.items():
+        g = grads[name]
+        if not torch.isfinite(g).all():
+            raise RuntimeError(f'16c hold: {name} has no finite gradient')
+        bar = 1e-3 + GRAD_SHARE * w.abs().max().item()
+        share = (g - w).abs().max().item() / bar
+        if share > 1.0:
+            raise RuntimeError(f'16c hold: {name} grad differs from plain '
+                               f'attention by {share * bar:.3g} (bar '
+                               f'{bar:.3g})')
+        worst, worst_name = max((worst, worst_name), (share, name))
+    print(f'    the step with K4-train, K5, K6 against plain attention on '
+          f'the card: loss {losses["loss"]:.6f} / '
+          f'{plain_losses["loss"]:.6f} (rtol 1e-4); {len(grads)} grads at '
+          f'most {100 * worst:.0f}% of 12c\'s bar ({worst_name})',
+          flush=True)
+    model.zero_grad(set_to_none=True)
+    return worst
 
 
 def paraformer_train_check(d, smi):
@@ -8555,6 +8519,9 @@ FP32_ERROR_CASES = [
     ('K1-train, K2, K3', (16, 4, 299, 299, 64), 'chunk', 0.1),
     ('K4-train, K5, K6', (4, 20, 1500, 1500, 64), 'pad', 0.0),
     ('K4, K4-train', (32, 4, 500, 500, 128), 'pad', 0.0),
+    ('K4-train, K5, K6', (2, 4, 534, 534, 128), 'pad', 0.0),
+    ('K1-train, K2, K3', (16, 2, 299, 299, 128), 'pad', 0.0),
+    ('K1-train, K2, K3', (16, 2, 299, 299, 128), 'chunk', 0.1),
 ]
 FP32_ERROR_RATIO = 3.0  # a kernel's rms error from float64 over plain's
 FP32_ERROR_ID = {  # the kernels' names in 2b's readings
@@ -9584,6 +9551,293 @@ def queue1_check(smi):
 # 12, 14, 16b, 18b, 19a-c, ...) are read beside the other lanes (1.4-2.5x
 # their seconds alone): they compare with the same reading of another run
 # of this schedule, not with one taken alone.
+# --- 22: head dim 128 in rel-pos training -----------------------------------
+# the flagship yaml's train step with encoder_conf.attention_heads 2, so
+# d_k = 256 / 2 = 128: K1-train, K2 and K3 at B=16 x 12 s (T' = 299)
+FLAGSHIP_D128_SHAPE = (16, 2, 299, 299, 128)
+FLAGSHIP_D128_STEP = (4, 12.0)  # 22: B x seconds of the card-vs-CPU step
+
+
+def relpos_train_case(rng, shape, mask_kind, rate, dtype):
+    """K1-train, K2 and K3 at one shape and dtype through the
+    `RelPosAttention` Function against the plain versions chained as the
+    Function chains them, in fp32 on the same inputs: the forward (K1's
+    output and lse are held to it), delta = rowsum(do·out) of the
+    Function's own output, K1's (as the Function and the JAX package's
+    `_relpos_vjp_bwd` take it), plain K2 and K3, and dp summed over the
+    batch, so that K2 and K3 are held on the delta they were given; each
+    kernel's and its plain version's time (CUDA events) on the same lse
+    and delta, its bound (fp32: 3xTF32, FFMA beside it) and TFLOP/s, and
+    without dropout at the pad mask SDPA's forward / backward ->
+    ({kernel: share of TRAIN_TOL}, {kernel: max abs error}, {kernel: (ms,
+    plain ms)}, {kernel: (bound ms, bound_by, FFMA bound ms)}, {kernel:
+    TFLOP/s}, SDPA (ms, ms) or None).  6a and 22 run it."""
+    from wenet_tpu_torch.ops import flash_attention as fa
+    B, h, T1, T2, d = shape
+    x, mask = kernel_inputs(rng, B, h, T1, T2, d, mask_kind, dtype)
+    do = torch.from_numpy(
+        rng.randn(B, h, T1, d).astype(np.float32)).cuda().to(dtype)
+    scale = 1.0 / d ** 0.5
+    seed = int(rng.randint(0, 1 << 32, dtype=np.int64))
+    leaves = [t.detach().requires_grad_() for t in x]
+    out = fa.flash_attention_relpos(*leaves, mask, scale, rate, seed)
+    out.backward(do)
+    _, lse = fa.relpos_fwd(*x, mask, scale, True, rate, seed)
+    torch.cuda.synchronize()
+    x32 = [t.float() for t in x]
+    want, want_lse = fa.relpos_fwd_reference(*x32, mask, scale, True, rate,
+                                             seed)
+
+    def chained(out_for_delta):
+        args = (mask, do.float(), want_lse,
+                (do.float() * out_for_delta.float()).sum(-1), scale, rate,
+                seed)
+        g = list(fa.relpos_bwd_dq_reference(*x32, *args) +
+                 fa.relpos_bwd_dkpv_reference(*x32, *args))
+        g[3] = g[3].sum(0, keepdim=True)
+        return g
+    want_grads = chained(out.detach())
+    grads = [t.grad for t in leaves]
+    if dtype == torch.bfloat16:
+        # delta from the reference's own output rounded to bf16 would hold
+        # K2 and K3 to where K1's bf16 output rounds the other way, which
+        # alone reads up to 105% of the bar on a peaked softmax with exact
+        # kernels (tests/test_torch_relpos_bwd_precision.py)
+        old = chained(want.to(dtype))
+        print('    bf16 dk / dp share of the bar, delta from the rounded '
+              'reference -> from K1 (the Function\'s): ' + ', '.join(
+                  f'{n} {100 * share_of_bar(g, o, TRAIN_TOL[dtype]):.0f}% -> '
+                  f'{100 * share_of_bar(g, w, TRAIN_TOL[dtype]):.0f}%'
+                  for n, g, o, w in zip(('dk', 'dp'), grads[2:4], old[2:4],
+                                        want_grads[2:4])), flush=True)
+    pairs = {'relpos_attention_fwd_train': [(out, want), (lse, want_lse)],
+             'relpos_attention_bwd_dq': list(zip(grads[:2], want_grads[:2])),
+             'relpos_attention_bwd_dkpv': list(zip(grads[2:],
+                                                   want_grads[2:]))}
+    shares, errs = {}, {}
+    for name, checks in pairs.items():
+        shares[name] = errs[name] = 0.0
+        for out_name, (got, w) in zip(TRAIN_OUTPUTS[name], checks):
+            if not torch.isfinite(got).all():
+                raise RuntimeError(f'{name}: {out_name} is not finite')
+            torch.testing.assert_close(got.float(), w.float(),
+                                       **TRAIN_TOL[dtype],
+                                       msg=f'{name}: {out_name}')
+            shares[name] = max(shares[name],
+                               share_of_bar(got, w, TRAIN_TOL[dtype]))
+            errs[name] = max(errs[name],
+                             (got.float() - w.float()).abs().max().item())
+    if mask_kind == 'masked_row' and (out[0, :, 5].any() or
+                                      grads[0][0, :, 5].any()):
+        raise RuntimeError('fully masked row is not zero')
+    delta = (do.float() * want).sum(-1)
+    targs = (mask, do, want_lse, delta, scale, rate, seed)
+    t = {
+        'relpos_attention_fwd_train': (
+            cuda_time_ms(lambda: fa.relpos_fwd(*x, mask, scale, True, rate,
+                                               seed)),
+            cuda_time_ms(lambda: fa.relpos_fwd_reference(
+                *x, mask, scale, True, rate, seed))),
+        'relpos_attention_bwd_dq': (
+            cuda_time_ms(lambda: fa.relpos_bwd_dq(*x, *targs)),
+            cuda_time_ms(lambda: fa.relpos_bwd_dq_reference(*x, *targs))),
+        'relpos_attention_bwd_dkpv': (
+            cuda_time_ms(lambda: fa.relpos_bwd_dkpv(*x, *targs)),
+            cuda_time_ms(lambda: fa.relpos_bwd_dkpv_reference(*x, *targs))),
+    }
+    n_pairs = attended_pairs(mask, B, h, T1, T2)
+    common = nbytes(*x, mask, do, want_lse, delta)
+    work = {'relpos_attention_fwd_train': (6 * d * n_pairs,
+                                           nbytes(*x, mask, out, lse)),
+            'relpos_attention_bwd_dq': (10 * d * n_pairs,
+                                        common + nbytes(*grads[:2])),
+            'relpos_attention_bwd_dkpv': (12 * d * n_pairs,
+                                          common + nbytes(*grads[2:]))}
+    bounds = {n: (*bound(*w, dtype, tf32_split=True), bound(*w)[0])
+              for n, w in work.items()}
+    tflops = {n: w[0] / t[n][0] / 1e9 for n, w in work.items()}
+    sdpa = None
+    if rate == 0.0 and mask_kind == 'pad':
+        sdpa = relpos_sdpa_train(x, mask, do, scale, out, grads)
+    where = f'({",".join(map(str, shape))}) {mask_kind} dropout {rate}'
+    print(f'  {where} {str(dtype)[6:]}: max_abs_err ' + ', '.join(
+        f'{n[17:]} {errs[n]:.3g} ({100 * v:.0f}% of TRAIN_TOL)'
+        for n, v in shares.items()) + f'; {n_pairs / 1e6:.2f}M attended '
+        'pairs', flush=True)
+    print('    kernel / plain / bound ms: ' + ', '.join(
+        f'{n[17:]} {a:.4f} / {b:.4f} / {bounds[n][0]:.4f} ({bounds[n][1]}'
+        + (f', FFMA {bounds[n][2]:.4f}' if dtype == torch.float32 else '')
+        + f'; {tflops[n]:.1f} TFLOP/s)' for n, (a, b) in t.items()),
+        flush=True)
+    return shares, errs, t, bounds, tflops, sdpa
+
+
+@contextlib.contextmanager
+def plain_relpos():
+    """Within: rel-pos attention on CUDA tensors runs the plain versions of
+    K1-K3 (cuBLAS products on the card) in place of the kernels."""
+    from wenet_tpu_torch.ops import flash_attention as fa
+    saved = fa.relpos_fwd, fa.relpos_bwd_dq, fa.relpos_bwd_dkpv
+    fa.relpos_fwd = fa.relpos_fwd_reference
+    fa.relpos_bwd_dq = fa.relpos_bwd_dq_reference
+    fa.relpos_bwd_dkpv = fa.relpos_bwd_dkpv_reference
+    try:
+        yield
+    finally:
+        fa.relpos_fwd, fa.relpos_bwd_dq, fa.relpos_bwd_dkpv = saved
+
+
+def relpos_step_check(label, configs, B, seconds):
+    """A rel-pos model's step (22's: every dropout 0) three times: on
+    the card through
+    K1-train, K2 and K3, on the card through their plain versions, and on
+    the CPU.  The kernels' step equals the card's plain one (every loss
+    term within rtol 1e-4, every gradient within 12c's bar): what the
+    kernels alone change.  Against the CPU the loss terms within rtol
+    1e-4 and every gradient within 12c's bar, a tensor past it held to
+    float64 as 17b holds it; a tensor past that too must miss it as far
+    with plain attention on the card (within 12c's bar of the plain
+    step's gradient), so that the miss is the card's and not the
+    kernels' (the subsampling conv's weight at B=4 x 12 s: ROADMAP.md
+    queue 3) -> (the kernels' launches in the step, the largest share of
+    12c's bar against the card's plain step)."""
+    from wenet_tpu_torch.ops import flash_attention as fa
+    from wenet_tpu_torch.utils.executor import to_device_batch
+    cpu_model = flagship_model(configs)
+    card = copy.deepcopy(cpu_model).cuda()
+    b = zoo_train_batch(np.random.RandomState(SEED + 31), B, seconds,
+                        configs['input_dim'], configs['output_dim'])
+
+    def step(m, dev):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        tb = to_device_batch(b, dev)
+        out = m(tb['feats'].to(next(m.parameters()).dtype),
+                tb['feats_lengths'], tb['target'], tb['target_lengths'],
+                generator=torch.Generator().manual_seed(SEED))
+        out['loss'].backward()
+        losses = {k: v.item() for k, v in out.items()
+                  if v is not None and k != 'th_accuracy'}
+        return losses, {n: p.grad.detach().cpu()
+                        for n, p in m.named_parameters()}
+    fa.reset_launches()
+    kernels = step(card, 'cuda')
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    with plain_relpos():
+        plain = step(card, 'cuda')
+    cpu = step(cpu_model, 'cpu')
+    for what, (losses, _) in (('the card\'s plain step', plain),
+                              ('the CPU', cpu)):
+        for k, w in losses.items():
+            if not abs(kernels[0][k] - w) <= 1e-4 * abs(w) + 1e-6:
+                raise RuntimeError(f'22: {k} {kernels[0][k]} against '
+                                   f'{what}\'s {w}, beyond rtol 1e-4')
+    grads64, of_plain, of_cpu, missed = None, 0.0, 0.0, []
+    for name, g in kernels[1].items():
+        if not torch.isfinite(g).all():
+            raise RuntimeError(f'22: {name} has no finite gradient')
+        w, pg = cpu[1][name], plain[1][name]
+        bar = 1e-3 + GRAD_SHARE * w.abs().max().item()
+        share = (g - pg).abs().max().item() / bar
+        if share > 1.0:
+            raise RuntimeError(f'22: {name} grad with the kernels differs '
+                               f'from the card\'s plain step by '
+                               f'{share * bar:.3g} (bar {bar:.3g})')
+        of_plain = max(of_plain, share)
+        err = (g - w).abs().max().item()
+        if err > bar:  # 17b's hold: the bar plus the CPU's own error
+            if grads64 is None:
+                grads64 = float64_grads(cpu_model,
+                                        lambda m: step(m, 'cpu'))
+            e64 = grads64[name]
+            card64 = (g.double() - e64).abs().max().item()
+            cpu64 = (w.double() - e64).abs().max().item()
+            plain64 = (pg.double() - e64).abs().max().item()
+            if card64 > bar + cpu64:
+                if plain64 <= bar + cpu64:
+                    raise RuntimeError(
+                        f'22: {name} grad misses the float64 hold ('
+                        f'{card64:.3g} > {bar:.3g} + {cpu64:.3g}) where '
+                        f'the card\'s plain step ({plain64:.3g}) does not')
+                missed.append(f'{name} |card - f64| {card64:.3g}, plain on '
+                              f'the card {plain64:.3g}, |cpu - f64| '
+                              f'{cpu64:.3g}, bar {bar:.3g}')
+                continue
+            err, bar = card64, bar + cpu64
+        of_cpu = max(of_cpu, err / bar)
+    print(f'  {label}, train step B={B} x {seconds:.0f} s: loss card {kernels[0]["loss"]:.6f}, plain '
+          f'attention on the card {plain[0]["loss"]:.6f}, cpu '
+          f'{cpu[0]["loss"]:.6f} (rtol 1e-4); {len(kernels[1])} grads, at '
+          f'most {100 * of_plain:.0f}% of 12c\'s bar from the card\'s '
+          f'plain step, {100 * of_cpu:.0f}% from the CPU (17b\'s float64 '
+          f'hold past 12c\'s bar); missing that hold as far with plain '
+          f'attention on the card: ' + ('; '.join(missed) or 'none'),
+          flush=True)
+    del card, cpu_model
+    torch.cuda.empty_cache()
+    return launches, of_plain
+
+
+def subsampling_grad_precision(smi):
+    """Not run by `main`: `relpos_step_check` of the flagship as written
+    (four heads of d = 64) at 22's size, to show that its subsampling
+    conv's weight gradient misses 12c's bar and the float64 hold on the
+    card with d = 64 too, and with plain attention on the card alike
+    (ROADMAP.md queue 3)."""
+    phase('the flagship\'s subsampling-conv gradient at B=4 x 12 s, '
+          f'4 heads ({smi})')
+    relpos_step_check('flagship, 4 heads of d = 64',
+                      flagship_configs(dropout=False), *FLAGSHIP_D128_STEP)
+
+
+def head_dim_128_check(smi):
+    """Phase 22 -> ({kernel: launches}, readings): K1-train, K2 and K3 at
+    the flagship's step with two heads (d = 128) against their plain
+    versions, fp32 and bf16, timed; then that step (12 blocks, B=4 x 12
+    s, dropout 0) on the card against the card's plain versions and the
+    CPU (`relpos_step_check`), a launch of each kernel a block."""
+    phase('22 K1-train, K2, K3 at head dim 128, and the flagship step with '
+          'two heads')
+    rng = np.random.RandomState(SEED + 220)
+    report = {n: {} for n in TRAIN_KERNELS}
+    for mask_kind, rate in (('chunk', 0.1), ('pad', 0.0)):
+        for dtype in (torch.float32, torch.bfloat16):
+            key = '' if dtype == torch.float32 else '_bf16'
+            shares, _, t, bounds, tflops, sdpa = relpos_train_case(
+                rng, FLAGSHIP_D128_SHAPE, mask_kind, rate, dtype)
+            for n in TRAIN_KERNELS:
+                if sdpa is None:  # the main shape: chunk + dropout 0.1
+                    report[n].update({
+                        'ms' + key: t[n][0], 'plain_ms' + key: t[n][1],
+                        'bound_ms' + key: bounds[n][0],
+                        'bound_by' + key: bounds[n][1],
+                        'tflops' + key: tflops[n],
+                        'share_of_bar' + key: shares[n]})
+                    if dtype == torch.float32:
+                        report[n]['bound_ms_ffma'] = bounds[n][2]
+                else:
+                    report[n].update({
+                        'ms_pad' + key: t[n][0],
+                        'library_ms' + key: sdpa[
+                            0 if n == 'relpos_attention_fwd_train' else 1]})
+            torch.cuda.empty_cache()
+    configs = flagship_configs(dropout=False)
+    configs['encoder_conf']['attention_heads'] = 2
+    blocks = configs['encoder_conf']['num_blocks']
+    launches, of_bar = relpos_step_check('flagship, 2 heads of d = 128',
+                                         configs, *FLAGSHIP_D128_STEP)
+    for n in TRAIN_KERNELS:
+        if launches[n] != blocks:
+            raise RuntimeError(f'22: {n} launched {launches[n]} times in the '
+                               f'step, expected {blocks} (one a block)')
+    shape = '(' + ','.join(map(str, FLAGSHIP_D128_SHAPE)) + ')'
+    return ({n: launches[n] for n in TRAIN_KERNELS},
+            dict(kernels=report, step_grad_share=of_bar,
+                 shape=f'{shape} chunk, dropout 0.1; ms_pad and SDPA at the '
+                 'pad mask, no dropout'))
+
+
 UNITS = {  # unit: (top-level phase, fn(context), names of its results)
     '2b': ('2b', lambda c: fp32_error_check(c['smi']), ('fp32_errors',)),
     '3': ('3', lambda c: kernel_check(), ('report',)),
@@ -9630,11 +9884,13 @@ UNITS = {  # unit: (top-level phase, fn(context), names of its results)
            ('served_launches', 'served_readings')),
     '21': ('21', lambda c: queue1_check(c['smi']),
            ('q1_launches', 'q1_readings')),
+    '22': ('22', lambda c: head_dim_128_check(c['smi']),
+           ('d128_launches', 'd128_readings')),
 }
 # alone on the card, in this order: the kernels' times, the throughputs,
 # and this slice's phase, held to its own budget (PHASE_BUDGET_S)
 ALONE = ['2b', '3', '4', '5', '6a', '6b', '6d', '7a', '7c', '8a', '8c', '16a',
-         '19ck', '20', '21']
+         '19ck', '20', '21', '22']
 # then these side by side, each lane's units in order (18 reads 13a's
 # TLG), balanced by their seconds beside each other (PERF.md, chip_smoke's
 # phases)
@@ -9649,7 +9905,7 @@ LANES = [['12', '16be', '10', '7b'], ['14', '11', '8b'],
 PHASE_BUDGET_S = {'2b': 45, '3': 60, '4': 45, '5': 30, '6': 120, '7': 120,
                   '8': 120, '9': 240, '10': 150, '11': 240, '12': 300,
                   '13': 360, '14': 360, '15': 240, '16': 240, '17': 240,
-                  '18': 240, '19': 240, '20': 180, '21': 180}
+                  '18': 240, '19': 240, '20': 180, '21': 180, '22': 60}
 SCRIPT_BUDGET_S = 1150.0  # the lanes are stopped by then, whatever is left
 _BUDGET = {'phase': None, 'deadline': None}
 
@@ -9796,7 +10052,7 @@ def kernels_line(r):
     opt, served, para = (r['opt_launches'], r['served_launches'],
                          r['para_launches'])
     whisper, errors = r['whisper_launches'], r['fp32_errors']
-    q1 = r['q1_launches']
+    q1, d128 = r['q1_launches'], r['d128_launches']
     remat, frontend, lora_ga, experts = (q1[k] for k in ('21a', '21b', '21c',
                                                          '21d'))
     ssl, k2 = ({k: v[part] for k, v in r['ssl_k2_launches'].items()}
@@ -9836,7 +10092,14 @@ def kernels_line(r):
                             launches=r['train_launches'][name] + zoo[name] +
                             rnnt[name] + ssl[name] + k2[name] +
                             scale[name] + opt[name] + served[name] +
-                            remat[name] + frontend[name] + experts[name],
+                            remat[name] + frontend[name] + experts[name] +
+                            d128[name],
+                            launches_head_dim_128=d128[name],
+                            head_dim_128=dict(
+                                r['d128_readings']['kernels'][name],
+                                shape=r['d128_readings']['shape'],
+                                step_grad_share=r['d128_readings'][
+                                    'step_grad_share']),
                             launches_zoo_served=served[name],
                             launches_remat=remat[name],
                             launches_frontend=frontend[name],

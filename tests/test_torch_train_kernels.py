@@ -169,13 +169,17 @@ def test_no_grad_runs_forward_only():
 
 
 def test_training_wrapper_rejects_unsupported_head_dim():
-    """K2/K3 take d in {32, 64}: d=128 raises for training before launch
-    (shape-only meta tensors, so no card is needed); inference takes it."""
-    B, h, T, d = 2, 2, 5, 128
-    t = torch.empty(B, h, T, d, device='meta')
+    """K1-train, K2 and K3 take d in {32, 64, 128}: d = 128 passes the
+    training check, d = 96 raises before launch, for inference and
+    training (shape-only meta tensors, so no card is needed)."""
+    B, h, T = 2, 2, 5
+    t = torch.empty(B, h, T, 128, device='meta')
     fa._check(t, t, t, t, t, None, train=False)
-    with pytest.raises(ValueError):
-        fa._check(t, t, t, t, t, None, train=True)
+    fa._check(t, t, t, t, t, None, train=True)
+    t = torch.empty(B, h, T, 96, device='meta')
+    for train in (False, True):
+        with pytest.raises(ValueError):
+            fa._check(t, t, t, t, t, None, train=train)
 
 
 @pytest.mark.parametrize('bad', ['q1', 'q2', 'k', 'p', 'v', 'base'])

@@ -105,17 +105,39 @@
 // practice latency: the per-element exp2 and mask between the products,
 // and in fp32 the register path that splits the tiles.
 //
-// d = 128 keeps the first port's body, fp32 FFMA 4x4 register tiles fed
-// from padded fp32 shared memory (namespace ffma), chosen at compile time
-// by D: in fp32 the split tiles of K5 and K6 would need 385 and 450 KB, and in
-// bf16 K6 would hold two 128-wide fp32 accumulators per thread beside
-// the score tiles and their fragments, past the 255 registers a thread
-// may have.
+// d = 128 (the paraformer's 512-wide, 4-head attention) runs on wgmma
+// too, with the seven products above; what d = 128 changes is what no
+// longer fits:
+//   * bf16 K5: as at d <= 64, its tiles 128 wide (two 128-byte column
+//     blocks) and dQ a 64 x 128 accumulator (m64n128k16): 97 KB of
+//     shared memory, two blocks an SM.
+//   * bf16 K6: dK and dV are two 64 x 128 fp32 accumulators, 128
+//     registers a thread; beside them 64-wide S^T and dP^T tiles and their
+//     fragments passed the 255 a thread may have.  So the walked 64-row
+//     query tiles stream as 32-row halves (as K3 does in fp32): S^T and
+//     dP^T are m64n32k16 (16 registers each) and the output products take
+//     two k-steps of 16 query rows a half.  65 KB of shared memory.
+//   * fp32: the split tiles of K5 and K6 as at d = 64 would need 385 and
+//     450 KB.  The resident operands (K5: Q, dO; K6: K, V) stay split,
+//     128 KB; the streamed one moves in 32-wide halves (32 keys in K5,
+//     32 query rows in K6, wgmma N = 32 for S and dP), staged raw by
+//     cp.async a half ahead, and its transposed split copy (K^T in K5,
+//     Q^T and dO^T in K6) is written over its row split once the score
+//     products have read it: 224 KB in all.  K6 takes dV's and dK's
+//     products 64 output columns at a time into one zeroed fragment.
+//     K5 keeps the hi . hi products of the second half of each score
+//     chain (16 k-steps) in a fragment of its own, as K1-K3 do; K6 does
+//     not.  With that fragment and 32 output columns a product, K6 took
+//     0.192 ms at (2,4,534,534,128) and read 0.8-1.0x the plain version's
+//     rms error from float64; as here, 0.128 ms and 1.3-1.6x (chip_smoke
+//     16a and 2b on an H100, both in one call).  The fewer waits between
+//     products pay; the two 64 x 128 sums still spill 228-260 bytes.
+// Registers and spills of every instance: build/flash_attention_bwd.log
+// (PERF.md has them).
 
 #include <type_traits>
 
 #include "flash_tiles.cuh"
-#include "relpos_common.cuh"
 
 namespace {
 
@@ -150,13 +172,14 @@ struct Args {
 // s.  The strides pass through an empty asm, so that the 32 addresses
 // are computed here, per tile, and not hoisted out of the tile loop into
 // registers that the fp32 kernels cannot spare.
-__device__ __forceinline__ void add_bias(float (&s)[32], uint32_t bits,
+template <int N>
+__device__ __forceinline__ void add_bias(float (&s)[N], uint32_t bits,
                                          const float* b, long long rs,
                                          long long cs, int r0, int c0) {
   asm volatile("" : "+l"(rs), "+l"(cs));
   const float* p = b + r0 * rs + c0 * cs;
 #pragma unroll
-  for (int i = 0; i < 32; ++i)
+  for (int i = 0; i < N; ++i)
     if ((bits >> i) & 1u)
       s[i] += p[8 * ((i >> 1) & 1) * rs + (8 * (i >> 2) + (i & 1)) * cs];
 }
@@ -165,9 +188,11 @@ __device__ __forceinline__ void add_bias(float (&s)[32], uint32_t bits,
 // K5: dbias
 // ---------------------------------------------------------------------------
 
-// K5's gradient of one key tile (first key kt) on the fragment, and dS
-// into dbias (db: this (batch, head)'s (T1, T2) array, or null).
-__device__ __forceinline__ void grad_rows(float (&s)[32], float (&dp)[32],
+// K5's gradient of one key tile (first key kt; 64 or, with N = 16, 32
+// keys) on the fragment, and dS into dbias (db: this (batch, head)'s
+// (T1, T2) array, or null).
+template <int N>
+__device__ __forceinline__ void grad_rows(float (&s)[N], float (&dp)[N],
                                           uint32_t bits, const Rows& rows,
                                           const float* bb, float* db,
                                           const Strides& st, int r0, int tq,
@@ -177,7 +202,7 @@ __device__ __forceinline__ void grad_rows(float (&s)[32], float (&dp)[32],
     add_bias(s, bits, bb, st.bias[2], st.bias[3], r0, kt + 2 * tq);
   const float sl2 = scale * LOG2E;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int row = (i >> 1) & 1;
     grad(s[i], dp[i], (bits >> i) & 1u, rows.lse2[row], rows.delta[row],
          sl2, scale);
@@ -187,7 +212,7 @@ __device__ __forceinline__ void grad_rows(float (&s)[32], float (&dp)[32],
   asm volatile("" : "+l"(ld));
   float* p = db + r0 * ld + kt + 2 * tq;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int r = r0 + 8 * ((i >> 1) & 1), c = 8 * (i >> 2) + (i & 1);
     if (r < T1 && kt + 2 * tq + c < T2) p[8 * ((i >> 1) & 1) * ld + c] = dp[i];
   }
@@ -207,10 +232,14 @@ __device__ __forceinline__ void zero_cols(float* db, int q0, int T1, int T2,
 // K5, bf16: wgmma on bf16 tiles, cp.async into two stages
 // ---------------------------------------------------------------------------
 
-constexpr size_t BF16_SMEM = 1024 + 6 * TILE16;
+// Q, dO, 2 x (K, V): 64-row tiles of bf16_width<D> values
+template <int D>
+constexpr size_t dq_bf16_smem() {
+  return 1024 + 6 * 64 * bf16_width<D>() * 2;
+}
 
 template <int D, bool BIAS>
-__global__ void __launch_bounds__(THREADS, 3)
+__global__ void __launch_bounds__(THREADS, D < 128 ? 3 : 2)
     flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
@@ -222,10 +251,12 @@ __global__ void __launch_bounds__(THREADS, 3)
                       __nv_bfloat16* __restrict__ dq,
                       float* __restrict__ dbias, Strides st, int H, int T1,
                       int T2, float scale) {
+  constexpr int W = bf16_width<D>();
+  constexpr int TILE = 64 * W * 2;  // 64 rows (BQ = BK) of W bf16 values
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u, sdo = sq + TILE16;
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u, sdo = sq + TILE;
   auto stage_k = [&](int stage) {  // K, then V
-    return sq + 2 * TILE16 + 2 * stage * TILE16;
+    return sq + 2 * TILE + 2 * stage * TILE;
   };
 
   const int tid = threadIdx.x, tq = tid & 3;
@@ -252,13 +283,12 @@ __global__ void __launch_bounds__(THREADS, 3)
   int kt = walk.next(bits);
   if (kt < T2) {
     load_rows<D, BK>(stage_k(0), kb, st.k[2], kt, T2, tid);
-    load_rows<D, BK>(stage_k(0) + TILE16, vb, st.v[2], kt, T2, tid);
+    load_rows<D, BK>(stage_k(0) + TILE, vb, st.v[2], kt, T2, tid);
   }
   cp_async_commit();
 
-  float acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float acc[W / 2];
+  zero(acc);
   int stage = 0, done = 0;  // done: dbias columns written
   while (kt < T2) {
     // the vote is a barrier: every warp is done with the stage refilled
@@ -266,14 +296,13 @@ __global__ void __launch_bounds__(THREADS, 3)
     const int kn = walk.next(bits_next);
     if (kn < T2) {
       load_rows<D, BK>(stage_k(stage ^ 1), kb, st.k[2], kn, T2, tid);
-      load_rows<D, BK>(stage_k(stage ^ 1) + TILE16, vb, st.v[2], kn, T2,
-                       tid);
+      load_rows<D, BK>(stage_k(stage ^ 1) + TILE, vb, st.v[2], kn, T2, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // Q, dO and this tile have landed
     fence_async_smem();
     __syncthreads();
-    const uint32_t sk = stage_k(stage), sv = sk + TILE16;
+    const uint32_t sk = stage_k(stage), sv = sk + TILE;
 
     float s[32], dp[32];
 #pragma unroll
@@ -297,7 +326,8 @@ __global__ void __launch_bounds__(THREADS, 3)
     frag_bf16(dp, ds);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)  // K's k-step: 16 key rows of 128 bytes
+    for (int ks = 0; ks < 4; ++ks)  // K's k-step: 16 key rows of 128 bytes;
+      // its 64-wide column blocks are BK rows apart
       mma_bf16_rs(acc, ds[ks], desc(sk + ks * 16 * 128, BK * 128));
     wgmma_commit();
     wgmma_wait_all();
@@ -451,10 +481,11 @@ __global__ void __launch_bounds__(THREADS)
 // K6: the per-column gradient
 // ---------------------------------------------------------------------------
 
-// K6's gradient of one query tile (first query qt) on the transposed
-// fragment: rows are keys, columns queries, whose lse and delta are in
-// shared memory (ls, dl: the tile's 64 values).
-__device__ __forceinline__ void grad_cols(float (&s)[32], float (&dp)[32],
+// K6's gradient of one query tile (first query qt; 64 or, with N = 16,
+// 32 queries) on the transposed fragment: rows are keys, columns queries,
+// whose lse and delta are in shared memory (ls, dl: the tile's values).
+template <int N>
+__device__ __forceinline__ void grad_cols(float (&s)[N], float (&dp)[N],
                                           uint32_t bits, const float* ls,
                                           const float* dl, const float* bb,
                                           const Strides& st, int kr0, int tq,
@@ -463,7 +494,7 @@ __device__ __forceinline__ void grad_cols(float (&s)[32], float (&dp)[32],
     add_bias(s, bits, bb, st.bias[3], st.bias[2], kr0, qt + 2 * tq);
   const float sl2 = scale * LOG2E;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int c = 8 * (i >> 2) + 2 * tq + (i & 1);
     grad(s[i], dp[i], (bits >> i) & 1u, ls[c] * LOG2E, dl[c], sl2, scale);
   }
@@ -472,6 +503,9 @@ __device__ __forceinline__ void grad_cols(float (&s)[32], float (&dp)[32],
 // ---------------------------------------------------------------------------
 // K6, bf16
 // ---------------------------------------------------------------------------
+
+// K, V, 2 x (Q, dO): 64-row tiles of 64 bf16 values (d <= 64)
+constexpr size_t BF16_SMEM = 1024 + 6 * TILE16;
 
 template <int D, bool BIAS>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -737,333 +771,457 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// d = 128: fp32 FFMA on 4x4 register tiles (the first port's body).  256
-// threads; each thread owns a 4x4 block of the score tile, so each
-// shared-memory read of the score phase feeds 2 FMAs; rows are padded by
-// one float.
-// Shared memory: K5 148,736 bytes, K6 165,888.
+// d = 128
 // ---------------------------------------------------------------------------
-namespace ffma {
 
-using relpos::BK;
-using relpos::BQ;
-using relpos::from_float;
-using relpos::NEG_INF;
-using relpos::THREADS;
-using relpos::to_float;
+// K6, bf16 at d = 128: K and V resident (64 keys of 128 bf16 values), the
+// walked 64-row query tiles streamed as 32-row halves of Q and dO with
+// their lse and delta, in a ring of two stages.
+constexpr int QHALF = 32;  // query rows (K6) or keys (K5, fp32) a step
+constexpr size_t DKV_BF16_WIDE_SMEM = 1024 + 2 * BK * 256 + 4 * QHALF * 256;
 
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * ((2 * BQ + 2 * BK) * (D + 1) + BQ * (BK + 1));
-}
+template <bool BIAS>
+__global__ void __launch_bounds__(THREADS, 2)
+    flash_bwd_dkv_bf16_wide(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const uint8_t* __restrict__ mask,
+                            const float* __restrict__ bias,
+                            const __nv_bfloat16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, Strides st, int H,
+                            int T1, int T2, float scale) {
+  constexpr int D = 128, TK = BK * D * 2, TQ = QHALF * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float cols_s[2][2][QHALF];  // per stage: the half's lse, delta
+  const uint32_t sk = (smem_u32(smem_raw) + 1023) & ~1023u, sv = sk + TK;
+  auto stage_q = [&](int stage) {  // Q, then dO
+    return sk + 2 * TK + 2 * stage * TQ;
+  };
 
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) *
-         ((2 * BK + 2 * BQ) * (D + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
-}
-
-// Stage `rows` rows of a (T, D) operand, starting at row t0, into a
-// shared-memory tile with padded row length D + 1, upcast to fp32; rows
-// past T are zero.  `ts` is the operand's time stride.
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src,
-                                           long long ts, int t0, int T_len,
-                                           int rows) {
-  for (int i = threadIdx.x; i < rows * D; i += THREADS) {
-    const int r = i / D, c = i % D, t = t0 + r;
-    dst[r * (D + 1) + c] = t < T_len ? to_float(src[t * ts + c]) : 0.f;
-  }
-}
-
-// The score of (query row r, key t) from the product x = q_r . k_t, as
-// the forward computes it: (x + bias) * scale, NEG_INF where masked or
-// out of range.  mb and bb point at this (batch, head)'s mask and bias.
-__device__ __forceinline__ float score(float x, const uint8_t* mb,
-                                       const float* bb, const Strides& st,
-                                       int r, int t, int T1, int T2,
-                                       float scale) {
-  if (r >= T1 || t >= T2) return NEG_INF;
-  if (mb != nullptr && mb[r * st.mask[2] + t * st.mask[3]] == 0)
-    return NEG_INF;
-  if (bb != nullptr) x += bb[r * st.bias[2] + t * st.bias[3]];
-  return x * scale;
-}
-// ---------------------------------------------------------------------------
-// K5: dq (and dbias).  Thread (ty, tx) owns query rows ty*4+i, score
-// columns tx+16j and output columns tx+16c.
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
-                        const uint8_t* __restrict__ mask,
-                        const float* __restrict__ bias,
-                        const T* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
-                        float* __restrict__ dbias, Strides st, int H, int T1,
-                        int T2, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int LDS = BK + 1;
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* sq = smem;
-  float* sdo = sq + BQ * LD;
-  float* sk = sdo + BQ * LD;
-  float* sv = sk + BK * LD;
-  float* sds = sv + BK * LD;
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x, tq = tid & 3;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * BK;
+  const int kr0 = k0 + 16 * (tid >> 5) + ((tid & 31) >> 2);
+  const __nv_bfloat16* qb = q + b * st.q[0] + h * st.q[1];
+  const __nv_bfloat16* dob = dout + b * st.dout[0] + h * st.dout[1];
+  const float* lb = lse + static_cast<long long>(bh) * T1;
+  const float* dlb = delta + static_cast<long long>(bh) * T1;
   const uint8_t* mb =
       mask == nullptr ? nullptr : mask + b * st.mask[0] + h * st.mask[1];
-  const float* bb =
-      bias == nullptr ? nullptr : bias + b * st.bias[0] + h * st.bias[1];
-  float* db = dbias == nullptr
-                  ? nullptr
-                  : dbias + static_cast<long long>(bh) * T1 * T2;
-  const T* kb = k + b * st.k[0] + h * st.k[1];
-  const T* vb = v + b * st.v[0] + h * st.v[1];
+  const float* bb = BIAS ? bias + b * st.bias[0] + h * st.bias[1] : nullptr;
 
-  stage_rows<T, D>(sq, q + b * st.q[0] + h * st.q[1], st.q[2], q0, T1, BQ);
-  stage_rows<T, D>(sdo, dout + b * st.dout[0] + h * st.dout[1], st.dout[2],
-                   q0, T1, BQ);
-  float row_lse[4], row_delta[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    row_lse[i] = r < T1 ? lse[static_cast<long long>(bh) * T1 + r] : 0.f;
-    row_delta[i] = r < T1 ? delta[static_cast<long long>(bh) * T1 + r] : 0.f;
-  }
+  load_rows<D, BK>(sk, k + b * st.k[0] + h * st.k[1], st.k[2], k0, T2, tid);
+  load_rows<D, BK>(sv, v + b * st.v[0] + h * st.v[1], st.v[2], k0, T2, tid);
+  auto load_half = [&](int stage, int q0) {  // 32 query rows from q0
+    load_rows<D, QHALF>(stage_q(stage), qb, st.q[2], q0, T1, tid);
+    load_rows<D, QHALF>(stage_q(stage) + TQ, dob, st.dout[2], q0, T1, tid);
+    if (tid < 2 * QHALF) {  // threads 0-31: lse, 32-63: delta
+      const int i = tid % QHALF;
+      const float* src = tid < QHALF ? lb : dlb;
+      const bool ok = q0 + i < T1;
+      cp_async4(smem_u32(&cols_s[stage][tid / QHALF][i]),
+                ok ? src + q0 + i : src, ok ? 4 : 0);
+    }
+  };
+  QueryWalker walk{mb, st.mask[2], st.mask[3], T1, T2, kr0, tq,
+                   mb == nullptr || st.mask[2] == 0};
+  walk.init();
+  uint32_t bits;
+  int qt = walk.next(0, bits), half = 0;
+  if (qt < T1) load_half(0, qt);
+  cp_async_commit();  // K, V and the first half
 
-  float acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-
-  for (int k0 = 0; k0 < T2; k0 += BK) {
-    __syncthreads();  // the previous tiles are no longer read
-    stage_rows<T, D>(sk, kb, st.k[2], k0, T2, BK);
-    stage_rows<T, D>(sv, vb, st.v[2], k0, T2, BK);
+  float dka[64], dva[64];
+  zero(dka);
+  zero(dva);
+  int stage = 0;
+  while (qt < T1) {
+    __syncthreads();  // every warp is done with the stage refilled here
+    int hn = half;
+    uint32_t bits_next = bits;
+    const int qn = next_half(qt, hn, bits_next, T1, [&](uint32_t& bn) {
+      return walk.next(qt + BQ, bn);
+    });
+    if (qn < T1) load_half(stage ^ 1, qn + QHALF * hn);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_smem();
     __syncthreads();
+    const int q0 = qt + QHALF * half;  // this half's first query
+    const uint32_t hbits = (bits >> (16 * half)) & 0xffffu;
+    const uint32_t sq = stage_q(stage), sdo = sq + TQ;
 
-    float s[4][4], g[4][4];
+    float s[16], g[16];  // S^T, dP^T: 64 keys x 32 queries
+    zero(s);
+    zero(g);
+    wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int ks = 0; ks < D / 16; ++ks)
+      mma_bf16_ss(s, desc_k(sk, BK, ks), desc_k(sq, QHALF, ks));
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = g[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float aq[4], ad[4], bk[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        aq[i] = sq[(ty * 4 + i) * LD + c];
-        ad[i] = sdo[(ty * 4 + i) * LD + c];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bk[j] = sk[(tx + 16 * j) * LD + c];
-        bv[j] = sv[(tx + 16 * j) * LD + c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(aq[i], bk[j], s[i][j]);
-          g[i][j] = fmaf(ad[i], bv[j], g[i][j]);
-        }
-    }
+    for (int ks = 0; ks < D / 16; ++ks)
+      mma_bf16_ss(g, desc_k(sv, BK, ks), desc_k(sdo, QHALF, ks));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+    pin(g);
 
+    grad_cols(s, g, hbits, cols_s[stage][0], cols_s[stage][1], bb, st, kr0,
+              tq, q0, scale);
+    // dS^T as hi + lo halves for dK, as at d <= 64
+    uint32_t pf[2][4], dsh[2][4], dsl[2][4];
+    frag_bf16(s, pf);
+    frag_bf16_split(g, dsh, dsl);
+    wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = k0 + tx + 16 * j;
-        const float sc = score(s[i][j], mb, bb, st, r, t, T1, T2, scale);
-        const float pr =
-            sc <= NEG_INF * 0.5f ? 0.f : expf(sc - row_lse[i]);
-        const float ds = pr * (g[i][j] - row_delta[i]) * scale;
-        sds[(ty * 4 + i) * LDS + tx + 16 * j] = ds;
-        if (db != nullptr && r < T1 && t < T2)
-          db[static_cast<long long>(r) * T2 + t] = ds;
-      }
+    for (int ks = 0; ks < 2; ++ks) {
+      // 16 query rows of 128 bytes; 64-wide column blocks 32 rows apart
+      const uint64_t bq = desc(sq + ks * 16 * 128, QHALF * 128);
+      mma_bf16_rs(dva, pf[ks], desc(sdo + ks * 16 * 128, QHALF * 128));
+      mma_bf16_rs(dka, dsl[ks], bq);
+      mma_bf16_rs(dka, dsh[ks], bq);
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float d[4], xk[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) d[i] = sds[(ty * 4 + i) * LDS + j];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) xk[c] = sk[j * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(d[i], xk[c], acc[i][c]);
-    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(dva);
+    pin(dka);
+    pin(pf);
+    pin(dsh);
+    pin(dsl);
+    qt = qn;
+    half = hn;
+    bits = bits_next;
+    stage ^= 1;
   }
-
-  T* o = dq + b * st.g0[0] + h * st.g0[1];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= T1) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      o[r * st.g0[2] + tx + 16 * c] = from_float<T>(acc[i][c]);
-  }
+  cp_async_wait<0>();
+  store_tile<D>(dka, dk + b * st.g0[0] + h * st.g0[1], st.g0[2], kr0, tq, T2);
+  store_tile<D>(dva, dv + b * st.g1[0] + h * st.g1[1], st.g1[2], kr0, tq, T2);
 }
 
-// ---------------------------------------------------------------------------
-// K6: dk, dv.  Thread (ty, tx) owns keys ty*4+i, score columns (query rows
-// of the tile) tx+16j and output columns tx+16c.
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v,
-                         const uint8_t* __restrict__ mask,
-                         const float* __restrict__ bias,
-                         const T* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         T* __restrict__ dk, T* __restrict__ dv, Strides st,
-                         int H, int T1, int T2, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int LDS = BQ + 1;
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* sk = smem;
-  float* sv = sk + BK * LD;
-  float* sq = sv + BK * LD;
-  float* sdo = sq + BQ * LD;
-  float* sp = sdo + BQ * LD;    // P^T, keys x query rows
-  float* sds = sp + BK * LDS;   // ds^T
-  float* slse = sds + BK * LDS;
-  float* sdelta = slse + BQ;
+// fp32 at d = 128: the split halves of the streamed operand (16 KB
+// each: 32 rows of 128 values, or the transpose, 128 rows of 32).
+constexpr int D128 = 128;
+constexpr int TILE128 = TILE32<D128>;  // 64 rows: 32 KB
+constexpr int HALF128 = TILE128 / 2;
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int k0 = blockIdx.x * BK;
+// Q, dO split (64 rows); K, V split, 32 keys (K's split rows then K^T);
+// raw K, V
+constexpr size_t DQ_TF32_WIDE_SMEM = 1024 + 4 * TILE128 + 6 * HALF128;
+
+template <bool BIAS>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dq_tf32_wide(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const uint8_t* __restrict__ mask,
+                           const float* __restrict__ bias,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq, float* __restrict__ dbias,
+                           Strides st, int H, int T1, int T2, float scale) {
+  constexpr int D = D128;
+  // byte offsets of the tiles
+  constexpr int QH = 0, QL = TILE128, DOH = 2 * TILE128, DOL = 3 * TILE128,
+                KH = 4 * TILE128, KL = KH + HALF128, VH = KL + HALF128,
+                VL = VH + HALF128, RK = VL + HALF128, RV = RK + HALF128;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+
+  const int tid = threadIdx.x, tq = tid & 3;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * BQ;
+  const int r0 = q0 + 16 * (tid >> 5) + ((tid & 31) >> 2);
+  const float* kb = k + b * st.k[0] + h * st.k[1];
+  const float* vb = v + b * st.v[0] + h * st.v[1];
   const uint8_t* mb =
       mask == nullptr ? nullptr : mask + b * st.mask[0] + h * st.mask[1];
-  const float* bb =
-      bias == nullptr ? nullptr : bias + b * st.bias[0] + h * st.bias[1];
-  const T* qb = q + b * st.q[0] + h * st.q[1];
-  const T* dob = dout + b * st.dout[0] + h * st.dout[1];
+  const float* bb = BIAS ? bias + b * st.bias[0] + h * st.bias[1] : nullptr;
+  float* db = BIAS ? dbias + static_cast<long long>(bh) * T1 * T2 : nullptr;
+  auto stage = [&](int k0) {  // 32 keys from k0
+    stage_raw<D, QHALF>(smem_u32(base + RK), kb, st.k[2], k0, T2, tid);
+    stage_raw<D, QHALF>(smem_u32(base + RV), vb, st.v[2], k0, T2, tid);
+  };
 
-  stage_rows<T, D>(sk, k + b * st.k[0] + h * st.k[1], st.k[2], k0, T2, BK);
-  stage_rows<T, D>(sv, v + b * st.v[0] + h * st.v[1], st.v[2], k0, T2, BK);
+  split_rows<D, BQ>(base + QH, base + QL,
+                    GlobalRows{q + b * st.q[0] + h * st.q[1], st.q[2], q0,
+                               T1},
+                    tid);
+  split_rows<D, BQ>(base + DOH, base + DOL,
+                    GlobalRows{dout + b * st.dout[0] + h * st.dout[1],
+                               st.dout[2], q0, T1},
+                    tid);
+  const Rows rows(lse + static_cast<long long>(bh) * T1,
+                  delta + static_cast<long long>(bh) * T1, r0, T1);
+  __shared__ uint32_t votes[4];
+  Walker walk{mb, st.mask[2], st.mask[3], T1, T2, r0, tq, tid >> 5, tid & 31,
+              votes, mb == nullptr || st.mask[2] == 0};
+  if (walk.cols) walk.prefetch();
+  uint32_t bits;
+  int kt = walk.next(bits), half = 0;
+  if (kt < T2) stage(kt);
+  cp_async_commit();
 
-  float acc_k[4][DC], acc_v[4][DC];
+  float acc[D / 2];
+  zero(acc);
+  int done = 0;  // dbias columns written
+  while (kt < T2) {
+    cp_async_wait<0>();
+    __syncthreads();  // the raw half has landed; the last products are done
+    split_rows<D, QHALF>(base + KH, base + KL, RawTile<D>{base + RK}, tid);
+    split_rows<D, QHALF>(base + VH, base + VL, RawTile<D>{base + RV}, tid);
+    fence_async_smem();
+    __syncthreads();  // the split halves are published
+    const int k0 = kt + QHALF * half;  // this half's first key
+    const uint32_t hbits = (bits >> (16 * half)) & 0xffffu;
+
+    const uint64_t d0 = desc(smem_u32(base));
+    auto kmaj = [&](int off, int rows_, int ks) {  // k-step ks of a tile
+      return kstep(d0, off, rows_, ks);
+    };
+    // 64 query rows x 32 keys: S and dP, each chain's hi . hi products of
+    // its second half of k-steps in a fragment of its own, summed in FFMA
+    float s[16], g[16], sb[16], gb[16];
+    zero(s);
+    zero(g);
+    zero(sb);
+    zero(gb);
+    wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  for (int q0 = 0; q0 < T1; q0 += BQ) {
-    __syncthreads();  // the previous tiles are no longer read
-    stage_rows<T, D>(sq, qb, st.q[2], q0, T1, BQ);
-    stage_rows<T, D>(sdo, dob, st.dout[2], q0, T1, BQ);
-    if (threadIdx.x < BQ) {
-      const int r = q0 + threadIdx.x;
-      const long long o = static_cast<long long>(bh) * T1 + r;
-      slse[threadIdx.x] = r < T1 ? lse[o] : 0.f;
-      sdelta[threadIdx.x] = r < T1 ? delta[o] : 0.f;
+    for (int ks = 0; ks < D / 8; ++ks) {  // the small terms first
+      mma_tf32_ss(s, kmaj(QL, BQ, ks), kmaj(KH, QHALF, ks));
+      mma_tf32_ss(s, kmaj(QH, BQ, ks), kmaj(KL, QHALF, ks));
+      mma_tf32_ss(g, kmaj(DOL, BQ, ks), kmaj(VH, QHALF, ks));
+      mma_tf32_ss(g, kmaj(DOH, BQ, ks), kmaj(VL, QHALF, ks));
     }
-    __syncthreads();
-
-    float s[4][4], g[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = g[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float ak[4], av[4], bq[4], bd[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ak[i] = sk[(ty * 4 + i) * LD + c];
-        av[i] = sv[(ty * 4 + i) * LD + c];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bq[j] = sq[(tx + 16 * j) * LD + c];
-        bd[j] = sdo[(tx + 16 * j) * LD + c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(bq[j], ak[i], s[i][j]);
-          g[i][j] = fmaf(bd[j], av[i], g[i][j]);
-        }
+    for (int ks = 0; ks < D / 16; ++ks) {
+      mma_tf32_ss(s, kmaj(QH, BQ, ks), kmaj(KH, QHALF, ks));
+      mma_tf32_ss(g, kmaj(DOH, BQ, ks), kmaj(VH, QHALF, ks));
     }
-
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = k0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int rr = tx + 16 * j;
-        const float sc = score(s[i][j], mb, bb, st, q0 + rr, t, T1, T2,
-                               scale);
-        const float pr = sc <= NEG_INF * 0.5f ? 0.f : expf(sc - slse[rr]);
-        sp[(ty * 4 + i) * LDS + rr] = pr;
-        sds[(ty * 4 + i) * LDS + rr] = pr * (g[i][j] - sdelta[rr]) * scale;
-      }
+    for (int ks = D / 16; ks < D / 8; ++ks) {
+      mma_tf32_ss(sb, kmaj(QH, BQ, ks), kmaj(KH, QHALF, ks));
+      mma_tf32_ss(gb, kmaj(DOH, BQ, ks), kmaj(VH, QHALF, ks));
     }
-    __syncthreads();
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+    pin(g);
+    pin(sb);
+    pin(gb);
+    add_frag(s, sb);
+    add_frag(g, gb);
 
-#pragma unroll 4
-    for (int rr = 0; rr < BQ; ++rr) {
-      float a_p[4], a_ds[4], xq[DC], xd[DC];
+    __syncthreads();  // every warp's products have read K's split rows
+    // K^T (128 rows of 32 keys) over K's split rows
+    split_cols<D, QHALF>(base + KH, base + KL, RawTile<D>{base + RK}, tid);
+    fence_async_smem();
+    __syncthreads();  // K^T is published, the raw half free
+    int hn = half;
+    uint32_t bits_next = bits;
+    const int kn = next_half(kt, hn, bits_next, T2,
+                             [&](uint32_t& bn) { return walk.next(bn); });
+    if (kn < T2) stage(kn + QHALF * hn);
+    cp_async_commit();
+
+    zero_cols(db, q0, T1, T2, done, k0, tid);
+    done = k0 + QHALF;
+    grad_rows(s, g, hbits, rows, bb, db, st, r0, tq, k0, T1, T2, scale);
+    uint32_t dsh[4][4], dsl[4][4];  // dS in split_cols's order
+    frag_tf32(g, dsh, dsl);
+    float f[D / 2];  // the half's dS . K, added to dQ in FFMA
+    zero(f);
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a_p[i] = sp[(ty * 4 + i) * LDS + rr];
-        a_ds[i] = sds[(ty * 4 + i) * LDS + rr];
-      }
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        xq[c] = sq[rr * LD + tx + 16 * c];
-        xd[c] = sdo[rr * LD + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          acc_v[i][c] = fmaf(a_p[i], xd[c], acc_v[i][c]);
-          acc_k[i][c] = fmaf(a_ds[i], xq[c], acc_k[i][c]);
-        }
+    for (int ks = 0; ks < 4; ++ks) {
+      mma_tf32_rs(f, dsl[ks], kmaj(KH, D, ks));
+      mma_tf32_rs(f, dsh[ks], kmaj(KL, D, ks));
     }
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) mma_tf32_rs(f, dsh[ks], kmaj(KH, D, ks));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(f);
+    pin(dsh);
+    pin(dsl);
+    add_frag(acc, f);
+    kt = kn;
+    half = hn;
+    bits = bits_next;
   }
-
-  T* ok = dk + b * st.g0[0] + h * st.g0[1];
-  T* ov = dv + b * st.g1[0] + h * st.g1[1];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty * 4 + i;
-    if (t >= T2) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + 16 * c;
-      ok[t * st.g0[2] + col] = from_float<T>(acc_k[i][c]);
-      ov[t * st.g1[2] + col] = from_float<T>(acc_v[i][c]);
-    }
-  }
+  cp_async_wait<0>();
+  zero_cols(db, q0, T1, T2, done, T2, tid);
+  store_tile<D>(acc, dq + b * st.g0[0] + h * st.g0[1], st.g0[2], r0, tq, T1);
 }
-}  // namespace ffma
+
+// K, V split (64 rows); Q, dO split, 32 query rows (their split rows,
+// then Q^T and dO^T); raw Q, dO; raw lse, delta
+constexpr size_t DKV_TF32_WIDE_SMEM =
+    1024 + 4 * TILE128 + 6 * HALF128 + 2 * QHALF * 4;
+
+template <bool BIAS>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dkv_tf32_wide(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const uint8_t* __restrict__ mask,
+                            const float* __restrict__ bias,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            Strides st, int H, int T1, int T2, float scale) {
+  constexpr int D = D128;
+  constexpr int KH = 0, KL = TILE128, VH = 2 * TILE128, VL = 3 * TILE128,
+                QH = 4 * TILE128, QL = QH + HALF128, DOH = QL + HALF128,
+                DOL = DOH + HALF128, RQ = DOL + HALF128, RDO = RQ + HALF128,
+                RLSE = RDO + HALF128;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float cols_s[2][QHALF];  // the half's lse, delta
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const float* raw_cols = reinterpret_cast<const float*>(base + RLSE);
+
+  const int tid = threadIdx.x, tq = tid & 3;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * BK;
+  const int kr0 = k0 + 16 * (tid >> 5) + ((tid & 31) >> 2);
+  const float* qb = q + b * st.q[0] + h * st.q[1];
+  const float* dob = dout + b * st.dout[0] + h * st.dout[1];
+  const float* lb = lse + static_cast<long long>(bh) * T1;
+  const float* dlb = delta + static_cast<long long>(bh) * T1;
+  const uint8_t* mb =
+      mask == nullptr ? nullptr : mask + b * st.mask[0] + h * st.mask[1];
+  const float* bb = BIAS ? bias + b * st.bias[0] + h * st.bias[1] : nullptr;
+  auto stage = [&](int q0) {  // 32 query rows from q0
+    stage_raw<D, QHALF>(smem_u32(base + RQ), qb, st.q[2], q0, T1, tid);
+    stage_raw<D, QHALF>(smem_u32(base + RDO), dob, st.dout[2], q0, T1, tid);
+    if (tid < 2 * QHALF) {  // threads 0-31: lse, 32-63: delta
+      const int i = tid % QHALF;
+      const float* src = tid < QHALF ? lb : dlb;
+      const bool ok = q0 + i < T1;
+      cp_async4(smem_u32(raw_cols + tid), ok ? src + q0 + i : src,
+                ok ? 4 : 0);
+    }
+  };
+
+  split_rows<D, BK>(base + KH, base + KL,
+                    GlobalRows{k + b * st.k[0] + h * st.k[1], st.k[2], k0,
+                               T2},
+                    tid);
+  split_rows<D, BK>(base + VH, base + VL,
+                    GlobalRows{v + b * st.v[0] + h * st.v[1], st.v[2], k0,
+                               T2},
+                    tid);
+  QueryWalker walk{mb, st.mask[2], st.mask[3], T1, T2, kr0, tq,
+                   mb == nullptr || st.mask[2] == 0};
+  walk.init();
+  uint32_t bits;
+  int qt = walk.next(0, bits), half = 0;
+  if (qt < T1) stage(qt);
+  cp_async_commit();
+
+  float dka[D / 2], dva[D / 2];
+  zero(dka);
+  zero(dva);
+  while (qt < T1) {
+    cp_async_wait<0>();
+    __syncthreads();  // the raw half has landed; the last products are done
+    split_rows<D, QHALF>(base + QH, base + QL, RawTile<D>{base + RQ}, tid);
+    split_rows<D, QHALF>(base + DOH, base + DOL, RawTile<D>{base + RDO},
+                         tid);
+    if (tid < 2 * QHALF) cols_s[tid / QHALF][tid % QHALF] = raw_cols[tid];
+    fence_async_smem();
+    __syncthreads();  // the split halves are published
+    const int q0 = qt + QHALF * half;  // this half's first query
+    const uint32_t hbits = (bits >> (16 * half)) & 0xffffu;
+
+    const uint64_t d0 = desc(smem_u32(base));
+    auto kmaj = [&](int off, int rows_, int ks) {  // k-step ks of a tile
+      return kstep(d0, off, rows_, ks);
+    };
+    // S^T, dP^T: 64 keys x 32 query rows
+    float s[16], g[16];
+    zero(s);
+    zero(g);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {  // the small terms first
+      mma_tf32_ss(s, kmaj(KL, BK, ks), kmaj(QH, QHALF, ks));
+      mma_tf32_ss(s, kmaj(KH, BK, ks), kmaj(QL, QHALF, ks));
+      mma_tf32_ss(g, kmaj(VL, BK, ks), kmaj(DOH, QHALF, ks));
+      mma_tf32_ss(g, kmaj(VH, BK, ks), kmaj(DOL, QHALF, ks));
+    }
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      mma_tf32_ss(s, kmaj(KH, BK, ks), kmaj(QH, QHALF, ks));
+      mma_tf32_ss(g, kmaj(VH, BK, ks), kmaj(DOH, QHALF, ks));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+    pin(g);
+
+    __syncthreads();  // every warp's products have read the split rows
+    // Q^T and dO^T (128 rows of 32 queries) over their split rows
+    split_cols<D, QHALF>(base + QH, base + QL, RawTile<D>{base + RQ}, tid);
+    split_cols<D, QHALF>(base + DOH, base + DOL, RawTile<D>{base + RDO},
+                         tid);
+    fence_async_smem();
+    __syncthreads();  // Q^T and dO^T are published, the raw halves free
+    int hn = half;
+    uint32_t bits_next = bits;
+    const int qn = next_half(qt, hn, bits_next, T1, [&](uint32_t& bn) {
+      return walk.next(qt + BQ, bn);
+    });
+    if (qn < T1) stage(qn + QHALF * hn);
+    cp_async_commit();
+
+    grad_cols(s, g, hbits, cols_s[0], cols_s[1], bb, st, kr0, tq, q0,
+              scale);
+    // P^T . dO, then dS^T . Q, 64 of the 128 output columns at a time,
+    // each into the zeroed fragment f that FFMA adds to dV, dK
+    float f[32];
+    auto product = [&](float* acc, const uint32_t (&hi)[4][4],
+                       const uint32_t (&lo)[4][4], int th, int tl) {
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {  // the B tile's rows 64 c ..
+        zero(f);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          mma_tf32_rs(f, lo[ks], kmaj(th, D, ks) + 512 * c);
+          mma_tf32_rs(f, hi[ks], kmaj(tl, D, ks) + 512 * c);
+        }
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          mma_tf32_rs(f, hi[ks], kmaj(th, D, ks) + 512 * c);
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(f);
+        add_frag(acc + 32 * c, f);
+      }
+    };
+    {
+      uint32_t ph[4][4], pl[4][4];
+      frag_tf32(s, ph, pl);
+      product(dva, ph, pl, DOH, DOL);
+      pin(ph);
+      pin(pl);
+    }
+    uint32_t dsh[4][4], dsl[4][4];
+    frag_tf32(g, dsh, dsl);
+    product(dka, dsh, dsl, QH, QL);
+    pin(dsh);
+    pin(dsl);
+    qt = qn;
+    half = hn;
+    bits = bits_next;
+  }
+  cp_async_wait<0>();
+  store_tile<D>(dka, dk + b * st.g0[0] + h * st.g0[1], st.g0[2], kr0, tq, T2);
+  store_tile<D>(dva, dv + b * st.g1[0] + h * st.g1[1], st.g1[2], kr0, tq, T2);
+}
 
 // ---------------------------------------------------------------------------
 // launch
@@ -1087,24 +1245,28 @@ int launch_kernel(Kernel kernel, size_t smem, int threads, int rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5 (DQ) or K6 in T at head dim D: the tensor-core kernels for d <= 64
-// (an instance without the bias and one with it: the bias's code, unused,
-// still cost the kernel without a bias a fifth of its time in registers),
-// the FFMA body for d = 128.
+// K5 (DQ) or K6 in T at head dim D, an instance without the bias and one
+// with it (the bias's code, unused, still cost the kernel without a bias
+// a fifth of its time in registers); at d = 128 the fp32 kernels and the
+// bf16 K6 stream 32-wide halves (the note at the top).
 template <bool DQ, typename T, int D>
 int launch_one(const Args& a, cudaStream_t s) {
   using G = std::conditional_t<DQ, float, T>;  // K5: dbias, K6: dv
   const int rows = DQ ? a.T1 : a.T2;
   const bool bias = a.bias != nullptr;
-  if constexpr (D == 128) {
+  if constexpr (D == 128 && std::is_same_v<T, float>) {
     if constexpr (DQ)
-      return launch_kernel<T, G>(ffma::flash_bwd_dq_kernel<T, D>,
-                                 ffma::dq_smem_bytes<D>(), ffma::THREADS,
-                                 rows, a, s);
+      return launch_kernel<T, G>(bias ? flash_bwd_dq_tf32_wide<true>
+                                      : flash_bwd_dq_tf32_wide<false>,
+                                 DQ_TF32_WIDE_SMEM, THREADS, rows, a, s);
     else
-      return launch_kernel<T, G>(ffma::flash_bwd_dkv_kernel<T, D>,
-                                 ffma::dkv_smem_bytes<D>(), ffma::THREADS,
-                                 rows, a, s);
+      return launch_kernel<T, G>(bias ? flash_bwd_dkv_tf32_wide<true>
+                                      : flash_bwd_dkv_tf32_wide<false>,
+                                 DKV_TF32_WIDE_SMEM, THREADS, rows, a, s);
+  } else if constexpr (D == 128 && !DQ) {
+    return launch_kernel<T, G>(bias ? flash_bwd_dkv_bf16_wide<true>
+                                    : flash_bwd_dkv_bf16_wide<false>,
+                               DKV_BF16_WIDE_SMEM, THREADS, rows, a, s);
   } else if constexpr (std::is_same_v<T, float>) {
     constexpr size_t smem = DQ ? dq_tf32_smem<D>() : dkv_tf32_smem<D>();
     if constexpr (DQ)
@@ -1119,7 +1281,7 @@ int launch_one(const Args& a, cudaStream_t s) {
     if constexpr (DQ)
       return launch_kernel<T, G>(bias ? flash_bwd_dq_bf16<D, true>
                                       : flash_bwd_dq_bf16<D, false>,
-                                 BF16_SMEM, THREADS, rows, a, s);
+                                 dq_bf16_smem<D>(), THREADS, rows, a, s);
     else
       return launch_kernel<T, G>(bias ? flash_bwd_dkv_bf16<D, true>
                                       : flash_bwd_dkv_bf16<D, false>,

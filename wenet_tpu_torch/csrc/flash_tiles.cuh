@@ -296,15 +296,17 @@ constexpr int TILE16 = 64 * 128;
 // the accumulator fragment: A fragments, the softmax step, the epilogue
 // ---------------------------------------------------------------------------
 
-// bf16 A fragments of a 64 x 64 accumulator tile, each element split into
-// hi = bf16(x) and lo = bf16(x - hi), so that hi . B + lo . B keeps 16
-// bits of x: k-step ks = columns 16 ks .. 16 ks + 15, register i holds
-// elements 8 ks + 2 i and 8 ks + 2 i + 1.
-__device__ __forceinline__ void frag_bf16_split(const float (&x)[32],
-                                                uint32_t (&hi)[4][4],
-                                                uint32_t (&lo)[4][4]) {
+// bf16 A fragments of a 64 x 2N accumulator tile (N = 32: 64 columns,
+// N = 16: 32), each element split into hi = bf16(x) and lo = bf16(x -
+// hi), so that hi . B + lo . B keeps 16 bits of x: k-step ks = columns
+// 16 ks .. 16 ks + 15, register i holds elements 8 ks + 2 i and
+// 8 ks + 2 i + 1.
+template <int N>
+__device__ __forceinline__ void frag_bf16_split(const float (&x)[N],
+                                                uint32_t (&hi)[N / 8][4],
+                                                uint32_t (&lo)[N / 8][4]) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
+  for (int ks = 0; ks < N / 8; ++ks)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float x0 = x[8 * ks + 2 * i], x1 = x[8 * ks + 2 * i + 1];
@@ -315,13 +317,14 @@ __device__ __forceinline__ void frag_bf16_split(const float (&x)[32],
     }
 }
 
-// bf16 A fragments of a 64 x 64 accumulator tile, each element rounded
+// bf16 A fragments of a 64 x 2N accumulator tile, each element rounded
 // once: k-step ks = columns 16 ks .. 16 ks + 15, register i holds
 // elements 8 ks + 2 i and 8 ks + 2 i + 1.
-__device__ __forceinline__ void frag_bf16(const float (&x)[32],
-                                          uint32_t (&f)[4][4]) {
+template <int N>
+__device__ __forceinline__ void frag_bf16(const float (&x)[N],
+                                          uint32_t (&f)[N / 8][4]) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
+  for (int ks = 0; ks < N / 8; ++ks)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       f[ks][i] = pack_bf16(
@@ -568,6 +571,21 @@ struct QueryWalker {
     return T1;
   }
 };
+
+// The next half of a walk over 64-wide tiles in 32-wide halves: the
+// second half of this tile (at t, half 0) when it lies inside `limit`,
+// else the first of the next live tile, found by `walk_next` (a block
+// barrier).  Returns its tile and sets its half and bits.
+template <typename Next>
+__device__ __forceinline__ int next_half(int t, int& half, uint32_t& bits,
+                                         int limit, Next walk_next) {
+  if (half == 0 && t + 32 < limit) {
+    half = 1;
+    return t;
+  }
+  half = 0;
+  return walk_next(bits);
+}
 
 // The width of a bf16 tile of D values a row: whole 128-byte blocks, the
 // N of the P . V product.

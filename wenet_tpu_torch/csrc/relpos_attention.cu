@@ -71,11 +71,13 @@
 //     skipped (Walker): the pad mask closes the padded tail of short
 //     utterances, a dynamic-chunk mask most key tiles of the early query
 //     blocks.  A block with no open tile still writes its zeros and lse.
-// d = 128: bf16 on wgmma as above (one block per SM, 129 KB); fp32 keeps
-// the first port's body, FFMA on 4x4 register tiles fed from padded fp32
-// shared memory (namespace ffma, inference only: the training kernels
-// take d <= 64), since its split tiles would need 320 KB of shared
-// memory.
+// d = 128: bf16 on wgmma as above (one block per SM, 129 KB), inference
+// and training; fp32 keeps the first port's body, FFMA on 4x4 register
+// tiles fed from padded fp32 shared memory (namespace ffma), since its
+// split tiles would need 320 KB of shared memory.  Its training instances
+// add lse and the hash dropout as the tensor-core kernels apply them: l
+// sums the undropped weights, the dropout multiplies those that feed the
+// v-accumulator.
 
 #include <type_traits>
 
@@ -368,8 +370,9 @@ constexpr size_t smem_bytes() {
 // Each of the 256 threads owns a 4x4 block of scores and a 4 x (D/16)
 // block of the output, so every shared-memory read feeds 2 FMAs; rows are
 // padded by one float so that the column walks hit 16 distinct banks.
-// The signature is the tensor-core kernels'; lse and dp are unused.
-template <int D>
+// The signature is the tensor-core kernels'; LSE writes lse, DROPOUT
+// applies dp.
+template <int D, bool LSE, bool DROPOUT>
 __global__ void __launch_bounds__(THREADS)
     relpos_fwd_kernel(const float* __restrict__ q1,
                       const float* __restrict__ q2,
@@ -394,8 +397,9 @@ __global__ void __launch_bounds__(THREADS)
   const int tid = threadIdx.x;
   const int tx = tid & 15;  // key / feature column group
   const int ty = tid >> 4;  // owns query rows ty*4 .. ty*4+3
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
   const int q0 = blockIdx.x * BQ;
 
   const float* q1b = q1 + b * st.q1[0] + h * st.q1[1];
@@ -431,11 +435,16 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
 
-    float s[4][4];
+    // q1 . k^T and q2 . p^T in chains of their own, added after, as the
+    // plain version adds its two products: one chain of 2 d terms rounds
+    // worse, and on a peaked softmax (q1, q2 scaled by 8) the scores'
+    // error, through exp, put K3's dp past TRAIN_TOL from the plain
+    // version (tests/test_torch_head_dim_128.py, the peaked case)
+    float s[4][4], s2[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < 4; ++j) s[i][j] = s2[i][j] = 0.f;
 #pragma unroll 8
     for (int c = 0; c < D; ++c) {
       float a1[4], a2[4], bk[4], bp[4];
@@ -452,9 +461,15 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s[i][j] = fmaf(a1[i], bk[j], fmaf(a2[i], bp[j], s[i][j]));
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a1[i], bk[j], s[i][j]);
+          s2[i][j] = fmaf(a2[i], bp[j], s2[i][j]);
+        }
     }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] += s2[i][j];
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -480,8 +495,13 @@ __global__ void __launch_bounds__(THREADS)
       for (int j = 0; j < 4; ++j) {
         const float pr =
             s[i][j] <= NEG_INF * 0.5f ? 0.f : expf(s[i][j] - m_new);
-        ss[(ty * 4 + i) * LDS + tx + 16 * j] = pr;
-        row_sum += pr;
+        row_sum += pr;  // l: the undropped weights
+        float pv = pr;
+        if constexpr (DROPOUT) {
+          const uint32_t u = dropout_hash(dp.seed, bh, r, k0 + tx + 16 * j);
+          pv = u >= dp.thr ? pr * dp.scale : 0.f;
+        }
+        ss[(ty * 4 + i) * LDS + tx + 16 * j] = pv;
       }
 #pragma unroll
       for (int o = 8; o > 0; o >>= 1)
@@ -515,6 +535,9 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       ob[r * st.out[2] + tx + 16 * c] = l[i] > 0.f ? acc[i][c] / l[i] : 0.f;
+    if (LSE && tx == 0)  // m and l are the row's in all 16 threads
+      lse[static_cast<long long>(bh) * T1 + r] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : NEG_INF;
   }
 }
 
@@ -551,15 +574,14 @@ int launch_kernel(Kernel kernel, size_t smem, int threads, const Args& a,
 }
 
 // The kernel for T at head dim D: wgmma on bf16 tiles, 3xTF32 wgmma for
-// fp32 at d <= 64, the FFMA body for fp32 at d = 128 (inference only).
+// fp32 at d <= 64, the FFMA body for fp32 at d = 128.
 template <typename T, int D, bool LSE, bool DROPOUT>
 int launch(const Args& a, cudaStream_t s) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     return launch_kernel<T>(relpos_fwd_bf16<D, LSE, DROPOUT>, bf16_smem<D>(),
                             THREADS, a, s);
   } else if constexpr (D == 128) {
-    static_assert(!LSE && !DROPOUT, "fp32 training takes d <= 64");
-    return launch_kernel<T>(ffma::relpos_fwd_kernel<D>,
+    return launch_kernel<T>(ffma::relpos_fwd_kernel<D, LSE, DROPOUT>,
                             ffma::smem_bytes<D>(), ffma::THREADS, a, s);
   } else {
     return launch_kernel<T>(relpos_fwd_tf32<D, LSE, DROPOUT>, tf32_smem<D>(),
@@ -582,8 +604,7 @@ int launch_eval(int D, const Args& a, cudaStream_t stream) {
   }
 }
 
-// the training kernel (lse, optional dropout) for d in {32, 64}, the head
-// dims the backward kernels take
+// the training kernel (lse, optional dropout) for d in {32, 64, 128}
 template <typename T>
 int launch_train(int D, bool dropout, const Args& a, cudaStream_t stream) {
   switch (D) {
@@ -593,6 +614,9 @@ int launch_train(int D, bool dropout, const Args& a, cudaStream_t stream) {
     case 64:
       return dropout ? launch<T, 64, true, true>(a, stream)
                      : launch<T, 64, true, false>(a, stream);
+    case 128:
+      return dropout ? launch<T, 128, true, true>(a, stream)
+                     : launch<T, 128, true, false>(a, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

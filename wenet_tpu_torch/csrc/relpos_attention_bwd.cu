@@ -114,6 +114,15 @@
 // dynamic-chunk mask is read per element, transposed, and closes many
 // query tiles of the late key blocks.  K2 writes every row of dq1, dq2.
 //
+// d = 128 (in both types) takes the first port's bodies, FFMA on the
+// CUDA cores in fp32 with bf16 upcast on load (namespace ffma; 256
+// threads, each a 4x4 block of the score tile): on wgmma K2 would hold
+// dQ1 and dQ2, 128 fp32 registers a thread, beside S and dP, and K3 three
+// such sums.  Shared memory (padded fp32 rows of 129 values): K2 64-row
+// query and 64-key tiles, 214,784 bytes; K3 64 keys and 32-row query
+// tiles, 165,760 bytes (64-row ones would need 231,936, 512 bytes short of
+// the 232,448 a block may have with any static shared memory beside).
+//
 // What bounds them on an H100: 10 d (K2) and 12 d (K3) FLOPs per attended
 // (query, key) pair, on the tensor cores (989 TFLOP/s in bf16; fp32 as
 // three tf32 products, 495 / 3 TFLOP/s), against each input read once
@@ -128,6 +137,7 @@
 #include <type_traits>
 
 #include "flash_tiles.cuh"
+#include "relpos_common.cuh"
 
 namespace {
 
@@ -463,21 +473,6 @@ constexpr size_t dq_tf32_smem() {
 template <int D>
 constexpr size_t dkpv_tf32_smem() {
   return 1024 + 6 * TILE32<D> + 15 * HALF32<D> + 2 * 32 * 4;
-}
-
-// The next half of the walk: the second half of this 64-wide tile (at t,
-// half 0) when it lies inside `limit`, else the first of the next live
-// tile, found by `walk_next` (a block barrier).  Returns its tile and
-// sets its half and bits.
-template <typename Next>
-__device__ __forceinline__ int next_half(int t, int& half, uint32_t& bits,
-                                         int limit, Next walk_next) {
-  if (half == 0 && t + 32 < limit) {
-    half = 1;
-    return t;
-  }
-  half = 0;
-  return walk_next(bits);
 }
 
 template <int D, bool DROPOUT>
@@ -835,20 +830,371 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// d = 128: FFMA on the CUDA cores (the first port's bodies)
+// ---------------------------------------------------------------------------
+
+namespace ffma {
+
+using relpos::from_float;
+using relpos::to_float;
+constexpr int THREADS = relpos::THREADS;  // 16 x 16, each a 4 x 4 block
+constexpr int QR3 = 32;                   // K3's query rows a tile
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(float) * ((3 * BQ + 3 * BK) * (D + 1) + BQ * (BK + 1));
+}
+
+template <int D>
+constexpr size_t dkpv_smem_bytes() {
+  return sizeof(float) *
+         ((3 * BK + 3 * QR3) * (D + 1) + 2 * BK * (QR3 + 1) + 2 * QR3);
+}
+
+// Stage `rows` rows of a (T, D) operand, starting at row t0, into a
+// shared-memory tile with padded row length D + 1, upcast to fp32; rows
+// past T are zero.  `ts` is the operand's time stride.
+template <typename T, int D>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src,
+                                           long long ts, int t0, int T_len,
+                                           int rows) {
+  for (int i = threadIdx.x; i < rows * D; i += THREADS) {
+    const int r = i / D, c = i % D, t = t0 + r;
+    dst[r * (D + 1) + c] = t < T_len ? to_float(src[t * ts + c]) : 0.f;
+  }
+}
+
+// (query r, key t) may attend: inside T1 x T2 and not masked
+__device__ __forceinline__ bool attend(const uint8_t* mb, const Strides& st,
+                                       int r, int t, int T1, int T2) {
+  return r < T1 && t < T2 &&
+         (mb == nullptr || mb[r * st.mask[1] + t * st.mask[2]] != 0);
+}
+
+// the dropout multiplier of (query r, key t): 0 or the keep scale
+__device__ __forceinline__ float mult(const DropoutParams& dp, int bh, int r,
+                                      int t) {
+  return dropout_hash(dp.seed, bh, r, t) >= dp.thr ? dp.scale : 0.f;
+}
+
+// K2: dq1, dq2.  Thread (ty, tx) owns query rows ty*4+i, score columns
+// tx+16j and output columns tx+16c.
+template <typename T, int D, bool DROPOUT>
+__global__ void __launch_bounds__(THREADS)
+    relpos_bwd_dq_kernel(const T* __restrict__ q1, const T* __restrict__ q2,
+                         const T* __restrict__ k, const T* __restrict__ p,
+                         const T* __restrict__ v,
+                         const uint8_t* __restrict__ mask,
+                         const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         T* __restrict__ dq1, T* __restrict__ dq2, Strides st,
+                         int H, int T1, int T2, float scale,
+                         DropoutParams dp) {
+  constexpr int LD = D + 1, LDS = BK + 1, DC = D / 16;
+  extern __shared__ float smem[];
+  float* sq1 = smem;
+  float* sq2 = sq1 + BQ * LD;
+  float* sdo = sq2 + BQ * LD;
+  float* sk = sdo + BQ * LD;
+  float* sp = sk + BK * LD;
+  float* sv = sp + BK * LD;
+  float* sds = sv + BK * LD;
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * BQ;
+  const uint8_t* mb = mask == nullptr ? nullptr : mask + b * st.mask[0];
+  const T* kb = k + b * st.k[0] + h * st.k[1];
+  const T* pb = p + b * st.p[0] + h * st.p[1];
+  const T* vb = v + b * st.v[0] + h * st.v[1];
+
+  stage_rows<T, D>(sq1, q1 + b * st.q1[0] + h * st.q1[1], st.q1[2], q0, T1,
+                   BQ);
+  stage_rows<T, D>(sq2, q2 + b * st.q2[0] + h * st.q2[1], st.q2[2], q0, T1,
+                   BQ);
+  stage_rows<T, D>(sdo, dout + b * st.dout[0] + h * st.dout[1], st.dout[2],
+                   q0, T1, BQ);
+  float row_lse[4], row_delta[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty * 4 + i;
+    row_lse[i] = r < T1 ? lse[static_cast<long long>(bh) * T1 + r] : 0.f;
+    row_delta[i] = r < T1 ? delta[static_cast<long long>(bh) * T1 + r] : 0.f;
+  }
+
+  float acc1[4][DC], acc2[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc1[i][c] = acc2[i][c] = 0.f;
+
+  for (int k0 = 0; k0 < T2; k0 += BK) {
+    __syncthreads();  // the previous tiles are no longer read
+    stage_rows<T, D>(sk, kb, st.k[2], k0, T2, BK);
+    stage_rows<T, D>(sp, pb, st.p[2], k0, T2, BK);
+    stage_rows<T, D>(sv, vb, st.v[2], k0, T2, BK);
+    __syncthreads();
+
+    // q1 . k^T and q2 . p^T in chains of their own, added after (K1's
+    // FFMA body has the reason)
+    float s[4][4], s2[4][4], g[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = s2[i][j] = g[i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; ++c) {
+      float a1[4], a2[4], ad[4], bk[4], bp[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a1[i] = sq1[(ty * 4 + i) * LD + c];
+        a2[i] = sq2[(ty * 4 + i) * LD + c];
+        ad[i] = sdo[(ty * 4 + i) * LD + c];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        bk[j] = sk[(tx + 16 * j) * LD + c];
+        bp[j] = sp[(tx + 16 * j) * LD + c];
+        bv[j] = sv[(tx + 16 * j) * LD + c];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a1[i], bk[j], s[i][j]);
+          s2[i][j] = fmaf(a2[i], bp[j], s2[i][j]);
+          g[i][j] = fmaf(ad[i], bv[j], g[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] += s2[i][j];
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q0 + ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int t = k0 + tx + 16 * j;
+        const float sc = attend(mb, st, r, t, T1, T2) ? s[i][j] * scale
+                                                      : NEG_INF;
+        const float pr =
+            sc <= NEG_INF * 0.5f ? 0.f : expf(sc - row_lse[i]);
+        float dpv = g[i][j];
+        if constexpr (DROPOUT) dpv *= mult(dp, bh, r, t);
+        sds[(ty * 4 + i) * LDS + tx + 16 * j] =
+            pr * (dpv - row_delta[i]) * scale;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int j = 0; j < BK; ++j) {
+      float d[4], xk[DC], xp[DC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[i] = sds[(ty * 4 + i) * LDS + j];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        xk[c] = sk[j * LD + tx + 16 * c];
+        xp[c] = sp[j * LD + tx + 16 * c];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          acc1[i][c] = fmaf(d[i], xk[c], acc1[i][c]);
+          acc2[i][c] = fmaf(d[i], xp[c], acc2[i][c]);
+        }
+    }
+  }
+
+  T* o1 = dq1 + b * st.dq1[0] + h * st.dq1[1];
+  T* o2 = dq2 + b * st.dq2[0] + h * st.dq2[1];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty * 4 + i;
+    if (r >= T1) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      o1[r * st.dq1[2] + tx + 16 * c] = from_float<T>(acc1[i][c]);
+      o2[r * st.dq2[2] + tx + 16 * c] = from_float<T>(acc2[i][c]);
+    }
+  }
+}
+
+// K3: dk, dp, dv.  Thread (ty, tx) owns keys ty*4+i, score columns (the
+// tile's query rows) tx+16j, j < 2, and output columns tx+16c.  Every
+// query tile is walked, so every key's gradients are written.
+template <typename T, int D, bool DROPOUT>
+__global__ void __launch_bounds__(THREADS)
+    relpos_bwd_dkpv_kernel(const T* __restrict__ q1,
+                           const T* __restrict__ q2, const T* __restrict__ k,
+                           const T* __restrict__ p, const T* __restrict__ v,
+                           const uint8_t* __restrict__ mask,
+                           const T* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           T* __restrict__ dk, float* __restrict__ dpos,
+                           T* __restrict__ dv, Strides st, int H, int T1,
+                           int T2, float scale, DropoutParams dp) {
+  constexpr int LD = D + 1, LDS = QR3 + 1, DC = D / 16, NJ = QR3 / 16;
+  extern __shared__ float smem[];
+  float* sk = smem;
+  float* sp = sk + BK * LD;
+  float* sv = sp + BK * LD;
+  float* sq1 = sv + BK * LD;
+  float* sq2 = sq1 + QR3 * LD;
+  float* sdo = sq2 + QR3 * LD;
+  float* spv = sdo + QR3 * LD;   // (P . D)^T, keys x query rows
+  float* sds = spv + BK * LDS;   // ds^T
+  float* slse = sds + BK * LDS;
+  float* sdelta = slse + QR3;
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * BK;
+  const uint8_t* mb = mask == nullptr ? nullptr : mask + b * st.mask[0];
+  const T* q1b = q1 + b * st.q1[0] + h * st.q1[1];
+  const T* q2b = q2 + b * st.q2[0] + h * st.q2[1];
+  const T* dob = dout + b * st.dout[0] + h * st.dout[1];
+
+  stage_rows<T, D>(sk, k + b * st.k[0] + h * st.k[1], st.k[2], k0, T2, BK);
+  stage_rows<T, D>(sp, p + b * st.p[0] + h * st.p[1], st.p[2], k0, T2, BK);
+  stage_rows<T, D>(sv, v + b * st.v[0] + h * st.v[1], st.v[2], k0, T2, BK);
+
+  float acc_k[4][DC], acc_p[4][DC], acc_v[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc_k[i][c] = acc_p[i][c] = acc_v[i][c] = 0.f;
+
+  for (int q0 = 0; q0 < T1; q0 += QR3) {
+    __syncthreads();  // the previous tiles are no longer read
+    stage_rows<T, D>(sq1, q1b, st.q1[2], q0, T1, QR3);
+    stage_rows<T, D>(sq2, q2b, st.q2[2], q0, T1, QR3);
+    stage_rows<T, D>(sdo, dob, st.dout[2], q0, T1, QR3);
+    if (threadIdx.x < QR3) {
+      const int r = q0 + threadIdx.x;
+      const long long o = static_cast<long long>(bh) * T1 + r;
+      slse[threadIdx.x] = r < T1 ? lse[o] : 0.f;
+      sdelta[threadIdx.x] = r < T1 ? delta[o] : 0.f;
+    }
+    __syncthreads();
+
+    float s[4][NJ], s2[4][NJ], g[4][NJ];  // s2: q2 . p^T, as in K2
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s[i][j] = s2[i][j] = g[i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; ++c) {
+      float ak[4], ap[4], av[4], b1[NJ], b2[NJ], bd[NJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ak[i] = sk[(ty * 4 + i) * LD + c];
+        ap[i] = sp[(ty * 4 + i) * LD + c];
+        av[i] = sv[(ty * 4 + i) * LD + c];
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        b1[j] = sq1[(tx + 16 * j) * LD + c];
+        b2[j] = sq2[(tx + 16 * j) * LD + c];
+        bd[j] = sdo[(tx + 16 * j) * LD + c];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          s[i][j] = fmaf(b1[j], ak[i], s[i][j]);
+          s2[i][j] = fmaf(b2[j], ap[i], s2[i][j]);
+          g[i][j] = fmaf(bd[j], av[i], g[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s[i][j] += s2[i][j];
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = k0 + ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int rr = tx + 16 * j, r = q0 + rr;
+        const float sc = attend(mb, st, r, t, T1, T2) ? s[i][j] * scale
+                                                      : NEG_INF;
+        const float pr = sc <= NEG_INF * 0.5f ? 0.f : expf(sc - slse[rr]);
+        float pv = pr, dpv = g[i][j];
+        if constexpr (DROPOUT) {
+          const float dm = mult(dp, bh, r, t);
+          pv = pr * dm;
+          dpv *= dm;
+        }
+        spv[(ty * 4 + i) * LDS + rr] = pv;
+        sds[(ty * 4 + i) * LDS + rr] = pr * (dpv - sdelta[rr]) * scale;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int rr = 0; rr < QR3; ++rr) {
+      float a_pv[4], a_ds[4], x1[DC], x2[DC], xd[DC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a_pv[i] = spv[(ty * 4 + i) * LDS + rr];
+        a_ds[i] = sds[(ty * 4 + i) * LDS + rr];
+      }
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        x1[c] = sq1[rr * LD + tx + 16 * c];
+        x2[c] = sq2[rr * LD + tx + 16 * c];
+        xd[c] = sdo[rr * LD + tx + 16 * c];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          acc_v[i][c] = fmaf(a_pv[i], xd[c], acc_v[i][c]);
+          acc_k[i][c] = fmaf(a_ds[i], x1[c], acc_k[i][c]);
+          acc_p[i][c] = fmaf(a_ds[i], x2[c], acc_p[i][c]);
+        }
+    }
+  }
+
+  T* ok = dk + b * st.dk[0] + h * st.dk[1];
+  float* op = dpos + b * st.dp[0] + h * st.dp[1];
+  T* ov = dv + b * st.dv[0] + h * st.dv[1];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = k0 + ty * 4 + i;
+    if (t >= T2) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int col = tx + 16 * c;
+      ok[t * st.dk[2] + col] = from_float<T>(acc_k[i][c]);
+      op[t * st.dp[2] + col] = acc_p[i][c];
+      ov[t * st.dv[2] + col] = from_float<T>(acc_v[i][c]);
+    }
+  }
+}
+
+}  // namespace ffma
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
 // One block per 64 rows of `rows` (K2: T1, K3: T2) and per (batch, head);
 // `out`: the gradients the kernel writes.
 template <typename T, typename Kernel, typename... Out>
-int start(Kernel kernel, size_t smem, int rows, const Args& a,
+int start(Kernel kernel, size_t smem, int threads, int rows, const Args& a,
           cudaStream_t stream, Out... out) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((rows + 63) / 64, a.B * a.H);
-  kernel<<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(a.q1), static_cast<const T*>(a.q2),
       static_cast<const T*>(a.k), static_cast<const T*>(a.p),
       static_cast<const T*>(a.v), static_cast<const uint8_t*>(a.mask),
@@ -857,25 +1203,35 @@ int start(Kernel kernel, size_t smem, int rows, const Args& a,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2 (DQ) or K3 in T at head dim D, one instance per dropout setting.
+// K2 (DQ) or K3 in T at head dim D, one instance per dropout setting:
+// wgmma at d <= 64, the FFMA bodies at d = 128.
 template <bool DQ, typename T, int D, bool DROPOUT>
 int launch(const Args& a, cudaStream_t s) {
   T* g0 = static_cast<T*>(a.g0);  // K2: dq1, K3: dk
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+  if constexpr (D == 128) {
     if constexpr (DQ)
-      return start<T>(relpos_bwd_dq_bf16<D, DROPOUT>, BF16_SMEM, a.T1, a, s,
+      return start<T>(ffma::relpos_bwd_dq_kernel<T, D, DROPOUT>,
+                      ffma::dq_smem_bytes<D>(), ffma::THREADS, a.T1, a, s,
                       g0, static_cast<T*>(a.g1));
     else
-      return start<T>(relpos_bwd_dkpv_bf16<D, DROPOUT>, BF16_SMEM, a.T2, a,
-                      s, g0, static_cast<float*>(a.g1),
+      return start<T>(ffma::relpos_bwd_dkpv_kernel<T, D, DROPOUT>,
+                      ffma::dkpv_smem_bytes<D>(), ffma::THREADS, a.T2, a, s,
+                      g0, static_cast<float*>(a.g1), static_cast<T*>(a.g2));
+  } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if constexpr (DQ)
+      return start<T>(relpos_bwd_dq_bf16<D, DROPOUT>, BF16_SMEM, THREADS,
+                      a.T1, a, s, g0, static_cast<T*>(a.g1));
+    else
+      return start<T>(relpos_bwd_dkpv_bf16<D, DROPOUT>, BF16_SMEM, THREADS,
+                      a.T2, a, s, g0, static_cast<float*>(a.g1),
                       static_cast<T*>(a.g2));
   } else {
     if constexpr (DQ)
       return start<T>(relpos_bwd_dq_tf32<D, DROPOUT>, dq_tf32_smem<D>(),
-                      a.T1, a, s, g0, static_cast<T*>(a.g1));
+                      THREADS, a.T1, a, s, g0, static_cast<T*>(a.g1));
     else
       return start<T>(relpos_bwd_dkpv_tf32<D, DROPOUT>, dkpv_tf32_smem<D>(),
-                      a.T2, a, s, g0, static_cast<float*>(a.g1),
+                      THREADS, a.T2, a, s, g0, static_cast<float*>(a.g1),
                       static_cast<T*>(a.g2));
   }
 }
@@ -886,14 +1242,24 @@ int launch_one(bool dropout, const Args& a, cudaStream_t s) {
                  : launch<DQ, T, D, false>(a, s);
 }
 
+template <bool DQ, typename T>
+int dispatch_d(int D, bool dropout, const Args& a, cudaStream_t s) {
+  switch (D) {
+    case 32:
+      return launch_one<DQ, T, 32>(dropout, a, s);
+    case 64:
+      return launch_one<DQ, T, 64>(dropout, a, s);
+    case 128:
+      return launch_one<DQ, T, 128>(dropout, a, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <bool DQ>
 int dispatch(int dtype, int D, bool dropout, const Args& a, cudaStream_t s) {
-  if (dtype == 0 && D == 32) return launch_one<DQ, float, 32>(dropout, a, s);
-  if (dtype == 0 && D == 64) return launch_one<DQ, float, 64>(dropout, a, s);
-  if (dtype == 1 && D == 32)
-    return launch_one<DQ, __nv_bfloat16, 32>(dropout, a, s);
-  if (dtype == 1 && D == 64)
-    return launch_one<DQ, __nv_bfloat16, 64>(dropout, a, s);
+  if (dtype == 0) return dispatch_d<DQ, float>(D, dropout, a, s);
+  if (dtype == 1) return dispatch_d<DQ, __nv_bfloat16>(D, dropout, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -918,7 +1284,7 @@ Args make_args(const void* q1, const void* q2, const void* k, const void* p,
 // dq1, dq2, dk, dp, dv (the slots a kernel does not write may be 0), then
 // (batch, row, column) for the mask.  mask may be null.  lse and delta:
 // contiguous (B, H, T1) fp32.  dtype: 0 = float32, 1 = bfloat16; D in
-// {32, 64}.  dropout != 0 turns on the hash dropout with (seed, thr,
+// {32, 64, 128}.  dropout != 0 turns on the hash dropout with (seed, thr,
 // keep_scale) from the host.  Each returns a cudaError_t code (0 = ok).
 extern "C" int relpos_attention_bwd_dq(
     const void* q1, const void* q2, const void* k, const void* p,

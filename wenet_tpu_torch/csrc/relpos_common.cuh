@@ -1,6 +1,6 @@
 // Tile sizes, the mask sentinel and type conversions of the FFMA bodies
-// kept at d = 128 (namespace ffma: K1's fp32 inference in
-// relpos_attention.cu, K5 and K6 in flash_attention_bwd.cu).
+// kept at d = 128 (namespace ffma: K1's fp32 in relpos_attention.cu, K2
+// and K3 in both types in relpos_attention_bwd.cu).
 #pragma once
 
 #include <cuda_bf16.h>

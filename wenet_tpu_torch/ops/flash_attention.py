@@ -28,10 +28,10 @@ of (seed, b·h, global query, global key) (`dropout_hash`,
 csrc/dropout_hash.cuh), so K1-K3 regenerate the same mask whatever their
 tiling; K4-K6 have no dropout, as the JAX package never routes attention
 dropout to them.  All six run on Hopper's tensor cores (wgmma on bf16
-tiles, fp32 as three tf32 products), except fp32 K1, K5 and K6 at
-d = 128, which run FMA on the CUDA cores.  The tensor-core kernels
-copy 16 bytes at a time, so their wrappers need 16-byte aligned bases and
-strides.  See the sources for the notes.
+tiles, fp32 as three tf32 products), except at d = 128 fp32 K1 and K2
+and K3 in both types, which run FMA on the CUDA cores.  The tensor-core
+kernels copy 16 bytes at a time, so their wrappers need 16-byte aligned
+bases and strides.  See the sources for the notes.
 
 The kernels are compiled with nvcc for sm_90a at first use into
 `wenet_tpu_torch/build/` (one nvcc per source, run in parallel, keyed by
@@ -72,7 +72,7 @@ HEADERS = (CSRC / 'dropout_hash.cuh', CSRC / 'relpos_common.cuh',
            CSRC / 'hopper_mma.cuh', CSRC / 'flash_tiles.cuh')
 BUILD_DIR = _PKG / 'build'
 _HEAD_DIMS = (32, 64, 128)
-_TRAIN_HEAD_DIMS = (32, 64)  # K3's shared-memory tiles do not fit d=128
+_TRAIN_HEAD_DIMS = (32, 64, 128)  # K1-train, K2 and K3 (K4-K6: _HEAD_DIMS)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -598,9 +598,9 @@ def flash_attention_relpos(q1, q2, k, p, v,
     dropout through the registered op `relpos_attention_op` (the path
     `torch.export` records).  CPU
     tensors take the plain versions; CUDA tensors launch the kernels
-    (float32 or bfloat16; d in 32/64/128 for inference, 32/64 for
-    training; K1-K3 need 16-byte aligned bases and strides) and raise on
-    anything they do not take."""
+    (float32 or bfloat16; d in 32/64/128, for inference and training;
+    K1-K3 need 16-byte aligned bases and strides) and raise on anything
+    they do not take."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError('dropout_rate > 0 needs a dropout_seed')
     if torch.is_grad_enabled() and any(
